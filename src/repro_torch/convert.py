@@ -1,0 +1,38 @@
+"""Parameters of the JAX reference -> the port's flat buffer.
+
+``params_from_jax`` takes the reference's MLP parameters as numpy arrays,
+{"layers": [{"w": [in, out], "b": [out]}, ...]} for one worker or with a
+leading worker axis ([N, in, out], [N, out]), and returns the port's flat
+[N, d] float32 buffer (the reference's ravel order) with the matching
+per-layer tensors, so both packages compute on the same numbers.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.exchange import FlatSpec, tree_flatten, tree_unflatten
+from repro_torch.runtime import resolve_device
+
+
+def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
+                    ) -> Tuple[torch.Tensor, dict, FlatSpec]:
+    """Returns (flat [N, d], worker-stacked per-layer tensors, FlatSpec).
+    An unstacked tree is repeated over ``n_workers`` rows (default 1)."""
+    dev = resolve_device(device)
+    leaves, structure = tree_flatten(tree)
+    arrs = [np.asarray(l) for l in leaves]
+    stacked = arrs[0].ndim == 2 and arrs[1].ndim == 3   # layer 0: b, w
+    if not stacked:
+        n = 1 if n_workers is None else int(n_workers)
+        arrs = [np.broadcast_to(a[None], (n,) + a.shape) for a in arrs]
+    elif n_workers is not None and arrs[0].shape[0] != n_workers:
+        raise ValueError(f"tree is stacked over {arrs[0].shape[0]} workers, "
+                         f"asked for {n_workers}")
+    tensors = tree_unflatten(structure, [
+        torch.as_tensor(np.array(a), device=dev) for a in arrs])
+    spec = FlatSpec(tensors, lead_axes=1)
+    flat = spec.flatten(tensors)
+    return flat, spec.unravel(flat), spec

@@ -1,0 +1,101 @@
+"""The static flat-buffer trajectory as a Python loop over rounds — the
+port of the reference's ``repro.core.trajectory`` static path
+(``make_round_body``, ``plan_chunks``, ``auto_chunk``).
+
+Key discipline: ONE explicit device ``torch.Generator`` is the carry's
+randomness. Each round draws, in order, its [W, B] data uniforms and then
+its int32 noise seed from it, so the realized stream is a function of the
+generator's seed and the round index, never of how rounds are cut into
+chunks. A chunk of K rounds is K eager rounds; its metrics come back
+stacked [K] on the device, read by the host only at chunk ends.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import protocol as protocol_lib
+
+_INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
+
+
+class TrajCarry(NamedTuple):
+    """Everything a round consumes and rewrites: the generator and the
+    flat [N, d] parameter buffer."""
+    generator: torch.Generator
+    params: torch.Tensor
+
+
+def round_seed(generator: torch.Generator) -> torch.Tensor:
+    """One int32 noise seed, [1], drawn on the generator's device."""
+    return torch.randint(_INT32_MIN, _INT32_END, (1,), dtype=torch.int32,
+                         generator=generator, device=generator.device)
+
+
+def make_round_body(cfg, proto, store, spec, device="cuda") -> Callable:
+    """``body(carry) -> (carry', out)``: one full DWFL round on the static
+    channel with on-device batch sampling from ``store``
+    (data.device.ClassificationStore). ``out`` is {"metrics": {...}}."""
+    step = protocol_lib.make_flat_train_step(cfg, proto, spec, device)
+
+    def body(carry: TrajCarry):
+        u = store.uniforms(carry.generator)
+        seed = round_seed(carry.generator)
+        params, metrics = step(carry.params, store.sample(u), seed)
+        return TrajCarry(carry.generator, params), {"metrics": metrics}
+
+    return body
+
+
+def run_chunk(body: Callable, carry: TrajCarry, k: int
+              ) -> Tuple[TrajCarry, Any]:
+    """Advance ``k`` rounds; the outputs come back stacked [k, ...]."""
+    if k < 1:
+        raise ValueError(f"chunk length must be >= 1, got {k}")
+    outs = []
+    for _ in range(int(k)):
+        carry, out = body(carry)
+        outs.append(out["metrics"])
+    return carry, {"metrics": {name: torch.stack([o[name] for o in outs])
+                               for name in outs[0]}}
+
+
+def plan_chunks(total: int, k: int, eval_every: int
+                ) -> List[Tuple[int, bool]]:
+    """Partition ``total`` rounds into chunks of at most ``k``, cutting at
+    every eval boundary. Returns [(length, do_eval), ...] where
+    ``do_eval`` marks chunks whose LAST round t satisfies
+    t % eval_every == 0 (t counted from 0)."""
+    if total < 1:
+        return []
+    if k < 1:
+        raise ValueError(f"chunk length must be >= 1, got {k}")
+    out: List[Tuple[int, bool]] = []
+    done = 0
+    while done < total:
+        if eval_every > 0:
+            # next eval cut strictly after `done`: round t = multiple of
+            # eval_every with t + 1 > done, cut after it (at t + 1)
+            t_next = (done // eval_every) * eval_every
+            if t_next + 1 <= done:
+                t_next += eval_every
+            cut = min(t_next + 1, total)
+        else:
+            cut = total
+        n = min(k, cut - done)
+        done += n
+        out.append((n, eval_every > 0 and (done - 1) % eval_every == 0))
+    return out
+
+
+def auto_chunk(eval_every: int, coherence_rounds: Optional[int] = None,
+               cap: int = 512) -> int:
+    """Default chunk length: one coherence block when defined, else one
+    eval interval — never longer than an eval interval, at most ``cap``."""
+    k = eval_every if eval_every > 0 else cap
+    if coherence_rounds and 0 < coherence_rounds <= cap:
+        k = coherence_rounds
+    if eval_every > 0:
+        k = min(k, eval_every)
+    return max(1, min(int(k), cap))

@@ -1,0 +1,107 @@
+// Counter-hash Gaussian noise for the CUDA kernels of repro_torch.
+//
+// The device twin of repro_torch/kernels/noise.py, itself the port of the
+// reference's interpret-mode generator (repro/kernels/dp_perturb/
+// dp_perturb.py::_hash_bits, repro/kernels/dp_mix/dp_mix.py::
+// _normal_from_bits). Every float operation is spelled out with a
+// round-to-nearest intrinsic (__fmul_rn, __fadd_rn, ...) or fmaf, in the
+// order and with the fused multiply-adds of the reference's XLA CPU
+// lowering, so nvcc contracts nothing and the plain PyTorch version and
+// this code draw the same normals.
+#pragma once
+
+#include <cstdint>
+
+namespace repro_noise {
+
+__device__ __forceinline__ uint32_t hash_bits(uint32_t idx, uint32_t seed) {
+  uint32_t x = (idx * 2654435761u) ^ seed;
+  x ^= x >> 16;
+  x *= 2246822519u;
+  x ^= x >> 13;
+  x *= 3266489917u;
+  x ^= x >> 16;
+  return x;
+}
+
+__device__ __forceinline__ float f32(uint32_t bits) { return __uint_as_float(bits); }
+
+// log1p(x), x > -1, as XLA's CPU backend computes it (Cephes log on 1 + x
+// for |x| >= sqrt(2) - 1, the Cephes log1p rational below that).
+__device__ __forceinline__ float log1p_xla(float x) {
+  float y = fmaxf(__fadd_rn(x, 1.0f), f32(0x00800000u));
+  int bits = __float_as_int(y);
+  float e = __fadd_rn((float)((bits >> 23) - 127), 1.0f);
+  float m = __int_as_float((bits & 0x7FFFFF) | 0x3F000000);
+  bool low = m < f32(0x3f3504f3u);
+  e = __fsub_rn(e, low ? 1.0f : 0.0f);
+  float u = __fadd_rn(__fsub_rn(m, 1.0f), low ? m : 0.0f);
+  float u2 = __fmul_rn(u, u);
+  float u3 = __fmul_rn(u2, u);
+  float a = fmaf(fmaf(u, f32(0x3d9021bbu), f32(0xbdebd1b8u)), u, f32(0x3def251au));
+  float b = fmaf(fmaf(u, f32(0xbdfe5d4fu), f32(0x3e11e9bfu)), u, f32(0xbe2aae50u));
+  float c = fmaf(fmaf(u, f32(0x3e4cceacu), f32(0xbe7ffffcu)), u, f32(0x3eaaaaaau));
+  a = fmaf(fmaf(a, u3, b), u3, c);
+  a = fmaf(a, u3, __fmul_rn(e, f32(0xb95e8083u)));
+  float large = __fadd_rn(__fadd_rn(__fsub_rn(u, __fmul_rn(u2, 0.5f)), a),
+                          __fmul_rn(e, 0.693359375f));
+
+  float den = __fadd_rn(x, f32(0x417101adu));
+  den = fmaf(den, x, f32(0x42a6185bu));
+  den = fmaf(den, x, f32(0x435dc32du));
+  den = fmaf(den, x, f32(0x439a8ca3u));
+  den = fmaf(den, x, f32(0x43586d8au));
+  den = fmaf(den, x, f32(0x42707982u));
+  float num = f32(0x383de04bu);
+  num = fmaf(num, x, f32(0x3eff40c5u));
+  num = fmaf(num, x, f32(0x40d284fau));
+  num = fmaf(num, x, f32(0x41ef4b9cu));
+  num = fmaf(num, x, f32(0x4273cc76u));
+  num = fmaf(num, x, f32(0x426473adu));
+  num = fmaf(num, x, f32(0x41a05101u));
+  float xx = __fmul_rn(x, x);
+  float small = __fadd_rn(
+      x, __fadd_rn(__fmul_rn(xx, -0.5f),
+                   __fmul_rn(__fmul_rn(x, xx), __fdiv_rn(num, den))));
+  return fabsf(x) < f32(0x3ed413cdu) ? small : large;
+}
+
+// Giles' single-precision erfinv, |t| < 1.
+__device__ __forceinline__ float erfinv_giles(float t) {
+  float w = -log1p_xla(__fmul_rn(t, -t));
+  bool central = w < 5.0f;
+  w = central ? __fsub_rn(w, 2.5f) : __fsub_rn(__fsqrt_rn(w), 3.0f);
+  float p;
+  if (central) {
+    p = 2.81022636e-08f;
+    p = fmaf(p, w, 3.43273939e-07f);
+    p = fmaf(p, w, -3.5233877e-06f);
+    p = fmaf(p, w, -4.39150654e-06f);
+    p = fmaf(p, w, 0.00021858087f);
+    p = fmaf(p, w, -0.00125372503f);
+    p = fmaf(p, w, -0.00417768164f);
+    p = fmaf(p, w, 0.246640727f);
+    p = fmaf(p, w, 1.50140941f);
+  } else {
+    p = -0.000200214257f;
+    p = fmaf(p, w, 0.000100950558f);
+    p = fmaf(p, w, 0.00134934322f);
+    p = fmaf(p, w, -0.00367342844f);
+    p = fmaf(p, w, 0.00573950773f);
+    p = fmaf(p, w, -0.0076224613f);
+    p = fmaf(p, w, 0.00943887047f);
+    p = fmaf(p, w, 1.00167406f);
+    p = fmaf(p, w, 2.83297682f);
+  }
+  return __fmul_rn(p, t);
+}
+
+// uint32 bits -> standard normal on the symmetric 24-bit lattice
+// t = (k - (2^23 - 1/2)) / 2^23, k = bits >> 8.
+__device__ __forceinline__ float normal_from_bits(uint32_t bits) {
+  float t = __fmul_rn(__fsub_rn((float)(bits >> 8), 8388607.5f),
+                      1.1920928955078125e-07f);
+  return __fmul_rn(erfinv_giles(t), 1.41421356237309515f);
+}
+
+}  // namespace repro_noise

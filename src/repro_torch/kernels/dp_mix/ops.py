@@ -1,0 +1,177 @@
+"""Wrappers of the fused DWFL round: ``dp_mix_round`` over the flat [N, d]
+buffer, ``dp_mix_round_plan`` over a ``MixPlan``, and ``seed_from_key``.
+
+Dispatch is by the device of the buffer: a CUDA tensor launches the
+hand-written kernel (``csrc/dp_mix.cu``) or raises; a CPU tensor runs the
+plain version (``dp_mix.dp_mix_plain``). There is no fallback between the
+two. ``dp_mix_round.launches`` counts the kernel launches.
+
+Dtype contract (the reference's): the output has the input buffer's dtype
+(float32 or bfloat16 on the card); the arithmetic is float32.
+
+Limits of the kernel, checked here before any launch:
+
+* N <= ``MAX_WORKERS`` (64): the kernel stages a column of every worker in
+  shared memory. Dense mixing at larger N is later work.
+* N * counter_width <= 2^31: the noise counters 2 * idx are uint32, and
+  past that they wrap and two elements would draw the same noise.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+
+LANES = 128            # noise-counter row stride multiple (the reference's)
+MAX_WORKERS = 64
+COUNTER_LIMIT = 1 << 31
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIBRARY = build.Library("dp_mix", sources=(_CSRC / "dp_mix.cu",),
+                        headers=(_CSRC / "noise.cuh",))
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _roundup(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def seed_from_key(key) -> torch.Tensor:
+    """A PRNG key's raw words (the reference's ``jax.random.key_data``, as
+    numpy or a tensor) -> the int32 kernel seed: its last word."""
+    words = np.asarray(key.cpu() if torch.is_tensor(key) else key)
+    return torch.tensor(words.reshape(-1)[-1].astype(np.uint32).view(np.int32))
+
+
+def _on(v, shape, dtype, device) -> torch.Tensor:
+    """A tensor or a Python number as a ``dtype`` tensor of ``shape`` on
+    ``device``. Numbers become a fill on the device, never a host-to-device
+    copy, which would wait for the stream."""
+    if isinstance(v, (int, float)):
+        return torch.full(shape, v, dtype=dtype, device=device)
+    v = torch.as_tensor(v, dtype=dtype, device=device)
+    return (v.expand(shape) if v.ndim == 0 else v.reshape(shape)).contiguous()
+
+
+def _vec(v, N: int, device) -> torch.Tensor:
+    return _on(v, (N,), torch.float32, device)
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load(LIBRARY)
+    fn = lib.dp_mix_launch
+    if fn.argtypes is None:
+        ptr = ctypes.c_void_p
+        fn.argtypes = [ctypes.c_int] + [ptr] * 11 + [
+            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
+            ctypes.c_float, ctypes.c_int, ptr]
+        fn.restype = ctypes.c_int
+        lib.dp_mix_error_string.argtypes = [ctypes.c_int]
+        lib.dp_mix_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
+            gamma, eta, noisy, counter_width) -> torch.Tensor:
+    N, d = p.shape
+    if p.dtype not in _DTYPES:
+        raise TypeError(f"dp_mix kernel takes float32 or bfloat16, got "
+                        f"{p.dtype}")
+    if not 1 <= N <= MAX_WORKERS:
+        raise ValueError(f"dp_mix kernel takes 1 <= N <= {MAX_WORKERS} "
+                         f"workers, got {N}")
+    f32, i32 = torch.float32, torch.int32
+    for name, a, shape, dtype in (
+            ("g", g, (N, d), p.dtype), ("W", W, (N, N), f32),
+            ("amp", amp, (N,), f32), ("self", selfs, (N,), f32),
+            ("m_scale", mscale, (N,), f32), ("listen", listen, (N,), f32),
+            ("scal", scal, (2,), f32), ("seed", seed, (1,), i32),
+            ("col0", col0, (1,), i32)):
+        if (tuple(a.shape) != shape or a.dtype != dtype
+                or a.device != p.device or not a.is_contiguous()):
+            raise ValueError(
+                f"dp_mix operand {name}: want contiguous {shape} {dtype} on "
+                f"{p.device}, got {tuple(a.shape)} {a.dtype} on {a.device}")
+    p, g = p.contiguous(), g.contiguous()
+    out = torch.empty_like(p)
+    lib = _library()
+    rc = lib.dp_mix_launch(
+        _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
+        W.data_ptr(), amp.data_ptr(), selfs.data_ptr(), mscale.data_ptr(),
+        listen.data_ptr(), scal.data_ptr(), seed.data_ptr(), col0.data_ptr(),
+        N, d, counter_width, gamma, eta, int(noisy),
+        torch.cuda.current_stream(p.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"dp_mix kernel launch failed: "
+                           f"{lib.dp_mix_error_string(rc).decode()} ({rc})")
+    dp_mix_round.launches += 1
+    return out
+
+
+def dp_mix_round(p, g, seed, W, amp, c, sigma_m, *, gamma: float, eta: float,
+                 self_scale=None, m_scale=None, listen=None,
+                 noisy: bool = True, col0=0,
+                 counter_width: Optional[int] = None) -> torch.Tensor:
+    """One fused DWFL round over the flat buffer.
+
+    p, g: [N, d] params and clipped grads (float dtype, preserved). seed:
+    int32 scalar (int or tensor; see ``seed_from_key``). W: [N, N] mixing
+    matrix. amp: [N] DP-noise amplitude |h_k| sqrt(beta_k P_k) sigma.
+    c / sigma_m: alignment constant and AWGN std. self_scale / m_scale /
+    listen: the per-receiver vectors of the unified update (defaults:
+    full self-correction, AWGN scaled by 1/(c (N - 1)), everyone
+    listening). noisy=False skips the noise (gossip).
+
+    col0 / counter_width: the column-window hooks for a buffer sharded
+    over columns — the window's global column offset and the canonical
+    noise-counter row stride (default roundup(d, 128), the stride the
+    reference's CPU lowering uses).
+    """
+    N, d = p.shape
+    cw = _roundup(d, LANES) if counter_width is None else int(counter_width)
+    if N * cw > COUNTER_LIMIT:
+        raise ValueError(
+            f"N * counter_width = {N} * {cw} exceeds 2^31: the uint32 noise "
+            f"counters would wrap and reuse noise")
+    dev = p.device
+    c = _on(c, (), torch.float32, dev)
+    scal = torch.stack([c, _on(sigma_m, (), torch.float32, dev)])
+    amp = _vec(amp, N, dev)
+    selfs = _vec(1.0 if self_scale is None else self_scale, N, dev)
+    if m_scale is None:
+        m_scale = torch.full((N,), 1.0, device=dev) / (c * max(N - 1, 1))
+    mscale = _vec(m_scale, N, dev)
+    lst = _vec(1.0 if listen is None else listen, N, dev)
+    seed = _on(seed, (1,), torch.int32, dev)
+    col0 = _on(col0, (1,), torch.int32, dev)
+    W = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
+    if W.shape != (N, N):
+        raise ValueError(f"W must be [{N}, {N}], got {tuple(W.shape)}")
+    args = (p, g, seed, col0, scal, amp, selfs, mscale, lst, W)
+    kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
+              counter_width=cw)
+    if dev.type == "cuda":
+        return _launch(*args, **kw)
+    if dev.type == "cpu":
+        return dp_mix_plain(*args, **kw)
+    raise ValueError(f"dp_mix_round has no path for device {dev}")
+
+
+dp_mix_round.launches = 0
+
+
+def dp_mix_round_plan(p, g, seed, plan, *, gamma: float, eta: float,
+                      col0=0, counter_width: Optional[int] = None
+                      ) -> torch.Tensor:
+    """MixPlan front end (core.exchange.plan_*) -> one fused round."""
+    return dp_mix_round(
+        p, g, seed, plan.W, plan.amp, plan.c, plan.sigma_m,
+        gamma=gamma, eta=eta, self_scale=plan.self_scale,
+        m_scale=plan.m_scale, listen=plan.listen, noisy=plan.noisy,
+        col0=col0, counter_width=counter_width)
