@@ -6,20 +6,31 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. device  — the card's name, count, and nvidia-smi's name and power limit;
-2. build   — every CUDA kernel of the main path built from this checkout's
-             sources with nvcc for sm_90a (all nvcc processes at once);
+2. build   — every CUDA kernel of the driven paths (dp_mix, dp_perturb)
+             built from this checkout's sources with nvcc for sm_90a, all
+             nvcc processes at once;
 3. kernels — each kernel held against its plain PyTorch version on the
-             card at the main path's shapes, with the tolerance stated
-             below, then timed with CUDA events beside the plain version
-             and the least time the card could take (bound_ms);
-4. train   — the main path, ``python -m repro_torch.launch.train --arch
+             card at its path's shapes, with the tolerance stated below,
+             then timed with CUDA events beside the plain version, the one
+             PyTorch call that computes the same function where there is
+             one (library_ms), and the least time the card could take
+             (bound_ms);
+4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
-             batch 32, d = 855,050), 51 rounds; every loss finite and the
-             kernel launched once per round; then one small round on the
+             batch 32, d = 855,050), 51 rounds; every loss finite and
+             dp_mix launched once per round; one small flat round on the
              card against the same round on the CPU;
-5. profile — the steady-state time of a full-width round, and under
-             torch.profiler the device's busy share and the operators that
-             take the device's and the host's time.
+5. tree    — the worker-tree path, ``make_train_step(DWFL_PAPER,
+             ProtocolConfig(scheme=..., use_pallas=True))`` through the
+             trajectory body at full width for each of dwfl, gossip,
+             orthogonal and centralized, 11 rounds each; every loss and
+             parameter finite and dp_perturb's sgd_update launched six
+             times per round (once per leaf); the CLI's worker-tree run
+             with and without --no-scan; one small tree round on the card
+             against the same round on the CPU with the same normals;
+6. profile — the steady-state time of a full-width round of each path,
+             and under torch.profiler the device's busy share and the
+             operators that take the device's and the host's time.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -44,8 +55,18 @@ F32_FLOP_PER_S = 67e12
 # rest of the round per element (x, n/c, z, self-correction, AWGN, out)
 NORMAL_FLOPS = 84
 ELEMENT_FLOPS = 11
+# float operations per element of csrc/dp_perturb.cu: the local step's FMA
+# (2); noisy, also the two uniforms (4), -2 log, sqrt, 2 pi u2, r cos, the
+# noise scale and the final FMA (7), and libdevice's logf and cosf at
+# about 20 and 25 operations (hash excluded, as for dp_mix)
+PERTURB_FLOPS, PERTURB_NOISY_FLOPS = 2, 58
 
 PATH_N, PATH_D = 10, 855_050          # dwfl-paper, hidden 256
+# dwfl-paper's leaves at N = 10, in tree order (each layer's b, then w)
+MLP_LEAVES = [(10, 256), (10, 3072, 256), (10, 256), (10, 256, 256),
+              (10, 10), (10, 256, 10)]
+SCHEMES = ("dwfl", "gossip", "orthogonal", "centralized")
+TREE_ROUNDS = 11
 
 
 def fail(msg: str) -> None:
@@ -156,6 +177,109 @@ def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool) -> dict:
     return rec
 
 
+def ulp_dist(a, b):
+    """Elementwise ULP distance of two float32 tensors."""
+    import torch
+    ia, ib = (t.float().contiguous().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+def check_dp_perturb(shape, dtype, noisy: bool, timed: bool) -> dict:
+    """Kernel vs plain on the card at one leaf. Tolerance: x within 1 ULP
+    (both are p - gamma g rounded once, but the plain version's fused
+    multiply-add goes through float64 and may round twice); the noisy xt
+    within 4 ULP of its noise term plus 2 ULP of itself — both use IEEE
+    logf, cosf and square root on the card, and the CPU tests hold the
+    plain normals within 4 ULP of the reference's; a bfloat16 output may
+    land one bfloat16 step (2^-7 of its magnitude) further."""
+    import torch
+    from repro_torch.kernels.dp_perturb import ops
+    from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = (0.1 * torch.randn(shape, generator=gen, device="cuda")).to(dtype)
+    gamma = 0.01
+    kw = (dict(gamma=gamma, sigma=1.0, s_sig=0.7, s_noise=1.3) if noisy
+          else dict(gamma=gamma, sigma=0.0, s_sig=1.0, s_noise=0.0))
+    seed = torch.tensor([1234567], dtype=torch.int32, device="cuda")
+    if noisy:
+        kernel = lambda: ops.dp_perturb(p, g, seed, **kw)
+    else:
+        kernel = lambda: (ops.sgd_update(p, g, gamma), None)
+    plain = lambda: dp_perturb_plain(p, g, seed, **kw)
+    (kx, kxt), (rx, rxt) = kernel(), plain()
+    torch.cuda.synchronize()
+    bf16 = dtype == torch.bfloat16
+    step = lambda a, b: (2.0 ** -7 * torch.maximum(a.abs(), b.abs()) if bf16
+                         else 0.0)
+    k32, r32 = kx.float(), rx.float()
+    if not torch.isfinite(k32).all():
+        fail(f"dp_perturb {shape} {dtype}: non-finite x")
+    x_ok = (ulp_dist(k32, r32) <= 1) | ((k32 - r32).abs() <= step(k32, r32))
+    bad = int((~x_ok).sum())
+    err = float((k32 - r32).abs().max())
+    if noisy:
+        k32, r32 = kxt.float(), rxt.float()
+        if not torch.isfinite(k32).all():
+            fail(f"dp_perturb {shape} {dtype}: non-finite xt")
+        term = (r32 - 0.7 * rx.float()).abs()
+        allowed = (4 * 2.0 ** -23 * term + 2 * 2.0 ** -23 * r32.abs()
+                   + 2.0 ** -126 + step(k32, r32))
+        bad += int(((k32 - r32).abs() > allowed).sum())
+        err = max(err, float((k32 - r32).abs().max()))
+    rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "noisy": noisy, "max_abs_err": err, "violations": bad}
+    if timed:
+        numel = p.numel()
+        nbytes = (4 if noisy else 3) * numel * p.element_size()
+        flops = numel * (PERTURB_NOISY_FLOPS if noisy else PERTURB_FLOPS)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rec["ms"] = cuda_ms(kernel, iters=50)
+        rec["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+        rec["library_ms"] = (None if noisy else cuda_ms(
+            lambda: torch.add(p, g, alpha=-gamma), iters=50))
+        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bytes"], rec["flops"] = nbytes, flops
+    print(f"[kernels] dp_perturb {json.dumps(rec)}", flush=True)
+    if bad:
+        fail(f"dp_perturb {shape} {rec['dtype']} noisy={noisy}: {bad} "
+             f"elements beyond tolerance (max err {err:.3g})")
+    return rec
+
+
+def dp_perturb_phase() -> dict:
+    """Every case at the tree path's leaves; the float32 cases timed. The
+    round's numbers are the six leaves' sums: sgd_update is what the path
+    launches, once per leaf per round."""
+    import torch
+    recs = []
+    for shape in MLP_LEAVES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for noisy in (False, True):
+                recs.append(check_dp_perturb(shape, dtype, noisy,
+                                             timed=dtype == torch.float32))
+                torch.cuda.empty_cache()
+    timed = [r for r in recs if "ms" in r]
+    rnd = {}
+    for noisy in (False, True):
+        rs = [r for r in timed if r["noisy"] == noisy]
+        keys = ("ms", "plain_ms", "bound_ms", "bytes", "flops") + (
+            () if noisy else ("library_ms",))
+        rnd["noisy" if noisy else "sgd_update"] = {
+            k: sum(r[k] for r in rs) for k in keys}
+    sgd = rnd["sgd_update"]
+    sgd["max_abs_err"] = max(r["max_abs_err"] for r in recs
+                             if not r["noisy"] and r["dtype"] == "float32")
+    sgd["bound_by"] = ("bytes" if sgd["bytes"] / HBM_BYTES_PER_S
+                       >= sgd["flops"] / F32_FLOP_PER_S else "operations")
+    print(f"[kernels] dp_perturb per round (6 leaves) {json.dumps(rnd)}",
+          flush=True)
+    return sgd
+
+
 def train_step_cpu_vs_cuda() -> float:
     """One small round (hidden 16, N = 4) on the card against the same
     round on the CPU from the same buffer, batch and seed: the CPU round
@@ -189,31 +313,130 @@ def train_step_cpu_vs_cuda() -> float:
     return err
 
 
-def profile_rounds(n_rounds: int = 20) -> dict:
-    """Where a full-width round's time goes: the main path's round body
-    (what ``launch.train`` runs per round, eval excluded) after a warm-up,
-    timed by the host clock around ``n_rounds`` rounds ending in a
-    synchronize, then the same number of rounds under torch.profiler for
-    the device's busy share and the top operators by device and host
-    time."""
+def tree_round_cpu_vs_cuda() -> float:
+    """One small worker-tree round (hidden 16, N = 4, use_pallas=True) on
+    the card against the same round on the CPU from the same parameters,
+    batch and standard normals: the CPU round runs the plain versions the
+    tests hold against the JAX reference."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    cfg = dataclasses.replace(DWFL_PAPER, d_model=16)
+    proto = P.ProtocolConfig(n_workers=4, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, use_pallas=True)
+    gen = torch.Generator().manual_seed(5)
+    wp = P.init_worker_params(gen, cfg, 4, "cpu")
+    batch = {"x": torch.randn((4, 8, 3072), generator=gen),
+             "y": torch.randint(0, 10, (4, 8), generator=gen)}
+    normals = X.draw_normals(wp, gen)
+    to = lambda tree, dev: X.tree_map(lambda t: t.to(dev), tree)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        step = P.make_train_step(cfg, proto, dev)
+        out, _ = step(to(wp, dev), to(batch, dev), None,
+                      normals=to(normals, dev))
+        outs[dev] = X.flatten_worker_tree(to(out, "cpu"))
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    tol = 1e-4 * (1.0 + float(outs["cpu"].abs().max()))
+    print(f"[tree] small round cuda vs cpu: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g})", flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"small tree round: cuda and cpu differ by {err:.3g} > {tol:.3g}")
+    return err
+
+
+def tree_leaves_finite(tree) -> bool:
+    import torch
+    from repro_torch.core import exchange as X
+    return all(bool(torch.isfinite(l).all()) for l in X.tree_flatten(tree)[0])
+
+
+def paper_store():
+    """dwfl-paper's training data on the card, as the CLI builds it."""
+    from repro_torch.data import (ClassificationStore, classification_dataset,
+                                  dirichlet_partition)
+    x, y = classification_dataset(20000, seed=0)
+    return ClassificationStore.build(
+        x, y, dirichlet_partition(y, PATH_N, alpha=0.5, seed=0), 32, "cuda")
+
+
+def train_tree_schemes(store) -> int:
+    """The worker-tree path at full width for each scheme through the
+    trajectory body, dp_perturb's counts set to 0 just before each
+    scheme's run and read just after. Returns the launches of all four."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_perturb import ops
+    total = 0
+    for scheme in SCHEMES:
+        proto = P.ProtocolConfig(scheme=scheme, n_workers=PATH_N, gamma=0.01,
+                                 eta=0.4, use_pallas=True, target_epsilon=1.0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
+        body = TJ.make_round_body(DWFL_PAPER, proto, store, device="cuda")
+        ops.sgd_update.launches = ops.dp_perturb.launches = 0
+        t0 = time.perf_counter()
+        carry, res = TJ.run_chunk(body, TJ.TrajCarry(gen, wp), TREE_ROUNDS)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = ops.sgd_update.launches + ops.dp_perturb.launches
+        losses = res["metrics"]["loss"].cpu()
+        print(f"[tree] {json.dumps({'scheme': scheme, 'rounds': TREE_ROUNDS, 'seconds': seconds, 'launches': launches, 'first_loss': float(losses[0]), 'last_loss': float(losses[-1])})}",
+              flush=True)
+        if not torch.isfinite(losses).all():
+            fail(f"tree {scheme}: non-finite losses {losses.tolist()}")
+        if launches != len(MLP_LEAVES) * TREE_ROUNDS:
+            fail(f"tree {scheme}: dp_perturb launched {launches} times for "
+                 f"{TREE_ROUNDS} rounds of {len(MLP_LEAVES)} leaves")
+        if not tree_leaves_finite(carry.params):
+            fail(f"tree {scheme}: non-finite parameters")
+        total += launches
+    return total
+
+
+def tree_cli() -> None:
+    """The CLI without --flat-buffer (the worker-tree path), chunked and
+    with --no-scan."""
+    import torch
+    from repro_torch.launch import train
+    for extra in ([], ["--no-scan"]):
+        res = train.run(["--arch", "dwfl-paper", "--scheme", "orthogonal",
+                         "--workers", str(PATH_N), "--steps", "10",
+                         "--eval-every", "5", "--device", "cuda", *extra])
+        losses = res["losses"]
+        print(f"[tree] cli {' '.join(extra) or 'chunked'}: {res['rounds']} "
+              f"rounds in {res['seconds']:.3f}s; first/last loss "
+              f"{float(losses[0]):.4f}/{float(losses[-1]):.4f}", flush=True)
+        if losses.numel() != res["rounds"] or not torch.isfinite(losses).all():
+            fail(f"tree cli {extra}: losses {losses.tolist()}")
+        if not tree_leaves_finite(res["params"]):
+            fail(f"tree cli {extra}: non-finite parameters")
+
+
+def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
+    """Where a full-width round's time goes on one path (flat: the dp_mix
+    round; else the worker-tree round, dwfl with use_pallas=True): the
+    round body after a warm-up, timed by the host clock around
+    ``n_rounds`` rounds ending in a synchronize, then the same number of
+    rounds under torch.profiler for the device's busy share and the top
+    operators by device and host time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import DWFL_PAPER
     from repro_torch.core import exchange as X
     from repro_torch.core import protocol as P
     from repro_torch.core import trajectory as TJ
-    from repro_torch.data import (ClassificationStore, classification_dataset,
-                                  dirichlet_partition)
-    x, y = classification_dataset(20000, seed=0)
-    store = ClassificationStore.build(
-        x, y, dirichlet_partition(y, PATH_N, alpha=0.5, seed=0), 32, "cuda")
     proto = P.ProtocolConfig(n_workers=PATH_N, gamma=0.01, eta=0.4,
-                             target_epsilon=1.0)
+                             target_epsilon=1.0, use_pallas=not flat)
     gen = torch.Generator(device="cuda").manual_seed(0)
     wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
-    spec = X.FlatSpec(wp)
+    spec = X.FlatSpec(wp) if flat else None
     body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda")
-    carry = TJ.TrajCarry(gen, spec.flatten(wp))
+    carry = TJ.TrajCarry(gen, spec.flatten(wp) if flat else wp)
     carry, _ = TJ.run_chunk(body, carry, 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -230,7 +453,8 @@ def profile_rounds(n_rounds: int = 20) -> dict:
     dev = lambda e: getattr(e, "self_device_time_total",
                             getattr(e, "self_cuda_time_total", 0.0))
     device_us = sum(dev(e) for e in stats)
-    rec = {"round_ms": round_ms, "rounds": n_rounds,
+    rec = {"path": "flat" if flat else "tree", "round_ms": round_ms,
+           "rounds": n_rounds,
            "profiled_round_ms": wall_us / 1e3 / n_rounds,
            "device_busy_share": (device_us / wall_us if device_us > 0
                                  else "not measured"),
@@ -242,8 +466,8 @@ def profile_rounds(n_rounds: int = 20) -> dict:
                sorted(stats, key=lambda e: e.self_cpu_time_total,
                       reverse=True)[:8]]}
     print(f"[profile] {json.dumps(rec)}", flush=True)
-    if not torch.isfinite(carry.params).all():
-        fail("profile: non-finite parameters")
+    if not tree_leaves_finite(carry.params):
+        fail(f"profile {rec['path']}: non-finite parameters")
     return rec
 
 
@@ -266,7 +490,8 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     from repro_torch.kernels.dp_mix import ops
-    libs = [ops.LIBRARY]
+    from repro_torch.kernels.dp_perturb import ops as dp_ops
+    libs = [ops.LIBRARY, dp_ops.LIBRARY]
     t0 = time.perf_counter()
     built = build.build_all(libs)
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f}s "
@@ -276,7 +501,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
 
-    # 3. kernels at the main path's shape, and at N = 64
+    # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
+    # at the tree path's six leaves
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
@@ -286,8 +512,9 @@ def main() -> int:
                 if timed and noisy:
                     path_rec = rec
                 torch.cuda.empty_cache()
+    perturb_rec = dp_perturb_phase()
 
-    # 4. the main path, counted
+    # 4. the flat path, counted
     from repro_torch.launch import train
     ops.dp_mix_round.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -312,7 +539,16 @@ def main() -> int:
     if not torch.isfinite(res["params"]).all():
         fail("train: non-finite parameters")
     train_step_cpu_vs_cuda()
-    profile_rounds()
+
+    # 5. the worker-tree path, counted per scheme
+    store = paper_store()
+    perturb_launches = train_tree_schemes(store)
+    tree_cli()
+    tree_round_cpu_vs_cuda()
+
+    # 6. profiles
+    profile_rounds(store, flat=True)
+    profile_rounds(store, flat=False)
 
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",
@@ -320,11 +556,18 @@ def main() -> int:
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
         "launches": launches,
         "max_abs_err": path_rec["max_abs_err"],
-        "max_err": path_rec["max_abs_err"],
-        "ms": path_rec["ms"], "kernel_ms": path_rec["ms"],
-        "plain_ms": path_rec["plain_ms"],
+        "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
         "bound_ms": path_rec["bound_ms"], "bound_by": path_rec["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, {
+        "name": "dp_perturb", "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_perturb/csrc/dp_perturb.cu",
+        "replaces": "src/repro/kernels/dp_perturb/dp_perturb.py:42",
+        "launches": perturb_launches,
+        "max_abs_err": perturb_rec["max_abs_err"],
+        "ms": perturb_rec["ms"], "plain_ms": perturb_rec["plain_ms"],
+        "bound_ms": perturb_rec["bound_ms"],
+        "bound_by": perturb_rec["bound_by"],
+        "library_ms": perturb_rec["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

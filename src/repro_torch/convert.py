@@ -1,10 +1,13 @@
-"""Parameters of the JAX reference -> the port's flat buffer.
+"""Parameters of the JAX reference -> the port's flat buffer and worker tree.
 
 ``params_from_jax`` takes the reference's MLP parameters as numpy arrays,
 {"layers": [{"w": [in, out], "b": [out]}, ...]} for one worker or with a
 leading worker axis ([N, in, out], [N, out]), and returns the port's flat
 [N, d] float32 buffer (the reference's ravel order) with the matching
-per-layer tensors, so both packages compute on the same numbers.
+worker-stacked tree, so both packages compute on the same numbers. The
+tree's leaves are materialized copies, each worker its own memory: a
+stride-0 view handed to a kernel by its pointer would make every worker
+read worker 0's parameters.
 """
 from __future__ import annotations
 
@@ -19,8 +22,9 @@ from repro_torch.runtime import resolve_device
 
 def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
                     ) -> Tuple[torch.Tensor, dict, FlatSpec]:
-    """Returns (flat [N, d], worker-stacked per-layer tensors, FlatSpec).
-    An unstacked tree is repeated over ``n_workers`` rows (default 1)."""
+    """Returns (flat [N, d], worker-stacked tree of contiguous [N, ...]
+    leaves, FlatSpec). An unstacked tree is repeated over ``n_workers``
+    rows (default 1)."""
     dev = resolve_device(device)
     leaves, structure = tree_flatten(tree)
     arrs = [np.asarray(l) for l in leaves]
@@ -34,5 +38,4 @@ def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
     tensors = tree_unflatten(structure, [
         torch.as_tensor(np.array(a), device=dev) for a in arrs])
     spec = FlatSpec(tensors, lead_axes=1)
-    flat = spec.flatten(tensors)
-    return flat, spec.unravel(flat), spec
+    return spec.flatten(tensors), tensors, spec

@@ -1,0 +1,71 @@
+"""DWFL, Algorithm 1 — the static exchanges of the reference's
+``repro.core.dwfl`` over worker-stacked trees ([N, ...] leaves), each a
+named wrapper over the mixing engine (``repro_torch.core.exchange``), and
+the Eqt. (8) matrix-form oracle.
+
+Interpretation (the reference's, DESIGN.md): the self-correction term of
+Eqt. (7) contains the receiver's own channel noise m_i, which a real
+worker cannot know; worker i subtracts its own scaled DP noise n_i and m_i
+stays in the received aggregate.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.core import exchange as engine
+from repro_torch.core.channel import ChannelState
+
+
+def _device(X):
+    return engine.tree_flatten(X)[0][0].device
+
+
+def exchange_dwfl(X, noise_n, noise_m, chan: ChannelState, eta: float):
+    """One DWFL exchange (Alg. 1 lines 6-9), Eqt. (5)-(7): the complete-
+    graph instance W = ((1) - I)/(N - 1) of the engine,
+
+        x_i <- x_i + eta [ sum_{k != i} (x_k + n_k/c)/(N-1) + m_i/(c(N-1))
+                           - x_i - n_i/c ]
+    """
+    return engine.run_mix(X, noise_n, noise_m, eta,
+                          engine.plan_complete(None, chan, _device(X)))
+
+
+def exchange_orthogonal(X, G, chan: ChannelState, eta: float):
+    """The orthogonal (pairwise) baseline (exchange.run_orthogonal); G:
+    the {"n", "m"} standard normals."""
+    return engine.run_orthogonal(
+        X, G, engine.plan_orthogonal(None, chan, _device(X)), eta)
+
+
+def exchange_centralized(X, noise_n, G_m, chan: ChannelState):
+    """The centralized server baseline (exchange.run_centralized); G_m:
+    one [1, ...] standard-normal field per leaf."""
+    return engine.run_centralized(
+        X, noise_n, G_m, engine.plan_centralized(None, chan, _device(X)))
+
+
+def matrix_form_reference(X_flat, G_flat, noise_n_flat, noise_m_flat,
+                          chan: ChannelState, gamma: float, eta: float,
+                          W=None) -> np.ndarray:
+    """Global-view update, Eqt. (8): X <- (X - gamma G) Psi + Phi (Psi - I),
+    in float64 numpy. X_flat, G_flat, noise_*: [N, d]. Column k of
+    receiver i's Phi is n_k/c + m_i/(deg_i c) for k != i and n_i/c for
+    k = i. ``W`` (any doubly-stochastic [N, N]) defaults to the paper's
+    complete graph; deg_i counts receiver i's positive W entries."""
+    N = chan.n_workers
+    c = chan.c
+    Wmat = ((np.ones((N, N)) - np.eye(N)) / (N - 1) if W is None
+            else np.asarray(W, np.float64))
+    deg = np.maximum((Wmat > 0).sum(1), 1)
+    Psi = (1 - eta) * np.eye(N) + eta * Wmat
+    X1 = (np.asarray(X_flat, np.float64)
+          - gamma * np.asarray(G_flat, np.float64))
+    out = Psi @ X1
+    n = np.asarray(noise_n_flat, np.float64)
+    m = np.asarray(noise_m_flat, np.float64)
+    res = np.zeros_like(out)
+    for i in range(N):
+        res[i] = out[i] + eta * ((Wmat[i] @ n) / c + m[i] / (deg[i] * c)
+                                 - n[i] / c)
+    return res

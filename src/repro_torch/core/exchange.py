@@ -1,22 +1,42 @@
-"""Mixing plans and the flat parameter buffer — part of the reference's
-``repro.core.exchange``.
+"""The mixing-matrix exchange engine and the flat parameter buffer — the
+static part of the reference's ``repro.core.exchange``.
 
 Every exchange of the mixing family is the one receiver-side update
 
     x_i <- x_i + eta * listen_i * [ sum_k W_ik (x_k + n_k / c) + m_scale_i * m_i
                                     - x_i - self_i * n_i / c ]
 
-and a ``MixPlan`` carries its W and per-receiver vectors to the fused
-round (``repro_torch.kernels.dp_mix.ops.dp_mix_round_plan``). Plans here:
-the paper's complete graph (``plan_complete``) and noiseless gossip
-(``plan_gossip``). ``FlatSpec`` ravels a parameter tree into the
-persistent [N, d] float32 buffer in the reference's order (jax's
-``tree_flatten``: dict keys sorted, so each layer is b then w).
+(``mix_exchange``, over worker-stacked leaves [N, ...]). A ``MixPlan``
+carries its W and per-receiver vectors as device tensors, built once per
+train-step factory, and feeds both the worker-tree round (``run_mix``)
+and the fused flat round (``repro_torch.kernels.dp_mix.ops.
+dp_mix_round_plan``). The four static schemes of the paper's comparison:
+
+    ===========  ======================================  =================
+    scheme       W                                       self / m / listen
+    ===========  ======================================  =================
+    dwfl         ((1) - I)/(N-1)  (``plan_complete``)    1 / m/(c(N-1)) / 1
+    gossip       complete, sigma = sigma_m = 0           1 / 0          / 1
+    orthogonal   complete, c = 1, gain-inverted noise    0 / link AWGN  / 1
+    centralized  (1)/N, eta = 1, shared PS AWGN          0 / m/(cN)     / 1
+    ===========  ======================================  =================
+
+``resolve_spec`` routes a ProtocolConfig to its ``ExchangeSpec``; only
+dwfl and gossip (``fuse_ok``) may run as the fused flat round.
+
+Randomness: a round's exchange consumes standard normals as a tree
+({"n": ..., "m": ...}, ``draw_normals``), drawn from an explicit
+``torch.Generator`` or passed in — the tests pass the reference's
+realized ``jax.random`` normals, which are not re-derived here.
+
+``FlatSpec`` ravels a parameter tree into the persistent [N, d] float32
+buffer in the reference's order (jax's ``tree_flatten``: dict keys
+sorted, so each layer is b then w).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional, Union
 
 import numpy as np
 import torch
@@ -39,16 +59,19 @@ def complete_W(N: int, device="cuda") -> torch.Tensor:
             - torch.eye(N, device=dev)) / (N - 1)
 
 
+Vector = Union[torch.Tensor, float]      # [N] tensor, or one number for all
+
+
 @dataclass(frozen=True)
 class MixPlan:
-    """Everything the fused round needs beyond (params, grads)."""
+    """Everything a round of one scheme needs beyond (params, grads)."""
     W: torch.Tensor                          # [N, N]
     c: torch.Tensor                          # alignment constant
     amp: torch.Tensor                        # [N] DP-noise amplitude
     sigma_m: torch.Tensor                    # receiver AWGN std
-    self_scale: Optional[torch.Tensor] = None
-    m_scale: Optional[torch.Tensor] = None
-    listen: Optional[torch.Tensor] = None
+    self_scale: Optional[Vector] = None
+    m_scale: Optional[Vector] = None
+    listen: Optional[Vector] = None
     noisy: bool = True
 
 
@@ -71,6 +94,52 @@ def plan_gossip(proto, chan, device="cuda") -> MixPlan:
                    amp=torch.zeros((N,), device=dev),
                    sigma_m=torch.zeros((), device=dev),
                    m_scale=torch.zeros((N,), device=dev), noisy=False)
+
+
+# Floor for the inverted per-link gain |h_j| sqrt(alpha_j P_j) of the
+# orthogonal baseline: a deep-fade draw would send the inverted AWGN std to
+# infinity. The clamp caps any single link's noise inflation at 40 dB
+# (power) below the best link.
+ORTHOGONAL_GAIN_FLOOR = 1e-2
+
+
+def plan_orthogonal(proto, chan, device="cuda") -> MixPlan:
+    """The orthogonal (pairwise, digital-style) baseline in engine terms:
+    complete-graph W over gain-inverted signals (noise already at
+    parameter scale, so c = 1), no self-correction; ``amp`` is the
+    sender's noise std after gain inversion and ``sigma_m`` the per-link
+    AWGN std averaged over the N - 1 links."""
+    dev = resolve_device(device)
+    N = chan.n_workers
+    inv_gain = (np.sqrt(chan.beta / np.maximum(chan.alpha, 1e-9))
+                * chan.dp_sigma)
+    gain = chan.h * np.sqrt(chan.alpha * chan.P)
+    gain = np.maximum(gain, max(ORTHOGONAL_GAIN_FLOOR * float(np.max(gain)),
+                                1e-30))
+    link_std = chan.awgn_sigma / gain
+    mean_m_std = float(np.sqrt(np.mean(link_std ** 2) / (N - 1)))
+    return MixPlan(W=complete_W(N, dev),
+                   c=torch.ones((), device=dev),
+                   amp=torch.as_tensor(inv_gain, dtype=torch.float32,
+                                       device=dev),
+                   sigma_m=torch.tensor(mean_m_std, dtype=torch.float32,
+                                        device=dev),
+                   self_scale=0.0)
+
+
+def plan_centralized(proto, chan, device="cuda") -> MixPlan:
+    """The centralized parameter-server baseline: every worker transmits
+    over the MAC to the server, which broadcasts the average — W = (1)/N
+    (self included), eta = 1, no self-correction, one AWGN draw at the
+    server shared by every receiver, scaled by 1/(cN)."""
+    dev = resolve_device(device)
+    N = chan.n_workers
+    return MixPlan(W=torch.ones((N, N), device=dev) / N,
+                   c=torch.tensor(chan.c, dtype=torch.float32, device=dev),
+                   amp=mix_noise_amp(chan, dev),
+                   sigma_m=torch.tensor(chan.awgn_sigma, dtype=torch.float32,
+                                        device=dev),
+                   self_scale=0.0, m_scale=1.0 / (chan.c * N))
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +174,14 @@ def tree_unflatten(structure, leaves: List[Any]):
         return children if kind == "list" else tuple(children)
 
     return build(structure)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure)."""
+    leaves, structure = tree_flatten(tree)
+    others = [tree_flatten(r)[0] for r in rest]
+    return tree_unflatten(structure, [fn(*ls) for ls in zip(leaves, *others)])
 
 
 class FlatSpec:
@@ -144,3 +221,198 @@ class FlatSpec:
 
     def unravel_row(self, v):
         return self._split(v, ())
+
+
+def flatten_worker_tree(X) -> torch.Tensor:
+    """FlatSpec(X).flatten(X): the worker-stacked tree as [N, d] float32."""
+    return FlatSpec(X).flatten(X)
+
+
+def worker_unravelers(template):
+    """The (unravel, unravel_row) pair of FlatSpec(template)."""
+    spec = FlatSpec(template)
+    return spec.unravel, spec.unravel_row
+
+
+# ---------------------------------------------------------------------------
+# noise
+# ---------------------------------------------------------------------------
+
+
+def draw_normals(X, generator: torch.Generator, *, shared_m: bool = False
+                 ) -> dict:
+    """The standard normals of one noisy exchange over the worker tree X:
+    {"n": tree, "m": tree}, float32 on the generator's device, drawn in a
+    fixed order — every leaf's n field in tree order, then every leaf's
+    m field. With ``shared_m`` an m field is [1, ...], one draw that every
+    receiver shares (the centralized server's AWGN)."""
+    leaves, structure = tree_flatten(X)
+    draw = lambda shape: torch.randn(shape, generator=generator,
+                                     device=generator.device)
+    n = [draw(tuple(x.shape)) for x in leaves]
+    m = [draw((1,) + tuple(x.shape[1:]) if shared_m else tuple(x.shape))
+         for x in leaves]
+    return {"n": tree_unflatten(structure, n),
+            "m": tree_unflatten(structure, m)}
+
+
+def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
+    """A per-worker [N] vector as [N, 1, ...] against an ndim leaf."""
+    return v.reshape((v.shape[0],) + (1,) * (ndim - 1))
+
+
+def dp_noise(G, X, amp: torch.Tensor):
+    """n_k = amp_k G_k per leaf, in the leaf's dtype: ``amp`` [N] is the
+    per-worker DP-noise amplitude |h_k| sqrt(beta_k P_k) sigma
+    (``mix_noise_amp``), G the standard normals (a tree like X)."""
+    return tree_map(lambda g, x: (_col(amp, x.ndim) * g).to(x.dtype), G, X)
+
+
+def channel_noise(G, X, sigma_m):
+    """m_i = sigma_m G_i per receiver and entry, in the leaf's dtype."""
+    return tree_map(lambda g, x: (sigma_m * g).to(x.dtype), G, X)
+
+
+# ---------------------------------------------------------------------------
+# the primitive and the scheme runners
+# ---------------------------------------------------------------------------
+
+
+def _vec(v, n_lead: int, ndim: int):
+    """A per-receiver vector as [n_lead, 1, ...]; numbers and 0-d tensors
+    pass through (they broadcast as they are)."""
+    if v is None or not torch.is_tensor(v) or v.ndim == 0:
+        return v
+    return v.float().reshape((n_lead,) + (1,) * (ndim - 1))
+
+
+def mix_exchange(X, noise_n, noise_m, c, eta: float, W, *, self_scale=None,
+                 m_scale=None, listen=None):
+    """One mixing-matrix exchange over worker-stacked leaves:
+
+        x_i <- x_i + eta listen_i [ sum_k W_ik (x_k + n_k/c) + m_scale_i m_i
+                                    - x_i - self_scale_i n_i/c ]
+
+    ``self_scale``/``listen`` default to 1, ``m_scale`` to 1 (noise_m
+    pre-scaled). All arithmetic is float32; leaves keep their dtype."""
+    N = W.shape[0]
+
+    def one(x, n, m):
+        xf = x.float()
+        nf = n.float() / c
+        mixed = torch.tensordot(W.float(), xf + nf, dims=1)
+        selfs = _vec(self_scale, N, x.ndim)
+        upd = mixed - xf - (nf if selfs is None else selfs * nf)
+        if m is not None:
+            mf = m.float()
+            ms = _vec(m_scale, m.shape[0], m.ndim)
+            upd = upd + (mf if ms is None else ms * mf)
+        li = _vec(listen, N, x.ndim)
+        if li is not None:
+            upd = li * upd
+        return (xf + eta * upd).to(x.dtype)
+
+    return tree_map(one, X, noise_n, noise_m)
+
+
+def run_mix(X, noise_n, noise_m, eta: float, plan: MixPlan):
+    """``mix_exchange`` with a plan's W and vectors (dense W)."""
+    return mix_exchange(X, noise_n, noise_m, plan.c, eta, plan.W,
+                        self_scale=plan.self_scale, m_scale=plan.m_scale,
+                        listen=plan.listen)
+
+
+def run_orthogonal(X, G, plan: MixPlan, eta: float):
+    """The orthogonal baseline (``plan_orthogonal``): each link carries ONE
+    sender's signal, masked by that sender's own noise only, plus per-link
+    AWGN, whose mean over the N - 1 links is drawn directly (statistically
+    the same, without the [N, N, ...] tensor). G: {"n", "m"} normals."""
+    n = tree_map(lambda g, x: _col(plan.amp, x.ndim) * g, G["n"], X)
+    m = tree_map(lambda g: plan.sigma_m * g, G["m"])
+    return mix_exchange(X, n, m, plan.c, eta, plan.W,
+                        self_scale=plan.self_scale)
+
+
+def run_centralized(X, noise_n, G_m, plan: MixPlan):
+    """The centralized server baseline (``plan_centralized``): G_m holds
+    one [1, ...] standard-normal field per leaf, the server's AWGN that
+    every receiver hears."""
+    m = tree_map(lambda g: plan.sigma_m * g, G_m)
+    return mix_exchange(X, noise_n, m, plan.c, 1.0, plan.W,
+                        self_scale=plan.self_scale, m_scale=plan.m_scale)
+
+
+def _run_complete(X, G, plan: MixPlan, proto):
+    n = dp_noise(G["n"], X, plan.amp)
+    m = channel_noise(G["m"], X, plan.sigma_m)
+    return run_mix(X, n, m, proto.eta, plan)
+
+
+def _run_gossip(X, G, plan: MixPlan, proto):
+    zero = tree_map(torch.zeros_like, X)
+    return run_mix(X, zero, zero, proto.eta, plan)
+
+
+def _run_orthogonal_spec(X, G, plan: MixPlan, proto):
+    return run_orthogonal(X, G, plan, proto.eta)
+
+
+def _run_centralized_spec(X, G, plan: MixPlan, proto):
+    return run_centralized(X, dp_noise(G["n"], X, plan.amp), G["m"], plan)
+
+
+# ---------------------------------------------------------------------------
+# ExchangeSpec and the routing table
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ExchangeSpec:
+    """One exchange variant: ``plan(proto, chan, device)`` builds its
+    MixPlan once, ``run(X, G, plan, proto)`` runs a round on the worker
+    tree X with standard normals G (``draw_normals``; unused when the
+    plan is not noisy). ``fuse_ok``: the pure mixing family, which treats
+    every parameter entry alike, so the tree may be bucketed into one
+    flat leaf and the fused dp_mix round may run it; the baselines keep
+    their per-leaf noise layout. ``shared_m``: m is one [1, ...] draw per
+    leaf, shared by every receiver."""
+    name: str
+    run: Callable
+    plan: Callable
+    fuse_ok: bool = True
+    shared_m: bool = False
+
+
+SPECS = {
+    "complete": ExchangeSpec("complete", _run_complete, plan_complete),
+    "gossip": ExchangeSpec("gossip", _run_gossip, plan_gossip),
+    "orthogonal": ExchangeSpec("orthogonal", _run_orthogonal_spec,
+                               plan_orthogonal, fuse_ok=False),
+    "centralized": ExchangeSpec("centralized", _run_centralized_spec,
+                                plan_centralized, fuse_ok=False,
+                                shared_m=True),
+}
+
+
+def resolve_spec(proto, axis: Optional[str] = None,
+                 dynamic: bool = False) -> ExchangeSpec:
+    """Scheme -> ExchangeSpec: the one routing table of the flat and the
+    worker-tree train steps. What the reference routes elsewhere raises,
+    naming the ROADMAP item that ports it."""
+    if dynamic:
+        raise NotImplementedError("the dynamic channel model is not ported "
+                                  "yet (ROADMAP A9)")
+    if axis is not None:
+        raise NotImplementedError("the collective (shard_map) exchange is "
+                                  "not ported yet (ROADMAP A14)")
+    if proto.scheme in ("gossip", "orthogonal", "centralized"):
+        return SPECS[proto.scheme]
+    if proto.scheme == "dwfl":
+        if proto.topology != "complete":
+            raise NotImplementedError(f"topology {proto.topology!r} is not "
+                                      f"ported yet (ROADMAP A4)")
+        if proto.participation < 1.0:
+            raise NotImplementedError("sampled participation is not ported "
+                                      "yet (ROADMAP A4)")
+        return SPECS["complete"]
+    raise ValueError(proto.scheme)

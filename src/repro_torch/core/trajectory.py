@@ -1,30 +1,47 @@
-"""The static flat-buffer trajectory as a Python loop over rounds — the
-port of the reference's ``repro.core.trajectory`` static path
-(``make_round_body``, ``plan_chunks``, ``auto_chunk``).
+"""The static trajectory as a Python loop over rounds — the port of the
+reference's ``repro.core.trajectory`` static path (``make_round_body``,
+``run_per_round``, ``plan_chunks``, ``auto_chunk``).
 
-Key discipline: ONE explicit device ``torch.Generator`` is the carry's
-randomness. Each round draws, in order, its [W, B] data uniforms and then
-its int32 noise seed from it, so the realized stream is a function of the
+Key discipline: ONE explicit ``torch.Generator`` is the carry's
+randomness. Each round draws, in order, its data and then its noise from
+it — on the flat path its [W, B] data uniforms and then its int32 noise
+seed, on the worker-tree path its uniforms and then the exchange's
+standard normals — so the realized stream is a function of the
 generator's seed and the round index, never of how rounds are cut into
 chunks. A chunk of K rounds is K eager rounds; its metrics come back
 stacked [K] on the device, read by the host only at chunk ends.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch.core import protocol as protocol_lib
+from repro_torch.runtime import resolve_device
 
 _INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
 
 
 class TrajCarry(NamedTuple):
     """Everything a round consumes and rewrites: the generator and the
-    flat [N, d] parameter buffer."""
+    parameters (the worker tree, or the flat [N, d] buffer)."""
     generator: torch.Generator
-    params: torch.Tensor
+    params: Any
+
+
+class HostBatches:
+    """The ``--no-scan`` data source: each round uploads the host
+    batcher's next batch (``data.pipeline.FederatedBatcher.next``) and
+    draws nothing from the generator."""
+
+    def __init__(self, batcher, device="cuda"):
+        self.batcher = batcher
+        self.device = resolve_device(device)
+
+    def draw(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in self.batcher.next().items()}
 
 
 def round_seed(generator: torch.Generator) -> torch.Tensor:
@@ -33,30 +50,57 @@ def round_seed(generator: torch.Generator) -> torch.Tensor:
                          generator=generator, device=generator.device)
 
 
-def make_round_body(cfg, proto, store, spec, device="cuda") -> Callable:
+def make_round_body(cfg, proto, store, spec=None, device="cuda") -> Callable:
     """``body(carry) -> (carry', out)``: one full DWFL round on the static
-    channel with on-device batch sampling from ``store``
-    (data.device.ClassificationStore). ``out`` is {"metrics": {...}}."""
-    step = protocol_lib.make_flat_train_step(cfg, proto, spec, device)
+    channel, its batch from ``store`` (data.device.ClassificationStore,
+    sampled on the device, or ``HostBatches``). The path follows ``spec``:
+    given (an exchange.FlatSpec), the fused flat-buffer round over the
+    carry's [N, d] buffer laid out by it; ``None``, the worker-tree round
+    (protocol.make_train_step) over the carry's worker tree. ``out`` is
+    {"metrics": {...}}."""
+    if spec is not None:
+        step = protocol_lib.make_flat_train_step(cfg, proto, spec, device)
 
-    def body(carry: TrajCarry):
-        u = store.uniforms(carry.generator)
-        seed = round_seed(carry.generator)
-        params, metrics = step(carry.params, store.sample(u), seed)
-        return TrajCarry(carry.generator, params), {"metrics": metrics}
+        def body(carry: TrajCarry):
+            batch = store.draw(carry.generator)
+            seed = round_seed(carry.generator)
+            params, metrics = step(carry.params, batch, seed)
+            return TrajCarry(carry.generator, params), {"metrics": metrics}
+    else:
+        step = protocol_lib.make_train_step(cfg, proto, device)
+
+        def body(carry: TrajCarry):
+            batch = store.draw(carry.generator)
+            params, metrics = step(carry.params, batch, carry.generator)
+            return TrajCarry(carry.generator, params), {"metrics": metrics}
 
     return body
 
 
 def run_chunk(body: Callable, carry: TrajCarry, k: int
               ) -> Tuple[TrajCarry, Any]:
-    """Advance ``k`` rounds; the outputs come back stacked [k, ...]."""
+    """Advance ``k`` rounds; the outputs come back stacked [k, ...] on the
+    parameters' device."""
     if k < 1:
         raise ValueError(f"chunk length must be >= 1, got {k}")
     outs = []
     for _ in range(int(k)):
         carry, out = body(carry)
         outs.append(out["metrics"])
+    return carry, {"metrics": {name: torch.stack([o[name] for o in outs])
+                               for name in outs[0]}}
+
+
+def run_per_round(body: Callable, carry: TrajCarry, k: int
+                  ) -> Tuple[TrajCarry, Any]:
+    """The per-round executor of ``--no-scan``: the same body, each round's
+    metrics copied to the host as it ends (a synchronization per round),
+    stacked [k, ...] on the CPU afterwards. The parameters it produces
+    are those of ``run_chunk`` over the same rounds."""
+    outs = []
+    for _ in range(int(k)):
+        carry, out = body(carry)
+        outs.append({name: v.cpu() for name, v in out["metrics"].items()})
     return carry, {"metrics": {name: torch.stack([o[name] for o in outs])
                                for name in outs[0]}}
 

@@ -36,6 +36,10 @@ class ClassificationStore:
         return torch.rand((self.n_workers, self.batch), generator=generator,
                           device=self.pool.device)
 
+    def draw(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One round's batch: ``sample(uniforms(generator))``."""
+        return self.sample(self.uniforms(generator))
+
     def sample(self, u: torch.Tensor) -> Dict[str, torch.Tensor]:
         """The worker-stacked batch {"x": [W, B, D], "y": [W, B]} picked
         by the uniforms ``u`` [W, B] (with replacement, uniform over each

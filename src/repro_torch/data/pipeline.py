@@ -1,7 +1,8 @@
 """Host-side federated data: per-worker sample pools (the reference's
-``repro.data.pipeline.FederatedBatcher``). The port draws training batches
-on the device (``data.device.ClassificationStore``); the host batcher
-supplies only the pinned evaluation batch."""
+``repro.data.pipeline.FederatedBatcher``). ``next`` draws the worker-
+stacked training batch of ``--no-scan`` on the host, bitwise the
+reference's draw at the same seed; ``full`` is the pinned evaluation
+batch."""
 from __future__ import annotations
 
 from typing import Dict, List
@@ -11,10 +12,23 @@ import numpy as np
 
 class FederatedBatcher:
     def __init__(self, x: np.ndarray, y: np.ndarray,
-                 partitions: List[np.ndarray], batch_size: int):
+                 partitions: List[np.ndarray], batch_size: int, seed: int = 0):
         self.x, self.y = x, y
         self.parts = partitions
         self.b = batch_size
+        self.rng = np.random.default_rng(seed)
+
+    def next(self) -> Dict[str, np.ndarray]:
+        """{"x": [W, b, ...], "y": [W, b]}: each worker's b samples drawn
+        from its own pool (with replacement only when the pool is smaller
+        than b)."""
+        W = len(self.parts)
+        xs = np.empty((W, self.b) + self.x.shape[1:], self.x.dtype)
+        ys = np.empty((W, self.b), self.y.dtype)
+        for w, part in enumerate(self.parts):
+            idx = self.rng.choice(part, self.b, replace=len(part) < self.b)
+            xs[w], ys[w] = self.x[idx], self.y[idx]
+        return {"x": xs, "y": ys}
 
     def full(self, max_per_worker: int = 512) -> Dict[str, np.ndarray]:
         """Evaluation batch: a fixed per-worker slice of the local data."""

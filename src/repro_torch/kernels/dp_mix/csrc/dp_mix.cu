@@ -33,7 +33,8 @@
 
 #include <cstdint>
 
-#include "noise.cuh"
+#include "../../csrc/dtypes.cuh"
+#include "../../csrc/noise.cuh"
 
 namespace {
 
@@ -41,14 +42,8 @@ constexpr int kTile = 128;       // columns (= threads) per block
 constexpr int kMaxWorkers = 64;  // largest N the shared-memory plan takes
 constexpr int kRowBlock = 4;     // output rows summed together
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, size_t i, float v) { p[i] = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i, float v) {
-  p[i] = __float2bfloat16_rn(v);
-}
+using repro_dtypes::load_f;
+using repro_dtypes::store_f;
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 

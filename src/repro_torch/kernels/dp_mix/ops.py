@@ -34,7 +34,7 @@ COUNTER_LIMIT = 1 << 31
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("dp_mix", sources=(_CSRC / "dp_mix.cu",),
-                        headers=(_CSRC / "noise.cuh",))
+                        headers=build.SHARED_HEADERS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,7 +1,9 @@
-"""Counter-hash noise stream in plain PyTorch — the port of the reference's
-interpret-mode generator (``repro.kernels.dp_perturb.dp_perturb._hash_bits``
+"""Counter-hash noise streams in plain PyTorch — the port of the reference's
+interpret-mode generators (``repro.kernels.dp_perturb.dp_perturb._hash_bits``
 and ``repro.kernels.dp_mix.dp_mix._normal_from_bits`` /
-``_normal_pair_hash``).
+``_normal_pair_hash``). Two streams share the hash: dp_mix's inverse-CDF
+normals (this docstring) and dp_perturb's Box-Muller normals
+(``perturb_normals``, below).
 
 Element (r, c) of a column window starting at global column ``col0`` draws
 its two standard normals from the uint32 counters
@@ -25,6 +27,21 @@ operation. Over all 2^24 lattice points this is bitwise the reference
 except 274 tail points (|t| > 0.9966), where XLA's CPU square root is an
 estimate and the two differ by at most 2 ULP. ``csrc/noise.cuh`` is the
 same sequence for the CUDA kernels.
+
+dp_perturb's stream (``perturb_normals``) draws element e of a flattened
+leaf from the uint32 counters
+
+    ctr1 = e + 32768 * (e >> 15) + seed * 0x9E3779B9     (mod 2^32)
+    ctr2 = ctr1 + 32768
+
+which is the reference's ``base + idx`` / ``base + idx + n`` with base =
+pid * 2n + seed * 0x9E3779B9 over its [256, 128] tiles (n = 32768, pid =
+e // n): the counters depend on e only, not on any tiling. The uniforms
+are (bits >> 8) * 2^-24 + 1e-7 and the normal is Box-Muller,
+sqrt(-2 log u1) * cos(f32(2 pi) * u2), rounded after every operation.
+``torch.log``/``torch.cos`` are not XLA's, so these normals differ from
+the reference's by a few ULP (tests/test_torch_dp_perturb.py states the
+bound); the bits and uniforms are bitwise.
 """
 from __future__ import annotations
 
@@ -36,6 +53,9 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 _M1, _M2, _M3 = 2654435761, 2246822519, 3266489917
+GOLDEN = 0x9E3779B9
+PERTURB_TILE = 256 * 128    # elements of one reference tile (n above)
+TWO_PI_F32 = float(np.float32(2.0 * math.pi))   # folded in f64, rounded once
 
 IntLike = Union[int, torch.Tensor]
 
@@ -168,3 +188,29 @@ def normal_pair_hash(shape: Tuple[int, int], counter_width: int,
     idx2 = (counters(shape, counter_width, col0, row0, device) * 2) & MASK32
     return (normal_from_bits(hash_bits(idx2, seed)),
             normal_from_bits(hash_bits(idx2 + 1, seed)))
+
+
+def perturb_counters(n_elems: int, seed: IntLike, device=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dp_perturb's two uint32 counters (as int64) of elements 0..n-1."""
+    e = torch.arange(n_elems, dtype=torch.int64, device=device)
+    ctr1 = (e + PERTURB_TILE * (e >> 15)
+            + _mul32(_u32(seed, device), GOLDEN)) & MASK32
+    return ctr1, (ctr1 + PERTURB_TILE) & MASK32
+
+
+def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """uint32 bits -> float32 uniform in (0, 1]: (bits >> 8) 2^-24 + 1e-7."""
+    return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24)) + 1e-7
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """sqrt(-2 log u1) cos(2 pi u2) in float32, one rounding per step."""
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI_F32 * u2)
+
+
+def perturb_normals(n_elems: int, seed: IntLike, device=None) -> torch.Tensor:
+    """dp_perturb's [n_elems] float32 standard normals at ``seed``."""
+    ctr1, ctr2 = perturb_counters(n_elems, seed, device)
+    return box_muller(uniform_from_bits(hash_bits(ctr1, seed)),
+                      uniform_from_bits(hash_bits(ctr2, seed)))

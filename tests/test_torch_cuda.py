@@ -1,4 +1,5 @@
-"""The dp_mix CUDA kernel against its plain PyTorch version on the card.
+"""The CUDA kernels (dp_mix, dp_perturb) against their plain PyTorch
+versions on the card.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. On a machine with a card and nvcc but no JAX
@@ -7,7 +8,10 @@ and skips without one. On a machine with a card and nvcc but no JAX
 Tolerance as in chip_smoke.py: both sum N float32 products in different
 orders, so |kernel - plain| <= (N + 8) * 2^-23 * scale, scale = max|x| +
 5.42 max|n/c| + 5.42 max|m_scale sigma_m|; a bfloat16 output may land one
-bfloat16 step (2^-7 of its magnitude) further."""
+bfloat16 step (2^-7 of its magnitude) further. dp_perturb: x within 1
+ULP (the plain version's fused multiply-add goes through float64 and may
+round twice), the noisy xt within 4 ULP of its noise term plus 2 ULP of
+itself, and a bfloat16 output one bfloat16 step further."""
 import pytest
 import torch
 
@@ -15,6 +19,8 @@ from repro_torch.core import exchange as X
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.kernels.dp_mix import ops
 from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+from repro_torch.kernels.dp_perturb import ops as dp_ops
+from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -70,3 +76,52 @@ def test_wrapper_limits_on_the_card():
         q = torch.zeros((4, 8), device="cuda", dtype=torch.float64)
         ops.dp_mix_round(q, q, 0, torch.eye(4), torch.ones(4), 1.0, 0.0,
                          gamma=0.1, eta=0.5)
+
+
+def _ulp(a, b):
+    ia, ib = (t.float().contiguous().view(torch.int32).long() for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return (ia - ib).abs()
+
+
+@pytest.mark.parametrize("shape", [(10, 256), (3, 70001), (10, 256, 10),
+                                   (5,)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False])
+def test_dp_perturb_kernel_matches_plain(shape, dtype, noisy):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+    p = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    kw = dict(gamma=0.05, sigma=1.0 if noisy else 0.0, s_sig=0.7,
+              s_noise=1.3)
+    before = dp_ops.dp_perturb.launches
+    x, xt = dp_ops.dp_perturb(p, g, 99, **kw)
+    assert dp_ops.dp_perturb.launches == before + 1
+    rx, rxt = dp_perturb_plain(p, g, 99, **kw)
+    torch.cuda.synchronize()
+    assert x.dtype == xt.dtype == dtype and x.shape == xt.shape == p.shape
+    step = (lambda a, b: 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+            if dtype == torch.bfloat16 else 0.0)
+    k, r = x.float(), rx.float()
+    assert bool(((_ulp(k, r) <= 1) | ((k - r).abs() <= step(k, r))).all())
+    k, r = xt.float(), rxt.float()
+    term = (r - 0.7 * rx.float()).abs()
+    allowed = (4 * 2.0 ** -23 * term + 2 * 2.0 ** -23 * r.abs() + 2.0 ** -126
+               + step(k, r))
+    assert bool(((k - r).abs() <= allowed).all())
+
+
+def test_sgd_update_counts_launches_and_reads_each_worker():
+    """An expand()ed stride-0 operand is made contiguous before the launch:
+    every worker's row comes out of its own memory."""
+    _need_card()
+    p = torch.arange(4.0, device="cuda").reshape(4, 1).expand(4, 300)
+    g = torch.ones((4, 300), device="cuda")
+    before = dp_ops.sgd_update.launches
+    x = dp_ops.sgd_update(p, g, 0.5)
+    assert dp_ops.sgd_update.launches == before + 1
+    torch.testing.assert_close(x, p - 0.5, rtol=0, atol=0)
+    with pytest.raises(TypeError):
+        dp_ops.sgd_update(p.double(), g.double(), 0.5)

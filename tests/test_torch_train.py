@@ -141,19 +141,34 @@ def test_plan_chunks_and_auto_chunk_equal_reference(total, k, every):
     assert TJ.auto_chunk(every) == RTJ.auto_chunk(every)
 
 
-def test_cli_runs_on_cpu():
+def _cli(*argv):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
-    r = subprocess.run(
+    return subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
          "--hidden", "16", "--workers", "4", "--steps", "3",
-         "--dataset-size", "2000"],
+         "--dataset-size", "2000", *argv],
         capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+
+
+def test_cli_runs_on_cpu():
+    """Without --flat-buffer the CLI runs the worker-tree round, as the
+    reference's does."""
+    r = _cli()
     assert r.returncode == 0, r.stderr
     assert "[train] dwfl-paper scheme=dwfl N=4 eps=" in r.stdout
+    assert "[train] params/worker: 0.05M\n" in r.stdout
     assert "[train] step=    0 loss=" in r.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["--scheme", "gossip"], "A8"),
+def test_cli_runs_on_cpu_flat_buffer():
+    r = _cli("--flat-buffer")
+    assert r.returncode == 0, r.stderr
+    assert "[train] dwfl-paper scheme=dwfl N=4 eps=" in r.stdout
+    assert "[train] params/worker: 0.05M (flat dp_mix buffer)" in r.stdout
+    assert "[train] step=    0 loss=" in r.stdout
+
+
+@pytest.mark.parametrize("argv,item", [(["--total-epsilon", "1"], "A6"),
                                        (["--channel-model=dynamic"], "A9"),
                                        (["--arch", "gemma-2b"], "A15"),
                                        (["--replicates", "2"], "A12")])
