@@ -6,9 +6,9 @@
 Phases, each fatal on failure (exit code 1, no result line):
 
 1. device  — the card's name, count, and nvidia-smi's name and power limit;
-2. build   — every CUDA kernel of the driven paths (dp_mix, dp_perturb)
-             built from this checkout's sources with nvcc for sm_90a, all
-             nvcc processes at once;
+2. build   — every CUDA kernel of the driven paths (dp_mix, dp_perturb,
+             flash_attention) built from this checkout's sources with nvcc
+             for sm_90a, all nvcc processes at once;
 3. kernels — each kernel held against its plain PyTorch version on the
              card at its path's shapes, with the tolerance stated below,
              then timed with CUDA events beside the plain version, the one
@@ -28,9 +28,20 @@ Phases, each fatal on failure (exit code 1, no result line):
              times per round (once per leaf); the CLI's worker-tree run
              with and without --no-scan; one small tree round on the card
              against the same round on the CPU with the same normals;
-6. profile — the steady-state time of a full-width round of each path,
-             and under torch.profiler the device's busy share and the
-             operators that take the device's and the host's time.
+6. serve   — gemma-2b at full width (2,506,172,416 parameters, random
+             from a seed): the serve CLI as the reference runs it
+             (``--arch gemma-2b --full``: batch 4, prompt 64, gen 32, no
+             kernel), then the serve driver with ``use_pallas=True`` at
+             batch 4, prompt 1024, gen 32: logits finite, flash_attention
+             launched 18 times in the prefill (once per layer) and never
+             in a decode step, the prefill's logits against those without
+             the kernel, prefill and decode tokens/s and peak device
+             memory; one reduced gemma-2b prefill and decode on the card
+             against the same on the CPU;
+7. profile — the steady-state time of a full-width round of each training
+             path, and under torch.profiler the device's busy share and
+             the operators that take the device's and the host's time, for
+             those rounds and for one full-width prefill and decode step.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -67,6 +78,12 @@ MLP_LEAVES = [(10, 256), (10, 3072, 256), (10, 256), (10, 256, 256),
               (10, 10), (10, 256, 10)]
 SCHEMES = ("dwfl", "gossip", "orthogonal", "centralized")
 TREE_ROUNDS = 11
+# flash_attention at the serve path's shapes (B, S, H, Hkv, hd): gemma-2b's
+# prefill of 4 prompts of 1024 tokens, and olmo-1b's heads
+GEMMA_ATTN = (4, 1024, 8, 1, 256)
+OLMO_ATTN = (4, 1024, 16, 16, 128)
+GEMMA_PARAMS = 2_506_172_416
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
 
 
 def fail(msg: str) -> None:
@@ -417,6 +434,20 @@ def tree_cli() -> None:
             fail(f"tree cli {extra}: non-finite parameters")
 
 
+def device_us(stats) -> float:
+    """Device time in a profile: the sum over the kernels' own rows. An
+    operator's row (aten::mm) repeats the time of the kernels it launched,
+    so summing every row would count most of the time twice."""
+    from torch.autograd import DeviceType
+    return sum(self_device_us(e) for e in stats
+               if e.device_type != DeviceType.CPU)
+
+
+def self_device_us(e) -> float:
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
 def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
     """Where a full-width round's time goes on one path (flat: the dp_mix
     round; else the worker-tree round, dwfl with use_pallas=True): the
@@ -450,13 +481,11 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
         torch.cuda.synchronize()
         wall_us = 1e6 * (time.perf_counter() - t0)
     stats = prof.key_averages()
-    dev = lambda e: getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    device_us = sum(dev(e) for e in stats)
+    dev, busy_us = self_device_us, device_us(stats)
     rec = {"path": "flat" if flat else "tree", "round_ms": round_ms,
            "rounds": n_rounds,
            "profiled_round_ms": wall_us / 1e3 / n_rounds,
-           "device_busy_share": (device_us / wall_us if device_us > 0
+           "device_busy_share": (busy_us / wall_us if busy_us > 0
                                  else "not measured"),
            "top_device_us_per_round": [
                (e.key, dev(e) / n_rounds) for e in
@@ -470,6 +499,253 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
         fail(f"profile {rec['path']}: non-finite parameters")
     return rec
 
+
+def check_flash(shape, dtype, window, timed: bool) -> dict:
+    """flash_attention's kernel vs its plain version on the card at one
+    shape. Tolerance: both compute the scores, the softmax and the
+    probability-weighted sum in float32 and differ only in the order of
+    their sums, so |kernel - plain| <= 2e-5 (1 + |plain|) (the reference's
+    float32 tolerance for its own kernel); a bfloat16 output may land one
+    bfloat16 step (2^-7 of its magnitude) further. Timed: the kernel by
+    CUDA events, beside the plain version, SDPA on [B, H, S, hd] views
+    (library_ms) and the bound: 2 products of 2 hd flops per (query, key)
+    pair the mask keeps, over 67 TFLOP/s, against q, k, v, o moved once
+    over 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.flash_attention import (
+        flash_attention_plain)
+    B, S, H, Hkv, hd = shape
+    gen = torch.Generator(device="cuda").manual_seed(S + hd)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dtype)
+               for n in (H, Hkv, Hkv))
+    kernel = lambda: ops.flash_attention(q, k, v, causal=True,
+                                         sliding_window=window)
+    plain = lambda: flash_attention_plain(q, k, v, causal=True,
+                                          sliding_window=window)
+    out, ref = kernel(), plain()
+    torch.cuda.synchronize()
+    a, b = out.float(), ref.float()
+    if not torch.isfinite(a).all():
+        fail(f"flash_attention {shape} {dtype}: non-finite output")
+    allowed = 2e-5 * (1 + b.abs())
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+    err = (a - b).abs()
+    bad = int((err > allowed).sum())
+    rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "window": window, "max_abs_err": float(err.max()),
+           "tol": "2e-5 (1 + |plain|)" + (" + 1 bf16 step"
+                                          if dtype == torch.bfloat16 else ""),
+           "violations": bad}
+    if timed:
+        qpos = torch.arange(S, device="cuda")[:, None]
+        kpos = torch.arange(S, device="cuda")[None, :]
+        keep = kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+        pairs = int(keep.sum())
+        flops = 4 * hd * pairs * B * H
+        nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec["ms"] = cuda_ms(kernel, iters=20)
+        rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
+        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bytes"], rec["flops"] = nbytes, flops
+    print(f"[kernels] flash_attention {json.dumps(rec)}", flush=True)
+    if bad:
+        fail(f"flash_attention {shape} {rec['dtype']} window={window}: {bad} "
+             f"elements beyond tolerance (max err {rec['max_abs_err']:.3g})")
+    return rec
+
+
+def flash_phase() -> dict:
+    """gemma-2b's prefill shape and olmo-1b's heads in float32 and
+    bfloat16 (the first three timed), a sliding window and a ragged S;
+    returns gemma-2b's float32 record, whose bound is checked against the
+    count written in PERF.md: 17.2 GFLOP at 67 TFLOP/s, 0.256 ms,
+    operations-bound."""
+    import torch
+    rec = check_flash(GEMMA_ATTN, torch.float32, None, timed=True)
+    if rec["bound_by"] != "operations" or abs(rec["bound_ms"] - 0.2566) > 0.002:
+        fail(f"flash_attention bound {rec['bound_ms']:.4f} ms "
+             f"({rec['bound_by']}), expected 0.2566 ms (operations)")
+    check_flash(GEMMA_ATTN, torch.bfloat16, None, timed=True)
+    check_flash(OLMO_ATTN, torch.float32, None, timed=True)
+    check_flash(OLMO_ATTN, torch.bfloat16, None, timed=False)
+    check_flash((2, 1024, 8, 1, 256), torch.float32, 200, timed=False)
+    check_flash((2, 1000, 4, 2, 64), torch.bfloat16, None, timed=False)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def gemma_full():
+    """gemma-2b at its published width, random parameters from seed 0 on
+    the card, and a batch of 4 prompts of 1024 tokens."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_arch("gemma-2b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(gen, cfg, "cuda")
+    n = M.count_params(params)
+    if n != GEMMA_PARAMS:
+        fail(f"gemma-2b has {n} parameters, expected {GEMMA_PARAMS}")
+    batch = serve.build_prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, "cuda")
+    return cfg, params, batch
+
+
+def serve_cli() -> None:
+    """The reference's serve run at full width: --arch gemma-2b --full with
+    its defaults (batch 4, prompt 64, gen 32); the CLI leaves use_pallas
+    off, so flash_attention launches no time."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    ops.flash_attention.launches = 0
+    res = serve.run(["--arch", "gemma-2b", "--full", "--device", "cuda"])
+    launches = ops.flash_attention.launches
+    print(f"[serve] cli --full: prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
+          f"31 steps {res['decode_s'] * 1e3:.1f} ms; flash launches {launches}",
+          flush=True)
+    if launches or not torch.isfinite(res["logits"]).all():
+        fail(f"serve cli: {launches} flash launches, finite logits "
+             f"{bool(torch.isfinite(res['logits']).all())}")
+    del res
+    torch.cuda.empty_cache()
+
+
+def serve_kernel_path(cfg, params, batch) -> int:
+    """The serve driver with use_pallas=True at full width, counted: 18
+    launches in the prefill and none in a decode step. Its prefill logits
+    against a prefill without the kernel: |with - without| <= 1e-3 max
+    |without| (18 layers of float32 attention summed in other orders;
+    one layer's outputs agree to ~1e-6 relative). Returns the launches."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    torch.cuda.reset_peak_memory_stats()
+    ops.flash_attention.launches = 0
+    res = serve.serve(cfg, params, batch, SERVE_GEN, use_pallas=True,
+                      device="cuda")
+    launches = ops.flash_attention.launches
+    peak = torch.cuda.max_memory_allocated()
+    B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
+    rec = {"arch": cfg.name, "params": M.count_params(params), "batch": B,
+           "prompt": S, "gen": G, "prefill_ms": 1e3 * res["prefill_s"],
+           "prefill_tok_s": B * S / res["prefill_s"],
+           "decode_ms": 1e3 * res["decode_s"],
+           "decode_tok_s": B * (G - 1) / res["decode_s"],
+           "flash_launches": launches, "peak_mib": peak / 2 ** 20}
+    if launches != cfg.num_layers:
+        fail(f"serve: flash_attention launched {launches} times in one "
+             f"prefill and {G - 1} decode steps, expected {cfg.num_layers}")
+    if not (torch.isfinite(res["prefill_logits"]).all()
+            and torch.isfinite(res["logits"]).all()):
+        fail("serve: non-finite logits")
+    plain_logits, pf = M.prefill(params, batch, cfg, use_pallas=False)
+    scale = float(plain_logits.abs().max())
+    err = float((res["prefill_logits"] - plain_logits).abs().max())
+    rec.update(prefill_logits_err=err, logits_scale=scale,
+               tol=1e-3 * max(1.0, scale))
+    del res, plain_logits
+    # a decode step alone launches nothing
+    cache = serve.splice_cache(M.init_cache(cfg, B, S + 1, "cuda"), pf)
+    ops.flash_attention.launches = 0
+    M.decode_step(params, {"tokens": batch["tokens"][:, :1]}, cache, S, cfg)
+    rec["decode_step_launches"] = ops.flash_attention.launches
+    del cache, pf
+    print(f"[serve] {json.dumps(rec)}", flush=True)
+    if rec["decode_step_launches"]:
+        fail(f"serve: a decode step launched flash_attention "
+             f"{rec['decode_step_launches']} times")
+    if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
+        fail(f"serve: prefill logits with and without the kernel differ by "
+             f"{err:.3g} (scale {scale:.3g})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_cpu_vs_cuda() -> float:
+    """A reduced gemma-2b prefill (use_pallas=True) and decode on the card
+    against the same on the CPU from the same parameters and prompts: the
+    CPU run takes the plain versions the tests hold against the JAX
+    reference. Tolerance 1e-4 of the largest logit (two float32 layers)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = get_arch("gemma-2b").reduced()
+    gen = torch.Generator().manual_seed(7)
+    params = M.init_params(gen, cfg, "cpu")
+    batch = serve.build_prompt_batch(cfg, 4, 64, gen, "cpu")
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        res = serve.serve(cfg, X.tree_map(lambda t: t.to(dev), params),
+                          {k: v.to(dev) for k, v in batch.items()}, 8,
+                          use_pallas=True, device=dev)
+        outs[dev] = [res["prefill_logits"].cpu(), res["logits"].cpu()]
+    scale = float(outs["cpu"][0].abs().max())
+    err = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
+    tol = 1e-4 * max(1.0, scale)
+    print(f"[serve] reduced gemma-2b cuda vs cpu: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g})", flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"reduced serve: cuda and cpu differ by {err:.3g} > {tol:.3g}")
+    return err
+
+
+def profile_serve(cfg, params, batch) -> list:
+    """One full-width prefill (use_pallas=True) and one decode step, each
+    under torch.profiler after a warm-up: the device's busy share and the
+    top operators by device and host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    tok = {"tokens": batch["tokens"][:, :1]}
+    _, pf = M.prefill(params, batch, cfg, use_pallas=True)
+    cache = serve.splice_cache(M.init_cache(cfg, B, S + 2, "cuda"), pf)
+    del pf
+    M.decode_step(params, tok, cache, S, cfg)
+    windows = (("serve prefill", lambda: M.prefill(params, batch, cfg,
+                                                   use_pallas=True)),
+               ("serve decode step", lambda: M.decode_step(params, tok, cache,
+                                                           S + 1, cfg)))
+    recs = []
+    for name, fn in windows:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        del out
+        stats = prof.key_averages()
+        busy_us = device_us(stats)
+        rec = {"path": name, "wall_ms": wall_us / 1e3,
+               "device_busy_share": (busy_us / wall_us if busy_us > 0
+                                     else "not measured"),
+               "top_device_us": [(e.key, self_device_us(e)) for e in
+                                 sorted(stats, key=self_device_us,
+                                        reverse=True)[:8]
+                                 if self_device_us(e) > 0],
+               "top_host_us": [(e.key, e.self_cpu_time_total) for e in
+                               sorted(stats, key=lambda e: e.self_cpu_time_total,
+                                      reverse=True)[:8]]}
+        print(f"[profile] {json.dumps(rec)}", flush=True)
+        recs.append(rec)
+    return recs
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -490,8 +766,9 @@ def main() -> int:
     # 2. build
     from repro_torch.kernels import build
     from repro_torch.kernels.dp_mix import ops
-    from repro_torch.kernels.dp_perturb import ops as dp_ops
-    libs = [ops.LIBRARY, dp_ops.LIBRARY]
+    from repro_torch.kernels.dp_perturb import ops as dp_perturb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    libs = [ops.LIBRARY, dp_perturb_ops.LIBRARY, fa_ops.LIBRARY]
     t0 = time.perf_counter()
     built = build.build_all(libs)
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f}s "
@@ -502,7 +779,7 @@ def main() -> int:
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
 
     # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
-    # at the tree path's six leaves
+    # at the tree path's six leaves, flash_attention at the serve path's
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
@@ -513,6 +790,7 @@ def main() -> int:
                     path_rec = rec
                 torch.cuda.empty_cache()
     perturb_rec = dp_perturb_phase()
+    flash_rec = flash_phase()
 
     # 4. the flat path, counted
     from repro_torch.launch import train
@@ -546,9 +824,17 @@ def main() -> int:
     tree_cli()
     tree_round_cpu_vs_cuda()
 
-    # 6. profiles
+    # 6. serve: gemma-2b at full width, the CLI and the kernel path, counted
+    serve_cli()
+    cfg, params, batch = gemma_full()
+    flash_launches = serve_kernel_path(cfg, params, batch)
+    serve_cpu_vs_cuda()
+
+    # 7. profiles
     profile_rounds(store, flat=True)
     profile_rounds(store, flat=False)
+    profile_serve(cfg, params, batch)
+    del params
 
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",
@@ -567,7 +853,15 @@ def main() -> int:
         "ms": perturb_rec["ms"], "plain_ms": perturb_rec["plain_ms"],
         "bound_ms": perturb_rec["bound_ms"],
         "bound_by": perturb_rec["bound_by"],
-        "library_ms": perturb_rec["library_ms"]}]}), flush=True)
+        "library_ms": perturb_rec["library_ms"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": flash_launches,
+        "max_abs_err": flash_rec["max_abs_err"],
+        "ms": flash_rec["ms"], "plain_ms": flash_rec["plain_ms"],
+        "bound_ms": flash_rec["bound_ms"], "bound_by": flash_rec["bound_by"],
+        "library_ms": flash_rec["library_ms"]}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,21 +1,75 @@
-"""Model configuration: the fields of the reference's ``ModelConfig``
-(repro/configs/base.py) that the paper's MLP reads."""
+"""Model configuration, a copy of the reference's ``repro/configs/base.py``
+(data only: the port never imports the reference). ``ModelConfig``
+carries the fields of the reference's that the ported families (mlp,
+dense, vlm) read, with the reference's defaults, ``resolved_head_dim``
+and ``reduced()``, so a configuration means the same model in both
+packages. The MoE, SSM, hybrid and encoder-decoder fields come with the
+slices that port those families (ROADMAP A15)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
 class ModelConfig:
+    # -- identity ----------------------------------------------------------
     name: str
-    family: str                  # only "mlp" is ported
+    family: str  # mlp | dense | vlm are ported
     source: str = ""
-    num_layers: int = 2          # hidden layers
-    d_model: int = 256           # hidden width
-    vocab_size: int = 1024       # number of classes
+
+    # -- trunk dimensions ---------------------------------------------------
+    num_layers: int = 2
+    d_model: int = 256
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    d_ff: int = 1024
+    vocab_size: int = 1024
+    head_dim: Optional[int] = None  # default d_model // num_heads (gemma: 256)
+
+    # -- norm / mlp ---------------------------------------------------------
+    norm_type: str = "rmsnorm"  # rmsnorm | layernorm | nonparametric_ln
+    mlp_type: str = "swiglu"  # swiglu | geglu | gelu
+    tie_embeddings: bool = False
+    embed_scale: bool = False  # gemma: scale embeddings by sqrt(d_model)
+
+    # -- attention ----------------------------------------------------------
+    rope_theta: float = 10000.0
+    use_mrope: bool = False  # qwen2-vl M-RoPE
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)  # (t, h, w) per-half-dim split
+    qkv_bias: bool = False  # qwen2 / glm4
+    sliding_window: Optional[int] = None
+
+    # -- modality stub (vlm / audio): inputs are precomputed embeddings -------
+    embedding_inputs: bool = False
+
+    # -- numerics -------------------------------------------------------------
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
 
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+    def reduced(self, **kw) -> "ModelConfig":
+        """A smoke-test-sized variant of the same family (2 layers, d<=512)."""
+        small = dict(
+            num_layers=2,
+            d_model=min(self.d_model, 256),
+            num_heads=min(self.num_heads, 4),
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab_size=min(self.vocab_size, 512),
+            head_dim=64 if self.head_dim else None,
+        )
+        group = max(1, self.num_heads // max(1, self.num_kv_heads))
+        small["num_kv_heads"] = max(1, min(self.num_kv_heads, small["num_heads"],
+                                           max(1, small["num_heads"] // group)))
+        if self.sliding_window:
+            small.update(sliding_window=32)
+        small.update(kw)
+        return self.replace(**small)
+

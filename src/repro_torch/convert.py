@@ -1,4 +1,4 @@
-"""Parameters of the JAX reference -> the port's flat buffer and worker tree.
+"""Parameters of the JAX reference -> the port's trees.
 
 ``params_from_jax`` takes the reference's MLP parameters as numpy arrays,
 {"layers": [{"w": [in, out], "b": [out]}, ...]} for one worker or with a
@@ -39,3 +39,13 @@ def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
         torch.as_tensor(np.array(a), device=dev) for a in arrs])
     spec = FlatSpec(tensors, lead_axes=1)
     return spec.flatten(tensors), tensors, spec
+
+
+def lm_params_from_jax(tree, device="cuda"):
+    """The reference's LM parameters (nested dicts of arrays, as
+    ``np.asarray`` leaves) -> the port's tree of contiguous tensors on
+    ``device``, same keys, dtypes kept."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: lm_params_from_jax(v, dev) for k, v in tree.items()}
+    return torch.tensor(np.asarray(tree), device=dev)

@@ -1,1 +1,2 @@
-"""Models of the port: the paper's MLP classifier."""
+"""Models of the port: the paper's MLP classifier and the dense
+transformer of the dense and vlm LM families."""

@@ -1,5 +1,5 @@
-"""The CUDA kernels (dp_mix, dp_perturb) against their plain PyTorch
-versions on the card.
+"""The CUDA kernels (dp_mix, dp_perturb, flash_attention) against their
+plain PyTorch versions on the card.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. On a machine with a card and nvcc but no JAX
@@ -11,7 +11,10 @@ orders, so |kernel - plain| <= (N + 8) * 2^-23 * scale, scale = max|x| +
 bfloat16 step (2^-7 of its magnitude) further. dp_perturb: x within 1
 ULP (the plain version's fused multiply-add goes through float64 and may
 round twice), the noisy xt within 4 ULP of its noise term plus 2 ULP of
-itself, and a bfloat16 output one bfloat16 step further."""
+itself, and a bfloat16 output one bfloat16 step further. flash_attention:
+both compute in float32 and sum in other orders, so within 2e-5 (the
+reference's float32 tolerance for its kernel), a bfloat16 output one
+bfloat16 step further."""
 import pytest
 import torch
 
@@ -21,6 +24,8 @@ from repro_torch.kernels.dp_mix import ops
 from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
 from repro_torch.kernels.dp_perturb import ops as dp_ops
 from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -125,3 +130,67 @@ def test_sgd_update_counts_launches_and_reads_each_worker():
     torch.testing.assert_close(x, p - 0.5, rtol=0, atol=0)
     with pytest.raises(TypeError):
         dp_ops.sgd_update(p.double(), g.double(), 0.5)
+
+
+# tests/test_kernels.py::test_flash_attention_sweep's cases, then head_dim
+# 128 (olmo, glm4) and 256 (gemma) with ragged S and a window
+FLASH_CASES = [
+    (2, 256, 4, 2, 64, None),
+    (1, 256, 4, 1, 64, 96),
+    (2, 128, 2, 2, 32, None),
+    (1, 512, 8, 4, 64, None),
+    (2, 300, 4, 4, 128, None),
+    (1, 520, 8, 1, 256, None),
+    (1, 300, 8, 1, 256, 100),
+]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,win", FLASH_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_matches_plain(B, S, H, Hkv, hd, win, dtype):
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(S + hd)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dtype)
+               for n in (H, Hkv, Hkv))
+    before = fa_ops.flash_attention.launches
+    o = fa_ops.flash_attention(q, k, v, causal=True, sliding_window=win)
+    assert fa_ops.flash_attention.launches == before + 1
+    r = flash_attention_plain(q, k, v, causal=True, sliding_window=win)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    a, b = o.float(), r.float()
+    allowed = 2e-5 + 2e-5 * b.abs()
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+    assert bool(((a - b).abs() <= allowed).all())
+
+
+def test_prefill_with_use_pallas_launches_once_per_layer():
+    """A reduced gemma-2b prefill with use_pallas=True launches the kernel
+    once per layer and agrees with the CPU's (plain) prefill."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch("gemma-2b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_params(gen, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    want, _ = M.prefill(params, {"tokens": toks}, cfg, use_pallas=True)
+    _need_card()
+    dev = X.tree_map(lambda t: t.cuda(), params)
+    before = fa_ops.flash_attention.launches
+    got, cache = M.prefill(dev, {"tokens": toks.cuda()}, cfg, use_pallas=True)
+    assert fa_ops.flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_wrapper_refuses_on_the_card():
+    _need_card()
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_ops.flash_attention(z(1, 16, 4, 48), z(1, 16, 2, 48), z(1, 16, 2, 48))
+    with pytest.raises(ValueError, match="multiple"):
+        fa_ops.flash_attention(z(1, 16, 6, 64), z(1, 16, 4, 64), z(1, 16, 4, 64))
+    with pytest.raises(TypeError):
+        d = torch.float64
+        fa_ops.flash_attention(z(1, 16, 4, 64, dt=d), z(1, 16, 2, 64, dt=d),
+                               z(1, 16, 2, 64, dt=d))
