@@ -7,8 +7,8 @@ Phases, each fatal on failure (exit code 1, no result line):
 
 1. device  — the card's name, count, and nvidia-smi's name and power limit;
 2. build   — every CUDA kernel of the driven paths (dp_mix, dp_perturb,
-             flash_attention) built from this checkout's sources with nvcc
-             for sm_90a, all nvcc processes at once;
+             flash_attention, ssd_scan) built from this checkout's sources
+             with nvcc for sm_90a, all nvcc processes at once;
 3. kernels — each kernel held against its plain PyTorch version on the
              card at its path's shapes, with the tolerance stated below,
              then timed with CUDA events beside the plain version, the one
@@ -41,7 +41,18 @@ Phases, each fatal on failure (exit code 1, no result line):
 7. profile — the steady-state time of a full-width round of each training
              path, and under torch.profiler the device's busy share and
              the operators that take the device's and the host's time, for
-             those rounds and for one full-width prefill and decode step.
+             those rounds and for one full-width prefill and decode step;
+8. zamba2  — zamba2-7b at full width and depth (81 layers, 6,751,130,832
+             parameters, random from a seed; gemma-2b's freed first): the
+             serve CLI as the reference runs it (``--arch zamba2-7b
+             --full``, no kernel), then the serve driver with
+             ``use_pallas=True`` at batch 4, prompt 1024, gen 32: logits
+             finite, ssd_scan launched 81 times in the prefill (once per
+             Mamba2 layer), never in a decode step, flash_attention never;
+             the prefill's logits against those without the kernel, prefill
+             and decode tokens/s and peak device memory; a reduced zamba2
+             prefill and decode on the card against the same on the CPU;
+             the profile of one prefill and one decode step.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line, and {"ok": true, "device": {...}}.
@@ -83,6 +94,17 @@ TREE_ROUNDS = 11
 GEMMA_ATTN = (4, 1024, 8, 1, 256)
 OLMO_ATTN = (4, 1024, 16, 16, 128)
 GEMMA_PARAMS = 2_506_172_416
+# ssd_scan (B, S, H, P, N, chunk): zamba2-7b's prefill of 4 prompts of 1024
+# tokens, PERF.md's bound case, and the other checked cases: the
+# reference's sweep (tests/test_kernels.py), H < 8, S equal to the chunk
+# (zamba2-7b's heads; N = P = 128 at chunk 256)
+ZAMBA_SSD = (4, 1024, 112, 64, 64, 128)
+BOUND_SSD = (1, 4096, 64, 64, 128, 256)
+SSD_CASES = [(2, 128, 8, 16, 16, 32), (1, 256, 16, 32, 64, 64),
+             (2, 64, 8, 64, 64, 32), (2, 256, 4, 64, 64, 64),
+             (1, 64, 2, 32, 16, 64), (4, 128, 112, 64, 64, 128),
+             (2, 256, 8, 128, 128, 256)]
+ZAMBA_PARAMS = 6_751_130_832
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
 
 
@@ -584,58 +606,175 @@ def flash_phase() -> dict:
     return rec
 
 
-def gemma_full():
-    """gemma-2b at its published width, random parameters from seed 0 on
+def ssd_inputs(shape, dtype):
+    """Inputs of the SSD step at one shape, as the reference's sweep draws
+    them (tests/test_kernels.py::test_ssd_scan_sweep): x 0.5 N(0, 1), dt
+    softplus(N(0, 1)), A -exp(0.3 N(0, 1)), Bm and Cm 0.3 N(0, 1); dA = dt A."""
+    import torch
+    import torch.nn.functional as F
+    B, S, H, P, N, _ = shape
+    gen = torch.Generator(device="cuda").manual_seed(S + H + N)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = (0.5 * rnd(B, S, H, P)).to(dtype)
+    dt = F.softplus(rnd(B, S, H))
+    A = -torch.exp(0.3 * rnd(H))
+    Bm, Cm = ((0.3 * rnd(B, S, N)).to(dtype) for _ in range(2))
+    return x, dt, dt * A, Bm, Cm
+
+
+def ssd_work(shape, elem: int):
+    """(bytes, flops) that the SSD intra-chunk step needs at ``shape``.
+    Bytes: x, Bm, Cm, dt, dA read once, y, states, cdecay written once.
+    Operations, over the q (q + 1) / 2 causal pairs (i, j <= i) of each
+    chunk: the scores C_i . B_j once per chunk, as Bm and Cm are one group
+    shared by all heads (2N); per head the decay (subtract, exp, multiply:
+    3) and G @ (x dt) (2P); per row and head x dt (P), B exp(cs_last - cs)
+    dt (N + 3) and the states' product (2PN); per chunk and head
+    exp(cs_last). The kernel does more than this: it recomputes the scores
+    for each block of 8 heads and computes its diagonal tiles whole."""
+    B, S, H, P, N, q = shape
+    nc = S // q
+    pairs = q * (q + 1) // 2
+    flops = B * nc * (pairs * 2 * N
+                      + H * (pairs * (3 + 2 * P) + q * (P + N + 3 + 2 * P * N) + 1))
+    nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N)
+              + 4 * (2 * B * S * H + B * nc * H * P * N + B * nc * H))
+    return nbytes, flops
+
+
+def check_ssd(shape, dtype, timed: bool) -> dict:
+    """ssd_scan's kernel vs its plain version on the card at one shape
+    (B, S, H, P, N, chunk). Tolerance: the reference's own for its kernel,
+    rtol 1e-4 / atol 1e-5 (tests/test_kernels.py::test_ssd_scan_sweep), on
+    y_diag, the states and the chunk decays; a bfloat16 y may land one
+    bfloat16 step (2^-7 of its magnitude) further. Both take cs in the
+    reference's float32 order and differ in the order of the products'
+    sums. Timed: the kernel by CUDA events, beside the plain version and
+    the bound of ssd_work over 3.35 TB/s and 67 TFLOP/s; no single PyTorch
+    call computes this function (library_ms null)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_plain
+    chunk = shape[-1]
+    x, dt, dA, Bm, Cm = ssd_inputs(shape, dtype)
+    kernel = lambda: ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=chunk)
+    plain = lambda: ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    bad, errs = 0, {}
+    for name, a, b in zip(("y", "states", "cdecay"), got, want):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            fail(f"ssd_scan {shape}: {name} {tuple(a.shape)} {a.dtype} vs plain "
+                 f"{tuple(b.shape)} {b.dtype}")
+        a, b = a.float(), b.float()
+        if not torch.isfinite(a).all():
+            fail(f"ssd_scan {shape} {dtype}: non-finite {name}")
+        allowed = 1e-5 + 1e-4 * b.abs()
+        if name == "y" and dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+        err = (a - b).abs()
+        bad += int((err > allowed).sum())
+        errs[name] = float(err.max())
+    rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": max(errs.values()), "errs": errs,
+           "y_scale": float(want[0].float().abs().max()),
+           "tol": "1e-5 + 1e-4 |plain|" + (" + 1 bf16 step on y"
+                                          if dtype == torch.bfloat16 else ""),
+           "violations": bad}
+    if timed:
+        nbytes, flops = ssd_work(shape, x.element_size())
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rec["ms"] = cuda_ms(kernel, iters=20)
+        rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
+        rec["library_ms"] = None
+        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bytes"], rec["flops"] = nbytes, flops
+    print(f"[kernels] ssd_scan {json.dumps(rec)}", flush=True)
+    if bad:
+        fail(f"ssd_scan {shape} {rec['dtype']}: {bad} elements beyond "
+             f"tolerance (max err {rec['max_abs_err']:.3g})")
+    del got, want, x, dt, dA, Bm, Cm
+    torch.cuda.empty_cache()
+    return rec
+
+
+def ssd_phase() -> dict:
+    """zamba2-7b's prefill shape in float32 (timed) and bfloat16, S equal to
+    the chunk at zamba2's heads, PERF.md's bound case (chunk 256, N 128;
+    timed), the reference's sweep shapes, H < 8, and N = P = 128 at chunk
+    256 in one chunk, each in float32 and bfloat16; returns zamba2-7b's
+    float32 record, whose bound is checked against the count written in
+    PERF.md: 7.73 GFLOP at 67 TFLOP/s, 0.1153 ms, operations-bound."""
+    import torch
+    rec = check_ssd(ZAMBA_SSD, torch.float32, timed=True)
+    if rec["bound_by"] != "operations" or abs(rec["bound_ms"] - 0.1153) > 0.001:
+        fail(f"ssd_scan bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+             f"expected 0.1153 ms (operations)")
+    check_ssd(ZAMBA_SSD, torch.bfloat16, timed=True)
+    check_ssd(BOUND_SSD, torch.float32, timed=True)
+    for shape in SSD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            check_ssd(shape, dtype, timed=False)
+    return rec
+
+
+def full_model(arch: str, n_params: int):
+    """An arch at its published width, random parameters from seed 0 on
     the card, and a batch of 4 prompts of 1024 tokens."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    cfg = get_arch("gemma-2b")
+    cfg = get_arch(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = M.init_params(gen, cfg, "cuda")
     n = M.count_params(params)
-    if n != GEMMA_PARAMS:
-        fail(f"gemma-2b has {n} parameters, expected {GEMMA_PARAMS}")
+    if n != n_params:
+        fail(f"{arch} has {n} parameters, expected {n_params}")
+    print(f"[serve] {arch}: {n} parameters", flush=True)
     batch = serve.build_prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, "cuda")
     return cfg, params, batch
 
 
-def serve_cli() -> None:
-    """The reference's serve run at full width: --arch gemma-2b --full with
-    its defaults (batch 4, prompt 64, gen 32); the CLI leaves use_pallas
-    off, so flash_attention launches no time."""
+def serve_cli(arch: str, kernel) -> None:
+    """The reference's serve run at full width: --arch ARCH --full with its
+    defaults (batch 4, prompt 64, gen 32); the CLI leaves use_pallas off,
+    so ``kernel`` (the arch's kernel wrapper) launches no time."""
     import torch
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import serve
-    ops.flash_attention.launches = 0
-    res = serve.run(["--arch", "gemma-2b", "--full", "--device", "cuda"])
-    launches = ops.flash_attention.launches
-    print(f"[serve] cli --full: prefill {res['prefill_s'] * 1e3:.1f} ms, decode "
-          f"31 steps {res['decode_s'] * 1e3:.1f} ms; flash launches {launches}",
-          flush=True)
+    kernel.launches = 0
+    res = serve.run(["--arch", arch, "--full", "--device", "cuda"])
+    launches = kernel.launches
+    print(f"[serve] cli {arch} --full: prefill {res['prefill_s'] * 1e3:.1f} ms, "
+          f"decode 31 steps {res['decode_s'] * 1e3:.1f} ms; {kernel.__name__} "
+          f"launches {launches}", flush=True)
     if launches or not torch.isfinite(res["logits"]).all():
-        fail(f"serve cli: {launches} flash launches, finite logits "
-             f"{bool(torch.isfinite(res['logits']).all())}")
+        fail(f"serve cli {arch}: {launches} {kernel.__name__} launches, finite "
+             f"logits {bool(torch.isfinite(res['logits']).all())}")
     del res
     torch.cuda.empty_cache()
 
 
-def serve_kernel_path(cfg, params, batch) -> int:
-    """The serve driver with use_pallas=True at full width, counted: 18
-    launches in the prefill and none in a decode step. Its prefill logits
-    against a prefill without the kernel: |with - without| <= 1e-3 max
-    |without| (18 layers of float32 attention summed in other orders;
-    one layer's outputs agree to ~1e-6 relative). Returns the launches."""
+def serve_kernel_path(cfg, params, batch, kernel, others=()) -> int:
+    """The serve driver with use_pallas=True at full width, counted:
+    ``kernel`` launched once per layer that calls it in the prefill
+    (cfg.num_layers: gemma-2b's attention layers, zamba2-7b's Mamba2
+    layers) and never in a decode step; the wrappers in ``others`` never.
+    Its prefill logits against a prefill without the kernel: |with -
+    without| <= 1e-3 max |without| (every layer's float32 sums taken in
+    other orders; one layer's outputs agree to ~1e-6 relative). Returns
+    the launches."""
     import torch
-    from repro_torch.kernels.flash_attention import ops
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     torch.cuda.reset_peak_memory_stats()
-    ops.flash_attention.launches = 0
+    held = torch.cuda.memory_allocated()
+    for k in (kernel, *others):
+        k.launches = 0
     res = serve.serve(cfg, params, batch, SERVE_GEN, use_pallas=True,
                       device="cuda")
-    launches = ops.flash_attention.launches
+    launches = kernel.launches
     peak = torch.cuda.max_memory_allocated()
     B, S, G = SERVE_BATCH, SERVE_PROMPT, SERVE_GEN
     rec = {"arch": cfg.name, "params": M.count_params(params), "batch": B,
@@ -643,13 +782,18 @@ def serve_kernel_path(cfg, params, batch) -> int:
            "prefill_tok_s": B * S / res["prefill_s"],
            "decode_ms": 1e3 * res["decode_s"],
            "decode_tok_s": B * (G - 1) / res["decode_s"],
-           "flash_launches": launches, "peak_mib": peak / 2 ** 20}
+           "kernel": kernel.__name__, "launches": launches,
+           "other_launches": {k.__name__: k.launches for k in others},
+           "peak_mib": peak / 2 ** 20, "held_mib": held / 2 ** 20}
     if launches != cfg.num_layers:
-        fail(f"serve: flash_attention launched {launches} times in one "
-             f"prefill and {G - 1} decode steps, expected {cfg.num_layers}")
+        fail(f"serve {cfg.name}: {kernel.__name__} launched {launches} times "
+             f"in one prefill and {G - 1} decode steps, expected "
+             f"{cfg.num_layers}")
+    if any(rec["other_launches"].values()):
+        fail(f"serve {cfg.name}: launches of {rec['other_launches']}")
     if not (torch.isfinite(res["prefill_logits"]).all()
             and torch.isfinite(res["logits"]).all()):
-        fail("serve: non-finite logits")
+        fail(f"serve {cfg.name}: non-finite logits")
     plain_logits, pf = M.prefill(params, batch, cfg, use_pallas=False)
     scale = float(plain_logits.abs().max())
     err = float((res["prefill_logits"] - plain_logits).abs().max())
@@ -658,32 +802,32 @@ def serve_kernel_path(cfg, params, batch) -> int:
     del res, plain_logits
     # a decode step alone launches nothing
     cache = serve.splice_cache(M.init_cache(cfg, B, S + 1, "cuda"), pf)
-    ops.flash_attention.launches = 0
+    kernel.launches = 0
     M.decode_step(params, {"tokens": batch["tokens"][:, :1]}, cache, S, cfg)
-    rec["decode_step_launches"] = ops.flash_attention.launches
+    rec["decode_step_launches"] = kernel.launches
     del cache, pf
     print(f"[serve] {json.dumps(rec)}", flush=True)
     if rec["decode_step_launches"]:
-        fail(f"serve: a decode step launched flash_attention "
+        fail(f"serve {cfg.name}: a decode step launched {kernel.__name__} "
              f"{rec['decode_step_launches']} times")
     if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
-        fail(f"serve: prefill logits with and without the kernel differ by "
-             f"{err:.3g} (scale {scale:.3g})")
+        fail(f"serve {cfg.name}: prefill logits with and without the kernel "
+             f"differ by {err:.3g} (scale {scale:.3g})")
     torch.cuda.empty_cache()
     return launches
 
 
-def serve_cpu_vs_cuda() -> float:
-    """A reduced gemma-2b prefill (use_pallas=True) and decode on the card
-    against the same on the CPU from the same parameters and prompts: the
-    CPU run takes the plain versions the tests hold against the JAX
+def serve_cpu_vs_cuda(arch: str) -> float:
+    """A reduced prefill (use_pallas=True) and decode of ``arch`` on the
+    card against the same on the CPU from the same parameters and prompts:
+    the CPU run takes the plain versions the tests hold against the JAX
     reference. Tolerance 1e-4 of the largest logit (two float32 layers)."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.core import exchange as X
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    cfg = get_arch("gemma-2b").reduced()
+    cfg = get_arch(arch).reduced()
     gen = torch.Generator().manual_seed(7)
     params = M.init_params(gen, cfg, "cpu")
     batch = serve.build_prompt_batch(cfg, 4, 64, gen, "cpu")
@@ -696,10 +840,10 @@ def serve_cpu_vs_cuda() -> float:
     scale = float(outs["cpu"][0].abs().max())
     err = max(float((a - b).abs().max()) for a, b in zip(outs["cuda"], outs["cpu"]))
     tol = 1e-4 * max(1.0, scale)
-    print(f"[serve] reduced gemma-2b cuda vs cpu: max_abs_err={err:.3g} "
+    print(f"[serve] reduced {arch} cuda vs cpu: max_abs_err={err:.3g} "
           f"(tol {tol:.3g})", flush=True)
     if not math.isfinite(err) or err > tol:
-        fail(f"reduced serve: cuda and cpu differ by {err:.3g} > {tol:.3g}")
+        fail(f"reduced {arch} serve: cuda and cpu differ by {err:.3g} > {tol:.3g}")
     return err
 
 
@@ -733,7 +877,7 @@ def profile_serve(cfg, params, batch) -> list:
         del out
         stats = prof.key_averages()
         busy_us = device_us(stats)
-        rec = {"path": name, "wall_ms": wall_us / 1e3,
+        rec = {"path": f"{cfg.name} {name}", "wall_ms": wall_us / 1e3,
                "device_busy_share": (busy_us / wall_us if busy_us > 0
                                      else "not measured"),
                "top_device_us": [(e.key, self_device_us(e)) for e in
@@ -768,7 +912,9 @@ def main() -> int:
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.kernels.dp_perturb import ops as dp_perturb_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    libs = [ops.LIBRARY, dp_perturb_ops.LIBRARY, fa_ops.LIBRARY]
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    libs = [ops.LIBRARY, dp_perturb_ops.LIBRARY, fa_ops.LIBRARY,
+            ssd_ops.LIBRARY]
     t0 = time.perf_counter()
     built = build.build_all(libs)
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f}s "
@@ -779,7 +925,8 @@ def main() -> int:
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
 
     # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
-    # at the tree path's six leaves, flash_attention at the serve path's
+    # at the tree path's six leaves, flash_attention and ssd_scan at the
+    # serve paths' shapes
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
@@ -791,6 +938,7 @@ def main() -> int:
                 torch.cuda.empty_cache()
     perturb_rec = dp_perturb_phase()
     flash_rec = flash_phase()
+    ssd_rec = ssd_phase()
 
     # 4. the flat path, counted
     from repro_torch.launch import train
@@ -825,16 +973,31 @@ def main() -> int:
     tree_round_cpu_vs_cuda()
 
     # 6. serve: gemma-2b at full width, the CLI and the kernel path, counted
-    serve_cli()
-    cfg, params, batch = gemma_full()
-    flash_launches = serve_kernel_path(cfg, params, batch)
-    serve_cpu_vs_cuda()
+    serve_cli("gemma-2b", fa_ops.flash_attention)
+    cfg, params, batch = full_model("gemma-2b", GEMMA_PARAMS)
+    flash_launches = serve_kernel_path(cfg, params, batch,
+                                       fa_ops.flash_attention)
+    serve_cpu_vs_cuda("gemma-2b")
 
     # 7. profiles
     profile_rounds(store, flat=True)
     profile_rounds(store, flat=False)
     profile_serve(cfg, params, batch)
-    del params
+    del params, batch
+    torch.cuda.empty_cache()
+
+    # 8. serve: zamba2-7b at full width and depth, the CLI and the kernel
+    # path (ssd_scan once per Mamba2 layer; the shared attention block is
+    # called without use_pallas, so flash_attention never), counted
+    serve_cli("zamba2-7b", ssd_ops.ssd_intra_chunk)
+    cfg, params, batch = full_model("zamba2-7b", ZAMBA_PARAMS)
+    ssd_launches = serve_kernel_path(cfg, params, batch,
+                                     ssd_ops.ssd_intra_chunk,
+                                     others=(fa_ops.flash_attention,))
+    serve_cpu_vs_cuda("zamba2-7b")
+    profile_serve(cfg, params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
 
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",
@@ -861,7 +1024,15 @@ def main() -> int:
         "max_abs_err": flash_rec["max_abs_err"],
         "ms": flash_rec["ms"], "plain_ms": flash_rec["plain_ms"],
         "bound_ms": flash_rec["bound_ms"], "bound_by": flash_rec["bound_by"],
-        "library_ms": flash_rec["library_ms"]}]}), flush=True)
+        "library_ms": flash_rec["library_ms"]}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:26",
+        "launches": ssd_launches,
+        "max_abs_err": ssd_rec["max_abs_err"],
+        "ms": ssd_rec["ms"], "plain_ms": ssd_rec["plain_ms"],
+        "bound_ms": ssd_rec["bound_ms"], "bound_by": ssd_rec["bound_by"],
+        "library_ms": None}]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)

@@ -1,10 +1,11 @@
 """Model configuration, a copy of the reference's ``repro/configs/base.py``
 (data only: the port never imports the reference). ``ModelConfig``
 carries the fields of the reference's that the ported families (mlp,
-dense, vlm) read, with the reference's defaults, ``resolved_head_dim``
-and ``reduced()``, so a configuration means the same model in both
-packages. The MoE, SSM, hybrid and encoder-decoder fields come with the
-slices that port those families (ROADMAP A15)."""
+dense, vlm, hybrid) read, with the reference's defaults,
+``resolved_head_dim``, ``is_subquadratic`` and ``reduced()``, so a
+configuration means the same model in both packages. The MoE, xLSTM and
+encoder-decoder fields come with the slices that port those families
+(ROADMAP A15)."""
 from __future__ import annotations
 
 import dataclasses
@@ -16,7 +17,7 @@ from typing import Optional, Tuple
 class ModelConfig:
     # -- identity ----------------------------------------------------------
     name: str
-    family: str  # mlp | dense | vlm are ported
+    family: str  # mlp | dense | vlm | hybrid are ported
     source: str = ""
 
     # -- trunk dimensions ---------------------------------------------------
@@ -41,6 +42,16 @@ class ModelConfig:
     qkv_bias: bool = False  # qwen2 / glm4
     sliding_window: Optional[int] = None
 
+    # -- SSM (mamba2) ---------------------------------------------------------
+    ssm_state: int = 0  # N, state dim per head
+    ssm_heads: int = 0  # number of SSM heads (defaults derived)
+    ssm_expand: int = 2
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128  # chunk length for the SSD scan
+
+    # -- hybrid (zamba2) ------------------------------------------------------
+    shared_attn_every: int = 0  # apply the shared attention block every k SSM layers
+
     # -- modality stub (vlm / audio): inputs are precomputed embeddings -------
     embedding_inputs: bool = False
 
@@ -51,6 +62,13 @@ class ModelConfig:
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def is_subquadratic(self) -> bool:
+        """Can this config serve a 500k-token context (O(S) state, no dense KV)?"""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window is not None
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -68,6 +86,10 @@ class ModelConfig:
         group = max(1, self.num_heads // max(1, self.num_kv_heads))
         small["num_kv_heads"] = max(1, min(self.num_kv_heads, small["num_heads"],
                                            max(1, small["num_heads"] // group)))
+        if self.ssm_state:
+            small.update(ssm_state=16, ssm_heads=0, ssm_chunk=32)
+        if self.shared_attn_every:
+            small.update(shared_attn_every=2)
         if self.sliding_window:
             small.update(sliding_window=32)
         small.update(kw)

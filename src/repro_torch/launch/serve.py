@@ -2,11 +2,12 @@
 greedily (the reference's ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch gemma-2b --full
-    python -m repro_torch.launch.serve --device cpu --arch olmo-1b
+    python -m repro_torch.launch.serve --device cpu --arch zamba2-7b
 
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch versions. As in the reference, the CLI leaves
-``use_pallas`` off: the flash-attention kernel's path is the library call
+``use_pallas`` off: the kernels' path (flash_attention in the dense
+transformer, ssd_scan in zamba2's Mamba2 blocks) is the library call
 ``model.prefill(params, batch, cfg, use_pallas=True)``, which
 ``serve(..., use_pallas=True)`` takes. The weights are random, drawn from
 ``--seed``.
@@ -37,7 +38,13 @@ def build_prompt_batch(cfg, B: int, S: int, generator: torch.Generator,
 
 def splice_cache(full, prefill):
     """Copy the prefill's k/v into the (longer) serving cache, in place;
-    returns the serving cache. The two trees must have the same keys."""
+    returns the serving cache. The two trees must have the same keys; a
+    None leaf (zamba2's absent trailing layers) stays None, and a leaf of
+    the same shape (an SSM state or conv history) is replaced."""
+    if full is None or prefill is None:
+        if full is not None or prefill is not None:
+            raise ValueError("cache trees differ: one leaf is None")
+        return None
     if isinstance(full, dict):
         if full.keys() != prefill.keys():
             raise ValueError(f"cache keys differ: {sorted(full)} vs "

@@ -7,9 +7,10 @@ the ported families.
     logits, cache   = decode_step(params, batch, cache, idx, cfg)
     cache           = init_cache(cfg, batch_size, max_len, device)
 
-Ported: the MLP classifier (family "mlp") and the dense transformer
-(families "dense" and "vlm"). The other families raise, naming the
-ROADMAP item that ports them. Batches are dicts: "x"/"y" for the
+Ported: the MLP classifier (family "mlp"), the dense transformer
+(families "dense" and "vlm") and the Mamba2 + shared-attention hybrid
+(family "hybrid", zamba2). The other families raise, naming the ROADMAP
+item that ports them. Batches are dicts: "x"/"y" for the
 classifier, "tokens" [B, S] or "embeds" [B, S, d] for the LMs.
 The classifier's losses reduce over the batch axis only, so
 worker-stacked parameters give one loss per worker.
@@ -19,11 +20,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import mlp, transformer
+from repro_torch.models import hybrid, mlp, ssm, transformer
 from repro_torch.runtime import resolve_device
 
-_NOT_PORTED = {"moe": "A15 (moe)", "hybrid": "A15 (hybrid + ssm)",
-               "ssm": "A15 (ssm / xlstm)", "audio": "A15 (encdec)"}
+_NOT_PORTED = {"moe": "A15 (moe)", "ssm": "A15 (ssm / xlstm)",
+               "audio": "A15 (encdec)"}
 
 
 def _module(cfg: ModelConfig):
@@ -31,6 +32,8 @@ def _module(cfg: ModelConfig):
         return mlp
     if cfg.family in ("dense", "vlm"):
         return transformer
+    if cfg.family == "hybrid":
+        return hybrid
     raise NotImplementedError(
         f"model family {cfg.family!r} is not ported yet "
         f"(ROADMAP {_NOT_PORTED.get(cfg.family, 'A15')})")
@@ -121,12 +124,35 @@ def _attn_cache(cfg: ModelConfig, B: int, max_len: int, dtype, device,
     return cache
 
 
+def _ssm_cache(cfg: ModelConfig, B: int, dtype, device, stack=()):
+    d_inner, H, P, N = ssm.dims(cfg)
+    conv_dim = d_inner + 2 * N
+    return {
+        "conv": torch.zeros(stack + (B, cfg.ssm_conv_width - 1, conv_dim),
+                            dtype=dtype, device=device),
+        "state": torch.zeros(stack + (B, H, P, N), dtype=torch.float32,
+                             device=device),
+    }
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device="cuda"):
-    """The decode cache of the dense/vlm families: stacked [L, B, max_len,
-    Hkv, hd] k and v, or [L, B, window, Hkv, hd] ring buffers with their
-    [L, window] positions when a sliding window is shorter than max_len."""
+    """The decode cache. Dense/vlm: stacked [L, B, max_len, Hkv, hd] k and
+    v, or [L, B, window, Hkv, hd] ring buffers with their [L, window]
+    positions when a sliding window is shorter than max_len. Hybrid:
+    {"mamba": conv [n_super, k, B, W-1, D] and float32 state [n_super, k,
+    B, H, P, N], "attn": the shared block's k/v per application [n_super,
+    ...], "mamba_rem": the trailing layers' [n_rem, ...], or None}."""
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.compute_dtype)
-    if _module(cfg) is not transformer:
+    module = _module(cfg)
+    if module is hybrid:
+        k, n_super, n_rem = hybrid.split_layers(cfg)
+        return {
+            "mamba": _ssm_cache(cfg, B, dtype, dev, stack=(n_super, k)),
+            "attn": _attn_cache(cfg, B, max_len, dtype, dev, stack=(n_super,)),
+            "mamba_rem": (_ssm_cache(cfg, B, dtype, dev, stack=(n_rem,))
+                          if n_rem else None),
+        }
+    if module is not transformer:
         raise ValueError(f"{cfg.name} is a classifier: it has no cache")
     return _attn_cache(cfg, B, max_len, dtype, dev, stack=(cfg.num_layers,))

@@ -1,5 +1,5 @@
-"""The CUDA kernels (dp_mix, dp_perturb, flash_attention) against their
-plain PyTorch versions on the card.
+"""The CUDA kernels (dp_mix, dp_perturb, flash_attention, ssd_scan) against
+their plain PyTorch versions on the card.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. On a machine with a card and nvcc but no JAX
@@ -14,6 +14,9 @@ round twice), the noisy xt within 4 ULP of its noise term plus 2 ULP of
 itself, and a bfloat16 output one bfloat16 step further. flash_attention:
 both compute in float32 and sum in other orders, so within 2e-5 (the
 reference's float32 tolerance for its kernel), a bfloat16 output one
+bfloat16 step further. ssd_scan: rtol 1e-4 / atol 1e-5 on y, the states
+and the decays (the reference's tolerance for its kernel against its
+oracle; both take cs in the reference's float32 order), a bfloat16 y one
 bfloat16 step further."""
 import pytest
 import torch
@@ -26,6 +29,8 @@ from repro_torch.kernels.dp_perturb import ops as dp_ops
 from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -194,3 +199,129 @@ def test_flash_wrapper_refuses_on_the_card():
         d = torch.float64
         fa_ops.flash_attention(z(1, 16, 4, 64, dt=d), z(1, 16, 2, 64, dt=d),
                                z(1, 16, 2, 64, dt=d))
+
+
+# ssd_scan (B, S, H, P, N, chunk): the reference's sweep, H < 8, S equal to
+# the chunk, chunk 256 with N = P = 128, and zamba2-7b's heads
+SSD_CASES = [
+    (2, 128, 8, 16, 16, 32),
+    (1, 256, 16, 32, 64, 64),
+    (2, 64, 8, 64, 64, 32),
+    (2, 192, 4, 64, 64, 64),
+    (1, 96, 1, 48, 24, 96),
+    (1, 512, 8, 128, 128, 256),
+    (2, 256, 112, 64, 64, 128),
+]
+
+
+def _ssd_inputs(B, S, H, P, N, dtype, dt_scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(S + H + N)
+    rnd = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = (0.5 * rnd(B, S, H, P)).to(dtype)
+    dt = torch.nn.functional.softplus(rnd(B, S, H)) * dt_scale
+    A = -torch.exp(0.3 * rnd(H))
+    Bm, Cm = ((0.3 * rnd(B, S, N)).to(dtype) for _ in range(2))
+    return x, dt, dt * A, Bm, Cm
+
+
+def _ssd_close(got, want, bf16):
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        a, b = a.float(), b.float()
+        assert bool(torch.isfinite(a).all())
+        allowed = 1e-5 + 1e-4 * b.abs()
+        if i == 0 and bf16:
+            allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+        assert bool(((a - b).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize("B,S,H,P,N,chunk", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_kernel_matches_plain(B, S, H, P, N, chunk, dtype):
+    _need_card()
+    x, dt, dA, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype)
+    before = ssd_ops.ssd_intra_chunk.launches
+    got = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=chunk)
+    assert ssd_ops.ssd_intra_chunk.launches == before + 1
+    want = ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, dtype == torch.bfloat16)
+
+
+def test_ssd_kernel_takes_any_batch():
+    """B past 65,535 (a grid dimension's limit): the kernel's flat grid
+    covers every batch row."""
+    _need_card()
+    x, dt, dA, Bm, Cm = _ssd_inputs(70_000, 4, 2, 16, 16, torch.float32)
+    got = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=2)
+    want = ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=2)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, False)
+
+
+def test_ssd_kernel_masks_before_the_exp():
+    """A fast decay (|dA| up to ~200 a step): above the diagonal cs_i - cs_j
+    overflows exp; the kernel's outputs stay finite and equal the plain
+    version's."""
+    _need_card()
+    x, dt, dA, Bm, Cm = _ssd_inputs(1, 256, 8, 64, 64, torch.float32, dt_scale=40.0)
+    got = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=128)
+    want = ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=128)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, False)
+
+
+def test_ssd_kernel_reads_the_models_strided_views():
+    """x, Bm and Cm as the Mamba2 block hands them over: views into one
+    [B, S, d_inner + 2N] conv output, read through their strides."""
+    _need_card()
+    B, S, H, P, N = 2, 128, 8, 64, 32
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    xBC = 0.4 * torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda")
+    x = xBC[..., :H * P].reshape(B, S, H, P)
+    Bm, Cm = xBC[..., H * P:H * P + N], xBC[..., H * P + N:]
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=gen, device="cuda"))
+    dA = dt * -1.5
+    got = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=64)
+    want = ssd_intra_chunk_plain(x.contiguous(), dt, dA, Bm.contiguous(),
+                                 Cm.contiguous(), chunk=64)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, False)
+
+
+def test_hybrid_prefill_launches_once_per_mamba_layer():
+    """A reduced zamba2 (n_super 2, n_rem 1) prefill with use_pallas=True
+    launches ssd_scan once per Mamba2 layer and flash_attention never, and
+    agrees with the CPU's (plain) prefill."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    cfg = get_arch("zamba2-7b").reduced(num_layers=5)
+    gen = torch.Generator().manual_seed(0)
+    params = M.init_params(gen, cfg, "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    want, _ = M.prefill(params, {"tokens": toks}, cfg, use_pallas=True)
+    _need_card()
+    dev = X.tree_map(lambda t: t.cuda(), params)
+    before = ssd_ops.ssd_intra_chunk.launches
+    flash_before = fa_ops.flash_attention.launches
+    got, cache = M.prefill(dev, {"tokens": toks.cuda()}, cfg, use_pallas=True)
+    assert ssd_ops.ssd_intra_chunk.launches == before + cfg.num_layers
+    assert fa_ops.flash_attention.launches == flash_before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_ssd_wrapper_refuses_on_the_card():
+    _need_card()
+    z = lambda *s, dt=torch.float32: torch.zeros(s, dtype=dt, device="cuda")
+    with pytest.raises(ValueError, match="chunk 512 outside"):
+        ssd_ops.ssd_intra_chunk(z(1, 512, 8, 64), z(1, 512, 8), z(1, 512, 8),
+                                z(1, 512, 16), z(1, 512, 16), chunk=512)
+    with pytest.raises(ValueError, match="N = 160"):
+        ssd_ops.ssd_intra_chunk(z(1, 64, 8, 64), z(1, 64, 8), z(1, 64, 8),
+                                z(1, 64, 160), z(1, 64, 160), chunk=64)
+    with pytest.raises(ValueError, match="H = 12"):
+        ssd_ops.ssd_intra_chunk(z(1, 64, 12, 64), z(1, 64, 12), z(1, 64, 12),
+                                z(1, 64, 16), z(1, 64, 16), chunk=64)
+    with pytest.raises(ValueError, match="not a multiple of the chunk"):
+        ssd_ops.ssd_scan(z(1, 96, 8, 64), z(1, 96, 8), z(8), z(1, 96, 16),
+                         z(1, 96, 16), chunk=64)

@@ -212,7 +212,7 @@ def test_serve_driver_returns_its_tokens_and_times():
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
 
 
-@pytest.mark.parametrize("arch,item", [("zamba2-7b", "A15"), ("whisper-medium", "A15")])
+@pytest.mark.parametrize("arch,item", [("xlstm-1.3b", "A15"), ("whisper-medium", "A15")])
 def test_unported_arch_exits_naming_its_item(arch, item):
     with pytest.raises(SystemExit, match=item):
         serve.run(["--device", "cpu", "--arch", arch])
@@ -236,9 +236,14 @@ def test_registry_copies_the_reference_configs():
                   "vocab_size", "head_dim", "norm_type", "mlp_type",
                   "tie_embeddings", "embed_scale", "rope_theta", "use_mrope",
                   "mrope_sections", "qkv_bias", "sliding_window", "family",
-                  "embedding_inputs", "param_dtype", "compute_dtype"):
+                  "embedding_inputs", "param_dtype", "compute_dtype",
+                  "ssm_state", "ssm_heads", "ssm_expand", "ssm_conv_width",
+                  "ssm_chunk", "shared_attn_every", "is_subquadratic"):
             assert getattr(cfg, f) == getattr(ref, f), (name, f)
+            assert getattr(cfg.reduced(), f) == getattr(ref.reduced(), f), (name, f)
         assert cfg.reduced().resolved_head_dim == ref.reduced().resolved_head_dim
         assert cfg.reduced().num_kv_heads == ref.reduced().num_kv_heads
-    assert get_arch("gemma-2b", "long_500k").sliding_window == \
-        ref_get("gemma-2b", "long_500k").sliding_window == 4096
+    for arch in ("gemma-2b", "zamba2-7b"):
+        assert get_arch(arch, "long_500k").sliding_window == \
+            ref_get(arch, "long_500k").sliding_window == 4096
+        assert get_arch(arch, "long_500k").name == ref_get(arch, "long_500k").name
