@@ -24,10 +24,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              ProtocolConfig(scheme=..., use_pallas=True))`` through the
              trajectory body at full width for each of dwfl, gossip,
              orthogonal and centralized, 11 rounds each; every loss and
-             parameter finite and dp_perturb's sgd_update launched six
-             times per round (once per leaf); the CLI's worker-tree run
-             with and without --no-scan; one small tree round on the card
-             against the same round on the CPU with the same normals;
+             parameter finite and dp_perturb's sgd_update_leaves launched
+             once per round (all six leaves in one launch); the CLI's
+             worker-tree run with and without --no-scan; one small tree
+             round on the card against the same round on the CPU with the
+             same normals;
 6. serve   — gemma-2b at full width (2,506,172,416 parameters, random
              from a seed): the serve CLI as the reference runs it
              (``--arch gemma-2b --full``: batch 4, prompt 64, gen 32, no
@@ -36,12 +37,19 @@ Phases, each fatal on failure (exit code 1, no result line):
              launched 18 times in the prefill (once per layer) and never
              in a decode step, the prefill's logits against those without
              the kernel, prefill and decode tokens/s and peak device
+             memory; then the same parameters cast to bfloat16 (about 5.0
+             GB) with ``param_dtype`` and ``compute_dtype`` bfloat16, as
+             the reference's pod dry-run sets them, served the same way:
+             18 launches of the bfloat16 (tensor-core) flash kernel in the
+             prefill, none per decode step, the logits against the
+             bfloat16 prefill without the kernel, tokens/s and peak
              memory; one reduced gemma-2b prefill and decode on the card
              against the same on the CPU;
 7. profile — the steady-state time of a full-width round of each training
              path, and under torch.profiler the device's busy share and
              the operators that take the device's and the host's time, for
-             those rounds and for one full-width prefill and decode step;
+             those rounds and for one full-width prefill and decode step,
+             in float32 and in bfloat16;
 8. zamba2  — zamba2-7b at full width and depth (81 layers, 6,751,130,832
              parameters, random from a seed; gemma-2b's freed first): the
              serve CLI as the reference runs it (``--arch zamba2-7b
@@ -59,6 +67,7 @@ the nvidia-smi line, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -72,6 +81,7 @@ SRC = ROOT / "src"
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
 # float operations of one counter-hash normal in csrc/noise.cuh (both
 # log1p branches and the polynomial, counting an FMA as 2), and of the
 # rest of the round per element (x, n/c, z, self-correction, AWGN, out)
@@ -94,6 +104,16 @@ TREE_ROUNDS = 11
 GEMMA_ATTN = (4, 1024, 8, 1, 256)
 OLMO_ATTN = (4, 1024, 16, 16, 128)
 GEMMA_PARAMS = 2_506_172_416
+BF16 = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+# the bfloat16 serve's logits with the kernel against those without, as a
+# share of their scale: 2^-5, four bfloat16 steps. bfloat16 keeps 8
+# significant bits and the two prefills round at other places in each of
+# the 18 layers (without the kernel the scores and the probabilities are
+# rounded to bfloat16; the kernel keeps them in float32), and the residual
+# stream carries each layer's difference on; on the CPU two reduced layers
+# differ by up to 2^-6 of the scale (tests/test_torch_bf16_serve.py), and
+# at full width, with the CUDA-core kernel, 0.113 at a scale of 14.1 (2^-7).
+BF16_SERVE_TOL = 2.0 ** -5
 # ssd_scan (B, S, H, P, N, chunk): zamba2-7b's prefill of 4 prompts of 1024
 # tokens, PERF.md's bound case, and the other checked cases: the
 # reference's sweep (tests/test_kernels.py), H < 8, S equal to the chunk
@@ -124,6 +144,20 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
+def sass_count(lib, opcode: str) -> int:
+    """Lines of a built library's SASS that hold ``opcode`` (cuobjdump,
+    beside nvcc in the toolkit)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
+    try:
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        fail(f"cuobjdump -sass {lib.path.name}: {e}")
+    return sum(opcode in line for line in sass.splitlines())
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
@@ -136,6 +170,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, calls: int = 10, iters: int = 20) -> float:
+    """Device time of one call of ``fn``: ``calls`` calls captured in a
+    CUDA graph and replayed ``iters`` times, timed by CUDA events, so no
+    host time is in it (cuda_ms of a call that the host launches slower
+    than the card runs it measures the host)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(graph.replay, iters) / calls
+    del graph
+    return ms
 
 
 def dp_mix_case(N: int, d: int, dtype, noisy: bool, seed: int):
@@ -289,10 +343,74 @@ def check_dp_perturb(shape, dtype, noisy: bool, timed: bool) -> dict:
     return rec
 
 
+def check_leaves(dtype, timed: bool) -> dict:
+    """sgd_update_leaves, the tree path's local step, over its six leaves
+    in one launch: each leaf bitwise the per-leaf kernel (a table of one
+    entry) and within 1 ULP of the plain version (a bfloat16 output one
+    bfloat16 step further). Timed, per round: the one launch, beside the
+    per-leaf kernel's six launches, the plain version, six ``torch.add``
+    calls and one ``torch._foreach_add`` over the six leaves (library_ms;
+    the port calls neither); the bound: p and g read and x written once
+    over 3.35 TB/s, one FMA per element over 67 TFLOP/s. The one launch
+    and ``_foreach_add`` are also timed inside a CUDA graph (device_ms,
+    library_device_ms): the device's time without the host's."""
+    import torch
+    from repro_torch.kernels.dp_perturb import ops
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    ps = [torch.randn(s, generator=gen, device="cuda").to(dtype)
+          for s in MLP_LEAVES]
+    gs = [(0.1 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
+          for s in MLP_LEAVES]
+    gamma = 0.01
+    kernel = lambda: ops.sgd_update_leaves(ps, gs, gamma)
+    per_leaf = lambda: [ops.sgd_update(p, g, gamma) for p, g in zip(ps, gs)]
+    plain = lambda: ops.sgd_update_leaves_plain(ps, gs, gamma)
+    xs, ones, refs = kernel(), per_leaf(), plain()
+    torch.cuda.synchronize()
+    bad, err = 0, 0.0
+    for x, one, r in zip(xs, ones, refs):
+        bad += int((x != one).sum())
+        k32, r32 = x.float(), r.float()
+        if not torch.isfinite(k32).all():
+            fail(f"sgd_update_leaves {dtype}: non-finite x")
+        step = (2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
+                if dtype == torch.bfloat16 else 0.0)
+        ok = (ulp_dist(k32, r32) <= 1) | ((k32 - r32).abs() <= step)
+        bad += int((~ok).sum())
+        err = max(err, float((k32 - r32).abs().max()))
+    rec = {"leaves": len(MLP_LEAVES), "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": err, "violations": bad}
+    if timed:
+        numel = sum(p.numel() for p in ps)
+        nbytes = 3 * numel * ps[0].element_size()
+        flops = numel * PERTURB_FLOPS
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rec["ms"] = cuda_ms(kernel, iters=50)
+        rec["per_leaf_ms"] = cuda_ms(per_leaf, iters=50)
+        rec["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
+        rec["torch_add_ms"] = cuda_ms(lambda: [
+            torch.add(p, g, alpha=-gamma) for p, g in zip(ps, gs)], iters=50)
+        rec["library_ms"] = cuda_ms(
+            lambda: torch._foreach_add(ps, gs, alpha=-gamma), iters=50)
+        rec["device_ms"] = graph_ms(kernel)
+        rec["library_device_ms"] = graph_ms(
+            lambda: torch._foreach_add(ps, gs, alpha=-gamma))
+        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+        rec["bytes"], rec["flops"] = nbytes, flops
+    print(f"[kernels] dp_perturb sgd_update_leaves per round {json.dumps(rec)}",
+          flush=True)
+    if bad:
+        fail(f"sgd_update_leaves {rec['dtype']}: {bad} elements not bitwise "
+             f"the per-leaf kernel or beyond 1 ULP of the plain version")
+    return rec
+
+
 def dp_perturb_phase() -> dict:
-    """Every case at the tree path's leaves; the float32 cases timed. The
-    round's numbers are the six leaves' sums: sgd_update is what the path
-    launches, once per leaf per round."""
+    """Every case at the tree path's leaves, each leaf in a launch of its
+    own; the float32 cases timed, and their sums per round printed. Then
+    sgd_update_leaves, what the path launches (once per round), in float32
+    (timed; returned) and bfloat16."""
     import torch
     recs = []
     for shape in MLP_LEAVES:
@@ -309,14 +427,12 @@ def dp_perturb_phase() -> dict:
             () if noisy else ("library_ms",))
         rnd["noisy" if noisy else "sgd_update"] = {
             k: sum(r[k] for r in rs) for k in keys}
-    sgd = rnd["sgd_update"]
-    sgd["max_abs_err"] = max(r["max_abs_err"] for r in recs
-                             if not r["noisy"] and r["dtype"] == "float32")
-    sgd["bound_by"] = ("bytes" if sgd["bytes"] / HBM_BYTES_PER_S
-                       >= sgd["flops"] / F32_FLOP_PER_S else "operations")
-    print(f"[kernels] dp_perturb per round (6 leaves) {json.dumps(rnd)}",
-          flush=True)
-    return sgd
+    print(f"[kernels] dp_perturb per round (6 leaves, 6 launches) "
+          f"{json.dumps(rnd)}", flush=True)
+    rec = check_leaves(torch.float32, timed=True)
+    check_leaves(torch.bfloat16, timed=False)
+    torch.cuda.empty_cache()
+    return rec
 
 
 def train_step_cpu_vs_cuda() -> float:
@@ -404,7 +520,8 @@ def paper_store():
 def train_tree_schemes(store) -> int:
     """The worker-tree path at full width for each scheme through the
     trajectory body, dp_perturb's counts set to 0 just before each
-    scheme's run and read just after. Returns the launches of all four."""
+    scheme's run and read just after: one launch per round, all six
+    leaves in it. Returns the launches of all four."""
     import torch
     from repro_torch.configs import DWFL_PAPER
     from repro_torch.core import protocol as P
@@ -417,20 +534,23 @@ def train_tree_schemes(store) -> int:
         gen = torch.Generator(device="cuda").manual_seed(0)
         wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
         body = TJ.make_round_body(DWFL_PAPER, proto, store, device="cuda")
+        ops.sgd_update_leaves.launches = 0
         ops.sgd_update.launches = ops.dp_perturb.launches = 0
         t0 = time.perf_counter()
         carry, res = TJ.run_chunk(body, TJ.TrajCarry(gen, wp), TREE_ROUNDS)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        launches = ops.sgd_update.launches + ops.dp_perturb.launches
+        launches = ops.sgd_update_leaves.launches
+        others = ops.sgd_update.launches + ops.dp_perturb.launches
         losses = res["metrics"]["loss"].cpu()
         print(f"[tree] {json.dumps({'scheme': scheme, 'rounds': TREE_ROUNDS, 'seconds': seconds, 'launches': launches, 'first_loss': float(losses[0]), 'last_loss': float(losses[-1])})}",
               flush=True)
         if not torch.isfinite(losses).all():
             fail(f"tree {scheme}: non-finite losses {losses.tolist()}")
-        if launches != len(MLP_LEAVES) * TREE_ROUNDS:
-            fail(f"tree {scheme}: dp_perturb launched {launches} times for "
-                 f"{TREE_ROUNDS} rounds of {len(MLP_LEAVES)} leaves")
+        if launches != TREE_ROUNDS or others:
+            fail(f"tree {scheme}: sgd_update_leaves launched {launches} "
+                 f"times for {TREE_ROUNDS} rounds (one each), the per-leaf "
+                 f"wrappers {others} times (none)")
         if not tree_leaves_finite(carry.params):
             fail(f"tree {scheme}: non-finite parameters")
         total += launches
@@ -528,11 +648,16 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
     probability-weighted sum in float32 and differ only in the order of
     their sums, so |kernel - plain| <= 2e-5 (1 + |plain|) (the reference's
     float32 tolerance for its own kernel); a bfloat16 output may land one
-    bfloat16 step (2^-7 of its magnitude) further. Timed: the kernel by
-    CUDA events, beside the plain version, SDPA on [B, H, S, hd] views
-    (library_ms) and the bound: 2 products of 2 hd flops per (query, key)
-    pair the mask keeps, over 67 TFLOP/s, against q, k, v, o moved once
-    over 3.35 TB/s."""
+    bfloat16 step (2^-7 of its magnitude) further. The bfloat16 kernel runs
+    both products on the tensor cores: q k^T has exact products and a
+    float32 sum, and P v takes P as two bfloat16 terms (P_hi + P_lo, a
+    residual of at most 2^-17 |P|), so the same tolerance holds. Timed: the
+    kernel by CUDA events, beside the plain version, SDPA on [B, H, S, hd]
+    views (library_ms) and the bound: 2 products of 2 hd flops per (query,
+    key) pair the mask keeps, over 67 TFLOP/s in float32 (the CUDA cores)
+    or 989 TFLOP/s in bfloat16 (the tensor cores), against q, k, v, o
+    moved once over 3.35 TB/s. In bfloat16 the kernel's own work is 1.5
+    times that (P v twice, for P_hi and P_lo): kernel_work_ms."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -570,7 +695,11 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
         pairs = int(keep.sum())
         flops = 4 * hd * pairs * B * H
         nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rate = (BF16_TC_FLOP_PER_S if dtype == torch.bfloat16
+                else F32_FLOP_PER_S)
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
+        if dtype == torch.bfloat16:
+            rec["kernel_work_ms"] = 1e3 * 1.5 * t_ops
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec["ms"] = cuda_ms(kernel, iters=20)
         rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
@@ -586,24 +715,29 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
     return rec
 
 
-def flash_phase() -> dict:
+def flash_phase():
     """gemma-2b's prefill shape and olmo-1b's heads in float32 and
-    bfloat16 (the first three timed), a sliding window and a ragged S;
-    returns gemma-2b's float32 record, whose bound is checked against the
-    count written in PERF.md: 17.2 GFLOP at 67 TFLOP/s, 0.256 ms,
+    bfloat16 (all four timed), a sliding window and a ragged S (the other
+    shapes are tests/test_torch_cuda.py's FLASH_CASES, run by its
+    gpu-marked tests); returns gemma-2b's float32 and bfloat16 records,
+    whose bounds are checked against the counts written in PERF.md: 17.2
+    GFLOP at 67 TFLOP/s, 0.2567 ms, and at 989 TFLOP/s, 0.0174 ms, both
     operations-bound."""
     import torch
-    rec = check_flash(GEMMA_ATTN, torch.float32, None, timed=True)
-    if rec["bound_by"] != "operations" or abs(rec["bound_ms"] - 0.2566) > 0.002:
-        fail(f"flash_attention bound {rec['bound_ms']:.4f} ms "
-             f"({rec['bound_by']}), expected 0.2566 ms (operations)")
-    check_flash(GEMMA_ATTN, torch.bfloat16, None, timed=True)
+    recs = []
+    for dtype, want in ((torch.float32, 0.2567), (torch.bfloat16, 0.0174)):
+        rec = check_flash(GEMMA_ATTN, dtype, None, timed=True)
+        if rec["bound_by"] != "operations" or abs(rec["bound_ms"] / want - 1) > 0.01:
+            fail(f"flash_attention {rec['dtype']} bound {rec['bound_ms']:.4f} "
+                 f"ms ({rec['bound_by']}), expected {want} ms (operations)")
+        recs.append(rec)
     check_flash(OLMO_ATTN, torch.float32, None, timed=True)
-    check_flash(OLMO_ATTN, torch.bfloat16, None, timed=False)
+    check_flash(OLMO_ATTN, torch.bfloat16, None, timed=True)
     check_flash((2, 1024, 8, 1, 256), torch.float32, 200, timed=False)
+    check_flash((2, 1024, 8, 1, 256), torch.bfloat16, 200, timed=False)
     check_flash((2, 1000, 4, 2, 64), torch.bfloat16, None, timed=False)
     torch.cuda.empty_cache()
-    return rec
+    return recs
 
 
 def ssd_inputs(shape, dtype):
@@ -756,15 +890,17 @@ def serve_cli(arch: str, kernel) -> None:
     torch.cuda.empty_cache()
 
 
-def serve_kernel_path(cfg, params, batch, kernel, others=()) -> int:
+def serve_kernel_path(cfg, params, batch, kernel, others=(),
+                      rel_tol: float = 1e-3) -> int:
     """The serve driver with use_pallas=True at full width, counted:
     ``kernel`` launched once per layer that calls it in the prefill
     (cfg.num_layers: gemma-2b's attention layers, zamba2-7b's Mamba2
     layers) and never in a decode step; the wrappers in ``others`` never.
-    Its prefill logits against a prefill without the kernel: |with -
-    without| <= 1e-3 max |without| (every layer's float32 sums taken in
-    other orders; one layer's outputs agree to ~1e-6 relative). Returns
-    the launches."""
+    Then a second, warm prefill, timed. Its prefill logits against a
+    prefill without the kernel: |with - without| <= rel_tol max(1, max
+    |without|). In float32 rel_tol is 1e-3 (every layer's float32 sums
+    taken in other orders; one layer's outputs agree to ~1e-6 relative);
+    in bfloat16 see BF16_SERVE_TOL. Returns the launches."""
     import torch
     from repro_torch.launch import serve
     from repro_torch.models import model as M
@@ -794,11 +930,20 @@ def serve_kernel_path(cfg, params, batch, kernel, others=()) -> int:
     if not (torch.isfinite(res["prefill_logits"]).all()
             and torch.isfinite(res["logits"]).all()):
         fail(f"serve {cfg.name}: non-finite logits")
+    # the prefill again, warm: the first one pays for cuBLAS's first calls
+    # at this dtype and shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    M.prefill(params, batch, cfg, use_pallas=True)
+    torch.cuda.synchronize()
+    rec["warm_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["warm_prefill_tok_s"] = B * S / (rec["warm_prefill_ms"] / 1e3)
     plain_logits, pf = M.prefill(params, batch, cfg, use_pallas=False)
     scale = float(plain_logits.abs().max())
     err = float((res["prefill_logits"] - plain_logits).abs().max())
-    rec.update(prefill_logits_err=err, logits_scale=scale,
-               tol=1e-3 * max(1.0, scale))
+    tol = rel_tol * max(1.0, scale)
+    rec.update(dtype=cfg.compute_dtype, prefill_logits_err=err,
+               logits_scale=scale, tol=tol)
     del res, plain_logits
     # a decode step alone launches nothing
     cache = serve.splice_cache(M.init_cache(cfg, B, S + 1, "cuda"), pf)
@@ -810,7 +955,7 @@ def serve_kernel_path(cfg, params, batch, kernel, others=()) -> int:
     if rec["decode_step_launches"]:
         fail(f"serve {cfg.name}: a decode step launched {kernel.__name__} "
              f"{rec['decode_step_launches']} times")
-    if not math.isfinite(err) or err > 1e-3 * max(1.0, scale):
+    if not math.isfinite(err) or err > tol:
         fail(f"serve {cfg.name}: prefill logits with and without the kernel "
              f"differ by {err:.3g} (scale {scale:.3g})")
     torch.cuda.empty_cache()
@@ -921,8 +1066,13 @@ def main() -> int:
           f"-> {build.BUILD_DIR}", flush=True)
     for lib in libs:
         for line in lib.log_path.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "wgmma", "Performance")):
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
+    hgmma = sass_count(fa_ops.LIBRARY, "HGMMA")
+    print(f"[build] flash_attention SASS: {hgmma} HGMMA (wgmma) instructions",
+          flush=True)
+    if not hgmma:
+        fail("the bfloat16 flash kernel's SASS holds no wgmma (HGMMA)")
 
     # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
     # at the tree path's six leaves, flash_attention and ssd_scan at the
@@ -937,7 +1087,7 @@ def main() -> int:
                     path_rec = rec
                 torch.cuda.empty_cache()
     perturb_rec = dp_perturb_phase()
-    flash_rec = flash_phase()
+    flash_rec, flash16_rec = flash_phase()
     ssd_rec = ssd_phase()
 
     # 4. the flat path, counted
@@ -977,13 +1127,22 @@ def main() -> int:
     cfg, params, batch = full_model("gemma-2b", GEMMA_PARAMS)
     flash_launches = serve_kernel_path(cfg, params, batch,
                                        fa_ops.flash_attention)
+    # the same parameters in bfloat16: the tensor-core flash kernel
+    from repro_torch.core import exchange as X
+    from repro_torch.models import model as M
+    cfg16 = dataclasses.replace(cfg, **BF16)
+    params16 = X.tree_map(lambda t: t.to(torch.bfloat16), params)
+    flash16_launches = serve_kernel_path(cfg16, params16, batch,
+                                         fa_ops.flash_attention,
+                                         rel_tol=BF16_SERVE_TOL)
     serve_cpu_vs_cuda("gemma-2b")
 
     # 7. profiles
     profile_rounds(store, flat=True)
     profile_rounds(store, flat=False)
     profile_serve(cfg, params, batch)
-    del params, batch
+    profile_serve(cfg16, params16, batch)
+    del params, params16, batch
     torch.cuda.empty_cache()
 
     # 8. serve: zamba2-7b at full width and depth, the CLI and the kernel
@@ -1025,6 +1184,15 @@ def main() -> int:
         "ms": flash_rec["ms"], "plain_ms": flash_rec["plain_ms"],
         "bound_ms": flash_rec["bound_ms"], "bound_by": flash_rec["bound_by"],
         "library_ms": flash_rec["library_ms"]}, {
+        "name": "flash_attention (bfloat16)", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:27",
+        "launches": flash16_launches,
+        "max_abs_err": flash16_rec["max_abs_err"],
+        "ms": flash16_rec["ms"], "plain_ms": flash16_rec["plain_ms"],
+        "bound_ms": flash16_rec["bound_ms"],
+        "bound_by": flash16_rec["bound_by"],
+        "library_ms": flash16_rec["library_ms"]}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd_scan/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan/ssd_scan.py:26",

@@ -3,7 +3,8 @@ paths of the reference's ``repro.core.protocol``.
 
 ``make_train_step`` is the worker-tree round: per-worker clipped gradients
 over worker-stacked parameter trees -> the local SGD step of every leaf
-(with ``use_pallas`` the hand-written dp_perturb kernel's ``sgd_update``)
+(with ``use_pallas`` one launch of the hand-written dp_perturb kernel
+over all the leaves, ``sgd_update_leaves``)
 -> the scheme's exchange (dwfl, gossip, orthogonal, centralized), with
 its noise drawn per leaf -> metrics. ``make_flat_train_step`` is the
 flat-buffer round: the same gradients on the persistent flat [N, d]
@@ -49,7 +50,7 @@ class ProtocolConfig:
     target_epsilon: float = 0.0   # >0: calibrate sigma to this per-round eps
     noise_policy: str = "surplus"
     use_pallas: bool = False      # worker tree: local step by the dp_perturb
-                                  # kernel's sgd_update
+                                  # kernel (sgd_update_leaves)
     fuse_exchange: bool = False   # worker tree: bucket the leaves into one
                                   # flat leaf for the exchange (dwfl/gossip)
     flat_buffer: bool = False     # train on the persistent flat [N, d]
@@ -58,7 +59,18 @@ class ProtocolConfig:
                                   # ported (ROADMAP A4)
     participation: float = 1.0    # only full participation is ported (A4)
 
+    def require_complete_graph(self) -> None:
+        """The ring/torus calibration and budget of a dwfl run
+        (``sigma_for_epsilon_topology``, ``epsilon_dwfl_topology``) are not
+        ported: refuse rather than quote the complete-graph formulas,
+        which understate that budget."""
+        if self.scheme == "dwfl" and self.topology != "complete":
+            raise NotImplementedError(
+                f"the privacy calibration and budget of topology "
+                f"{self.topology!r} are not ported yet (ROADMAP A4)")
+
     def channel(self) -> ChannelState:
+        self.require_complete_graph()
         chan = ChannelConfig(
             n_workers=self.n_workers, p_dbm=self.p_dbm, sigma=self.sigma,
             sigma_m=self.sigma_m, fading=self.fading, seed=self.seed,
@@ -100,7 +112,9 @@ def epsilon_report(proto: ProtocolConfig, chan: ChannelState) -> dict:
     """Static-channel privacy report: per-round budgets. The headline
     (``epsilon_per_worker``/``epsilon_worst``) is the budget of the scheme
     actually run — the orthogonal per-link budget for an orthogonal run,
-    Theorem 4.1's per-receiver budget otherwise."""
+    Theorem 4.1's per-receiver budget otherwise. A dwfl run on a
+    topology other than the complete graph raises (ROADMAP A4)."""
+    proto.require_complete_graph()
     eps = privacy.epsilon_dwfl(proto.gamma, proto.clip, chan, proto.delta)
     eps_orth = privacy.epsilon_orthogonal(proto.gamma, proto.clip, chan,
                                           proto.delta)
@@ -134,9 +148,11 @@ def _make_local_pass(cfg: ModelConfig, proto: ProtocolConfig):
 
     def local_step(worker_params, grads):
         if proto.use_pallas:
-            return exchange_lib.tree_map(
-                lambda p, g: dp_ops.sgd_update(p, g, gamma), worker_params,
-                grads)
+            # every leaf in one launch of the dp_perturb kernel
+            ps, structure = exchange_lib.tree_flatten(worker_params)
+            gs, _ = exchange_lib.tree_flatten(grads)
+            return exchange_lib.tree_unflatten(
+                structure, dp_ops.sgd_update_leaves(ps, gs, gamma))
         return exchange_lib.tree_map(
             lambda p, g: (p.float() - gamma * g.float()).to(p.dtype),
             worker_params, grads)

@@ -18,7 +18,13 @@
 // their strides (elements; the last dimension contiguous), and o is
 // written as [B, S, H, hd]: no repeat and no transpose copy.
 //
-// Work split. The TPU walks a sequential (BH, q block, kv block) grid and
+// Two instantiations. bfloat16 inputs run on the tensor cores, with TMA
+// loads and the products split so as to keep this arithmetic's float32
+// tolerance (flash_bf16_sm90.cuh says how). float32 inputs run the design
+// below, on the CUDA cores: TF32 tensor cores would leave the reference's
+// float32 arithmetic.
+//
+// Work split (float32). The TPU walks a sequential (BH, q block, kv block) grid and
 // carries m, l, acc in scratch from one kv step to the next. Here one
 // block of 256 threads owns (b, h, 64 query rows) and loops over the
 // 64-row KV tiles itself, from the window's first tile to the causal
@@ -28,25 +34,26 @@
 // sum are warp shuffles, and lane c accumulates output columns c, c + 32,
 // ... of each row in registers (8 x hd/32 floats).
 //
-// Shared memory (float32 whatever the input): the scaled Q tile, the K
+// Shared memory (float32): the scaled Q tile, the K
 // and V tiles, rows padded to hd + 4 floats so that 16-byte loads of
 // neighbouring rows fall in different banks, and each warp's 8 x 64
 // probabilities. At hd = 256 that is 216,064 bytes, requested as dynamic
 // shared memory above 48 KB with cudaFuncSetAttribute; one block per SM.
 //
-// What bounds it on an H100: operations. At gemma-2b's prefill (B = 4,
-// S = 1024, H = 8, Hkv = 1, hd = 256, float32) the two products are 17.2
-// GFLOP after the causal halving, 0.256 ms at 67 TFLOP/s on the CUDA
-// cores, against 75.5 MB of q, k, v, o (22.5 us at 3.35 TB/s). This first
-// kernel runs both products as float32 FMAs on the CUDA cores, fed from
-// shared memory; the tensor cores (wgmma), TMA loads and one KV tile
-// shared by all query heads of a KV head are later work.
+// What bounds the float32 kernel on an H100: operations. At gemma-2b's
+// prefill (B = 4, S = 1024, H = 8, Hkv = 1, hd = 256, float32) the two
+// products are 17.2 GFLOP after the causal halving, 0.256 ms at 67
+// TFLOP/s on the CUDA cores, against 75.5 MB of q, k, v, o (22.5 us at
+// 3.35 TB/s). It runs both products as float32 FMAs on the CUDA cores,
+// fed from shared memory; register tiles, or 3xTF32 split products, and
+// one KV tile shared by all query heads of a KV head are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 #include "../../csrc/dtypes.cuh"
+#include "flash_bf16_sm90.cuh"
 
 namespace {
 
@@ -245,15 +252,30 @@ int launch(const Params& p, int B, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_hd(int hd, const Params& p, int B, int H, cudaStream_t stream) {
+int launch_f32(int hd, const Params& p, int B, int H, cudaStream_t stream) {
   switch (hd) {
-    case 32: return launch<T, 32>(p, B, H, stream);
-    case 64: return launch<T, 64>(p, B, H, stream);
-    case 128: return launch<T, 128>(p, B, H, stream);
-    case 256: return launch<T, 256>(p, B, H, stream);
+    case 32: return launch<float, 32>(p, B, H, stream);
+    case 64: return launch<float, 64>(p, B, H, stream);
+    case 128: return launch<float, 128>(p, B, H, stream);
+    case 256: return launch<float, 256>(p, B, H, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+int launch_bf16(int hd, const Params& p, int B, int H, int Hkv, cudaStream_t stream) {
+  const long long qs[3] = {p.q_sb, p.q_ss, p.q_sh}, ks[3] = {p.k_sb, p.k_ss, p.k_sh},
+                  vs[3] = {p.v_sb, p.v_ss, p.v_sh}, os[3] = {p.o_sb, p.o_ss, p.o_sh};
+#define REPRO_FLASH_BF16(HD)                                                                 \
+  flash_sm90::launch<HD>(p.q, qs, p.k, ks, p.v, vs, p.o, os, B, p.S, H, Hkv, p.causal,        \
+                         p.window, p.scale, stream)
+  switch (hd) {
+    case 32: return REPRO_FLASH_BF16(32);
+    case 64: return REPRO_FLASH_BF16(64);
+    case 128: return REPRO_FLASH_BF16(128);
+    case 256: return REPRO_FLASH_BF16(256);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef REPRO_FLASH_BF16
 }
 
 }  // namespace
@@ -263,7 +285,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o alike). hd in {32, 64, 128,
 // 256}; H a multiple of Hkv. Strides in elements: batch, sequence, head
 // (the head_dim axis is contiguous). window: 0 = no sliding window.
-// Returns the cudaError_t of the launch (0 = launched).
+// bfloat16 also needs q, k, v 16-byte aligned and their strides multiples
+// of 8 elements (TMA). Returns the cudaError_t of the launch (0 =
+// launched).
 int flash_attention_launch(int dtype, int hd, int B, int S, int H, int Hkv,
                            const void* q, long long q_sb, long long q_ss, long long q_sh,
                            const void* k, long long k_sb, long long k_ss, long long k_sh,
@@ -277,8 +301,8 @@ int flash_attention_launch(int dtype, int hd, int B, int S, int H, int Hkv,
            q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh,
            S, H / Hkv, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_hd<float>(hd, p, B, H, s);
-  if (dtype == 1) return launch_hd<__nv_bfloat16>(hd, p, B, H, s);
+  if (dtype == 0) return launch_f32(hd, p, B, H, s);
+  if (dtype == 1) return launch_bf16(hd, p, B, H, Hkv, s);
   return (int)cudaErrorInvalidValue;
 }
 

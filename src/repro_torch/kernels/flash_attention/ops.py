@@ -4,17 +4,20 @@ reference's signature (repro/kernels/flash_attention/ops.py).
 ``flash_attention(q, k, v, *, causal=True, sliding_window=None)``: q [B, S,
 H, hd], k and v [B, S, Hkv, hd] -> o [B, S, H, hd]. Dispatch is by the
 device of q: a CUDA tensor launches the hand-written kernel
-(``csrc/flash_attention.cu``) or raises; a CPU tensor runs the plain
-version (``flash_attention.flash_attention_plain``). There is no fallback
-between the two. ``flash_attention.launches`` counts the kernel's
-launches.
+(``csrc/flash_attention.cu``: float32 on the CUDA cores, bfloat16 on the
+tensor cores, ``csrc/flash_bf16_sm90.cuh``) or raises; a CPU tensor runs
+the plain version (``flash_attention.flash_attention_plain``). There is no
+fallback between the two. ``flash_attention.launches`` counts the
+kernel's launches.
 
 Contract, on either device: float32 or bfloat16, q, k, v of one dtype and
 device; hd in {32, 64, 128, 256}; H a multiple of Hkv (query head h reads
 KV head h // (H // Hkv)); ``sliding_window`` None or positive. The kernel
 reads its operands through their strides, so no GQA repeat and no
 transpose is made; only an operand whose head_dim axis is not contiguous
-is copied first. The output is in the input's dtype.
+is copied first, and in bfloat16, where TMA reads them, one that is not
+16-byte aligned or has a stride that is not a multiple of 16 bytes. The
+output is in the input's dtype.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ HEAD_DIMS = (32, 64, 128, 256)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("flash_attention", sources=(_CSRC / "flash_attention.cu",),
-                        headers=build.SHARED_HEADERS)
+                        headers=build.SHARED_HEADERS + (_CSRC / "flash_bf16_sm90.cuh",))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,10 +77,21 @@ def _check(q, k, v, sliding_window):
         raise ValueError(f"sliding_window must be positive, got {sliding_window}")
 
 
+def _readable(t) -> bool:
+    """Can the kernel read ``t`` as it is? The head_dim axis contiguous;
+    in bfloat16 also what TMA needs of a tensor map: the base 16-byte
+    aligned and the other strides multiples of 16 bytes."""
+    if t.stride(-1) != 1:
+        return False
+    if t.dtype != torch.bfloat16:
+        return True
+    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+
+
 def _launch(q, k, v, *, causal: bool, sliding_window: Optional[int]):
     """One launch of the kernel; returns o [B, S, H, hd]."""
     B, S, H, hd = q.shape
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    q, k, v = (t if _readable(t) else t.contiguous() for t in (q, k, v))
     o = torch.empty((B, S, H, hd), dtype=q.dtype, device=q.device)
     lib = _library()
     args = []

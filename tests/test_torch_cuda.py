@@ -10,11 +10,13 @@ orders, so |kernel - plain| <= (N + 8) * 2^-23 * scale, scale = max|x| +
 5.42 max|n/c| + 5.42 max|m_scale sigma_m|; a bfloat16 output may land one
 bfloat16 step (2^-7 of its magnitude) further. dp_perturb: x within 1
 ULP (the plain version's fused multiply-add goes through float64 and may
-round twice), the noisy xt within 4 ULP of its noise term plus 2 ULP of
-itself, and a bfloat16 output one bfloat16 step further. flash_attention:
+round twice; sgd_update_leaves bitwise the per-leaf kernel), the noisy xt
+within 4 ULP of its noise term plus 2 ULP of itself, and a bfloat16
+output one bfloat16 step further. flash_attention:
 both compute in float32 and sum in other orders, so within 2e-5 (the
 reference's float32 tolerance for its kernel), a bfloat16 output one
-bfloat16 step further. ssd_scan: rtol 1e-4 / atol 1e-5 on y, the states
+bfloat16 step further (the bfloat16 kernel runs on the tensor cores:
+exact products of q k^T, P v as P_hi + P_lo, a residual of 2^-17 |P|). ssd_scan: rtol 1e-4 / atol 1e-5 on y, the states
 and the decays (the reference's tolerance for its kernel against its
 oracle; both take cs in the reference's float32 order), a bfloat16 y one
 bfloat16 step further."""
@@ -137,6 +139,56 @@ def test_sgd_update_counts_launches_and_reads_each_worker():
         dp_ops.sgd_update(p.double(), g.double(), 0.5)
 
 
+def _leaves(dtype, shapes, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda s: torch.randn(s, generator=gen, device="cuda").to(dtype)
+    return [rnd(s) for s in shapes], [rnd(s) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sgd_update_leaves_is_one_launch_bitwise_per_leaf(dtype):
+    """dwfl-paper's six leaves at N = 10, leaves of odd length and one
+    whose pointer is not 16 bytes aligned (a view one element into its
+    buffer): one launch, each leaf bitwise the per-leaf kernel (a table
+    of one entry) and within 1 ULP of the plain version (a bfloat16
+    output one bfloat16 step)."""
+    _need_card()
+    shapes = [(10, 256), (10, 3072, 256), (10, 256), (10, 256, 256), (10, 10),
+              (10, 256, 10), (7,), (3, 1001)]
+    ps, gs = _leaves(dtype, shapes + [(1 + 4099,)], 3)
+    ps[-1], gs[-1] = ps[-1][1:], gs[-1][1:]
+    assert ps[-1].data_ptr() % 16 != 0
+    before = (dp_ops.sgd_update_leaves.launches, dp_ops.sgd_update.launches)
+    xs = dp_ops.sgd_update_leaves(ps, gs, 0.05)
+    assert dp_ops.sgd_update_leaves.launches == before[0] + 1
+    assert dp_ops.sgd_update.launches == before[1]
+    ones = [dp_ops.sgd_update(p, g, 0.05) for p, g in zip(ps, gs)]
+    plain = dp_ops.sgd_update_leaves_plain(ps, gs, 0.05)
+    torch.cuda.synchronize()
+    for x, one, r, p in zip(xs, ones, plain, ps):
+        assert x.dtype == dtype and x.shape == p.shape and x.is_contiguous()
+        assert torch.equal(x, one)
+        k, r = x.float(), r.float()
+        step = (2.0 ** -7 * torch.maximum(k.abs(), r.abs())
+                if dtype == torch.bfloat16 else 0.0)
+        assert bool(((_ulp(k, r) <= 1) | ((k - r).abs() <= step)).all())
+
+
+def test_sgd_update_leaves_takes_sixteen_leaves_a_launch():
+    _need_card()
+    ps, gs = _leaves(torch.float32, [(5, 33)] * 20, 4)
+    before = dp_ops.sgd_update_leaves.launches
+    xs = dp_ops.sgd_update_leaves(ps, gs, 0.5)
+    assert dp_ops.sgd_update_leaves.launches == before + 2
+    for x, p, g in zip(xs, ps, gs):
+        assert torch.equal(x, dp_ops.sgd_update(p, g, 0.5))
+    # a second call over the same layout reuses the plan, not the memory
+    again = dp_ops.sgd_update_leaves(ps, gs, 0.25)
+    assert {x.data_ptr() for x in again}.isdisjoint(x.data_ptr() for x in xs)
+    for x, p, g in zip(again, ps, gs):
+        assert torch.equal(x, dp_ops.sgd_update(p, g, 0.25))
+
+
 # tests/test_kernels.py::test_flash_attention_sweep's cases, then head_dim
 # 128 (olmo, glm4) and 256 (gemma) with ragged S and a window
 FLASH_CASES = [
@@ -167,6 +219,37 @@ def test_flash_attention_kernel_matches_plain(B, S, H, Hkv, hd, win, dtype):
     allowed = 2e-5 + 2e-5 * b.abs()
     if dtype == torch.bfloat16:
         allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+    assert bool(((a - b).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd", [(4, 1024, 8, 1, 256),
+                                           (4, 1024, 16, 16, 128)],
+                         ids=["gemma-2b", "olmo-1b"])
+def test_flash_attention_bf16_at_the_serve_shapes(B, S, H, Hkv, hd):
+    """The tensor-core kernel at gemma-2b's and olmo-1b's prefill of 4
+    prompts of 1024 tokens, at the same tolerance."""
+    test_flash_attention_kernel_matches_plain(B, S, H, Hkv, hd, None,
+                                              torch.bfloat16)
+
+
+def test_flash_attention_bf16_reads_strided_views():
+    """q, k, v as views into one fused [B, S, (H + 2 Hkv) hd] projection:
+    the tensor maps read them through their strides, no copy."""
+    _need_card()
+    B, S, H, Hkv, hd = 2, 200, 4, 2, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    qkv = torch.randn((B, S, (H + 2 * Hkv) * hd), generator=gen,
+                      device="cuda").to(torch.bfloat16)
+    q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+    k = qkv[..., H * hd:(H + Hkv) * hd].unflatten(-1, (Hkv, hd))
+    v = qkv[..., (H + Hkv) * hd:].unflatten(-1, (Hkv, hd))
+    assert not q.is_contiguous()
+    o = fa_ops.flash_attention(q, k, v, causal=True)
+    r = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
+    torch.cuda.synchronize()
+    a, b = o.float(), r.float()
+    allowed = 2e-5 + 2e-5 * b.abs() + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
     assert bool(((a - b).abs() <= allowed).all())
 
 

@@ -34,6 +34,9 @@ from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
 
 NOISE_ULP = 4
 SHAPES = [(64,), (1000, 37), (3, 17, 29), (256, 128), (3, 70001), (10, 256, 10)]
+# dwfl-paper's six leaves in tree order (each layer's b, then w) at N = 4
+# workers and hidden width 16
+MLP_LEAVES = [(4, 16), (4, 3072, 16), (4, 16), (4, 16, 16), (4, 10), (4, 16, 10)]
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 
 
@@ -172,3 +175,59 @@ def test_plain_takes_the_cpu_and_counts_no_launch():
     torch.testing.assert_close(
         dp_perturb_plain(p, p, 1, gamma=0.5, sigma=0.0, s_sig=2.0,
                          s_noise=1.0)[1], torch.ones((4, 300)))
+
+
+@pytest.mark.parametrize("jdt,tdt", DTYPES, ids=["f32", "bf16"])
+def test_sgd_update_leaves_is_the_per_leaf_update(jdt, tdt):
+    """The one-launch local step over dwfl-paper's leaves: on the CPU its
+    plain version, bitwise the per-leaf sgd_update, and within 1 ULP of
+    the reference's tree_map(sgd_update) (the interpret-mode kernel)."""
+    leaves = [_inputs(shape, jdt, tdt, seed=i) for i, shape in enumerate(MLP_LEAVES)]
+    ps, gs = [l[2] for l in leaves], [l[3] for l in leaves]
+    before = (ops.sgd_update_leaves.launches, ops.sgd_update.launches)
+    got = ops.sgd_update_leaves(ps, gs, 0.05)
+    assert (ops.sgd_update_leaves.launches, ops.sgd_update.launches) == before
+    want = jax.tree_util.tree_map(lambda P, G: ref_ops.sgd_update(P, G, 0.05),
+                                  [l[0] for l in leaves], [l[1] for l in leaves])
+    assert len(got) == len(MLP_LEAVES)
+    for x, p, g, w in zip(got, ps, gs, want):
+        assert x.dtype == tdt and x.shape == p.shape and x.is_contiguous()
+        assert torch.equal(x, ops.sgd_update(p, g, 0.05))
+        assert _ulp(_f32(x), _f32(w)).max() <= 1
+
+
+def test_sgd_update_leaves_refuses_mismatched_lists():
+    p = torch.zeros((4, 8))
+    assert ops.sgd_update_leaves([], [], 0.1) == []
+    with pytest.raises(ValueError, match="2 parameter leaves, 1 gradient"):
+        ops.sgd_update_leaves([p, p], [p], 0.1)
+
+
+def test_launch_plan_layout_and_refusals():
+    """The launch's per-layout plan (metadata only, so it runs here): the
+    outputs' views are contiguous, shaped like p, and start on 16-byte
+    boundaries of one allocation; an expand()ed operand asks for a copy;
+    a float64 leaf, a g shaped unlike its p and leaves of two dtypes are
+    refused."""
+    spec = lambda t: (t.shape, t.dtype, t.device, t.is_contiguous())
+    for dtype in (torch.float32, torch.bfloat16):
+        ps = [torch.zeros(s, dtype=dtype) for s in [(7,), (3, 5), (2, 2, 3)]]
+        plan = ops._plan(tuple(map(spec, ps)), tuple(map(spec, ps)))
+        assert plan.count == 3 and not plan.copy
+        assert list(plan.ns) == [7, 15, 12]
+        buf = torch.empty(plan.total, dtype=dtype)
+        for (shape, stride, offset), nbytes, p in zip(plan.views,
+                                                      plan.x_bytes, ps):
+            view = buf.as_strided(shape, stride, offset)
+            assert view.shape == p.shape and view.is_contiguous()
+            assert nbytes == offset * p.element_size() and nbytes % 16 == 0
+        assert plan.total >= plan.views[-1][2] + 12
+    p = torch.zeros((4, 300))
+    wide = torch.ones((4, 1)).expand(4, 300)
+    assert ops._plan((spec(p),), (spec(wide),)).copy
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ops._plan((spec(p.double()),), (spec(p.double()),))
+    with pytest.raises(ValueError, match="operand g"):
+        ops._plan((spec(p),), (spec(p.T),))
+    with pytest.raises(ValueError, match="one dtype and device"):
+        ops._plan((spec(p), spec(p.bfloat16())), (spec(p), spec(p.bfloat16())))

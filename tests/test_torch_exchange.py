@@ -205,6 +205,44 @@ def test_scheme_aware_channel_and_report_equal_reference(scheme):
     assert rep["epsilon_worst"] == pytest.approx(0.8, rel=1e-9)
 
 
+@pytest.mark.parametrize("topology,n", [("ring", 10), ("torus", 9)])
+def test_dwfl_topology_calibration_and_report_refuse(topology, n):
+    """A dwfl run on a ring or torus: the reference calibrates sigma and
+    quotes epsilon with its topology formulas; the port has not ported
+    them (A4), so both refuse instead of quoting the complete graph's."""
+    proto = P.ProtocolConfig(scheme="dwfl", n_workers=n, topology=topology,
+                             target_epsilon=0.1)
+    rproto = RP.ProtocolConfig(scheme="dwfl", n_workers=n, topology=topology,
+                               target_epsilon=0.1)
+    chan = P.ProtocolConfig(n_workers=n, target_epsilon=0.1).channel()
+    rchan = rproto.channel()
+    # the budget the complete-graph formula would understate
+    assert rchan.cfg.sigma > chan.cfg.sigma
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        proto.channel()
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+        P.epsilon_report(proto, chan)
+
+
+@pytest.mark.parametrize("scheme,topology", [
+    ("dwfl", "complete"), ("gossip", "ring"), ("orthogonal", "ring"),
+    ("centralized", "ring")])
+@pytest.mark.parametrize("eps", [0.1, 0.5])
+def test_complete_graph_calibration_and_report_equal_reference(scheme,
+                                                               topology, eps):
+    """The complete graph, and the schemes whose budget does not read the
+    topology: channel().sigma and epsilon_report are the reference's."""
+    kw = dict(scheme=scheme, topology=topology, n_workers=10,
+              target_epsilon=eps)
+    proto, rproto = P.ProtocolConfig(**kw), RP.ProtocolConfig(**kw)
+    chan, rchan = proto.channel(), rproto.channel()
+    assert chan.cfg.sigma == rchan.cfg.sigma
+    rep, rrep = P.epsilon_report(proto, chan), RP.epsilon_report(rproto, rchan)
+    for k in rep:
+        np.testing.assert_array_equal(rep[k], rrep[k])
+    assert rep["epsilon_worst"] == pytest.approx(eps, rel=1e-9)
+
+
 def _zero_round(scheme, seed=0):
     """One exchange of an all-zero tree (one [N, 20000] leaf) on the
     port's own generator draws: the output is the noise alone."""

@@ -1,7 +1,8 @@
 """The port's worker-tree round (``protocol.make_train_step``) against the
 reference's jitted ``make_train_step`` for the four static schemes, with
-the local step plain and through the dp_perturb kernel's ``sgd_update``
-(the reference's in interpret mode, the port's plain version on the CPU),
+the local step plain and through the dp_perturb kernel (the reference's
+``sgd_update`` per leaf in interpret mode, the port's one-launch
+``sgd_update_leaves``, its plain version on the CPU),
 replaying the reference's realized ``jax.random`` normals through the
 step's ``normals`` argument; a replayed 6-round trajectory; the per-round
 (``--no-scan``) executor against the chunked one; and the CLI's
@@ -135,9 +136,11 @@ def test_one_tree_round_matches_reference(scheme, use_pallas):
     rb, tb = _batch(batcher)
     key = jax.random.PRNGKey(11)
     rout, rm = rstep(rwp, rb, key)
-    before = dp_ops.sgd_update.launches
+    before = (dp_ops.sgd_update.launches, dp_ops.sgd_update_leaves.launches)
     out, m = step(wp, tb, None, normals=ref_normals(scheme, rwp, key))
-    assert dp_ops.sgd_update.launches == before     # the CPU runs no kernel
+    # the CPU runs no kernel
+    assert (dp_ops.sgd_update.launches,
+            dp_ops.sgd_update_leaves.launches) == before
     want, got = _flat(rout), _port_flat(out)
     err = float(np.abs(got - want).max())
     assert err < ROUND_TOL * (1.0 + float(np.abs(want).max())), err
