@@ -8,7 +8,10 @@ Phases, each fatal on failure (exit code 1, no result line):
 1. device  — the card's name, count, and nvidia-smi's name and power limit;
 2. build   — every CUDA kernel of the driven paths (dp_mix, dp_perturb,
              flash_attention, ssd_scan) built from this checkout's sources
-             with nvcc for sm_90a, all nvcc processes at once;
+             with nvcc for sm_90a, all nvcc processes at once; ptxas's
+             registers and spills, and the SASS holding each tensor-core
+             route (flash_attention: HGMMA for bfloat16, HMMA .TF32 for
+             float32; ssd_scan: HMMA .TF32);
 3. kernels — each kernel held against its plain PyTorch version on the
              card at its path's shapes, with the tolerance stated below,
              then timed with CUDA events beside the plain version, the one
@@ -80,8 +83,9 @@ SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
+F32_FLOP_PER_S = 67e12                # float32 on the CUDA cores
+TF32_TC_FLOP_PER_S = 495e12           # dense TF32 on the tensor cores
+# (flash_attention's routes, TF32 and bfloat16, are flash_attention.ops.work's)
 # float operations of one counter-hash normal in csrc/noise.cuh (both
 # log1p branches and the polynomial, counting an FMA as 2), and of the
 # rest of the round per element (x, n/c, z, self-correction, AWGN, out)
@@ -144,9 +148,9 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
-def sass_count(lib, opcode: str) -> int:
-    """Lines of a built library's SASS that hold ``opcode`` (cuobjdump,
-    beside nvcc in the toolkit)."""
+def sass_count(lib, *words: str) -> int:
+    """Lines of a built library's SASS that hold every one of ``words``
+    (cuobjdump, beside nvcc in the toolkit)."""
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     try:
@@ -155,7 +159,7 @@ def sass_count(lib, opcode: str) -> int:
                               check=True).stdout
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"cuobjdump -sass {lib.path.name}: {e}")
-    return sum(opcode in line for line in sass.splitlines())
+    return sum(all(w in line for w in words) for line in sass.splitlines())
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -648,16 +652,18 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
     probability-weighted sum in float32 and differ only in the order of
     their sums, so |kernel - plain| <= 2e-5 (1 + |plain|) (the reference's
     float32 tolerance for its own kernel); a bfloat16 output may land one
-    bfloat16 step (2^-7 of its magnitude) further. The bfloat16 kernel runs
-    both products on the tensor cores: q k^T has exact products and a
-    float32 sum, and P v takes P as two bfloat16 terms (P_hi + P_lo, a
-    residual of at most 2^-17 |P|), so the same tolerance holds. Timed: the
-    kernel by CUDA events, beside the plain version, SDPA on [B, H, S, hd]
-    views (library_ms) and the bound: 2 products of 2 hd flops per (query,
-    key) pair the mask keeps, over 67 TFLOP/s in float32 (the CUDA cores)
-    or 989 TFLOP/s in bfloat16 (the tensor cores), against q, k, v, o
-    moved once over 3.35 TB/s. In bfloat16 the kernel's own work is 1.5
-    times that (P v twice, for P_hi and P_lo): kernel_work_ms."""
+    bfloat16 step (2^-7 of its magnitude) further. Both instantiations run
+    their products on the tensor cores and keep that tolerance: float32
+    takes each operand as two TF32 terms (three products, each term's
+    residual ~2^-22 of the operand); bfloat16 has exact products of q k^T
+    and takes P as two bfloat16 terms (P_hi + P_lo, a residual of at most
+    2^-17 |P|). Timed: the kernel by CUDA events, beside the plain version,
+    SDPA on [B, H, S, hd] views (library_ms) and the bound of its route
+    (ops.work): 2 products of 2 hd flops per (query, key) pair the mask
+    keeps, over 495 TFLOP/s in float32 (TF32 tensor cores) or 989 TFLOP/s
+    in bfloat16, against q, k, v, o moved once over 3.35 TB/s. The
+    route's own work, kernel_work_ms: 3 times the products in float32, 1.5
+    times in bfloat16 (P v twice, for P_hi and P_lo)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops
@@ -692,22 +698,22 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
         keep = kpos <= qpos
         if window is not None:
             keep &= kpos > qpos - window
-        pairs = int(keep.sum())
-        flops = 4 * hd * pairs * B * H
-        nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * q.element_size()
-        rate = (BF16_TC_FLOP_PER_S if dtype == torch.bfloat16
-                else F32_FLOP_PER_S)
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
-        if dtype == torch.bfloat16:
-            rec["kernel_work_ms"] = 1e3 * 1.5 * t_ops
+        w = ops.work(B, S, H, Hkv, hd, dtype, window)
+        if w.flops != 4 * hd * int(keep.sum()) * B * H:
+            fail(f"flash_attention {shape}: ops.work counts {w.flops} flops, "
+                 f"the mask keeps {int(keep.sum())} pairs")
+        rec["kernel_work_ms"] = 1e3 * w.kernel_flops / w.rate
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec["ms"] = cuda_ms(kernel, iters=20)
         rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
         rec["library_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), iters=20)
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        rec["bytes"], rec["flops"] = nbytes, flops
+        rec["bound_ms"] = 1e3 * w.bound_s
+        rec["bound_by"] = w.bound_by
+        rec["bytes"], rec["flops"] = w.nbytes, w.flops
+        if rec["ms"] < rec["bound_ms"]:
+            fail(f"flash_attention {shape} {rec['dtype']}: {rec['ms']:.4f} ms "
+                 f"is under its bound {rec['bound_ms']:.4f} ms")
     print(f"[kernels] flash_attention {json.dumps(rec)}", flush=True)
     if bad:
         fail(f"flash_attention {shape} {rec['dtype']} window={window}: {bad} "
@@ -717,15 +723,16 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
 
 def flash_phase():
     """gemma-2b's prefill shape and olmo-1b's heads in float32 and
-    bfloat16 (all four timed), a sliding window and a ragged S (the other
-    shapes are tests/test_torch_cuda.py's FLASH_CASES, run by its
-    gpu-marked tests); returns gemma-2b's float32 and bfloat16 records,
-    whose bounds are checked against the counts written in PERF.md: 17.2
-    GFLOP at 67 TFLOP/s, 0.2567 ms, and at 989 TFLOP/s, 0.0174 ms, both
-    operations-bound."""
+    bfloat16 (all four timed), a sliding window and a ragged S in each
+    dtype (the other shapes are tests/test_torch_cuda.py's FLASH_CASES, run
+    by its gpu-marked tests); returns gemma-2b's float32 and bfloat16
+    records, whose bounds are checked against the counts written in
+    PERF.md: 17.2 GFLOP at 495 TFLOP/s (split TF32), 0.0347 ms, and at 989
+    TFLOP/s (bfloat16), 0.0174 ms, both operations-bound; both
+    instantiations run on the tensor cores."""
     import torch
     recs = []
-    for dtype, want in ((torch.float32, 0.2567), (torch.bfloat16, 0.0174)):
+    for dtype, want in ((torch.float32, 0.0347), (torch.bfloat16, 0.0174)):
         rec = check_flash(GEMMA_ATTN, dtype, None, timed=True)
         if rec["bound_by"] != "operations" or abs(rec["bound_ms"] / want - 1) > 0.01:
             fail(f"flash_attention {rec['dtype']} bound {rec['bound_ms']:.4f} "
@@ -735,6 +742,7 @@ def flash_phase():
     check_flash(OLMO_ATTN, torch.bfloat16, None, timed=True)
     check_flash((2, 1024, 8, 1, 256), torch.float32, 200, timed=False)
     check_flash((2, 1024, 8, 1, 256), torch.bfloat16, 200, timed=False)
+    check_flash((2, 1000, 4, 2, 64), torch.float32, None, timed=False)
     check_flash((2, 1000, 4, 2, 64), torch.bfloat16, None, timed=False)
     torch.cuda.empty_cache()
     return recs
@@ -764,8 +772,7 @@ def ssd_work(shape, elem: int):
     shared by all heads (2N); per head the decay (subtract, exp, multiply:
     3) and G @ (x dt) (2P); per row and head x dt (P), B exp(cs_last - cs)
     dt (N + 3) and the states' product (2PN); per chunk and head
-    exp(cs_last). The kernel does more than this: it recomputes the scores
-    for each block of 8 heads and computes its diagonal tiles whole."""
+    exp(cs_last). The kernel does more than this (ssd_kernel_flops)."""
     B, S, H, P, N, q = shape
     nc = S // q
     pairs = q * (q + 1) // 2
@@ -776,6 +783,26 @@ def ssd_work(shape, elem: int):
     return nbytes, flops
 
 
+def ssd_kernel_flops(shape) -> int:
+    """Operations of the kernel's tensor-core products (csrc/ssd_scan.cu)
+    at ``shape``, before the three-way TF32 split: per y block of 64 query
+    rows and 8 heads, the scores of each warp's 16 rows against the 8-key
+    blocks at or below its last row (2N an entry), and per head the same
+    blocks times x (2P an entry); per states block the [P, N] product over
+    all q keys of each head (2PN a key)."""
+    B, S, H, P, N, q = shape
+    groups = B * (S // q) * -(-H // 8)
+    hb = min(8, H)
+    score = y = 0
+    for i0 in range(0, q, 64):
+        for r in range(i0, min(q, i0 + 64), 16):
+            last = min(r + 15, q - 1)
+            score += 16 * 8 * (last // 8 + 1) * 2 * N
+            y += 16 * 8 * (last // 8 + 1) * 2 * P * hb
+    states = hb * q * 2 * P * N
+    return groups * (score + y + states)
+
+
 def check_ssd(shape, dtype, timed: bool) -> dict:
     """ssd_scan's kernel vs its plain version on the card at one shape
     (B, S, H, P, N, chunk). Tolerance: the reference's own for its kernel,
@@ -783,8 +810,12 @@ def check_ssd(shape, dtype, timed: bool) -> dict:
     y_diag, the states and the chunk decays; a bfloat16 y may land one
     bfloat16 step (2^-7 of its magnitude) further. Both take cs in the
     reference's float32 order and differ in the order of the products'
-    sums. Timed: the kernel by CUDA events, beside the plain version and
-    the bound of ssd_work over 3.35 TB/s and 67 TFLOP/s; no single PyTorch
+    sums, the kernel's products as split TF32 (three TF32 products for each
+    float32 one, each operand's residual under 2^-21 of it). Timed: the
+    kernel by CUDA events, beside the plain version and the bound of its
+    route, ssd_work's bytes over 3.35 TB/s against its operations over 495
+    TFLOP/s (TF32 tensor cores); and the kernel's own work (kernel_work_ms:
+    three TF32 products for each of ssd_kernel_flops). No single PyTorch
     call computes this function (library_ms null)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
@@ -817,13 +848,17 @@ def check_ssd(shape, dtype, timed: bool) -> dict:
            "violations": bad}
     if timed:
         nbytes, flops = ssd_work(shape, x.element_size())
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_TC_FLOP_PER_S
+        rec["kernel_work_ms"] = 1e3 * 3 * ssd_kernel_flops(shape) / TF32_TC_FLOP_PER_S
         rec["ms"] = cuda_ms(kernel, iters=20)
         rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
         rec["library_ms"] = None
         rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         rec["bytes"], rec["flops"] = nbytes, flops
+        if rec["ms"] < rec["bound_ms"]:
+            fail(f"ssd_scan {shape} {rec['dtype']}: {rec['ms']:.4f} ms is "
+                 f"under its bound {rec['bound_ms']:.4f} ms")
     print(f"[kernels] ssd_scan {json.dumps(rec)}", flush=True)
     if bad:
         fail(f"ssd_scan {shape} {rec['dtype']}: {bad} elements beyond "
@@ -833,23 +868,59 @@ def check_ssd(shape, dtype, timed: bool) -> dict:
     return rec
 
 
+def check_ssd_scan_cs(shape) -> None:
+    """ops.ssd_scan on the card takes the kernel's cs (its fourth output)
+    and launches no cumsum_f32; its y and final state are bitwise those of
+    the same scan with cumsum_f32's cs (the kernel's three outputs, then
+    inter_chunk)."""
+    import torch
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.ssd_scan import cumsum_f32, inter_chunk
+    B, S, H, P, N, chunk = shape
+    x, dt, dA, Bm, Cm = ssd_inputs(shape, torch.float32)
+    A = dA[0, 0] / dt[0, 0]
+    calls = []
+    counted = lambda *a, **k: calls.append(1) or cumsum_f32(*a, **k)
+    ops.cumsum_f32, kept = counted, ops.cumsum_f32
+    try:
+        y, h = ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+    finally:
+        ops.cumsum_f32 = kept
+    dA = dt.float() * A.float()[None, None, :]
+    nc = S // chunk
+    y_diag, st, cd = ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=chunk)
+    y_off, h_ref = inter_chunk(st, cd, cumsum_f32(dA.reshape(B, nc, chunk, H), 2),
+                               Cm.float().reshape(B, nc, chunk, N))
+    y_ref = y_diag + y_off.reshape(B, S, H, P)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y, y_ref) and torch.equal(h, h_ref))
+    print(f"[kernels] ssd_scan {list(shape)}: cumsum_f32 calls {len(calls)}, "
+          f"y and final state bitwise those with cumsum_f32's cs: {same}",
+          flush=True)
+    if calls or not same:
+        fail(f"ssd_scan {shape}: {len(calls)} cumsum_f32 calls; bitwise {same}")
+
+
 def ssd_phase() -> dict:
-    """zamba2-7b's prefill shape in float32 (timed) and bfloat16, S equal to
-    the chunk at zamba2's heads, PERF.md's bound case (chunk 256, N 128;
-    timed), the reference's sweep shapes, H < 8, and N = P = 128 at chunk
-    256 in one chunk, each in float32 and bfloat16; returns zamba2-7b's
-    float32 record, whose bound is checked against the count written in
-    PERF.md: 7.73 GFLOP at 67 TFLOP/s, 0.1153 ms, operations-bound."""
+    """zamba2-7b's prefill shape in float32 (timed) and bfloat16 (timed), S
+    equal to the chunk at zamba2's heads, PERF.md's bound case (chunk 256,
+    N 128; timed), the reference's sweep shapes, H < 8, and N = P = 128 at
+    chunk 256 in one chunk, each in float32 and bfloat16; the full scan's
+    cs from the kernel, bitwise; returns zamba2-7b's float32 record, whose
+    bound is checked against the count written in PERF.md: 299.4 MB at
+    3.35 TB/s, 0.0894 ms, bytes-bound (its products on the TF32 tensor
+    cores take 0.016 ms at 495 TFLOP/s)."""
     import torch
     rec = check_ssd(ZAMBA_SSD, torch.float32, timed=True)
-    if rec["bound_by"] != "operations" or abs(rec["bound_ms"] - 0.1153) > 0.001:
+    if rec["bound_by"] != "bytes" or abs(rec["bound_ms"] - 0.0894) > 0.0005:
         fail(f"ssd_scan bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-             f"expected 0.1153 ms (operations)")
+             f"expected 0.0894 ms (bytes)")
     check_ssd(ZAMBA_SSD, torch.bfloat16, timed=True)
     check_ssd(BOUND_SSD, torch.float32, timed=True)
     for shape in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             check_ssd(shape, dtype, timed=False)
+    check_ssd_scan_cs(ZAMBA_SSD)
     return rec
 
 
@@ -1069,10 +1140,15 @@ def main() -> int:
             if any(w in line for w in ("registers", "spill", "wgmma", "Performance")):
                 print(f"[build] {lib.name}: {line.strip()}", flush=True)
     hgmma = sass_count(fa_ops.LIBRARY, "HGMMA")
-    print(f"[build] flash_attention SASS: {hgmma} HGMMA (wgmma) instructions",
-          flush=True)
+    tf32 = sass_count(fa_ops.LIBRARY, "HMMA", "TF32")
+    ssd_tf32 = sass_count(ssd_ops.LIBRARY, "HMMA", "TF32")
+    print(f"[build] flash_attention SASS: {hgmma} HGMMA (wgmma, bfloat16) and "
+          f"{tf32} HMMA .TF32 (mma.sync, float32) instructions; ssd_scan SASS: "
+          f"{ssd_tf32} HMMA .TF32", flush=True)
     if not hgmma:
         fail("the bfloat16 flash kernel's SASS holds no wgmma (HGMMA)")
+    if not (tf32 and ssd_tf32):
+        fail("the float32 flash kernel's or ssd_scan's SASS holds no TF32 mma (HMMA .TF32)")
 
     # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
     # at the tree path's six leaves, flash_attention and ssd_scan at the

@@ -18,55 +18,21 @@
 // their strides (elements; the last dimension contiguous), and o is
 // written as [B, S, H, hd]: no repeat and no transpose copy.
 //
-// Two instantiations. bfloat16 inputs run on the tensor cores, with TMA
-// loads and the products split so as to keep this arithmetic's float32
-// tolerance (flash_bf16_sm90.cuh says how). float32 inputs run the design
-// below, on the CUDA cores: TF32 tensor cores would leave the reference's
-// float32 arithmetic.
-//
-// Work split (float32). The TPU walks a sequential (BH, q block, kv block) grid and
-// carries m, l, acc in scratch from one kv step to the next. Here one
-// block of 256 threads owns (b, h, 64 query rows) and loops over the
-// 64-row KV tiles itself, from the window's first tile to the causal
-// diagonal only (the TPU kernel's pl.when(relevant) skip). Blocks are
-// issued longest rows first. Each of the 8 warps owns 8 query rows: lane
-// c scores keys c and c + 32 of the tile for each row, the row max and
-// sum are warp shuffles, and lane c accumulates output columns c, c + 32,
-// ... of each row in registers (8 x hd/32 floats).
-//
-// Shared memory (float32): the scaled Q tile, the K
-// and V tiles, rows padded to hd + 4 floats so that 16-byte loads of
-// neighbouring rows fall in different banks, and each warp's 8 x 64
-// probabilities. At hd = 256 that is 216,064 bytes, requested as dynamic
-// shared memory above 48 KB with cudaFuncSetAttribute; one block per SM.
-//
-// What bounds the float32 kernel on an H100: operations. At gemma-2b's
-// prefill (B = 4, S = 1024, H = 8, Hkv = 1, hd = 256, float32) the two
-// products are 17.2 GFLOP after the causal halving, 0.256 ms at 67
-// TFLOP/s on the CUDA cores, against 75.5 MB of q, k, v, o (22.5 us at
-// 3.35 TB/s). It runs both products as float32 FMAs on the CUDA cores,
-// fed from shared memory; register tiles, or 3xTF32 split products, and
-// one KV tile shared by all query heads of a KV head are later work.
+// Two instantiations, each in its own header, both on the tensor cores:
+// float32 inputs as split TF32 mma.sync (flash_f32_sm90.cuh: each operand
+// cut into two TF32 terms, three products for each float32 one, so the
+// float32 tolerance holds), bfloat16 inputs as wgmma with TMA loads
+// (flash_bf16_sm90.cuh: P split into two bfloat16 terms). Each header says
+// what bounds it on an H100 and how its design meets that.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "../../csrc/dtypes.cuh"
 #include "flash_bf16_sm90.cuh"
+#include "flash_f32_sm90.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBlockQ = 64;                 // query rows per block
-constexpr int kBlockK = 64;                 // keys per KV tile
-constexpr int kRows = kBlockQ / kWarps;     // query rows per warp
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
-
-using repro_dtypes::load_f;
-using repro_dtypes::store_f;
 
 struct Params {
   const void* q;
@@ -84,180 +50,17 @@ struct Params {
   float scale;
 };
 
-template <int HD>
-constexpr size_t smem_bytes() {
-  return sizeof(float) *
-         ((size_t)(kBlockQ + 2 * kBlockK) * (HD + 4) + (size_t)kBlockQ * kBlockK);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
-  return x;
-}
-
-__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1) flash_fwd(const Params p) {
-  constexpr int LD = HD + 4;   // padded row, in floats
-  constexpr int NT = HD / 32;  // output columns per lane
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBlockQ * LD;
-  float* sV = sK + kBlockK * LD;
-  float* sP = sV + kBlockK * LD;
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // longest rows first
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / p.group;
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-
-  for (int i = tid; i < kBlockQ * HD; i += kThreads) {
-    const int r = i / HD, d = i % HD, pos = q0 + r;
-    sQ[r * LD + d] = pos < p.S ? load_f(q, (size_t)((long long)pos * p.q_ss + d)) * p.scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][NT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[r][t] = 0.f;
-  }
-
-  const int last = p.causal ? min(q0 + kBlockQ - 1, p.S - 1) : p.S - 1;
-  const int first = p.window > 0 ? max(0, q0 - p.window + 1) : 0;
-  const float* qr = sQ + warp * kRows * LD;
-  float* pw = sP + warp * kRows * kBlockK;
-
-  for (int kt = first / kBlockK; kt <= last / kBlockK; ++kt) {
-    const int k0 = kt * kBlockK;
-    __syncthreads();  // every warp is done with the previous tile
-    for (int i = tid; i < kBlockK * HD; i += kThreads) {
-      const int r = i / HD, d = i % HD, pos = k0 + r;
-      const bool in = pos < p.S;
-      sK[r * LD + d] = in ? load_f(k, (size_t)((long long)pos * p.k_ss + d)) : 0.f;
-      sV[r * LD + d] = in ? load_f(v, (size_t)((long long)pos * p.v_ss + d)) : 0.f;
-    }
-    __syncthreads();
-
-    // scores of this warp's rows against keys lane and lane + 32
-    float s[kRows][2];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.f;
-    const float* ka_row = sK + lane * LD;
-    const float* kb_row = sK + (lane + 32) * LD;
-#pragma unroll 4
-    for (int d = 0; d < HD; d += 4) {
-      const float4 ka = *reinterpret_cast<const float4*>(ka_row + d);
-      const float4 kb = *reinterpret_cast<const float4*>(kb_row + d);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qr + r * LD + d);
-        s[r][0] = dot4(qv, ka, s[r][0]);
-        s[r][1] = dot4(qv, kb, s[r][1]);
-      }
-    }
-
-    // mask, online softmax, probabilities to shared memory
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = q0 + warp * kRows + r;
-      bool ok[2];
-      float mx = kNegInf;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int kpos = k0 + lane + 32 * c;
-        ok[c] = kpos < p.S && (!p.causal || kpos <= qpos) &&
-                (p.window <= 0 || kpos > qpos - p.window);
-        if (!ok[c]) s[r][c] = kNegInf;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      const float p0 = ok[0] ? expf(s[r][0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(s[r][1] - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + warp_sum(p0 + p1);
-      m[r] = m_new;
-      pw[r * kBlockK + lane] = p0;
-      pw[r * kBlockK + lane + 32] = p1;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) acc[r][t] *= corr;
-    }
-    __syncwarp();
-
-    // acc += P V, four keys at a time
-#pragma unroll 2
-    for (int j = 0; j < kBlockK; j += 4) {
-      float vv[4][NT];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj)
-#pragma unroll
-        for (int t = 0; t < NT; ++t) vv[jj][t] = sV[(j + jj) * LD + lane + 32 * t];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pp = *reinterpret_cast<const float4*>(pw + r * kBlockK + j);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          float a = fmaf(pp.x, vv[0][t], acc[r][t]);
-          a = fmaf(pp.y, vv[1][t], a);
-          a = fmaf(pp.z, vv[2][t], a);
-          acc[r][t] = fmaf(pp.w, vv[3][t], a);
-        }
-      }
-    }
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int qpos = q0 + warp * kRows + r;
-    if (qpos >= p.S) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-      store_f(o, (size_t)((long long)qpos * p.o_ss + lane + 32 * t), acc[r][t] / denom);
-  }
-}
-
-template <typename T, int HD>
-int launch(const Params& p, int B, int H, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<HD>();
-  static bool configured = false;  // once per instantiation
-  if (!configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = true;
-  }
-  const dim3 grid((p.S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd<T, HD><<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
 int launch_f32(int hd, const Params& p, int B, int H, cudaStream_t stream) {
+  const flash_f32::Params f{static_cast<const float*>(p.q), static_cast<const float*>(p.k),
+                            static_cast<const float*>(p.v), static_cast<float*>(p.o),
+                            p.q_sb, p.q_ss, p.q_sh, p.k_sb, p.k_ss, p.k_sh,
+                            p.v_sb, p.v_ss, p.v_sh, p.o_sb, p.o_ss, p.o_sh,
+                            p.S, H, p.group, p.causal, p.window, p.scale};
   switch (hd) {
-    case 32: return launch<float, 32>(p, B, H, stream);
-    case 64: return launch<float, 64>(p, B, H, stream);
-    case 128: return launch<float, 128>(p, B, H, stream);
-    case 256: return launch<float, 256>(p, B, H, stream);
+    case 32: return flash_f32::launch<32>(f, B, stream);
+    case 64: return flash_f32::launch<64>(f, B, stream);
+    case 128: return flash_f32::launch<128>(f, B, stream);
+    case 256: return flash_f32::launch<256>(f, B, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -285,8 +88,8 @@ extern "C" {
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o alike). hd in {32, 64, 128,
 // 256}; H a multiple of Hkv. Strides in elements: batch, sequence, head
 // (the head_dim axis is contiguous). window: 0 = no sliding window.
-// bfloat16 also needs q, k, v 16-byte aligned and their strides multiples
-// of 8 elements (TMA). Returns the cudaError_t of the launch (0 =
+// q, k, v 16-byte aligned and their strides multiples of 16 bytes (TMA
+// and cp.async read them 16 bytes at a time). Returns the cudaError_t of the launch (0 =
 // launched).
 int flash_attention_launch(int dtype, int hd, int B, int S, int H, int Hkv,
                            const void* q, long long q_sb, long long q_ss, long long q_sh,

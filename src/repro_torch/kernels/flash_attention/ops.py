@@ -4,8 +4,9 @@ reference's signature (repro/kernels/flash_attention/ops.py).
 ``flash_attention(q, k, v, *, causal=True, sliding_window=None)``: q [B, S,
 H, hd], k and v [B, S, Hkv, hd] -> o [B, S, H, hd]. Dispatch is by the
 device of q: a CUDA tensor launches the hand-written kernel
-(``csrc/flash_attention.cu``: float32 on the CUDA cores, bfloat16 on the
-tensor cores, ``csrc/flash_bf16_sm90.cuh``) or raises; a CPU tensor runs
+(``csrc/flash_attention.cu``, both instantiations on the tensor cores:
+float32 as split TF32 mma.sync, ``csrc/flash_f32_sm90.cuh``; bfloat16 as
+wgmma, ``csrc/flash_bf16_sm90.cuh``) or raises; a CPU tensor runs
 the plain version (``flash_attention.flash_attention_plain``). There is no
 fallback between the two. ``flash_attention.launches`` counts the
 kernel's launches.
@@ -14,17 +15,21 @@ Contract, on either device: float32 or bfloat16, q, k, v of one dtype and
 device; hd in {32, 64, 128, 256}; H a multiple of Hkv (query head h reads
 KV head h // (H // Hkv)); ``sliding_window`` None or positive. The kernel
 reads its operands through their strides, so no GQA repeat and no
-transpose is made; only an operand whose head_dim axis is not contiguous
-is copied first, and in bfloat16, where TMA reads them, one that is not
-16-byte aligned or has a stride that is not a multiple of 16 bytes. The
+transpose is made; only an operand whose head_dim axis is not contiguous,
+or that is not 16-byte aligned or has a stride that is not a multiple of
+16 bytes, is copied first (TMA and cp.async read 16 bytes at a time). The
 output is in the input's dtype.
+
+``work(B, S, H, Hkv, hd, dtype, window)`` counts what the function needs
+and what the kernel's route does (its products, bytes and peak rate), from
+which chip_smoke.py takes each kernel's bound.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,20 +38,29 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 
 HEAD_DIMS = (32, 64, 128, 256)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+TF32_TC_FLOP_PER_S = 495e12   # float32 inputs: split TF32 on the tensor cores
+BF16_TC_FLOP_PER_S = 989e12   # bfloat16 inputs: wgmma
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("flash_attention", sources=(_CSRC / "flash_attention.cu",),
-                        headers=build.SHARED_HEADERS + (_CSRC / "flash_bf16_sm90.cuh",))
+                        headers=build.SHARED_HEADERS + (_CSRC / "flash_bf16_sm90.cuh",
+                                                        _CSRC / "flash_f32_sm90.cuh"))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# flash_attention_launch's parameters, in order (csrc/flash_attention.cu)
+ARGTYPES = ([_I32] * 6 + [_PTR, _I64, _I64, _I64] * 4
+            + [_I32, _I32, ctypes.c_float, _PTR])
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load(LIBRARY)
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([i32] * 6 + [ptr, i64, i64, i64] * 4
-                       + [i32, i32, ctypes.c_float, ptr])
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -78,14 +92,52 @@ def _check(q, k, v, sliding_window):
 
 
 def _readable(t) -> bool:
-    """Can the kernel read ``t`` as it is? The head_dim axis contiguous;
-    in bfloat16 also what TMA needs of a tensor map: the base 16-byte
-    aligned and the other strides multiples of 16 bytes."""
-    if t.stride(-1) != 1:
-        return False
-    if t.dtype != torch.bfloat16:
-        return True
-    return t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3])
+    """Can the kernel read ``t`` as it is? The head_dim axis contiguous,
+    the base 16-byte aligned and the other strides multiples of 16 bytes
+    (a TMA tensor map in bfloat16, 16-byte cp.async in float32)."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3]))
+
+
+class Work(NamedTuple):
+    """What one call needs and does: ``flops``, 2 products of 2 hd
+    operations per (query, key) pair the mask keeps; ``nbytes``, q, k, v
+    read once and o written once; ``rate``, the peak of the kernel's route
+    (TF32 or bfloat16 tensor cores); ``kernel_flops``, the route's own
+    products (3 TF32 products per float32 one; P v twice in bfloat16)."""
+    flops: int
+    nbytes: int
+    rate: float
+    kernel_flops: int
+
+    @property
+    def bound_s(self) -> float:
+        """The least time the card could take: the longer of the bytes
+        over HBM's rate and the operations over the route's peak."""
+        return max(self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate)
+
+    @property
+    def bound_by(self) -> str:
+        return ("bytes" if self.nbytes / HBM_BYTES_PER_S >= self.flops / self.rate
+                else "operations")
+
+
+def kept_pairs(S: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs of one causal [S, S] score tile that the mask
+    keeps: key <= query, and query - key < window where there is one."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def work(B: int, S: int, H: int, Hkv: int, hd: int, dtype,
+         window: Optional[int] = None) -> Work:
+    """Work of one causal call at (B, S, H, Hkv, hd) in ``dtype``."""
+    flops = 4 * hd * kept_pairs(S, window) * B * H
+    elem = 2 if dtype == torch.bfloat16 else 4
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * elem
+    if dtype == torch.bfloat16:
+        return Work(flops, nbytes, BF16_TC_FLOP_PER_S, flops * 3 // 2)
+    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * flops)
 
 
 def _launch(q, k, v, *, causal: bool, sliding_window: Optional[int]):

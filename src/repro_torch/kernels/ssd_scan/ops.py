@@ -22,11 +22,16 @@ or bfloat16, of one dtype and device; S a multiple of the chunk q; q <=
 their strides (a view into the model's conv output is not copied; only an
 operand whose last axis is not contiguous is); dt and dA go in as
 contiguous float32.
+
+``plan(H, P, N, q)`` is the kernel's tile plan, which the launch passes to
+it and the kernel checks: how many heads a y block and a states block
+carry at once, and the shared memory that takes.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +42,10 @@ from repro_torch.kernels.ssd_scan.ssd_scan import (cumsum_f32, inter_chunk,
 MAX_CHUNK = 256
 MAX_DIM = 128   # N and P
 HEAD_BLOCK = 8  # heads per block, the reference's HB
+# the kernel's tiles (csrc/ssd_scan.cu): 256 threads (8 warps), y blocks of
+# 64 query rows, staged tiles of 32 keys
+THREADS, ROW_TILE, KEY_TILE = 256, 64, 32
+SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("ssd_scan", sources=(_CSRC / "ssd_scan.cu",),
@@ -44,13 +53,59 @@ LIBRARY = build.Library("ssd_scan", sources=(_CSRC / "ssd_scan.cu",),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+class Plan(NamedTuple):
+    """Heads a y block (fy) and a states block (fst) carry at once, and
+    the bytes of shared memory a block takes."""
+    fy: int
+    fst: int
+    smem: int
+
+
+def _round(n: int, k: int) -> int:
+    return -(-n // k) * k
+
+
+def plan(H: int, P: int, N: int, q: int) -> Plan:
+    """The kernel's tile plan at one shape. A warp owns 16 rows: a y block's
+    8 warps are 4 slabs of query rows by fy = 2 heads; a states block's
+    warps take 16 rows of P of one head each, so it carries
+    fst = 8 / ceil(P / 16) heads. Shared memory (float32): cs and dt of 8
+    heads over the chunk; a y block's 64 x q scores, then the larger of the
+    C tile and two B tiles of 64 rows and two x tiles of fy heads and 32
+    keys as (hi, lo) pairs; a states block's two x tiles of fst heads and
+    two B tiles as pairs. Row strides: 8 floats past a multiple of 32 where
+    fragments read floats down a column, 4 where they read along a row (the
+    scores, C, B), 4 pairs past a multiple of 16 where they read pairs."""
+    hb = min(HEAD_BLOCK, H)
+    fy = min(hb, 2)
+    fst = min(hb, (THREADS // 32) // -(-P // 16))
+    ld_rows, ld_pairs = (lambda n: _round(n, 32) + 8), (lambda n: _round(n, 16) + 4)
+    heads = 2 * HEAD_BLOCK * q
+    y = (ROW_TILE * (_round(q, 32) + 4)
+         + max(3 * ROW_TILE * (_round(N, 32) + 4), 2 * fy * KEY_TILE * 2 * ld_pairs(P)))
+    st = KEY_TILE * (2 * fst * ld_rows(P) + 2 * 2 * ld_pairs(N))
+    return Plan(fy, fst, 4 * (heads + max(y, st)))
+
+
+def _vectors(t, n: int) -> bool:
+    """Are ``t``'s rows of ``n`` elements readable 4 elements at a time:
+    n and the strides multiples of 4, the base aligned to 4 elements."""
+    return (n % 4 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
+            and t.data_ptr() % (4 * t.element_size()) == 0)
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# ssd_scan_launch's parameters, in order (csrc/ssd_scan.cu)
+ARGTYPES = ([_I32] * 7 + [_PTR, _I64, _I64, _I64] + [_PTR, _PTR]
+            + [_PTR, _I64, _I64] * 2 + [_PTR] * 4
+            + [_I32, _I32, _I64, _I32, _I32, _PTR])
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load(LIBRARY)
     fn = lib.ssd_scan_launch
     if fn.argtypes is None:
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        fn.argtypes = ([i32] * 7 + [ptr, i64, i64, i64] + [ptr, ptr]
-                       + [ptr, i64, i64] * 2 + [ptr] * 4)
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
         lib.ssd_scan_error_string.argtypes = [ctypes.c_int]
         lib.ssd_scan_error_string.restype = ctypes.c_char_p
@@ -87,8 +142,9 @@ def _check(x, dt, dA, Bm, Cm, chunk: int):
         raise ValueError("ssd_scan: inputs on different devices")
 
 
-def _launch(x, dt, dA, Bm, Cm, *, chunk: int):
-    """One launch of the kernel; returns (y_diag, states, cdecay)."""
+def _launch(x, dt, dA, Bm, Cm, *, chunk: int, with_cs: bool = False):
+    """One launch of the kernel; returns (y_diag, states, cdecay), and cs
+    [B, nc, q, H] float32 after them if ``with_cs``."""
     B, S, H, P = x.shape
     N = Bm.shape[-1]
     nc = S // chunk
@@ -97,6 +153,9 @@ def _launch(x, dt, dA, Bm, Cm, *, chunk: int):
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     st = torch.empty((B, nc, H, P, N), dtype=torch.float32, device=x.device)
     cd = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
+    cs = (torch.empty((B, nc, chunk, H), dtype=torch.float32, device=x.device)
+          if with_cs else None)
+    pl = plan(H, P, N, chunk)
     lib = _library()
     rc = lib.ssd_scan_launch(
         _DTYPES[x.dtype], B, S, H, P, N, chunk,
@@ -105,20 +164,22 @@ def _launch(x, dt, dA, Bm, Cm, *, chunk: int):
         Bm.data_ptr(), Bm.stride(0), Bm.stride(1),
         Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
         y.data_ptr(), st.data_ptr(), cd.data_ptr(),
+        cs.data_ptr() if with_cs else None,
+        pl.fy, pl.fst, pl.smem, int(_vectors(x, P)),
+        int(_vectors(Bm, N) and _vectors(Cm, N)),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "
                            f"{lib.ssd_scan_error_string(rc).decode()} ({rc})")
-    return y, st, cd
+    ssd_intra_chunk.launches += 1
+    return (y, st, cd, cs) if with_cs else (y, st, cd)
 
 
 def ssd_intra_chunk(x, dt, dA, Bm, Cm, *, chunk: int):
     """The intra-chunk step: (y_diag, states, cdecay), see the module."""
     _check(x, dt, dA, Bm, Cm, chunk)
     if x.device.type == "cuda":
-        out = _launch(x, dt, dA, Bm, Cm, chunk=chunk)
-        ssd_intra_chunk.launches += 1
-        return out
+        return _launch(x, dt, dA, Bm, Cm, chunk=chunk)
     if x.device.type == "cpu":
         return ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
     raise ValueError(f"ssd_scan has no path for device {x.device}")
@@ -135,9 +196,16 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     N = Bm.shape[-1]
     chunk = min(chunk, S)
     dA = dt.float() * A.float()[None, None, :]
-    y_diag, states, cdecay = ssd_intra_chunk(xh, dt, dA, Bm, Cm, chunk=chunk)
     nc = S // chunk
-    dA_cs = cumsum_f32(dA.reshape(B, nc, chunk, H), dim=2)
+    if xh.device.type == "cuda":
+        # the kernel's cs: the within-chunk cumsum in the reference's order,
+        # which cumsum_f32 would take again in ~35 small launches
+        _check(xh, dt, dA, Bm, Cm, chunk)
+        y_diag, states, cdecay, dA_cs = _launch(xh, dt, dA, Bm, Cm, chunk=chunk,
+                                                with_cs=True)
+    else:
+        y_diag, states, cdecay = ssd_intra_chunk(xh, dt, dA, Bm, Cm, chunk=chunk)
+        dA_cs = cumsum_f32(dA.reshape(B, nc, chunk, H), dim=2)
     Cc = Cm.float().reshape(B, nc, chunk, N)
     y_off, h = inter_chunk(states, cdecay, dA_cs, Cc, initial_state)
     y = y_diag + y_off.reshape(B, S, H, P).to(y_diag.dtype)

@@ -190,7 +190,10 @@ def test_sgd_update_leaves_takes_sixteen_leaves_a_launch():
 
 
 # tests/test_kernels.py::test_flash_attention_sweep's cases, then head_dim
-# 128 (olmo, glm4) and 256 (gemma) with ragged S and a window
+# 128 (olmo, glm4) and 256 (gemma) with ragged S and a window; then cases
+# off the float32 kernel's tiles (64 query rows, 16 a warp, 64 keys, 8-key
+# blocks): a GQA group of 8 at every head_dim, S under one tile and not a
+# multiple of 8, windows that end inside an 8-key block, a group of 3
 FLASH_CASES = [
     (2, 256, 4, 2, 64, None),
     (1, 256, 4, 1, 64, 96),
@@ -199,6 +202,12 @@ FLASH_CASES = [
     (2, 300, 4, 4, 128, None),
     (1, 520, 8, 1, 256, None),
     (1, 300, 8, 1, 256, 100),
+    (1, 256, 8, 1, 32, None),
+    (2, 200, 8, 1, 64, 50),
+    (1, 1000, 16, 16, 128, None),
+    (2, 384, 8, 1, 256, 128),
+    (1, 77, 4, 4, 128, None),
+    (1, 130, 6, 2, 64, 41),
 ]
 
 
@@ -253,6 +262,32 @@ def test_flash_attention_bf16_reads_strided_views():
     assert bool(((a - b).abs() <= allowed).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset"])
+def test_flash_attention_reads_strided_views(dtype, offset):
+    """q, k, v as views into one fused [B, S, (H + 2 Hkv) hd] projection,
+    read through their strides; a view one element into its buffer is
+    not 16-byte aligned and is copied first. Either way within tolerance."""
+    _need_card()
+    B, S, H, Hkv, hd = 2, 200, 8, 1, 128
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    qkv = torch.randn((B, S, offset + (H + 2 * Hkv) * hd), generator=gen,
+                      device="cuda").to(dtype)[..., offset:]
+    q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+    k = qkv[..., H * hd:(H + Hkv) * hd].unflatten(-1, (Hkv, hd))
+    v = qkv[..., (H + Hkv) * hd:].unflatten(-1, (Hkv, hd))
+    assert fa_ops._readable(q) == (offset == 0)
+    o = fa_ops.flash_attention(q, k, v, causal=True)
+    r = flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=True)
+    torch.cuda.synchronize()
+    a, b = o.float(), r.float()
+    allowed = 2e-5 + 2e-5 * b.abs()
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * torch.maximum(a.abs(), b.abs())
+    assert bool(((a - b).abs() <= allowed).all())
+
+
 def test_prefill_with_use_pallas_launches_once_per_layer():
     """A reduced gemma-2b prefill with use_pallas=True launches the kernel
     once per layer and agrees with the CPU's (plain) prefill."""
@@ -285,7 +320,12 @@ def test_flash_wrapper_refuses_on_the_card():
 
 
 # ssd_scan (B, S, H, P, N, chunk): the reference's sweep, H < 8, S equal to
-# the chunk, chunk 256 with N = P = 128, and zamba2-7b's heads
+# the chunk, chunk 256 with N = P = 128, and zamba2-7b's heads; then cases
+# off the kernel's tiles (64 query rows, 16-key product tiles, 8 x 8
+# register tiles, heads in flight fy and fst): chunks that are no multiple
+# of 16 or 64, N and P of 16, 32 and 128 apart and together, H < 8,
+# zamba2-7b's 112 heads at B = 1, and P and N that are no multiple of 8 or
+# of 4 (the kernel's element-by-element loads and stores)
 SSD_CASES = [
     (2, 128, 8, 16, 16, 32),
     (1, 256, 16, 32, 64, 64),
@@ -294,6 +334,13 @@ SSD_CASES = [
     (1, 96, 1, 48, 24, 96),
     (1, 512, 8, 128, 128, 256),
     (2, 256, 112, 64, 64, 128),
+    (1, 120, 8, 32, 32, 24),
+    (2, 200, 4, 16, 16, 100),
+    (1, 256, 112, 64, 64, 128),
+    (1, 256, 8, 128, 128, 128),
+    (2, 96, 2, 20, 18, 48),
+    (1, 128, 8, 128, 16, 64),
+    (1, 64, 8, 16, 128, 32),
 ]
 
 
@@ -329,6 +376,35 @@ def test_ssd_scan_kernel_matches_plain(B, S, H, P, N, chunk, dtype):
     want = ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
     torch.cuda.synchronize()
     _ssd_close(got, want, dtype == torch.bfloat16)
+
+
+def test_ssd_scan_takes_the_kernels_cs():
+    """ops.ssd_scan on the card takes cs from the kernel (its fourth
+    output) and calls cumsum_f32 no time; y and the final state are
+    bitwise those of the scan with cumsum_f32's cs."""
+    _need_card()
+    from repro_torch.kernels.ssd_scan.ssd_scan import cumsum_f32, inter_chunk
+    B, S, H, P, N, chunk = 2, 256, 8, 64, 32, 128
+    x, dt, _, Bm, Cm = _ssd_inputs(B, S, H, P, N, torch.float32)
+    A = -torch.exp(torch.linspace(-1.0, 1.0, H, device="cuda"))
+    calls = []
+    orig = ssd_ops.cumsum_f32
+    ssd_ops.cumsum_f32 = lambda *a, **k: calls.append(1) or orig(*a, **k)
+    try:
+        before = ssd_ops.ssd_intra_chunk.launches
+        y, h = ssd_ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk)
+        assert ssd_ops.ssd_intra_chunk.launches == before + 1
+    finally:
+        ssd_ops.cumsum_f32 = orig
+    assert not calls
+    dA = dt * A
+    nc = S // chunk
+    y_diag, st, cd = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=chunk)
+    y_off, h_ref = inter_chunk(st, cd, cumsum_f32(dA.reshape(B, nc, chunk, H), 2),
+                               Cm.reshape(B, nc, chunk, N))
+    torch.cuda.synchronize()
+    assert torch.equal(y, y_diag + y_off.reshape(B, S, H, P))
+    assert torch.equal(h, h_ref)
 
 
 def test_ssd_kernel_takes_any_batch():

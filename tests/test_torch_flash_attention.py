@@ -168,3 +168,63 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(shapes, match):
         ops.flash_attention(torch.zeros((1, 16, 4, 64), dtype=torch.float64),
                             torch.zeros((1, 16, 2, 64), dtype=torch.float64),
                             torch.zeros((1, 16, 2, 64), dtype=torch.float64))
+
+
+@pytest.mark.parametrize("S,window", [(1024, None), (300, None), (1024, 200),
+                                      (77, 1), (130, 41), (64, 500)])
+def test_kept_pairs_counts_the_mask(S, window):
+    qpos, kpos = torch.arange(S)[:, None], torch.arange(S)[None, :]
+    keep = kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    assert ops.kept_pairs(S, window) == int(keep.sum())
+
+
+@pytest.mark.parametrize("shape,dtype,bound_ms,by,route_ms", [
+    ((4, 1024, 8, 1, 256), torch.float32, 0.0347, "operations", 0.1042),
+    ((4, 1024, 8, 1, 256), torch.bfloat16, 0.0174, "operations", 0.0261),
+    ((4, 1024, 16, 16, 128), torch.float32, 0.0401, "bytes", 0.1042),
+    ((4, 1024, 16, 16, 128), torch.bfloat16, 0.0200, "bytes", 0.0261),
+], ids=["gemma-f32", "gemma-bf16", "olmo-f32", "olmo-bf16"])
+def test_work_gives_each_route_its_bound(shape, dtype, bound_ms, by, route_ms):
+    """The bound chip_smoke.py checks for each instantiation: 17.2 GFLOP
+    over 495 TFLOP/s (split TF32) or 989 (bfloat16), or the bytes over 3.35
+    TB/s where longer; the route's own products 3 or 1.5 times the
+    function's."""
+    w = ops.work(*shape, dtype)
+    assert w.flops == 4 * shape[-1] * ops.kept_pairs(shape[1]) * shape[0] * shape[2]
+    assert w.bound_by == by
+    assert abs(1e3 * w.bound_s / bound_ms - 1) < 2e-3
+    assert abs(1e3 * w.kernel_flops / w.rate / route_ms - 1) < 2e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_readable_asks_for_16_byte_rows(dtype):
+    """ops._readable: what the kernel reads through strides as it is (the
+    head_dim axis contiguous, the base and the strides 16-byte multiples);
+    anything else is copied first."""
+    B, S, H, Hkv, hd = 2, 16, 4, 2, 64
+    qkv = torch.zeros((B, S, (H + 2 * Hkv) * hd), dtype=dtype)
+    q = qkv[..., :H * hd].unflatten(-1, (H, hd))
+    assert ops._readable(q) and ops._readable(torch.zeros(B, S, H, hd, dtype=dtype))
+    assert not ops._readable(torch.zeros(B, S, hd, H, dtype=dtype).transpose(-1, -2))
+    shifted = torch.zeros(1 + B * S * H * hd, dtype=dtype)[1:].view(B, S, H, hd)
+    assert not ops._readable(shifted)
+    odd_rows = torch.zeros((B, S, H * hd + 2), dtype=dtype)[..., :H * hd].unflatten(-1, (H, hd))
+    assert not ops._readable(odd_rows)
+
+
+def test_argtypes_follow_the_c_entry():
+    """One ARGTYPES entry per parameter of flash_attention_launch, of the
+    C parameter's kind (pointer, long long, int, float)."""
+    import ctypes
+    import re
+    text = (ops._CSRC / "flash_attention.cu").read_text()
+    sig = re.search(r"flash_attention_launch\(([^)]*)\)\s*\{", text).group(1)
+    params = [" ".join(a.split()[:-1]) for a in sig.split(",")]
+    assert len(params) == len(ops.ARGTYPES)
+    for c_type, py in zip(params, ops.ARGTYPES):
+        want = (ctypes.c_void_p if "*" in c_type else
+                ctypes.c_longlong if "long long" in c_type else
+                ctypes.c_float if "float" in c_type else ctypes.c_int)
+        assert py is want, (c_type, py)

@@ -237,3 +237,79 @@ def test_ragged_sequence_raises_in_the_oracle():
     x, dt, A, Bm, Cm = (torch.tensor(a) for a in _inputs(1, 40, 4, 8, 8))
     with pytest.raises(ValueError, match="not a multiple of the chunk"):
         S.ssd_chunked(x, dt, A, Bm, Cm, chunk=16)
+
+
+# The kernel's tile plan (ops.plan), which the launch hands to the kernel
+# and the kernel checks against its own count: across the contract's
+# corners it fits one block's shared memory on an H100 (227 KB) and its 8
+# warps (a y block: 4 slabs of 16 query rows by fy heads; a states block:
+# ceil(P / 16) warps to a head).
+PLAN_SHAPES = [  # (H, P, N, q)
+    (112, 64, 64, 128),   # zamba2-7b
+    (64, 64, 128, 256),   # the bound case
+    (8, 128, 128, 256),
+    (1, 48, 24, 96),
+    (2, 20, 18, 48),
+    (8, 16, 16, 32),
+    (8, 128, 16, 64),
+    (8, 16, 128, 2),
+    (4, 1, 1, 1),
+]
+
+
+@pytest.mark.parametrize("H,P,N,q", PLAN_SHAPES)
+def test_plan_fits_a_block(H, P, N, q):
+    pl = ops.plan(H, P, N, q)
+    hb = min(ops.HEAD_BLOCK, H)
+    warps, warps_a_head = ops.THREADS // 32, -(-P // 16)
+    assert 1 <= pl.fy <= min(2, hb) and 1 <= pl.fst <= hb
+    assert pl.fst * warps_a_head <= warps
+    assert pl.smem <= ops.SMEM_LIMIT and pl.smem % 16 == 0
+    # as many heads in flight as the warps allow (or the block has)
+    assert pl.fst == hb or (pl.fst + 1) * warps_a_head > warps
+
+
+def test_plan_at_zamba2_keeps_two_blocks_per_sm():
+    """zamba2-7b's prefill: 2 heads in flight in each role, and under half
+    an SM's 228 KB of shared memory (with 1 KB a block reserved), so two
+    blocks of 256 threads share an SM."""
+    pl = ops.plan(112, 64, 64, 128)
+    assert (pl.fy, pl.fst) == (2, 2)
+    assert 2 * (pl.smem + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", True), ("odd_width", False), ("offset", False),
+    ("conv_view", True), ("bf16_offset_4", True), ("bf16_offset_2", False),
+])
+def test_vector_rows(case, want):
+    """ops._vectors: rows the kernel reads 4 elements at a time (16 bytes in
+    float32, 8 in bfloat16); other rows go element by element."""
+    if case == "contiguous":
+        t, n = torch.zeros(2, 64, 8, 64), 64
+    elif case == "odd_width":
+        t, n = torch.zeros(2, 64, 8, 18), 18
+    elif case == "offset":
+        t, n = torch.zeros(2 * 64 * 8 * 64 + 1)[1:].view(2, 64, 8, 64), 64
+    elif case == "conv_view":  # x as the Mamba2 block hands it over
+        t, n = torch.zeros(2, 64, 8 * 64 + 2 * 32)[..., :8 * 64].unflatten(-1, (8, 64)), 64
+    else:
+        k = 4 if case == "bf16_offset_4" else 2
+        t, n = torch.zeros(k + 2 * 64 * 32, dtype=torch.bfloat16)[k:].view(2, 64, 32), 32
+    assert ops._vectors(t, n) is want
+
+
+def test_argtypes_follow_the_c_entry():
+    """One ARGTYPES entry per parameter of ssd_scan_launch, of the C
+    parameter's kind (pointer, long long, int): a missing or extra entry
+    shifts every argument after it."""
+    import ctypes
+    import re
+    text = (ops._CSRC / "ssd_scan.cu").read_text()
+    sig = re.search(r"ssd_scan_launch\(([^)]*)\)\s*\{", text).group(1)
+    params = [" ".join(a.split()[:-1]) for a in sig.split(",")]
+    assert len(params) == len(ops.ARGTYPES)
+    for c_type, py in zip(params, ops.ARGTYPES):
+        want = (ctypes.c_void_p if "*" in c_type else
+                ctypes.c_longlong if "long long" in c_type else ctypes.c_int)
+        assert py is want, (c_type, py)
