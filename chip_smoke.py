@@ -77,6 +77,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -85,7 +86,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12                # float32 on the CUDA cores
 TF32_TC_FLOP_PER_S = 495e12           # dense TF32 on the tensor cores
-# (flash_attention's routes, TF32 and bfloat16, are flash_attention.ops.work's)
+BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
 # float operations of one counter-hash normal in csrc/noise.cuh (both
 # log1p branches and the polynomial, counting an FMA as 2), and of the
 # rest of the round per element (x, n/c, z, self-correction, AWGN, out)
@@ -646,6 +647,49 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
     return rec
 
 
+class Work(NamedTuple):
+    """What one call of a tensor-core kernel needs and does: ``flops``, the
+    function's operations; ``nbytes``, its inputs read once and its outputs
+    written once; ``rate``, the peak of the kernel's route; ``kernel_flops``,
+    the route's own products (3 TF32 products for each float32 one; in
+    bfloat16 flash's P v twice, for P_hi and P_lo)."""
+    flops: int
+    nbytes: int
+    rate: float
+    kernel_flops: int
+
+    @property
+    def bound_s(self) -> float:
+        """The least time the card could take: the longer of the bytes
+        over HBM's rate and the operations over the route's peak."""
+        return max(self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate)
+
+    @property
+    def bound_by(self) -> str:
+        return ("bytes" if self.nbytes / HBM_BYTES_PER_S >= self.flops / self.rate
+                else "operations")
+
+
+def kept_pairs(S: int, window: Optional[int] = None) -> int:
+    """(query, key) pairs of one causal [S, S] score tile that the mask
+    keeps: key <= query, and query - key < window where there is one."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_work(B: int, S: int, H: int, Hkv: int, hd: int, elem: int,
+               window: Optional[int] = None) -> Work:
+    """Work of one causal flash_attention call at (B, S, H, Hkv, hd) with
+    elements of ``elem`` bytes (4: float32 on split TF32; 2: bfloat16 on
+    wgmma): 2 products of 2 hd operations per (query, key) pair the mask
+    keeps; q, k, v read once and o written once."""
+    flops = 4 * hd * kept_pairs(S, window) * B * H
+    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * elem
+    if elem == 2:
+        return Work(flops, nbytes, BF16_TC_FLOP_PER_S, flops * 3 // 2)
+    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * flops)
+
+
 def check_flash(shape, dtype, window, timed: bool) -> dict:
     """flash_attention's kernel vs its plain version on the card at one
     shape. Tolerance: both compute the scores, the softmax and the
@@ -659,7 +703,7 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
     and takes P as two bfloat16 terms (P_hi + P_lo, a residual of at most
     2^-17 |P|). Timed: the kernel by CUDA events, beside the plain version,
     SDPA on [B, H, S, hd] views (library_ms) and the bound of its route
-    (ops.work): 2 products of 2 hd flops per (query, key) pair the mask
+    (flash_work): 2 products of 2 hd flops per (query, key) pair the mask
     keeps, over 495 TFLOP/s in float32 (TF32 tensor cores) or 989 TFLOP/s
     in bfloat16, against q, k, v, o moved once over 3.35 TB/s. The
     route's own work, kernel_work_ms: 3 times the products in float32, 1.5
@@ -698,9 +742,9 @@ def check_flash(shape, dtype, window, timed: bool) -> dict:
         keep = kpos <= qpos
         if window is not None:
             keep &= kpos > qpos - window
-        w = ops.work(B, S, H, Hkv, hd, dtype, window)
+        w = flash_work(B, S, H, Hkv, hd, q.element_size(), window)
         if w.flops != 4 * hd * int(keep.sum()) * B * H:
-            fail(f"flash_attention {shape}: ops.work counts {w.flops} flops, "
+            fail(f"flash_attention {shape}: flash_work counts {w.flops} flops, "
                  f"the mask keeps {int(keep.sum())} pairs")
         rec["kernel_work_ms"] = 1e3 * w.kernel_flops / w.rate
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -764,43 +808,27 @@ def ssd_inputs(shape, dtype):
     return x, dt, dt * A, Bm, Cm
 
 
-def ssd_work(shape, elem: int):
-    """(bytes, flops) that the SSD intra-chunk step needs at ``shape``.
-    Bytes: x, Bm, Cm, dt, dA read once, y, states, cdecay written once.
-    Operations, over the q (q + 1) / 2 causal pairs (i, j <= i) of each
-    chunk: the scores C_i . B_j once per chunk, as Bm and Cm are one group
-    shared by all heads (2N); per head the decay (subtract, exp, multiply:
-    3) and G @ (x dt) (2P); per row and head x dt (P), B exp(cs_last - cs)
-    dt (N + 3) and the states' product (2PN); per chunk and head
-    exp(cs_last). The kernel does more than this (ssd_kernel_flops)."""
+def ssd_work(shape, elem: int) -> Work:
+    """Work of the SSD intra-chunk step at ``shape`` with x, Bm, Cm of
+    ``elem`` bytes, as the scan launches it (with cs). Bytes: x, Bm, Cm,
+    dt, dA read once; y, states, cdecay and cs written once. Operations,
+    over the q (q + 1) / 2 causal pairs (i, j <= i) of each chunk: the
+    scores C_i . B_j once per chunk, as Bm and Cm are one group shared by
+    all heads (2N); per head the decay (subtract, exp, multiply: 3) and G @
+    (x dt) (2P); per row and head x dt (P), B exp(cs_last - cs) dt (N + 3)
+    and the states' product (2PN); per chunk and head exp(cs_last). The
+    route is split TF32 on the tensor cores: its own work is three TF32
+    products for each of the products (the scores, G @ (x dt), the
+    states)."""
     B, S, H, P, N, q = shape
     nc = S // q
     pairs = q * (q + 1) // 2
+    products = B * nc * (pairs * 2 * N + H * (pairs * 2 * P + q * 2 * P * N))
     flops = B * nc * (pairs * 2 * N
                       + H * (pairs * (3 + 2 * P) + q * (P + N + 3 + 2 * P * N) + 1))
     nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N)
-              + 4 * (2 * B * S * H + B * nc * H * P * N + B * nc * H))
-    return nbytes, flops
-
-
-def ssd_kernel_flops(shape) -> int:
-    """Operations of the kernel's tensor-core products (csrc/ssd_scan.cu)
-    at ``shape``, before the three-way TF32 split: per y block of 64 query
-    rows and 8 heads, the scores of each warp's 16 rows against the 8-key
-    blocks at or below its last row (2N an entry), and per head the same
-    blocks times x (2P an entry); per states block the [P, N] product over
-    all q keys of each head (2PN a key)."""
-    B, S, H, P, N, q = shape
-    groups = B * (S // q) * -(-H // 8)
-    hb = min(8, H)
-    score = y = 0
-    for i0 in range(0, q, 64):
-        for r in range(i0, min(q, i0 + 64), 16):
-            last = min(r + 15, q - 1)
-            score += 16 * 8 * (last // 8 + 1) * 2 * N
-            y += 16 * 8 * (last // 8 + 1) * 2 * P * hb
-    states = hb * q * 2 * P * N
-    return groups * (score + y + states)
+              + 4 * (3 * B * S * H + B * nc * H * P * N + B * nc * H))
+    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * products)
 
 
 def check_ssd(shape, dtype, timed: bool) -> dict:
@@ -811,23 +839,26 @@ def check_ssd(shape, dtype, timed: bool) -> dict:
     bfloat16 step (2^-7 of its magnitude) further. Both take cs in the
     reference's float32 order and differ in the order of the products'
     sums, the kernel's products as split TF32 (three TF32 products for each
-    float32 one, each operand's residual under 2^-21 of it). Timed: the
-    kernel by CUDA events, beside the plain version and the bound of its
-    route, ssd_work's bytes over 3.35 TB/s against its operations over 495
-    TFLOP/s (TF32 tensor cores); and the kernel's own work (kernel_work_ms:
-    three TF32 products for each of ssd_kernel_flops). No single PyTorch
-    call computes this function (library_ms null)."""
+    float32 one, each operand's residual under 2^-21 of it). The launch is
+    the one ops.ssd_scan makes on the main path, which also writes cs, held
+    against cumsum_f32 at the same tolerance (cs_bitwise: whether it is
+    bitwise equal). Timed: that launch by CUDA events, beside the plain
+    version (with cumsum_f32) and the bound of its route (ssd_work): its
+    bytes over 3.35 TB/s against its operations over 495 TFLOP/s (TF32
+    tensor cores); and the route's own work (kernel_work_ms). No single
+    PyTorch call computes this function (library_ms null)."""
     import torch
     from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_plain
-    chunk = shape[-1]
+    from repro_torch.kernels.ssd_scan.ssd_scan import cumsum_f32, ssd_intra_chunk_plain
+    B, S, H, _, _, chunk = shape
     x, dt, dA, Bm, Cm = ssd_inputs(shape, dtype)
-    kernel = lambda: ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=chunk)
-    plain = lambda: ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
+    kernel = lambda: ops._launch(x, dt, dA, Bm, Cm, chunk=chunk, with_cs=True)
+    plain = lambda: (*ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk),
+                     cumsum_f32(dA.reshape(B, S // chunk, chunk, H), dim=2))
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     bad, errs = 0, {}
-    for name, a, b in zip(("y", "states", "cdecay"), got, want):
+    for name, a, b in zip(("y", "states", "cdecay", "cs"), got, want):
         if a.shape != b.shape or a.dtype != b.dtype:
             fail(f"ssd_scan {shape}: {name} {tuple(a.shape)} {a.dtype} vs plain "
                  f"{tuple(b.shape)} {b.dtype}")
@@ -843,19 +874,19 @@ def check_ssd(shape, dtype, timed: bool) -> dict:
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "max_abs_err": max(errs.values()), "errs": errs,
            "y_scale": float(want[0].float().abs().max()),
+           "cs_bitwise": bool(torch.equal(got[3], want[3])),
            "tol": "1e-5 + 1e-4 |plain|" + (" + 1 bf16 step on y"
                                           if dtype == torch.bfloat16 else ""),
            "violations": bad}
     if timed:
-        nbytes, flops = ssd_work(shape, x.element_size())
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / TF32_TC_FLOP_PER_S
-        rec["kernel_work_ms"] = 1e3 * 3 * ssd_kernel_flops(shape) / TF32_TC_FLOP_PER_S
+        w = ssd_work(shape, x.element_size())
+        rec["kernel_work_ms"] = 1e3 * w.kernel_flops / w.rate
         rec["ms"] = cuda_ms(kernel, iters=20)
         rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
         rec["library_ms"] = None
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        rec["bytes"], rec["flops"] = nbytes, flops
+        rec["bound_ms"] = 1e3 * w.bound_s
+        rec["bound_by"] = w.bound_by
+        rec["bytes"], rec["flops"] = w.nbytes, w.flops
         if rec["ms"] < rec["bound_ms"]:
             fail(f"ssd_scan {shape} {rec['dtype']}: {rec['ms']:.4f} ms is "
                  f"under its bound {rec['bound_ms']:.4f} ms")
@@ -907,14 +938,14 @@ def ssd_phase() -> dict:
     N 128; timed), the reference's sweep shapes, H < 8, and N = P = 128 at
     chunk 256 in one chunk, each in float32 and bfloat16; the full scan's
     cs from the kernel, bitwise; returns zamba2-7b's float32 record, whose
-    bound is checked against the count written in PERF.md: 299.4 MB at
-    3.35 TB/s, 0.0894 ms, bytes-bound (its products on the TF32 tensor
-    cores take 0.016 ms at 495 TFLOP/s)."""
+    bound is checked against the count written in PERF.md: 301.2 MB (cs
+    included) at 3.35 TB/s, 0.0899 ms, bytes-bound (its operations on the
+    TF32 tensor cores take 0.016 ms at 495 TFLOP/s)."""
     import torch
     rec = check_ssd(ZAMBA_SSD, torch.float32, timed=True)
-    if rec["bound_by"] != "bytes" or abs(rec["bound_ms"] - 0.0894) > 0.0005:
+    if rec["bound_by"] != "bytes" or abs(rec["bound_ms"] - 0.0899) > 0.0002:
         fail(f"ssd_scan bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-             f"expected 0.0894 ms (bytes)")
+             f"expected 0.0899 ms (bytes)")
     check_ssd(ZAMBA_SSD, torch.bfloat16, timed=True)
     check_ssd(BOUND_SSD, torch.float32, timed=True)
     for shape in SSD_CASES:

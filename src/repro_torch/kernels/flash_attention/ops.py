@@ -19,17 +19,13 @@ transpose is made; only an operand whose head_dim axis is not contiguous,
 or that is not 16-byte aligned or has a stride that is not a multiple of
 16 bytes, is copied first (TMA and cp.async read 16 bytes at a time). The
 output is in the input's dtype.
-
-``work(B, S, H, Hkv, hd, dtype, window)`` counts what the function needs
-and what the kernel's route does (its products, bytes and peak rate), from
-which chip_smoke.py takes each kernel's bound.
 """
 from __future__ import annotations
 
 import ctypes
 import math
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -38,10 +34,6 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 
 HEAD_DIMS = (32, 64, 128, 256)
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-TF32_TC_FLOP_PER_S = 495e12   # float32 inputs: split TF32 on the tensor cores
-BF16_TC_FLOP_PER_S = 989e12   # bfloat16 inputs: wgmma
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("flash_attention", sources=(_CSRC / "flash_attention.cu",),
@@ -97,47 +89,6 @@ def _readable(t) -> bool:
     (a TMA tensor map in bfloat16, 16-byte cp.async in float32)."""
     return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
             and all(st * t.element_size() % 16 == 0 for st in t.stride()[:3]))
-
-
-class Work(NamedTuple):
-    """What one call needs and does: ``flops``, 2 products of 2 hd
-    operations per (query, key) pair the mask keeps; ``nbytes``, q, k, v
-    read once and o written once; ``rate``, the peak of the kernel's route
-    (TF32 or bfloat16 tensor cores); ``kernel_flops``, the route's own
-    products (3 TF32 products per float32 one; P v twice in bfloat16)."""
-    flops: int
-    nbytes: int
-    rate: float
-    kernel_flops: int
-
-    @property
-    def bound_s(self) -> float:
-        """The least time the card could take: the longer of the bytes
-        over HBM's rate and the operations over the route's peak."""
-        return max(self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate)
-
-    @property
-    def bound_by(self) -> str:
-        return ("bytes" if self.nbytes / HBM_BYTES_PER_S >= self.flops / self.rate
-                else "operations")
-
-
-def kept_pairs(S: int, window: Optional[int] = None) -> int:
-    """(query, key) pairs of one causal [S, S] score tile that the mask
-    keeps: key <= query, and query - key < window where there is one."""
-    w = S if window is None else min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
-
-
-def work(B: int, S: int, H: int, Hkv: int, hd: int, dtype,
-         window: Optional[int] = None) -> Work:
-    """Work of one causal call at (B, S, H, Hkv, hd) in ``dtype``."""
-    flops = 4 * hd * kept_pairs(S, window) * B * H
-    elem = 2 if dtype == torch.bfloat16 else 4
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * elem
-    if dtype == torch.bfloat16:
-        return Work(flops, nbytes, BF16_TC_FLOP_PER_S, flops * 3 // 2)
-    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * flops)
 
 
 def _launch(q, k, v, *, causal: bool, sliding_window: Optional[int]):

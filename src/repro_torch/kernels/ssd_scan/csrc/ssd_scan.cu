@@ -65,8 +65,9 @@
 //  a multiple of 16 for the split tiles). The decays inside
 //  the products are exponentials of x log2(e) in base 2 (__expf: within
 //  6e-6 relative of expf where they do not underflow, at |x| < 88); cd, an
-//  output, takes expf. The plan (heads in flight, shared memory) comes
-//  from the wrapper (ops.plan), which the launch checks.
+//  output, takes expf. The launch works out the plan from its arguments:
+//  the heads in flight (fy = min(hb, 2); fst = min(hb, 8 / ceil(P / 16))),
+//  the shared memory they take, and which rows load 4 elements at a time.
 //
 // What recomputing the scores costs: each of the H / 8 head blocks of a
 // chunk forms its rows' scores again; at zamba2-7b's prefill (H = 112,
@@ -77,11 +78,11 @@
 //
 // What bounds it on an H100: bytes. At zamba2-7b's prefill (B = 4, S =
 // 1024, H = 112, P = N = 64, q = 128, float32) the step reads x, B, C, dt
-// and dA once and writes y, the states and the decays once, 0.30 GB, 0.089
-// ms at 3.35 TB/s; its products (scores once per chunk, G @ (x dt) per
-// head, the states) are 7.7 GFLOP, 0.016 ms at 495 TFLOP/s of TF32. The
-// kernel's own tensor-core work is three times its products, and the
-// scores once per block of 8 heads.
+// and dA once and writes y, the states, the decays and (as the scan
+// launches it) cs once, 0.30 GB, 0.090 ms at 3.35 TB/s; its products
+// (scores once per chunk, G @ (x dt) per head, the states) are 7.7 GFLOP,
+// 0.016 ms at 495 TFLOP/s of TF32. The kernel's own tensor-core work is
+// three times its products, and the scores once per block of 8 heads.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -610,6 +611,13 @@ int launch_width(const Params& p, long long blocks, size_t smem, cudaStream_t st
   return launch<T, 16, 16>(p, blocks, smem, stream);
 }
 
+// rows of n elements of elem bytes that load 4 elements at a time: n and the
+// strides multiples of 4, the base aligned to 4 elements
+bool vector_rows(const void* base, int elem, int n, long long s0, long long s1, long long s2) {
+  return n % 4 == 0 && s0 % 4 == 0 && s1 % 4 == 0 && s2 % 4 == 0 &&
+         reinterpret_cast<uintptr_t>(base) % (4 * elem) == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -618,27 +626,27 @@ extern "C" {
 // cd and cs are float32. q (the chunk) in [1, 256] dividing S; N, P in
 // [1, 128]; H a multiple of min(8, H). Strides in elements (batch,
 // sequence, head for x; batch, sequence for Bm and Cm), last dimensions
-// contiguous. cs may be null. fy, fst and smem_bytes are the wrapper's
-// plan (ops.plan): heads in flight of a y block (fy <= 2: 4 warps of 16
-// rows a head) and of a states block (fst ceil(P / 16) <= 8 warps), and
-// the shared memory they need, which must be the kernel's own count. vx,
-// vbc: x rows, and Bm and Cm rows, are 4-element vectors (P or N a
-// multiple of 4, the strides too, the base aligned to 4 elements).
-// Returns the cudaError_t of the launch (0 = launched).
+// contiguous. cs may be null. Returns the cudaError_t of the launch (0 =
+// launched).
 int ssd_scan_launch(int dtype, int B, int S, int H, int P, int N, int q,
                     const void* x, long long x_sb, long long x_ss, long long x_sh,
                     const float* dt, const float* dA,
                     const void* bm, long long b_sb, long long b_ss,
                     const void* cm, long long c_sb, long long c_ss,
-                    void* y, float* st, float* cd, float* cs,
-                    int fy, int fst, long long smem_bytes, int vx, int vbc, void* stream) {
+                    void* y, float* st, float* cd, float* cs, void* stream) {
   const int hb = H < kMaxHeads ? H : kMaxHeads;
-  if (B < 1 || S < 1 || H < 1 || q < 1 || q > kMaxChunk || S % q != 0 || N < 1 ||
-      N > kMaxDim || P < 1 || P > kMaxDim || H % hb != 0 || fy < 1 || fy > 2 || fy > hb ||
-      fst < 1 || fst > hb || fst * ((P + 15) / 16) > kWarps || (vx && P % 4) || (vbc && N % 4))
+  if ((dtype != 0 && dtype != 1) || B < 1 || S < 1 || H < 1 || q < 1 || q > kMaxChunk ||
+      S % q != 0 || N < 1 || N > kMaxDim || P < 1 || P > kMaxDim || H % hb != 0)
     return (int)cudaErrorInvalidValue;
+  // heads in flight: a y block's 8 warps are 4 slabs of 16 query rows by fy
+  // heads; a states block gives each head ceil(P / 16) warps of 16 rows p
+  const int fy = hb < 2 ? hb : 2;
+  const int fst = hb < kWarps / ((P + 15) / 16) ? hb : kWarps / ((P + 15) / 16);
+  const int elem = dtype == 0 ? 4 : 2;
+  const int vx = vector_rows(x, elem, P, x_sb, x_ss, x_sh);
+  const int vbc = vector_rows(bm, elem, N, b_sb, b_ss, 0) && vector_rows(cm, elem, N, c_sb, c_ss, 0);
   const size_t smem = sizeof(float) * smem_floats(q, N, P, fy, fst);
-  if ((long long)smem != smem_bytes || smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
   const int nqt = (q + kTile - 1) / kTile;
   const long long groups = (long long)(H / hb) * (S / q) * B;
   const long long blocks = (long long)(nqt + 1) * groups;
@@ -647,8 +655,7 @@ int ssd_scan_launch(int dtype, int B, int S, int H, int P, int N, int q,
            S, H, P, N, q, hb, nqt, (int)groups, fy, fst, vx, vbc};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_width<float>(p, blocks, smem, s);
-  if (dtype == 1) return launch_width<__nv_bfloat16>(p, blocks, smem, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_width<__nv_bfloat16>(p, blocks, smem, s);
 }
 
 const char* ssd_scan_error_string(int code) {

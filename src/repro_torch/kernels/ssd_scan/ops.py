@@ -22,16 +22,11 @@ or bfloat16, of one dtype and device; S a multiple of the chunk q; q <=
 their strides (a view into the model's conv output is not copied; only an
 operand whose last axis is not contiguous is); dt and dA go in as
 contiguous float32.
-
-``plan(H, P, N, q)`` is the kernel's tile plan, which the launch passes to
-it and the kernel checks: how many heads a y block and a states block
-carry at once, and the shared memory that takes.
 """
 from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import NamedTuple
 
 import torch
 
@@ -42,10 +37,6 @@ from repro_torch.kernels.ssd_scan.ssd_scan import (cumsum_f32, inter_chunk,
 MAX_CHUNK = 256
 MAX_DIM = 128   # N and P
 HEAD_BLOCK = 8  # heads per block, the reference's HB
-# the kernel's tiles (csrc/ssd_scan.cu): 256 threads (8 warps), y blocks of
-# 64 query rows, staged tiles of 32 keys
-THREADS, ROW_TILE, KEY_TILE = 256, 64, 32
-SMEM_LIMIT = 232_448  # bytes of shared memory a block may have on sm_90
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("ssd_scan", sources=(_CSRC / "ssd_scan.cu",),
@@ -53,52 +44,10 @@ LIBRARY = build.Library("ssd_scan", sources=(_CSRC / "ssd_scan.cu",),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-class Plan(NamedTuple):
-    """Heads a y block (fy) and a states block (fst) carry at once, and
-    the bytes of shared memory a block takes."""
-    fy: int
-    fst: int
-    smem: int
-
-
-def _round(n: int, k: int) -> int:
-    return -(-n // k) * k
-
-
-def plan(H: int, P: int, N: int, q: int) -> Plan:
-    """The kernel's tile plan at one shape. A warp owns 16 rows: a y block's
-    8 warps are 4 slabs of query rows by fy = 2 heads; a states block's
-    warps take 16 rows of P of one head each, so it carries
-    fst = 8 / ceil(P / 16) heads. Shared memory (float32): cs and dt of 8
-    heads over the chunk; a y block's 64 x q scores, then the larger of the
-    C tile and two B tiles of 64 rows and two x tiles of fy heads and 32
-    keys as (hi, lo) pairs; a states block's two x tiles of fst heads and
-    two B tiles as pairs. Row strides: 8 floats past a multiple of 32 where
-    fragments read floats down a column, 4 where they read along a row (the
-    scores, C, B), 4 pairs past a multiple of 16 where they read pairs."""
-    hb = min(HEAD_BLOCK, H)
-    fy = min(hb, 2)
-    fst = min(hb, (THREADS // 32) // -(-P // 16))
-    ld_rows, ld_pairs = (lambda n: _round(n, 32) + 8), (lambda n: _round(n, 16) + 4)
-    heads = 2 * HEAD_BLOCK * q
-    y = (ROW_TILE * (_round(q, 32) + 4)
-         + max(3 * ROW_TILE * (_round(N, 32) + 4), 2 * fy * KEY_TILE * 2 * ld_pairs(P)))
-    st = KEY_TILE * (2 * fst * ld_rows(P) + 2 * 2 * ld_pairs(N))
-    return Plan(fy, fst, 4 * (heads + max(y, st)))
-
-
-def _vectors(t, n: int) -> bool:
-    """Are ``t``'s rows of ``n`` elements readable 4 elements at a time:
-    n and the strides multiples of 4, the base aligned to 4 elements."""
-    return (n % 4 == 0 and all(st % 4 == 0 for st in t.stride()[:-1])
-            and t.data_ptr() % (4 * t.element_size()) == 0)
-
-
 _PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # ssd_scan_launch's parameters, in order (csrc/ssd_scan.cu)
 ARGTYPES = ([_I32] * 7 + [_PTR, _I64, _I64, _I64] + [_PTR, _PTR]
-            + [_PTR, _I64, _I64] * 2 + [_PTR] * 4
-            + [_I32, _I32, _I64, _I32, _I32, _PTR])
+            + [_PTR, _I64, _I64] * 2 + [_PTR] * 5)
 
 
 def _library() -> ctypes.CDLL:
@@ -155,7 +104,6 @@ def _launch(x, dt, dA, Bm, Cm, *, chunk: int, with_cs: bool = False):
     cd = torch.empty((B, nc, H), dtype=torch.float32, device=x.device)
     cs = (torch.empty((B, nc, chunk, H), dtype=torch.float32, device=x.device)
           if with_cs else None)
-    pl = plan(H, P, N, chunk)
     lib = _library()
     rc = lib.ssd_scan_launch(
         _DTYPES[x.dtype], B, S, H, P, N, chunk,
@@ -165,8 +113,6 @@ def _launch(x, dt, dA, Bm, Cm, *, chunk: int, with_cs: bool = False):
         Cm.data_ptr(), Cm.stride(0), Cm.stride(1),
         y.data_ptr(), st.data_ptr(), cd.data_ptr(),
         cs.data_ptr() if with_cs else None,
-        pl.fy, pl.fst, pl.smem, int(_vectors(x, P)),
-        int(_vectors(Bm, N) and _vectors(Cm, N)),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed: "

@@ -448,6 +448,24 @@ def test_ssd_kernel_reads_the_models_strided_views():
     _ssd_close(got, want, False)
 
 
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_reads_unaligned_views(offset, dtype):
+    """x, Bm and Cm whose base lies ``offset`` elements into their storage:
+    the launch loads rows 4 elements at a time only where the base is
+    aligned to 4 elements, and element by element otherwise."""
+    _need_card()
+    B, S, H, P, N = 2, 128, 8, 32, 16
+    x, dt, dA, Bm, Cm = _ssd_inputs(B, S, H, P, N, dtype)
+    shift = lambda t: torch.cat([t.new_zeros(offset), t.flatten()])[offset:].view(t.shape)
+    x, Bm, Cm = shift(x), shift(Bm), shift(Cm)
+    assert x.data_ptr() % (4 * x.element_size()) == (offset % 4) * x.element_size()
+    got = ssd_ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=64)
+    want = ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=64)
+    torch.cuda.synchronize()
+    _ssd_close(got, want, dtype == torch.bfloat16)
+
+
 def test_hybrid_prefill_launches_once_per_mamba_layer():
     """A reduced zamba2 (n_super 2, n_rem 1) prefill with use_pallas=True
     launches ssd_scan once per Mamba2 layer and flash_attention never, and

@@ -8,8 +8,12 @@ test_flash_attention_sweep and the reference's tolerances (2e-5 float32,
 Inputs come from numpy and go to both packages.
 
 The kernel itself runs only on a card: tests/test_torch_cuda.py holds it
-against the plain version there.
+against the plain version there. chip_smoke.py's count of the work and
+bound of each route is checked here too.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +29,11 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 from repro_torch.models import layers as L
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 SWEEP = [
     (2, 256, 4, 2, 64, None),
@@ -177,7 +186,7 @@ def test_kept_pairs_counts_the_mask(S, window):
     keep = kpos <= qpos
     if window is not None:
         keep &= kpos > qpos - window
-    assert ops.kept_pairs(S, window) == int(keep.sum())
+    assert chip_smoke.kept_pairs(S, window) == int(keep.sum())
 
 
 @pytest.mark.parametrize("shape,dtype,bound_ms,by,route_ms", [
@@ -191,8 +200,8 @@ def test_work_gives_each_route_its_bound(shape, dtype, bound_ms, by, route_ms):
     over 495 TFLOP/s (split TF32) or 989 (bfloat16), or the bytes over 3.35
     TB/s where longer; the route's own products 3 or 1.5 times the
     function's."""
-    w = ops.work(*shape, dtype)
-    assert w.flops == 4 * shape[-1] * ops.kept_pairs(shape[1]) * shape[0] * shape[2]
+    w = chip_smoke.flash_work(*shape, torch.empty((), dtype=dtype).element_size())
+    assert w.flops == 4 * shape[-1] * chip_smoke.kept_pairs(shape[1]) * shape[0] * shape[2]
     assert w.bound_by == by
     assert abs(1e3 * w.bound_s / bound_ms - 1) < 2e-3
     assert abs(1e3 * w.kernel_flops / w.rate / route_ms - 1) < 2e-3

@@ -14,8 +14,12 @@ of its magnitude) further. The port's cumulative sum takes the reference's
 float32 order and is checked bitwise.
 
 The kernel itself runs only on a card: tests/test_torch_cuda.py holds it
-against the plain version there.
+against the plain version there. chip_smoke.py's count of the step's work
+and bound is checked here against the tensors the step reads and writes.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +32,11 @@ from repro.models import ssm as RS
 from repro_torch.kernels.ssd_scan import ops
 from repro_torch.kernels.ssd_scan.ssd_scan import cumsum_f32, ssd_intra_chunk_plain
 from repro_torch.models import ssm as S
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 # (B, S, H, P, N, chunk): the reference's sweep, H < 8 with S equal to the
 # chunk, chunk 256 with N = 128
@@ -239,64 +248,39 @@ def test_ragged_sequence_raises_in_the_oracle():
         S.ssd_chunked(x, dt, A, Bm, Cm, chunk=16)
 
 
-# The kernel's tile plan (ops.plan), which the launch hands to the kernel
-# and the kernel checks against its own count: across the contract's
-# corners it fits one block's shared memory on an H100 (227 KB) and its 8
-# warps (a y block: 4 slabs of 16 query rows by fy heads; a states block:
-# ceil(P / 16) warps to a head).
-PLAN_SHAPES = [  # (H, P, N, q)
-    (112, 64, 64, 128),   # zamba2-7b
-    (64, 64, 128, 256),   # the bound case
-    (8, 128, 128, 256),
-    (1, 48, 24, 96),
-    (2, 20, 18, 48),
-    (8, 16, 16, 32),
-    (8, 128, 16, 64),
-    (8, 16, 128, 2),
-    (4, 1, 1, 1),
-]
+@pytest.mark.parametrize("shape", SWEEP)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_work_counts_what_the_scan_reads_and_writes(shape, dtype):
+    """chip_smoke.ssd_work: its bytes are those of the step's inputs and of
+    its outputs with cs (as the scan launches it), its route's own work
+    three TF32 products for each product over the causal pairs."""
+    B, S_, H, P, N, q = shape
+    x, dt, A, Bm, Cm = (torch.tensor(a) for a in _inputs(B, S_, H, P, N))
+    x, Bm, Cm = x.to(dtype), Bm.to(dtype), Cm.to(dtype)
+    dA = dt * A
+    outs = ops.ssd_intra_chunk(x, dt, dA, Bm, Cm, chunk=q)
+    cs = cumsum_f32(dA.reshape(B, S_ // q, q, H), dim=2)
+    w = chip_smoke.ssd_work(shape, x.element_size())
+    assert w.nbytes == sum(t.numel() * t.element_size()
+                           for t in (x, dt, dA, Bm, Cm, *outs, cs))
+    pairs = int(torch.ones(q, q).tril().sum())
+    products = B * (S_ // q) * (pairs * 2 * (N + H * P) + q * H * 2 * P * N)
+    assert w.kernel_flops == 3 * products
+    assert products < w.flops < 2 * products
 
 
-@pytest.mark.parametrize("H,P,N,q", PLAN_SHAPES)
-def test_plan_fits_a_block(H, P, N, q):
-    pl = ops.plan(H, P, N, q)
-    hb = min(ops.HEAD_BLOCK, H)
-    warps, warps_a_head = ops.THREADS // 32, -(-P // 16)
-    assert 1 <= pl.fy <= min(2, hb) and 1 <= pl.fst <= hb
-    assert pl.fst * warps_a_head <= warps
-    assert pl.smem <= ops.SMEM_LIMIT and pl.smem % 16 == 0
-    # as many heads in flight as the warps allow (or the block has)
-    assert pl.fst == hb or (pl.fst + 1) * warps_a_head > warps
-
-
-def test_plan_at_zamba2_keeps_two_blocks_per_sm():
-    """zamba2-7b's prefill: 2 heads in flight in each role, and under half
-    an SM's 228 KB of shared memory (with 1 KB a block reserved), so two
-    blocks of 256 threads share an SM."""
-    pl = ops.plan(112, 64, 64, 128)
-    assert (pl.fy, pl.fst) == (2, 2)
-    assert 2 * (pl.smem + 1024) <= 228 * 1024
-
-
-@pytest.mark.parametrize("case,want", [
-    ("contiguous", True), ("odd_width", False), ("offset", False),
-    ("conv_view", True), ("bf16_offset_4", True), ("bf16_offset_2", False),
-])
-def test_vector_rows(case, want):
-    """ops._vectors: rows the kernel reads 4 elements at a time (16 bytes in
-    float32, 8 in bfloat16); other rows go element by element."""
-    if case == "contiguous":
-        t, n = torch.zeros(2, 64, 8, 64), 64
-    elif case == "odd_width":
-        t, n = torch.zeros(2, 64, 8, 18), 18
-    elif case == "offset":
-        t, n = torch.zeros(2 * 64 * 8 * 64 + 1)[1:].view(2, 64, 8, 64), 64
-    elif case == "conv_view":  # x as the Mamba2 block hands it over
-        t, n = torch.zeros(2, 64, 8 * 64 + 2 * 32)[..., :8 * 64].unflatten(-1, (8, 64)), 64
-    else:
-        k = 4 if case == "bf16_offset_4" else 2
-        t, n = torch.zeros(k + 2 * 64 * 32, dtype=torch.bfloat16)[k:].view(2, 64, 32), 32
-    assert ops._vectors(t, n) is want
+@pytest.mark.parametrize("shape,elem,bound_ms,route_ms", [
+    ((4, 1024, 112, 64, 64, 128), 4, 0.0899, 0.0459),
+    ((4, 1024, 112, 64, 64, 128), 2, 0.0545, 0.0459),
+    ((1, 4096, 64, 64, 128, 256), 4, 0.0523, 0.0530),
+], ids=["zamba2-f32", "zamba2-bf16", "bound-case-f32"])
+def test_ssd_work_gives_the_route_its_bound(shape, elem, bound_ms, route_ms):
+    """The bounds chip_smoke.py prints and PERF.md states: the bytes over
+    3.35 TB/s, longer than the operations over 495 TFLOP/s (split TF32)."""
+    w = chip_smoke.ssd_work(shape, elem)
+    assert w.bound_by == "bytes"
+    assert abs(1e3 * w.bound_s / bound_ms - 1) < 2e-3
+    assert abs(1e3 * w.kernel_flops / w.rate / route_ms - 1) < 2e-3
 
 
 def test_argtypes_follow_the_c_entry():
