@@ -11,18 +11,25 @@ Phases, each fatal on failure (exit code 1, no result line):
              with nvcc for sm_90a, all nvcc processes at once; ptxas's
              registers and spills, and the SASS holding each tensor-core
              route (flash_attention: HGMMA for bfloat16, HMMA .TF32 for
-             float32; ssd_scan: HMMA .TF32);
+             float32; ssd_scan: HMMA .TF32); the instructions of one
+             dp_mix normal on each of its branches, from the SASS of a
+             small library built from the checkout's noise.cuh;
 3. kernels — each kernel held against its plain PyTorch version on the
              card at its path's shapes, with the tolerance stated below,
              then timed with CUDA events beside the plain version, the one
              PyTorch call that computes the same function where there is
              one (library_ms), and the least time the card could take
-             (bound_ms);
+             (bound_ms). dp_mix also at N = 64, 65, 128 and 256 (the last
+             two timed) and at N = 2048 over three column windows (timed),
+             all at the path's d, its two noise fields bitwise the plain
+             version's at N = 10 and 128, and its bound the longest of its
+             bytes, its instructions and its mix's fused multiply-adds;
 4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
              batch 32, d = 855,050), 51 rounds; every loss finite and
-             dp_mix launched once per round; one small flat round on the
-             card against the same round on the CPU;
+             dp_mix launched once per round; the same CLI at N = 128 (the
+             large-N route), 5 rounds, launched once a round; one small
+             flat round on the card against the same round on the CPU;
 5. tree    — the worker-tree path, ``make_train_step(DWFL_PAPER,
              ProtocolConfig(scheme=..., use_pallas=True))`` through the
              trajectory body at full width for each of dwfl, gossip,
@@ -87,15 +94,50 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12                # float32 on the CUDA cores
 TF32_TC_FLOP_PER_S = 495e12           # dense TF32 on the tensor cores
 BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
-# float operations of one counter-hash normal in csrc/noise.cuh (both
-# log1p branches and the polynomial, counting an FMA as 2), and of the
-# rest of the round per element (x, n/c, z, self-correction, AWGN, out)
-NORMAL_FLOPS = 84
-ELEMENT_FLOPS = 11
+# dp_mix's instructions besides its normals, per element, counted from
+# csrc/dp_mix.cu's arithmetic: two loads and a store, the local step (2),
+# nf, z and v (7; gossip: v alone, 1), the output's fused multiply-add and
+# the mix's N of them. A normal's own count comes from the SASS
+# (noise_instructions).
+def dp_mix_element_ops(N: int, noisy: bool) -> int:
+    return 3 + 2 + (7 if noisy else 1) + 1 + N
+
+
+# One normal of dp_mix on each branch, from the checkout's csrc/noise.cuh:
+# each kernel loads, runs one piece and stores, and its instructions up to
+# EXIT less k_empty's are the piece's (k_small, k_large: hash, t, one
+# log1p branch, the central polynomial and the scale; k_central, k_tail:
+# the two polynomials alone).
+NOISE_COUNT_SRC = r"""
+#include "{header}"
+using namespace repro_noise;
+__device__ __forceinline__ float normal_on(unsigned idx, unsigned seed, bool small) {{
+  const float t = lattice_t(hash_bits(idx, seed)), x = __fmul_rn(t, -t);
+  const float w = -(small ? log1p_small(x) : log1p_large(x));
+  return __fmul_rn(__fmul_rn(erfinv_central(w), t), 1.41421356237309515f);
+}}
+extern "C" __global__ void k_empty(const unsigned* b, float* y, unsigned s) {{
+  y[threadIdx.x] = __uint_as_float(b[threadIdx.x]);
+}}
+extern "C" __global__ void k_small(const unsigned* b, float* y, unsigned s) {{
+  y[threadIdx.x] = normal_on(b[threadIdx.x], s, true);
+}}
+extern "C" __global__ void k_large(const unsigned* b, float* y, unsigned s) {{
+  y[threadIdx.x] = normal_on(b[threadIdx.x], s, false);
+}}
+extern "C" __global__ void k_central(const unsigned* b, float* y, unsigned s) {{
+  y[threadIdx.x] = erfinv_central(__uint_as_float(b[threadIdx.x]));
+}}
+extern "C" __global__ void k_tail(const unsigned* b, float* y, unsigned s) {{
+  y[threadIdx.x] = erfinv_tail(__uint_as_float(b[threadIdx.x]));
+}}
+"""
+
+
 # float operations per element of csrc/dp_perturb.cu: the local step's FMA
 # (2); noisy, also the two uniforms (4), -2 log, sqrt, 2 pi u2, r cos, the
 # noise scale and the final FMA (7), and libdevice's logf and cosf at
-# about 20 and 25 operations (hash excluded, as for dp_mix)
+# about 20 and 25 operations (hash excluded)
 PERTURB_FLOPS, PERTURB_NOISY_FLOPS = 2, 58
 
 PATH_N, PATH_D = 10, 855_050          # dwfl-paper, hidden 256
@@ -149,18 +191,75 @@ def nvidia_smi() -> str:
     return out.splitlines()[0]
 
 
-def sass_count(lib, *words: str) -> int:
-    """Lines of a built library's SASS that hold every one of ``words``
-    (cuobjdump, beside nvcc in the toolkit)."""
+def sass_text(lib) -> str:
+    """A built library's SASS (cuobjdump, beside nvcc in the toolkit)."""
     from repro_torch.kernels import build
     cuobjdump = Path(build.nvcc()).with_name("cuobjdump")
     try:
-        sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path)],
+        return subprocess.run([str(cuobjdump), "-sass", str(lib.path)],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
     except (OSError, subprocess.SubprocessError) as e:
         fail(f"cuobjdump -sass {lib.path.name}: {e}")
-    return sum(all(w in line for w in words) for line in sass.splitlines())
+
+
+def sass_count(lib, *words: str) -> int:
+    """Lines of a built library's SASS that hold every one of ``words``."""
+    return sum(all(w in line for w in words)
+               for line in sass_text(lib).splitlines())
+
+
+def sass_until_exit(lib) -> dict:
+    """{function: its SASS instructions up to and including the first
+    EXIT} of a library of straight-line kernels."""
+    import re
+    counts, name, done = {}, None, True
+    for line in sass_text(lib).splitlines():
+        if "Function : " in line:
+            name, done = line.split("Function : ")[1].strip(), False
+            counts[name] = 0
+        elif name and not done and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[name] += 1
+            done = "EXIT" in line
+    return counts
+
+
+def noise_count_library():
+    """NOISE_COUNT_SRC as a library of its own (built beside the kernels)."""
+    from repro_torch.kernels import build
+    header = SRC / "repro_torch" / "kernels" / "csrc" / "noise.cuh"
+    src = build.BUILD_DIR / "noise_count.cu"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src.write_text(NOISE_COUNT_SRC.format(header=header))
+    return build.Library("noise_count", sources=(src,), headers=(header,))
+
+
+def noise_instructions(lib) -> dict:
+    """Instructions of one dp_mix normal on each branch (small, large:
+    the whole normal with the central polynomial; tail: what the tail
+    polynomial and its square root add), from the SASS."""
+    c = sass_until_exit(lib)
+    base = c["k_empty"]
+    small, large = c["k_small"] - base, c["k_large"] - base
+    tail_extra = c["k_tail"] - c["k_central"]
+    if min(small, large, c["k_central"] - base) <= 0 or tail_extra <= 0:
+        fail(f"noise instruction counts make no sense: {c}")
+    return {"small": small, "large": large, "tail_extra": tail_extra,
+            "sass": c}
+
+
+def card_rates() -> dict:
+    """SMs and the SM clock's maximum (nvidia-smi clocks.max.sm)."""
+    import torch
+    try:
+        mhz = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.split()[0])
+    except (OSError, subprocess.SubprocessError, ValueError, IndexError) as e:
+        fail(f"nvidia-smi clocks.max.sm: {e}")
+    return {"sms": torch.cuda.get_device_properties(0).multi_processor_count,
+            "sm_clock_hz": mhz * 1e6}
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -211,29 +310,110 @@ def dp_mix_case(N: int, d: int, dtype, noisy: bool, seed: int):
     return proto, plan, p, g
 
 
-def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool) -> dict:
-    """Kernel vs plain on the card. Tolerance: both sum N products in
-    float32 in different orders, each within N * 2^-24 * sum_k |W_ik z_k|
-    <= N * 2^-24 * max|z| of the exact sum (W is stochastic); with the few
-    roundings around the sum, |kernel - plain| <= (N + 8) * 2^-23 * scale,
-    scale = max|x| + max|n/c| + max|m_scale sigma_m Gm| (|G| <= 5.42 on
-    the 24-bit lattice). The noise itself is the same operation sequence
-    in both. A bfloat16 output may further land one bfloat16 step apart,
-    2^-7 of its magnitude."""
+def noise_branches(N: int, d: int, cw: int, seed: int, col0: int = 0,
+                   device: str = "cuda") -> dict:
+    """How many of a round's 2 N d normals take each branch: log1p's small
+    (|t^2| < sqrt(2) - 1) or large one, and the erfinv tail (w >= 5,
+    within |t| > 0.99), from the plain version's counters and hash bits
+    (rows a chunk at a time)."""
+    import torch
+    from repro_torch.kernels import noise
+    n = {"small": 0, "large": 0, "tail": 0}
+    rows = max(1, (1 << 24) // d)
+    for r0 in range(0, N, rows):
+        idx2 = (noise.counters((min(rows, N - r0), d), cw, col0, r0,
+                               device=device) * 2) & noise.MASK32
+        for f in (0, 1):
+            bits = noise.hash_bits(idx2 + f, seed)
+            t = ((bits >> 8).to(torch.float32) - (float(1 << 23) - 0.5)) \
+                * (1.0 / (1 << 23))
+            x = t * -t
+            small = x.abs() < noise._L1P_SMALL
+            n["small"] += int(small.sum())
+            n["large"] += int((~small).sum())
+            far = x[t.abs() > 0.99]
+            n["tail"] += int((-noise.log1p_xla(far) >= 5.0).sum())
+    return n
+
+
+def dp_mix_work(N: int, d: int, elem: int, noisy: bool, counts: dict,
+                rates: dict, branches: Optional[dict] = None) -> dict:
+    """The least time the card could take for a round, the longest of:
+    its bytes (p, g read and out written once, W and the vectors) over
+    3.35 TB/s; its instructions (each normal on the branches its t takes,
+    from the SASS, and dp_mix_element_ops an element) over SMs x 128
+    lanes x the SM clock; the mix's N^2 d fused multiply-adds at 67
+    TFLOP/s."""
+    nbytes = 3 * N * d * elem + (N * N + 4 * N + 4) * 4
+    instr = N * d * dp_mix_element_ops(N, noisy)
+    if noisy:
+        instr += (branches["small"] * counts["small"]
+                  + branches["large"] * counts["large"]
+                  + branches["tail"] * counts["tail_extra"])
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "instructions": instr / (rates["sms"] * 128 * rates["sm_clock_hz"]),
+         "fma": 2 * N * N * d / F32_FLOP_PER_S}
+    bound = max(t.values())
+    return {"bytes": nbytes, "lane_instructions": instr, "fmas": N * N * d,
+            "bytes_ms": 1e3 * t["bytes"],
+            "instructions_ms": 1e3 * t["instructions"],
+            "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
+            "bound_by": "bytes" if t["bytes"] == bound else "operations"}
+
+
+def dp_mix_tolerance(N, p, g, gamma, plan, noisy, k32, r32, bf16):
+    """|kernel - plain| allowed elementwise: both sum N products in float32
+    in different orders, each within N 2^-24 sum_k |W_ik z_k| <= N 2^-24
+    max|z| of the exact sum (W is stochastic); with the few roundings
+    around the sum, (N + 8) 2^-23 scale, scale = max|x| + max|n/c| +
+    max|m_scale sigma_m Gm| (|G| <= 5.42 on the 24-bit lattice). The noise
+    itself is bitwise the same in both. A bfloat16 output may further land
+    one bfloat16 step apart, 2^-7 of its magnitude. Returns (allowed,
+    tol_f32)."""
+    import torch
+    x = p.float() - gamma * g.float()
+    scale = float(x.abs().max())
+    if noisy:
+        scale += 5.42 * float((plan.amp / plan.c.reshape(())).abs().max()
+                              + (plan.m_scale * plan.sigma_m).abs().max())
+    tol = (N + 8) * 2.0 ** -23 * scale
+    step = 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs()) if bf16 else 0.0
+    return tol + step, tol
+
+
+def dp_mix_args(N, d, dtype, noisy, seed=1234567):
+    """A case's operands as ops._launch takes them, and its keywords."""
     import torch
     from repro_torch.kernels.dp_mix import ops
-    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
     proto, plan, p, g = dp_mix_case(N, d, dtype, noisy, seed=N)
-    seed, col0 = (torch.tensor([s], dtype=torch.int32, device="cuda")
-                  for s in (1234567, 0))
-    cw = ops._roundup(d, ops.LANES)
+    seed_t, col0 = (torch.tensor([s], dtype=torch.int32, device="cuda")
+                    for s in (seed, 0))
     c = plan.c.reshape(())
     scal = torch.stack([c, plan.sigma_m.reshape(())])
     ones = torch.ones(N, device="cuda")
-    args = (p, g, seed, col0, scal, plan.amp, ones, plan.m_scale, ones,
+    args = (p, g, seed_t, col0, scal, plan.amp, ones, plan.m_scale, ones,
             plan.W.contiguous())
     kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=noisy,
-              counter_width=cw)
+              counter_width=ops._roundup(d, ops.LANES))
+    return proto, plan, args, kw
+
+
+def dp_mix_route(N: int, d: int) -> str:
+    """The route dp_mix's C launch takes at [N, d]."""
+    from repro_torch.kernels.dp_mix import ops
+    floats = ops._library().dp_mix_workspace_floats(N, d)
+    return "columns" if floats == 0 else "large-N"
+
+
+def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool,
+                 counts: Optional[dict] = None,
+                 rates: Optional[dict] = None) -> dict:
+    """Kernel vs plain on the card (dp_mix_tolerance); timed: the kernel,
+    the plain version and the bound (dp_mix_work)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    proto, plan, args, kw = dp_mix_args(N, d, dtype, noisy)
     kernel = lambda: ops._launch(*args, **kw)
     plain = lambda: dp_mix_plain(*args, **kw)
     out = kernel()
@@ -241,38 +421,149 @@ def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool) -> dict:
     ref = plain()
     torch.cuda.synchronize()
     k32, r32 = out.float(), ref.float()
+    del out, ref
     if not torch.isfinite(k32).all():
         fail(f"dp_mix N={N} {dtype} noisy={noisy}: non-finite output")
-    x = p.float() - proto.gamma * g.float()
-    scale = float(x.abs().max())
-    if noisy:
-        scale += 5.42 * float((plan.amp / c).abs().max()
-                              + (plan.m_scale * plan.sigma_m).abs().max())
-    tol = (N + 8) * 2.0 ** -23 * scale
+    p, g = args[0], args[1]
+    allowed, tol = dp_mix_tolerance(N, p, g, proto.gamma, plan, noisy, k32,
+                                    r32, dtype == torch.bfloat16)
     err = (k32 - r32).abs()
-    allowed = tol + (2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
-                     if dtype == torch.bfloat16 else 0.0)
     max_err = float(err.max())
     bad = int((err > allowed).sum())
+    del k32, r32, err, allowed
     rec = {"N": N, "d": d, "dtype": str(dtype).split(".")[-1],
-           "noisy": noisy, "max_abs_err": max_err, "tol_f32": tol,
-           "violations": bad}
+           "noisy": noisy, "route": dp_mix_route(N, d),
+           "max_abs_err": max_err, "tol_f32": tol, "violations": bad}
     if timed:
-        rec["ms"] = cuda_ms(kernel, iters=20)
+        rec["ms"] = cuda_ms(kernel, iters=20 if N <= 64 else 5)
         rec["plain_ms"] = cuda_ms(plain, iters=3, warmup=1)
-        elem = p.element_size()
-        nbytes = 3 * N * d * elem + (N * N + 4 * N + 4) * 4
-        flops = 2 * N * N * d + N * d * (
-            ELEMENT_FLOPS + (2 * NORMAL_FLOPS if noisy else 0))
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-        rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
-        rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
-        rec["bytes"], rec["flops"] = nbytes, flops
+        branches = (noise_branches(N, d, kw["counter_width"], 1234567)
+                    if noisy else None)
+        rec.update(dp_mix_work(N, d, p.element_size(), noisy, counts, rates,
+                               branches))
+        rec["branches"] = branches
     print(f"[kernels] dp_mix {json.dumps(rec)}", flush=True)
     if bad:
         fail(f"dp_mix N={N} {rec['dtype']} noisy={noisy}: {bad} elements "
              f"beyond tolerance (max err {max_err:.3g}, tol {tol:.3g})")
     return rec
+
+
+def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
+                         width: int = 4096) -> dict:
+    """A round too large for the plain version at full width (N = 2048 at
+    the path's d: p, g and out 21 GB, the workspace 14 GB): the kernel
+    once, held against the plain version over three column windows (the
+    first, one in the middle, the ragged last), each with its col0 and the
+    full counter_width, so the window draws the same noise; then timed."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    proto, plan, args, kw = dp_mix_args(N, d, torch.float32, True)
+    p, g, seed, _, *rest = args
+    kernel = lambda: ops._launch(*args, **kw)
+    out = kernel()
+    torch.cuda.synchronize()
+    max_err, bad, tol = 0.0, 0, 0.0
+    last = d - (d % width or width)
+    for a in (0, (d // 2) // width * width, last):
+        b = min(a + width, d)
+        col0 = torch.tensor([a], dtype=torch.int32, device="cuda")
+        ref = dp_mix_plain(p[:, a:b].contiguous(), g[:, a:b].contiguous(),
+                           seed, col0, *rest, **kw).float()
+        k32 = out[:, a:b].float()
+        allowed, tol = dp_mix_tolerance(N, p[:, a:b], g[:, a:b], proto.gamma,
+                                        plan, True, k32, ref, False)
+        err = (k32 - ref).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > allowed).sum())
+        if not torch.isfinite(k32).all():
+            fail(f"dp_mix N={N}: non-finite output in columns [{a}, {b})")
+    del out
+    rec = {"N": N, "d": d, "dtype": "float32", "noisy": True,
+           "route": dp_mix_route(N, d), "windows": 3, "window": width,
+           "max_abs_err": max_err, "tol_f32": tol, "violations": bad,
+           "ms": cuda_ms(kernel, iters=2, warmup=1)}
+    branches = noise_branches(N, d, kw["counter_width"], 1234567)
+    rec.update(dp_mix_work(N, d, 4, True, counts, rates, branches))
+    rec["branches"] = branches
+    print(f"[kernels] dp_mix {json.dumps(rec)}", flush=True)
+    if bad:
+        fail(f"dp_mix N={N} windows: {bad} elements beyond tolerance "
+             f"(max err {max_err:.3g})")
+    return rec
+
+
+def check_noise_fields(N: int, d: int) -> dict:
+    """Both noise fields through the kernel, bitwise the plain version's:
+    p = g = 0, W = I, amp = c = 1, self = m_scale = 0, eta = listen = 1
+    gives out = Gn; W = 0, amp = self = 0, m_scale = sigma_m = 1 gives
+    out = Gm (every sum has one nonzero term, so no order shows)."""
+    import torch
+    from repro_torch.kernels import noise
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    zeros = torch.zeros((N, d), device="cuda")
+    seed, col0 = (torch.tensor([s], dtype=torch.int32, device="cuda")
+                  for s in (1234567, 0))
+    one, zero = torch.ones(N, device="cuda"), torch.zeros(N, device="cuda")
+    scal = torch.ones(2, device="cuda")
+    cw = ops._roundup(d, ops.LANES)
+    kw = dict(gamma=0.0, eta=1.0, noisy=True, counter_width=cw)
+    fields = noise.normal_pair_hash((N, d), cw, 0, 1234567, device="cuda")
+    rec = {"N": N, "d": d, "route": dp_mix_route(N, d)}
+    for name, field, amp, ms, W in (
+            ("Gn", fields[0], one, zero, torch.eye(N, device="cuda")),
+            ("Gm", fields[1], zero, one, torch.zeros((N, N), device="cuda"))):
+        args = (zeros, zeros, seed, col0, scal, amp, zero, ms, one, W)
+        bits = lambda t: t.contiguous().view(torch.int32)
+        out = ops._launch(*args, **kw)
+        ref = dp_mix_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rec[f"{name}_differ"] = int((bits(out) != bits(ref)).sum())
+        rec[f"{name}_plain_vs_field_differ"] = int(
+            (bits(ref) != bits(field)).sum())
+        del out, ref
+    del fields
+    rec["branches"] = noise_branches(N, d, cw, 1234567)
+    print(f"[kernels] dp_mix noise fields {json.dumps(rec)}", flush=True)
+    if any(v for k, v in rec.items() if k.endswith("differ")):
+        fail(f"dp_mix noise fields not bitwise the plain version's: {rec}")
+    return rec
+
+
+def flat_cli(workers: int, steps: int) -> dict:
+    """The flat CLI at ``workers``, dp_mix's count set to 0 just before
+    and read just after: one launch a round, every loss finite."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    ops.dp_mix_round.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                     "--workers", str(workers), "--batch-size", "32",
+                     "--steps", str(steps), "--eval-every", str(steps // 2),
+                     "--device", "cuda"])
+    launches = ops.dp_mix_round.launches
+    peak = torch.cuda.max_memory_allocated()
+    losses, rounds = res["losses"], res["rounds"]
+    print(f"[train] N = {workers}: {rounds} rounds in {res['seconds']:.3f}s "
+          f"= {rounds / res['seconds']:.2f} rounds/s; peak device memory "
+          f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
+          f"run); dp_mix launches {launches} "
+          f"({dp_mix_route(workers, PATH_D)} "
+          f"route); first/last loss {float(losses[0]):.4f}/"
+          f"{float(losses[-1]):.4f}", flush=True)
+    if losses.numel() != rounds or not torch.isfinite(losses).all():
+        fail(f"train N={workers}: expected {rounds} finite losses, got "
+             f"{losses.tolist()}")
+    if launches != rounds:
+        fail(f"train N={workers}: dp_mix launched {launches} times for "
+             f"{rounds} rounds")
+    if not torch.isfinite(res["params"]).all():
+        fail(f"train N={workers}: non-finite parameters")
+    return {"launches": launches, "rounds": rounds}
 
 
 def ulp_dist(a, b):
@@ -1160,12 +1451,16 @@ def main() -> int:
     from repro_torch.kernels.dp_perturb import ops as dp_perturb_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    count_lib = noise_count_library()
     libs = [ops.LIBRARY, dp_perturb_ops.LIBRARY, fa_ops.LIBRARY,
             ssd_ops.LIBRARY]
     t0 = time.perf_counter()
-    built = build.build_all(libs)
+    built = build.build_all(libs + [count_lib])
     print(f"[build] {json.dumps(built)} in {time.perf_counter() - t0:.1f}s "
           f"-> {build.BUILD_DIR}", flush=True)
+    counts, rates = noise_instructions(count_lib), card_rates()
+    print(f"[build] dp_mix normal, instructions from the SASS: "
+          f"{json.dumps(counts)}; {json.dumps(rates)}", flush=True)
     for lib in libs:
         for line in lib.log_path.read_text().splitlines():
             if any(w in line for w in ("registers", "spill", "wgmma", "Performance")):
@@ -1181,46 +1476,36 @@ def main() -> int:
     if not (tf32 and ssd_tf32):
         fail("the float32 flash kernel's or ssd_scan's SASS holds no TF32 mma (HMMA .TF32)")
 
-    # 3. kernels: dp_mix at the flat path's shape and at N = 64, dp_perturb
-    # at the tree path's six leaves, flash_attention and ssd_scan at the
-    # serve paths' shapes
+    # 3. kernels: dp_mix at the flat path's shape and at N = 64 (the column
+    # route), at N = 65, 128, 256 and, over three windows, 2048 (128 and
+    # beyond on the large-N route), its noise fields bitwise at N = 10 and
+    # 128; dp_perturb at the tree path's six leaves, flash_attention and
+    # ssd_scan at the serve paths' shapes
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
             for noisy in (True, False):
-                timed = N == PATH_N and dtype == torch.float32
-                rec = check_dp_mix(N, PATH_D, dtype, noisy, timed)
-                if timed and noisy:
+                timed = dtype == torch.float32 and (N == PATH_N or noisy)
+                rec = check_dp_mix(N, PATH_D, dtype, noisy, timed, counts,
+                                   rates)
+                if N == PATH_N and timed and noisy:
                     path_rec = rec
                 torch.cuda.empty_cache()
+    for N in (65, 128, 256):
+        check_dp_mix(N, PATH_D, torch.float32, True, N > 65, counts, rates)
+        torch.cuda.empty_cache()
+    check_dp_mix_windows(2048, PATH_D, counts, rates)
+    torch.cuda.empty_cache()
+    for N in (PATH_N, 128):
+        check_noise_fields(N, PATH_D)
+        torch.cuda.empty_cache()
     perturb_rec = dp_perturb_phase()
     flash_rec, flash16_rec = flash_phase()
     ssd_rec = ssd_phase()
 
-    # 4. the flat path, counted
-    from repro_torch.launch import train
-    ops.dp_mix_round.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
-                     "--workers", str(PATH_N), "--batch-size", "32",
-                     "--steps", "50", "--eval-every", "25",
-                     "--device", "cuda"])
-    launches = ops.dp_mix_round.launches
-    peak = torch.cuda.max_memory_allocated()
-    losses = res["losses"]
-    rounds = res["rounds"]
-    print(f"[train] {rounds} rounds in {res['seconds']:.3f}s = "
-          f"{rounds / res['seconds']:.2f} rounds/s; peak device memory "
-          f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
-          f"run); dp_mix launches {launches}; first/last "
-          f"loss {float(losses[0]):.4f}/{float(losses[-1]):.4f}", flush=True)
-    if losses.numel() != rounds or not torch.isfinite(losses).all():
-        fail(f"train: expected {rounds} finite losses, got {losses.tolist()}")
-    if launches != rounds:
-        fail(f"train: dp_mix launched {launches} times for {rounds} rounds")
-    if not torch.isfinite(res["params"]).all():
-        fail("train: non-finite parameters")
+    # 4. the flat path, counted: the main path at N = 10, then N = 128
+    launches = flat_cli(PATH_N, 50)["launches"]
+    flat_cli(128, 4)
     train_step_cpu_vs_cuda()
 
     # 5. the worker-tree path, counted per scheme

@@ -11,23 +11,41 @@
 //   out = x + (eta * listen) * (upd - x)
 //
 // and with noisy == 0 (gossip) out = x + (eta * listen) * (W @ x - x).
-// The arithmetic is that of _round_math (dp_mix.py); the noise is the
-// reference's counter hash (noise.cuh), never the TPU's own PRNG, with
-// counters 2 * ((r) * counter_width + col0 + j) and that plus 1.
+// The noise is the reference's counter hash (noise.cuh), bitwise the plain
+// version's, never the TPU's own PRNG, with counters 2 * (r * counter_width
+// + col0 + j) and that plus 1. Both routes below compute an element as
 //
-// What bounds it on an H100: bytes. At the paper's shape (N = 10,
-// d = 855,050, f32) it reads p and g and writes out once, 3 * N * d * 4 B
-// = 102.6 MB, about 31 us at 3.35 TB/s, while the mix is 2 * N^2 * d =
-// 0.17 GFLOP, about 3 us at 67 TFLOP/s (the noise adds some 2 * N * d
-// hash-and-polynomial evaluations, still below the memory time). The
-// design therefore touches each element of p, g and out exactly once:
-// one thread owns one column, walks the N rows with coalesced loads,
-// generates each element's two normals once, and stages x, nf and z for
-// its column in shared memory, from which all N receivers' sums are
-// formed (four output rows at a time, so each z is read N / 4 times).
-// W and the per-worker vectors sit in shared memory. Nothing is tiled
-// for the tensor cores: at N <= 64 the contraction is a few FMAs per
-// byte. Wider loads, TMA and a tensor-core mix for large N are later work.
+//   v   = x + (eta * listen) * (m_scale sigma_m Gm - self nf - x)
+//   out = v + (eta * listen) * (W @ z)
+//
+// the same sum as the reference's _round_math in another order (within
+// its float32 tolerance; the noise fields alone come out bitwise).
+//
+// What bounds it on an H100: instructions. At the paper's shape (N = 10,
+// d = 855,050, float32) it moves 102.6 MB, 31 us at 3.35 TB/s, but draws
+// 17.1 M normals, each the reference's XLA CPU sequence (C1): an integer
+// hash and some fifty instructions on the branches its t takes, so the
+// normals set the floor. The design issues as few instructions as it can
+// and keeps the loads under them:
+//
+// * Column route (while 8 warps' worth of its blocks fit an SM's shared
+//   memory: N up to about 50). A thread owns kCols neighbouring columns,
+//   read 8 bytes at a time; a block of 128 threads walks the N rows kRows
+//   at a time, each batch's loads issued before its normals (which do not
+//   need them). A batch's normals are drawn together, a step over all of
+//   them before the next, so their chains interleave: both log1p branches
+//   and XLA's select (a warp's lanes take both), the erfinv tail only in a
+//   warp with a tail lane, the division without the compiler's slow path.
+//   z and v wait in shared memory (only the thread's own columns, so no
+//   barrier) until the thread forms its columns' outputs 4 kQuads
+//   receivers at a time, with W transposed in shared memory so one 16-byte
+//   load serves four.
+// * Large-N route (beyond): two kernels. dp_mix_prep writes z and nf, one
+//   normal an element, to a float32 workspace [2, N, d] that the wrapper
+//   allocates; dp_mix_tiled forms W @ z over 64 x 64 tiles of receivers
+//   and columns from 16-sender slabs in shared memory (FMAs on the CUDA
+//   cores) and draws Gm in its epilogue, once an element. A tensor-core
+//   mix for large N is later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -38,120 +56,350 @@
 
 namespace {
 
-constexpr int kTile = 128;       // columns (= threads) per block
-constexpr int kMaxWorkers = 64;  // largest N the shared-memory plan takes
-constexpr int kRowBlock = 4;     // output rows summed together
-
 using repro_dtypes::load_f;
 using repro_dtypes::store_f;
 
+constexpr int kThreads = 128;                  // column route: threads a block
+constexpr int kCols = 2;                       // columns a thread
+constexpr int kTileCols = kThreads * kCols;    // columns a block
+constexpr int kRows = 2;                       // rows a batch of normals
+constexpr int kQuads = 3;                      // receiver quads a pass of the mix
+constexpr int kMinWarps = 8;                   // column route: warps an SM at least
+
+constexpr int kTile = 64;                      // large-N route: receivers and columns a tile
+constexpr int kSlab = 16;                      // senders a slab
+constexpr int kTiledThreads = 256;             // each 4 x 4 outputs
+constexpr int kPrepThreads = 256;
+
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
-__host__ __device__ inline size_t smem_floats(int n) {
-  // W (rows padded to kRowBlock) + amp/c, self, m_scale*sigma_m,
-  // eta*listen + x, nf, z tiles
-  return (size_t)round_up(n, kRowBlock) * n + 4 * (size_t)n + 3 * (size_t)n * kTile;
+struct Args {
+  const void* p;
+  const void* g;
+  void* out;
+  const float* W;
+  const float* amp;
+  const float* selfs;
+  const float* mscale;
+  const float* listen;
+  const float* scal;    // [c, sigma_m]
+  const int32_t* seed;
+  const int32_t* col0;
+  float* ws;            // large-N route: [2, n, d], z then nf
+  int n, d;
+  uint32_t counter_width;
+  float gamma, eta;
+  int noisy;
+};
+
+// A receiver's constants: amp / c, self, m_scale * sigma_m, eta * listen.
+__device__ __forceinline__ float4 row_const(const Args& a, int i) {
+  return make_float4(__fdiv_rn(a.amp[i], a.scal[0]), a.selfs[i],
+                     __fmul_rn(a.mscale[i], a.scal[1]), __fmul_rn(a.eta, a.listen[i]));
+}
+
+__device__ __forceinline__ float local_step(float p, float g, float gamma) {
+  return __fsub_rn(p, __fmul_rn(gamma, g));
+}
+
+// v = x + le (ms Gm - self nf - x): all of out but le * (W @ z).
+__device__ __forceinline__ float partial(float x, float nf, float gm, float4 rc) {
+  return fmaf(rc.w, __fsub_rn(__fsub_rn(__fmul_rn(rc.z, gm), __fmul_rn(rc.y, nf)), x), x);
+}
+
+__device__ __forceinline__ uint32_t counter(uint32_t row, uint32_t cw, uint32_t gcol) {
+  return row * cw + gcol;
+}
+
+// ---- column route -------------------------------------------------------
+
+template <typename T, int C>
+struct alignas(sizeof(T) * C) Pack {
+  T v[C];
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void from_f(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16& d, float v) { d = __float2bfloat16_rn(v); }
+
+template <typename T>
+__device__ __forceinline__ void store_cols(T* __restrict__ row, int col, int d, bool vec,
+                                           const float (&v)[kCols]) {
+  if (vec && col + kCols <= d) {
+    Pack<T, kCols> pk;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) from_f(pk.v[c], v[c]);
+    *reinterpret_cast<Pack<T, kCols>*>(row + col) = pk;
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (col + c < d) store_f(row, col + c, v[c]);
+  }
+}
+
+// kCols columns from col of a row into registers; columns past d as 0.
+template <typename T>
+__device__ __forceinline__ void load_cols(const T* __restrict__ row, int col, int d, bool vec,
+                                          float (&v)[kCols]) {
+  if (vec && col + kCols <= d) {
+    const Pack<T, kCols> pk = *reinterpret_cast<const Pack<T, kCols>*>(row + col);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) v[c] = to_f(pk.v[c]);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) v[c] = col + c < d ? load_f(row, col + c) : 0.0f;
+  }
+}
+
+// Shared memory of the column route at n receivers: the receivers'
+// constants, W transposed (rows padded to 4 with zeros), z and v of the
+// block's columns.
+__host__ __device__ inline size_t columns_smem_bytes(int n) {
+  const size_t np = round_up(n, 4);
+  return sizeof(float4) * n + sizeof(float) * (n * np + 2 * (size_t)n * kTileCols);
+}
+
+// The R rows from k0 of this thread's columns: their loads, the two noise
+// fields, x, then z and v into shared memory.
+template <int R, typename T>
+__device__ __forceinline__ void rows_batch(const Args& a, int k0, int col, uint32_t gcol,
+                                           uint32_t seed, bool vec, const T* __restrict__ p,
+                                           const T* __restrict__ g, const float4* sRow, float* z,
+                                           float* v) {
+  using namespace repro_noise;
+  constexpr int M = 2 * R * kCols;   // [row][column][Gn, Gm]
+  float pv[R][kCols], gv[R][kCols];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    load_cols(p + (size_t)(k0 + r) * a.d, col, a.d, vec, pv[r]);
+    load_cols(g + (size_t)(k0 + r) * a.d, col, a.d, vec, gv[r]);
+  }
+  float nrm[M];
+  if (a.noisy) {
+    float t[M], w[M];
+#pragma unroll
+    for (int j = 0; j < M; ++j) {
+      const uint32_t idx = counter(k0 + j / (2 * kCols), a.counter_width, gcol + (j / 2) % kCols);
+      t[j] = lattice_t(hash_bits(2u * idx + (j & 1), seed));
+    }
+#pragma unroll
+    for (int j = 0; j < M; ++j) w[j] = lattice_w(t[j]);
+#pragma unroll
+    for (int j = 0; j < M; ++j) nrm[j] = erfinv_central(w[j]);
+#pragma unroll
+    for (int j = 0; j < M; ++j) nrm[j] = normal_from_p(erfinv_p(nrm[j], w[j]), t[j]);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const float4 rc = sRow[k0 + r];
+    Pack<float, kCols> zk, vk;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      const float x = local_step(pv[r][c], gv[r][c], a.gamma);
+      if (a.noisy) {
+        const float nf = __fmul_rn(rc.x, nrm[(r * kCols + c) * 2]);
+        zk.v[c] = __fadd_rn(x, nf);
+        vk.v[c] = partial(x, nf, nrm[(r * kCols + c) * 2 + 1], rc);
+      } else {
+        zk.v[c] = x;
+        vk.v[c] = partial(x, 0.0f, 0.0f, rc);
+      }
+    }
+    *reinterpret_cast<Pack<float, kCols>*>(z + (size_t)(k0 + r) * kTileCols) = zk;
+    *reinterpret_cast<Pack<float, kCols>*>(v + (size_t)(k0 + r) * kTileCols) = vk;
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kTile)
-dp_mix_kernel(const T* __restrict__ p, const T* __restrict__ g, T* __restrict__ out,
-              const float* __restrict__ W, const float* __restrict__ amp,
-              const float* __restrict__ selfs, const float* __restrict__ mscale,
-              const float* __restrict__ listen, const float* __restrict__ scal,
-              const int32_t* __restrict__ seed_ptr, const int32_t* __restrict__ col0_ptr,
-              int n, int d, uint32_t counter_width, float gamma, float eta, int noisy) {
-  extern __shared__ float smem[];
-  const int nr = round_up(n, kRowBlock);
-  float* sW = smem;              // [nr, n]
-  float* sAmpC = sW + nr * n;    // amp / c
-  float* sSelf = sAmpC + n;
-  float* sMs = sSelf + n;        // m_scale * sigma_m
-  float* sLe = sMs + n;          // eta * listen
-  float* sX = sLe + n;           // [n, kTile]
-  float* sNf = sX + n * kTile;
-  float* sZ = sNf + n * kTile;
-
-  const int tid = threadIdx.x;
-  const float c = scal[0], sigma_m = scal[1];
-  for (int i = tid; i < nr * n; i += kTile) sW[i] = i < n * n ? W[i] : 0.0f;
-  for (int i = tid; i < n; i += kTile) {
-    sAmpC[i] = __fdiv_rn(amp[i], c);
-    sSelf[i] = selfs[i];
-    sMs[i] = __fmul_rn(mscale[i], sigma_m);
-    sLe[i] = __fmul_rn(eta, listen[i]);
+__global__ void __launch_bounds__(kThreads)
+dp_mix_columns(const Args a, const bool vec) {
+  extern __shared__ float4 smem[];
+  const int n = a.n, d = a.d, np = round_up(n, 4), tid = threadIdx.x;
+  float4* sRow = smem;                                        // [n]
+  float* sWt = reinterpret_cast<float*>(sRow + n);            // [n senders][np receivers]
+  float* z = sWt + (size_t)n * np + tid * kCols;              // [n][kTileCols], z
+  float* v = z + (size_t)n * kTileCols;                       // [n][kTileCols], v
+  for (int i = tid; i < n * np; i += kThreads) {
+    const int k = i / np, r = i - k * np;
+    sWt[i] = r < n ? a.W[r * n + k] : 0.0f;
   }
+  for (int i = tid; i < n; i += kThreads) sRow[i] = row_const(a, i);
   __syncthreads();
 
-  const int col = blockIdx.x * kTile + tid;
-  if (col >= d) return;
-  const uint32_t seed = (uint32_t)seed_ptr[0];
-  const uint32_t gcol = (uint32_t)col0_ptr[0] + (uint32_t)col;
+  // pass 1: z and v of every row of this thread's columns. Lanes past d
+  // run along (a warp draws its normals together) but load zeros and
+  // store nothing.
+  const T* __restrict__ p = static_cast<const T*>(a.p);
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  const int col = (blockIdx.x * kThreads + tid) * kCols;
+  const uint32_t seed = (uint32_t)a.seed[0], gcol = (uint32_t)a.col0[0] + (uint32_t)col;
+  int k0 = 0;
+  for (; k0 + kRows <= n; k0 += kRows) rows_batch<kRows>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
+  for (; k0 < n; ++k0) rows_batch<1>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
 
-  // pass 1: x (and the DP noise) of every row of this column
-  for (int k = 0; k < n; ++k) {
-    const size_t off = (size_t)k * d + col;
-    const float x = __fsub_rn(load_f(p, off), __fmul_rn(gamma, load_f(g, off)));
-    sX[k * kTile + tid] = x;
-    if (noisy) {
-      const uint32_t idx = (uint32_t)k * counter_width + gcol;
-      const float nf = __fmul_rn(
-          sAmpC[k], repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx, seed)));
-      sNf[k * kTile + tid] = nf;
-      sZ[k * kTile + tid] = __fadd_rn(x, nf);
-    }
-  }
-  // pass 2: every receiver's row from the staged column (only this
-  // thread's own column is read back, so no barrier is needed)
-  const float* src = noisy ? sZ : sX;
-  for (int i0 = 0; i0 < n; i0 += kRowBlock) {
-    float acc[kRowBlock];
-#pragma unroll
-    for (int r = 0; r < kRowBlock; ++r) acc[r] = 0.0f;
+  // pass 2: 4 kQuads receivers at a time from the staged columns, one
+  // 16-byte load of W a quad
+  T* __restrict__ out = static_cast<T*>(a.out);
+  for (int i0 = 0; i0 < n; i0 += 4 * kQuads) {
+    float acc[kQuads][4][kCols] = {};
     for (int k = 0; k < n; ++k) {
-      const float zk = src[k * kTile + tid];
+      const Pack<float, kCols> zk = *reinterpret_cast<const Pack<float, kCols>*>(z + (size_t)k * kTileCols);
 #pragma unroll
-      for (int r = 0; r < kRowBlock; ++r) acc[r] = fmaf(sW[(i0 + r) * n + k], zk, acc[r]);
+      for (int q = 0; q < kQuads; ++q) {
+        if (i0 + 4 * q >= n) break;
+        const float4 w = *reinterpret_cast<const float4*>(sWt + (size_t)k * np + i0 + 4 * q);
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) {
+          acc[q][0][c] = fmaf(w.x, zk.v[c], acc[q][0][c]);
+          acc[q][1][c] = fmaf(w.y, zk.v[c], acc[q][1][c]);
+          acc[q][2][c] = fmaf(w.z, zk.v[c], acc[q][2][c]);
+          acc[q][3][c] = fmaf(w.w, zk.v[c], acc[q][3][c]);
+        }
+      }
     }
 #pragma unroll
-    for (int r = 0; r < kRowBlock; ++r) {
-      const int i = i0 + r;
-      if (i >= n) break;
-      float upd = acc[r];
-      if (noisy) {
-        const uint32_t idx = (uint32_t)i * counter_width + gcol;
-        const float gm =
-            repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
-        upd = __fadd_rn(__fsub_rn(upd, __fmul_rn(sSelf[i], sNf[i * kTile + tid])),
-                        __fmul_rn(sMs[i], gm));
+    for (int q = 0; q < kQuads; ++q)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int i = i0 + 4 * q + r;
+        if (i >= n) break;
+        const float le = sRow[i].w;
+        const Pack<float, kCols> vi = *reinterpret_cast<const Pack<float, kCols>*>(v + (size_t)i * kTileCols);
+        float o[kCols];
+#pragma unroll
+        for (int c = 0; c < kCols; ++c) o[c] = fmaf(le, acc[q][r][c], vi.v[c]);
+        store_cols(out + (size_t)i * d, col, d, vec, o);
       }
-      const float x = sX[i * kTile + tid];
-      store_f(out, (size_t)i * d + col, __fadd_rn(x, __fmul_rn(sLe[i], __fsub_rn(upd, x))));
+  }
+}
+
+// ---- large-N route --------------------------------------------------------
+
+// z (x when gossip) and nf of every element into the workspace.
+template <typename T>
+__global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args a) {
+  const int k = blockIdx.y, j = blockIdx.x * kPrepThreads + threadIdx.x;
+  const size_t off = (size_t)k * a.d + min(j, a.d - 1);   // lanes past d draw along
+  const float x = local_step(load_f(static_cast<const T*>(a.p), off),
+                             load_f(static_cast<const T*>(a.g), off), a.gamma);
+  if (!a.noisy) {
+    if (j < a.d) a.ws[off] = x;
+    return;
+  }
+  const uint32_t idx = counter(k, a.counter_width, (uint32_t)a.col0[0] + (uint32_t)j);
+  const float nf = __fmul_rn(__fdiv_rn(a.amp[k], a.scal[0]),
+                             repro_noise::normal_from_bits(
+                                 repro_noise::hash_bits(2u * idx, (uint32_t)a.seed[0])));
+  if (j < a.d) {
+    a.ws[off] = __fadd_rn(x, nf);
+    a.ws[(size_t)a.n * a.d + off] = nf;
+  }
+}
+
+// out over a kTile x kTile tile of (receivers, columns): W @ z from
+// kSlab-sender slabs of W (transposed) and z in shared memory, each
+// thread 4 receivers x 4 columns; then v and the store.
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args a) {
+  constexpr int ld = kTile + 4;   // row stride: float4 reads, few bank conflicts on the stores
+  __shared__ __align__(16) float sW[kSlab][ld];
+  __shared__ __align__(16) float sZ[kSlab][ld];
+  const int n = a.n, d = a.d, tid = threadIdx.x;
+  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
+  const int tx = tid % 16, ty = tid / 16;   // columns j0 + 4 tx .., receivers i0 + 4 ty ..
+  float acc[4][4] = {};
+  for (int k0 = 0; k0 < n; k0 += kSlab) {
+#pragma unroll
+    for (int q = 0; q < kTile * kSlab / kTiledThreads; ++q) {
+      const int e = q * kTiledThreads + tid;
+      const int kk = e % kSlab, m = e / kSlab;          // W row-major: senders contiguous
+      const int i = i0 + m, k = k0 + kk;
+      sW[kk][m] = i < n && k < n ? a.W[(size_t)i * n + k] : 0.0f;
+      const int zk = e / kTile, jj = e % kTile;         // z rows: columns contiguous
+      const int kz = k0 + zk, j = j0 + jj;
+      sZ[zk][jj] = kz < n && j < d ? a.ws[(size_t)kz * d + j] : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kSlab; ++kk) {
+      const float4 w = *reinterpret_cast<const float4*>(&sW[kk][4 * ty]);
+      const float4 zv = *reinterpret_cast<const float4*>(&sZ[kk][4 * tx]);
+      const float wr[4] = {w.x, w.y, w.z, w.w}, zc[4] = {zv.x, zv.y, zv.z, zv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(wr[r], zc[c], acc[r][c]);
+    }
+    __syncthreads();
+  }
+  // epilogue: every lane draws its 16 Gm (those past n or d too, not kept)
+  const T* __restrict__ p = static_cast<const T*>(a.p);
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const uint32_t seed = (uint32_t)a.seed[0], gcol0 = (uint32_t)a.col0[0];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int i = i0 + 4 * ty + r, ic = min(i, n - 1);
+    const float4 rc = row_const(a, ic);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = j0 + 4 * tx + c;
+      const size_t off = (size_t)ic * d + min(j, d - 1);
+      const float x = local_step(load_f(p, off), load_f(g, off), a.gamma);
+      float vv;
+      if (a.noisy) {
+        const uint32_t idx = counter(i, a.counter_width, gcol0 + (uint32_t)j);
+        const float gm = repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
+        vv = partial(x, a.ws[(size_t)n * d + off], gm, rc);
+      } else {
+        vv = partial(x, 0.0f, 0.0f, rc);
+      }
+      if (i < n && j < d) store_f(out, off, fmaf(rc.w, acc[r][c], vv));
     }
   }
 }
 
+// ---- routes and launch -------------------------------------------------------
+
+// The column route while kMinWarps warps of its blocks fit an SM's shared
+// memory, read from the current device.
+bool columns_route(int n) {
+  int dev = 0, per_sm = 0, per_block = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) != cudaSuccess)
+    return false;
+  const size_t bytes = columns_smem_bytes(n);
+  return bytes <= (size_t)per_block &&
+         per_sm / (bytes + reserved) * (kThreads / 32) >= (size_t)kMinWarps;
+}
+
 template <typename T>
-int launch(const void* p, const void* g, void* out, const void* W, const void* amp,
-           const void* selfs, const void* mscale, const void* listen, const void* scal,
-           const void* seed, const void* col0, int n, int d, uint32_t counter_width,
-           float gamma, float eta, int noisy, cudaStream_t stream) {
-  const size_t bytes = smem_floats(n) * sizeof(float);
-  static size_t opted_in = 48 * 1024;  // shared memory granted without opt-in
-  if (bytes > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dp_mix_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = bytes;
+int launch(const Args& a, cudaStream_t stream) {
+  if (columns_route(a.n)) {
+    const size_t bytes = columns_smem_bytes(a.n);
+    static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
+    if (bytes > opted_in) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          dp_mix_columns<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (err != cudaSuccess) return (int)err;
+      opted_in = bytes;
+    }
+    const size_t pack = sizeof(T) * kCols;
+    const bool vec = a.d % kCols == 0 && (uintptr_t)a.p % pack == 0 &&
+                     (uintptr_t)a.g % pack == 0 && (uintptr_t)a.out % pack == 0;
+    const int blocks = (a.d + kTileCols - 1) / kTileCols;
+    dp_mix_columns<T><<<blocks, kThreads, bytes, stream>>>(a, vec);
+    return (int)cudaGetLastError();
   }
-  const int blocks = (d + kTile - 1) / kTile;
-  dp_mix_kernel<T><<<blocks, kTile, bytes, stream>>>(
-      static_cast<const T*>(p), static_cast<const T*>(g), static_cast<T*>(out),
-      static_cast<const float*>(W), static_cast<const float*>(amp),
-      static_cast<const float*>(selfs), static_cast<const float*>(mscale),
-      static_cast<const float*>(listen), static_cast<const float*>(scal),
-      static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0), n, d,
-      counter_width, gamma, eta, noisy);
+  if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
+  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dp_mix_tiled<T><<<dim3((a.d + kTile - 1) / kTile, (a.n + kTile - 1) / kTile), kTiledThreads, 0,
+                    stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -159,22 +407,29 @@ int launch(const void* p, const void* g, void* out, const void* W, const void* a
 
 extern "C" {
 
+// Floats of the workspace the launch needs at [n, d]: 0 on the column
+// route, 2 n d (z and nf, float32) on the large-N route.
+size_t dp_mix_workspace_floats(int n, int d) {
+  return n < 1 || d < 1 || columns_route(n) ? 0 : 2 * (size_t)n * d;
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (p, g, out). Every other array is
-// float32 on the device except seed and col0, int32 [1]. Returns the
+// float32 on the device except seed and col0, int32 [1]; ws is the
+// workspace of dp_mix_workspace_floats (null when that is 0). Returns the
 // cudaError_t of the launch (0 = launched).
 int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void* W,
                   const void* amp, const void* selfs, const void* mscale, const void* listen,
-                  const void* scal, const void* seed, const void* col0, int n, int d,
-                  unsigned int counter_width, float gamma, float eta, int noisy,
-                  void* stream) {
-  if (n < 1 || n > kMaxWorkers || d < 1) return (int)cudaErrorInvalidValue;
+                  const void* scal, const void* seed, const void* col0, void* ws, int n, int d,
+                  unsigned int counter_width, float gamma, float eta, int noisy, void* stream) {
+  if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const Args a{p, g, out, static_cast<const float*>(W), static_cast<const float*>(amp),
+               static_cast<const float*>(selfs), static_cast<const float*>(mscale),
+               static_cast<const float*>(listen), static_cast<const float*>(scal),
+               static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
+               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(p, g, out, W, amp, selfs, mscale, listen, scal, seed, col0, n, d,
-                         counter_width, gamma, eta, noisy, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(p, g, out, W, amp, selfs, mscale, listen, scal, seed, col0,
-                                 n, d, counter_width, gamma, eta, noisy, s);
+  if (dtype == 0) return launch<float>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,12 +9,16 @@ two. ``dp_mix_round.launches`` counts the kernel launches.
 Dtype contract (the reference's): the output has the input buffer's dtype
 (float32 or bfloat16 on the card); the arithmetic is float32.
 
-Limits of the kernel, checked here before any launch:
+The kernel takes any N. Its C launch picks one of two routes from N and
+the card's shared memory: one kernel while the column route's blocks fit
+(N up to a few tens); beyond, two (``dp_mix_prep`` writes z and the DP
+noise to a float32 workspace [2, N, d], which ``_launch`` allocates when
+the library asks for one, and ``dp_mix_tiled`` mixes it). Either way a
+round is one call and one count.
 
-* N <= ``MAX_WORKERS`` (64): the kernel stages a column of every worker in
-  shared memory. Dense mixing at larger N is later work.
-* N * counter_width <= 2^31: the noise counters 2 * idx are uint32, and
-  past that they wrap and two elements would draw the same noise.
+Checked here before any launch, on every device: N * counter_width <=
+2^31. The noise counters 2 * idx are uint32, and past that they wrap and
+two elements would draw the same noise (at dwfl-paper's width, N <= 2,511).
 """
 from __future__ import annotations
 
@@ -29,13 +33,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
 
 LANES = 128            # noise-counter row stride multiple (the reference's)
-MAX_WORKERS = 64
 COUNTER_LIMIT = 1 << 31
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("dp_mix", sources=(_CSRC / "dp_mix.cu",),
                         headers=build.SHARED_HEADERS)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PTR = ctypes.c_void_p
+# dp_mix_launch's parameters, in order
+ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int, ctypes.c_int,
+            ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, _PTR])
 
 
 def _roundup(n: int, m: int) -> int:
@@ -67,11 +74,10 @@ def _library() -> ctypes.CDLL:
     lib = build.load(LIBRARY)
     fn = lib.dp_mix_launch
     if fn.argtypes is None:
-        ptr = ctypes.c_void_p
-        fn.argtypes = [ctypes.c_int] + [ptr] * 11 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ptr]
+        fn.argtypes = ARGTYPES
         fn.restype = ctypes.c_int
+        lib.dp_mix_workspace_floats.argtypes = [ctypes.c_int] * 2
+        lib.dp_mix_workspace_floats.restype = ctypes.c_size_t
         lib.dp_mix_error_string.argtypes = [ctypes.c_int]
         lib.dp_mix_error_string.restype = ctypes.c_char_p
     return lib
@@ -83,9 +89,6 @@ def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
     if p.dtype not in _DTYPES:
         raise TypeError(f"dp_mix kernel takes float32 or bfloat16, got "
                         f"{p.dtype}")
-    if not 1 <= N <= MAX_WORKERS:
-        raise ValueError(f"dp_mix kernel takes 1 <= N <= {MAX_WORKERS} "
-                         f"workers, got {N}")
     f32, i32 = torch.float32, torch.int32
     for name, a, shape, dtype in (
             ("g", g, (N, d), p.dtype), ("W", W, (N, N), f32),
@@ -101,10 +104,14 @@ def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
     p, g = p.contiguous(), g.contiguous()
     out = torch.empty_like(p)
     lib = _library()
+    ws_floats = lib.dp_mix_workspace_floats(N, d)
+    ws = (torch.empty(ws_floats, dtype=torch.float32, device=p.device)
+          if ws_floats else None)
     rc = lib.dp_mix_launch(
         _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
         W.data_ptr(), amp.data_ptr(), selfs.data_ptr(), mscale.data_ptr(),
         listen.data_ptr(), scal.data_ptr(), seed.data_ptr(), col0.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         N, d, counter_width, gamma, eta, int(noisy),
         torch.cuda.current_stream(p.device).cuda_stream)
     if rc != 0:

@@ -42,7 +42,8 @@ def _need_card():
         pytest.skip("needs a CUDA card and nvcc")
 
 
-@pytest.mark.parametrize("N,d", [(10, 5000), (3, 130), (64, 1000)])
+@pytest.mark.parametrize("N,d", [(10, 5000), (3, 130), (64, 1000),
+                                 (65, 1001), (128, 777), (256, 333)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("noisy", [True, False])
 def test_kernel_matches_plain(N, d, dtype, noisy):
@@ -79,15 +80,63 @@ def test_kernel_matches_plain(N, d, dtype, noisy):
 
 
 def test_wrapper_limits_on_the_card():
+    """N = 65, past the old limit of 64, runs and matches the plain version
+    (one count); C2's counter limit and a dtype the kernel has no
+    instantiation for still raise."""
     _need_card()
-    p = torch.zeros((65, 8), device="cuda")
-    with pytest.raises(ValueError, match="N <= 64"):
-        ops.dp_mix_round(p, p, 0, torch.eye(65), torch.ones(65), 1.0, 0.0,
-                         gamma=0.1, eta=0.5)
+    N, d = 65, 300
+    chan = ChannelConfig(n_workers=N, p_dbm=30.0, sigma=0.7, sigma_m=0.4,
+                         seed=N).realize()
+    plan = X.plan_complete(None, chan, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    p = torch.randn((N, d), generator=gen, device="cuda")
+    g = 0.2 * torch.randn((N, d), generator=gen, device="cuda")
+    before = ops.dp_mix_round.launches
+    out = ops.dp_mix_round_plan(p, g, 5, plan, gamma=0.05, eta=0.4)
+    assert ops.dp_mix_round.launches == before + 1
+    want = ops.dp_mix_round_plan(p.cpu(), g.cpu(), 5, X.plan_complete(
+        None, chan, "cpu"), gamma=0.05, eta=0.4)
+    x = p.cpu() - 0.05 * g.cpu()
+    scale = float(x.abs().max()) + 5.42 * float(
+        (plan.amp / plan.c).abs().max() + (plan.m_scale * plan.sigma_m).abs().max())
+    assert float((out.cpu() - want).abs().max()) <= (N + 8) * 2.0 ** -23 * scale
+    z = torch.zeros((3, 8), device="cuda")
+    with pytest.raises(ValueError, match="2\\^31"):
+        ops.dp_mix_round(z, z, 0, torch.eye(3), torch.ones(3), 1.0, 0.0,
+                         gamma=0.1, eta=0.5, counter_width=1 << 30)
     with pytest.raises(TypeError):
         q = torch.zeros((4, 8), device="cuda", dtype=torch.float64)
         ops.dp_mix_round(q, q, 0, torch.eye(4), torch.ones(4), 1.0, 0.0,
                          gamma=0.1, eta=0.5)
+
+
+@pytest.mark.parametrize("N", [10, 128])
+def test_noise_fields_bitwise(N):
+    """Both noise fields through the kernel (both routes: the column route
+    at N = 10, the large-N route at 128), bitwise the plain version's: p =
+    g = 0, W = I, amp = c = 1, self = m_scale = 0, eta = listen = 1 gives
+    out = Gn; W = 0, amp = self = 0, m_scale = sigma_m = 1 gives out =
+    Gm."""
+    _need_card()
+    from repro_torch.kernels import noise
+    d = 1001
+    zeros = torch.zeros((N, d), device="cuda")
+    seed, col0 = (torch.tensor([v], dtype=torch.int32, device="cuda")
+                  for v in (4321, 384))
+    one, zero = torch.ones(N, device="cuda"), torch.zeros(N, device="cuda")
+    scal = torch.ones(2, device="cuda")
+    kw = dict(gamma=0.0, eta=1.0, noisy=True, counter_width=2048)
+    gn, gm = noise.normal_pair_hash((N, d), 2048, 384, 4321, device="cuda")
+    bits = lambda t: t.contiguous().view(torch.int32)
+    for field, amp, ms, W in ((gn, one, zero, torch.eye(N, device="cuda")),
+                              (gm, zero, one, torch.zeros((N, N),
+                                                          device="cuda"))):
+        args = (zeros, zeros, seed, col0, scal, amp, zero, ms, one, W)
+        out = ops._launch(*args, **kw)
+        ref = dp_mix_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(ref), bits(field))
+        assert torch.equal(bits(out), bits(ref))
 
 
 def _ulp(a, b):

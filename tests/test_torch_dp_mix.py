@@ -2,12 +2,16 @@
 ``dp_mix_plain`` and ``ops.dp_mix_round(device="cpu")``) against the
 reference: its fused-jnp lowering and its interpret-mode Pallas kernel at
 the same seed, the Eqt. (8) matrix-form oracle, the per-receiver noise
-variance, the bf16 contract, gossip, and the counter-wrap guard.
+variance, the bf16 contract, gossip, the counter-wrap guard (the only
+limit on N), and the C entry's ctypes signature.
 
 Tolerance against the reference's noisy round: both draw the same normals
 (within 2 ULP) and sum 3N products in float32 in different orders, so
 |port - ref| <= 3N * 2^-24 * scale with scale the largest term; the tests
 use atol = 1e-5 * scale at N <= 6."""
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +26,11 @@ from repro_torch.core import exchange as X
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.kernels.dp_mix import ops
 from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -74,6 +83,23 @@ def test_round_matches_fused_jnp(N, d, seed):
                                 seed, plan, gamma=0.05, eta=0.4)
     np.testing.assert_allclose(got.numpy(), want, rtol=0,
                                atol=1e-5 * _scale(want, plan))
+
+
+@pytest.mark.parametrize("N,d,seed", [(65, 300, 5), (128, 130, -2)])
+def test_plain_matches_fused_jnp_at_large_n(N, d, seed):
+    """The rows the card's large-N route serves (N > the column route's).
+    Both sum 3N products in float32 in different orders: atol = 3N 2^-24
+    scale."""
+    rchan, chan, p, g = _setup(N, d, seed=seed % 17)
+    rplan = RX.plan_complete(None, rchan)
+    want = np.asarray(ref_ops.dp_mix_round_plan(
+        jnp.asarray(p), jnp.asarray(g), seed, rplan, gamma=0.05, eta=0.4,
+        impl="jnp"))
+    plan = _port_plan(chan)
+    got = ops.dp_mix_round_plan(torch.from_numpy(p), torch.from_numpy(g),
+                                seed, plan, gamma=0.05, eta=0.4)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=3 * N * 2.0 ** -24 * _scale(want, plan))
 
 
 def test_plain_matches_interpret_pallas_kernel():
@@ -237,8 +263,106 @@ def test_counter_wrap_guard_and_cpu_path_counts_nothing():
     assert ops.dp_mix_round.launches == before
 
 
+def test_wrapper_takes_any_n_below_the_counter_limit():
+    """No limit on N but C2's: N = 65 and 130 run, and N * counter_width
+    past 2^31 still raises at N = 65."""
+    for N in (65, 130):
+        p = torch.zeros((N, 8))
+        out = ops.dp_mix_round(p, p, 0, torch.eye(N), torch.ones(N), 1.0, 0.0,
+                               gamma=0.1, eta=0.5)
+        assert out.shape == (N, 8)
+    p = torch.zeros((65, 8))
+    with pytest.raises(ValueError, match="2\\^31"):
+        ops.dp_mix_round(p, p, 0, torch.eye(65), torch.ones(65), 1.0, 0.0,
+                         gamma=0.1, eta=0.5, counter_width=(1 << 31) // 64)
+
+
+def test_argtypes_follow_the_c_entry():
+    """One ARGTYPES entry per parameter of dp_mix_launch, of the C
+    parameter's kind: a missing or extra entry shifts every argument after
+    it, and ctypes cuts a pointer passed as an int to 32 bits."""
+    import ctypes
+    import re
+    text = (ops._CSRC / "dp_mix.cu").read_text()
+    sig = re.search(r"int dp_mix_launch\(([^)]*)\)\s*\{", text).group(1)
+    params = [" ".join(a.split()[:-1]) for a in sig.split(",")]
+    assert len(params) == len(ops.ARGTYPES)
+    for c_type, py in zip(params, ops.ARGTYPES):
+        want = (ctypes.c_void_p if "*" in c_type else
+                ctypes.c_float if c_type == "float" else
+                ctypes.c_uint if "unsigned" in c_type else ctypes.c_int)
+        assert py is want, (c_type, py)
+
+
 def test_seed_from_key_matches_reference():
     for s in (0, 5, 2**20 + 3):
         key = jax.random.fold_in(jax.random.PRNGKey(s), 1)
         want = int(ref_ops.seed_from_key(key))
         assert int(ops.seed_from_key(np.asarray(key))) == want
+
+
+def test_chip_smoke_counts_each_normal_on_its_branches():
+    """chip_smoke.noise_branches: every normal of a round once, on log1p's
+    small or large branch by its t, and in the erfinv tail where w >= 5,
+    as the plain generator's own arithmetic has them."""
+    from repro_torch.kernels import noise
+    N, d, cw, seed = 3, 5000, 5120, 77
+    got = chip_smoke.noise_branches(N, d, cw, seed, device="cpu")
+    idx2 = (noise.counters((N, d), cw) * 2) & noise.MASK32
+    small = tail = 0
+    for f in (0, 1):
+        bits = noise.hash_bits(idx2 + f, seed)
+        t = (((bits >> 8).to(torch.float32) - (float(1 << 23) - 0.5))
+             * (1.0 / (1 << 23)))
+        x = t * -t
+        small += int((x.abs() < noise._L1P_SMALL).sum())
+        tail += int((-noise.log1p_xla(x) >= 5.0).sum())
+    assert got == {"small": small, "large": 2 * N * d - small, "tail": tail}
+    assert got["tail"] > 0
+
+
+def test_chip_smoke_dp_mix_bound_at_the_path_shape():
+    """The three terms of B1's bound at (10, 855,050, float32): 102.6 MB
+    over 3.35 TB/s, the instructions over 132 SMs x 128 lanes at 1.98 GHz,
+    and 10^2 d FMAs at 67 TFLOP/s; the longest bounds it."""
+    N, d = 10, 855_050
+    counts = {"small": 52, "large": 58, "tail_extra": 14}
+    rates = {"sms": 132, "sm_clock_hz": 1.98e9}
+    branches = {"small": 11_000_000, "large": 6_101_000, "tail": 58_000}
+    w = chip_smoke.dp_mix_work(N, d, 4, True, counts, rates, branches)
+    assert w["bytes"] == 3 * N * d * 4 + (N * N + 4 * N + 4) * 4 == 102_606_576
+    instr = (11_000_000 * 52 + 6_101_000 * 58 + 58_000 * 14
+             + N * d * chip_smoke.dp_mix_element_ops(N, True))
+    assert w["lane_instructions"] == instr
+    assert w["instructions_ms"] == pytest.approx(1e3 * instr / (132 * 128 * 1.98e9))
+    assert w["fma_ms"] == pytest.approx(1e3 * 2 * N * N * d / 67e12)
+    assert w["bound_ms"] == max(w["bytes_ms"], w["instructions_ms"], w["fma_ms"])
+    assert w["bound_by"] == "operations"
+    gossip = chip_smoke.dp_mix_work(N, d, 4, False, counts, rates)
+    assert gossip["bound_by"] == "bytes"
+    assert gossip["lane_instructions"] == N * d * chip_smoke.dp_mix_element_ops(N, False)
+
+
+def test_chip_smoke_reads_instructions_up_to_exit():
+    """chip_smoke.sass_until_exit counts each function's SASS instruction
+    lines up to its first EXIT, not the encodings or what follows."""
+    sass = """
+\tcode for sm_90a
+\t\tFunction : k_a
+\t.headerflags\t@"EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x00000a00ff017b82 */
+                                                              /* 0x000fe40000000f00 */
+        /*0010*/                   FFMA R2, R1, R1, R1 ;      /* 0x0000000101027223 */
+        /*0020*/                   EXIT ;                     /* 0x000000000000794d */
+        /*0030*/                   BRA 0x30;                  /* 0xfffffffc00fc7947 */
+\t\tFunction : k_b
+        /*0000*/                   EXIT ;                     /* 0x000000000000794d */
+"""
+    class Lib:
+        pass
+    orig = chip_smoke.sass_text
+    chip_smoke.sass_text = lambda lib: sass
+    try:
+        assert chip_smoke.sass_until_exit(Lib()) == {"k_a": 3, "k_b": 1}
+    finally:
+        chip_smoke.sass_text = orig
