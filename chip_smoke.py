@@ -19,11 +19,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              then timed with CUDA events beside the plain version, the one
              PyTorch call that computes the same function where there is
              one (library_ms), and the least time the card could take
-             (bound_ms). dp_mix also at N = 64, 65, 128 and 256 (the last
-             two timed) and at N = 2048 over three column windows (timed),
-             all at the path's d, its two noise fields bitwise the plain
-             version's at N = 10 and 128, and its bound the longest of its
-             bytes, its instructions and its mix's fused multiply-adds;
+             (bound_ms). Every one of noise.cuh's 2^24 lattice normals
+             bitwise the plain generator's. dp_mix timed at the path's
+             shape in float32 and bfloat16, noisy and gossip; also at N =
+             64, 65, 128 and 256 (all but 65 timed), at the largest N of
+             its column route and the next (the largest timed; 50 and 51
+             on an H100), and at N = 2048 over three column windows
+             (timed), all at the path's d, its two noise fields bitwise the
+             plain version's at N = 10 and 128, and its bound the longest
+             of its bytes, its instructions and its mix's fused
+             multiply-adds;
 4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
              batch 32, d = 855,050), 51 rounds; every loss finite and
@@ -95,22 +100,31 @@ F32_FLOP_PER_S = 67e12                # float32 on the CUDA cores
 TF32_TC_FLOP_PER_S = 495e12           # dense TF32 on the tensor cores
 BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
 # dp_mix's instructions besides its normals, per element, counted from
-# csrc/dp_mix.cu's arithmetic: two loads and a store, the local step (2),
-# nf, z and v (7; gossip: v alone, 1), the output's fused multiply-add and
-# the mix's N of them. A normal's own count comes from the SASS
-# (noise_instructions).
+# csrc/dp_mix.cu's arithmetic: the local step (2), nf, z and v (7; gossip:
+# v alone, 1), the output's fused multiply-add and the mix's N of them.
+# The loads and the store are priced by the byte term, not here; a
+# normal's own count comes from the SASS (noise_instructions).
 def dp_mix_element_ops(N: int, noisy: bool) -> int:
-    return 3 + 2 + (7 if noisy else 1) + 1 + N
+    return 2 + (7 if noisy else 1) + 1 + N
 
 
 # One normal of dp_mix on each branch, from the checkout's csrc/noise.cuh:
 # each kernel loads, runs one piece and stores, and its instructions up to
 # EXIT less k_empty's are the piece's (k_small, k_large: hash, t, one
 # log1p branch, the central polynomial and the scale; k_central, k_tail:
-# the two polynomials alone).
+# the two polynomials alone). k_lattice draws every one of the 2^24
+# lattice normals (t takes bits >> 8 alone) for check_lattice_normals.
 NOISE_COUNT_SRC = r"""
 #include "{header}"
 using namespace repro_noise;
+extern "C" __global__ void k_lattice(float* y) {{
+  const unsigned k = blockIdx.x * 256 + threadIdx.x;
+  y[k] = normal_from_bits((k << 8) | 0x5Au);
+}}
+extern "C" int lattice_launch(float* y, void* stream) {{
+  k_lattice<<<65536, 256, 0, (cudaStream_t)stream>>>(y);
+  return (int)cudaGetLastError();
+}}
 __device__ __forceinline__ float normal_on(unsigned idx, unsigned seed, bool small) {{
   const float t = lattice_t(hash_bits(idx, seed)), x = __fmul_rn(t, -t);
   const float w = -(small ? log1p_small(x) : log1p_large(x));
@@ -246,6 +260,31 @@ def noise_instructions(lib) -> dict:
         fail(f"noise instruction counts make no sense: {c}")
     return {"small": small, "large": large, "tail_extra": tail_extra,
             "sass": c}
+
+
+def check_lattice_normals(lib) -> dict:
+    """Every one of the 2^24 lattice normals drawn by noise.cuh on the card
+    (k_lattice: one launch of 65,536 x 256), bitwise the plain generator's
+    (kernels/noise.py::normal_from_bits). The division in log1p's small
+    branch is the compiler's sequence without its slow path, correct only
+    within the range the lattice gives it: this is the check that it is."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build, noise
+    fn = build.load(lib).lattice_launch
+    fn.argtypes, fn.restype = [ctypes.c_void_p] * 2, ctypes.c_int
+    y = torch.empty(1 << 24, device="cuda")
+    rc = fn(y.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    k = torch.arange(1 << 24, dtype=torch.int64, device="cuda")
+    want = noise.normal_from_bits((k << 8) | 0x5A)
+    torch.cuda.synchronize()
+    rec = {"normals": 1 << 24, "rc": rc,
+           "differ": int((y.view(torch.int32) != want.view(torch.int32)).sum())}
+    del y, k, want
+    print(f"[kernels] dp_mix lattice normals {json.dumps(rec)}", flush=True)
+    if rc or rec["differ"]:
+        fail(f"noise.cuh's lattice normals are not the plain generator's: {rec}")
+    return rec
 
 
 def card_rates() -> dict:
@@ -1476,23 +1515,29 @@ def main() -> int:
     if not (tf32 and ssd_tf32):
         fail("the float32 flash kernel's or ssd_scan's SASS holds no TF32 mma (HMMA .TF32)")
 
-    # 3. kernels: dp_mix at the flat path's shape and at N = 64 (the column
-    # route), at N = 65, 128, 256 and, over three windows, 2048 (128 and
-    # beyond on the large-N route), its noise fields bitwise at N = 10 and
-    # 128; dp_perturb at the tree path's six leaves, flash_attention and
+    # 3. kernels: every lattice normal of noise.cuh bitwise; dp_mix at the
+    # flat path's shape (the column route), at N = 64, 65, 128, 256 and,
+    # over three windows, 2048 (the large-N route), at the largest N the
+    # column route takes on this card and the next (as its C launch
+    # reports them), its noise fields bitwise at N = 10 and 128;
+    # dp_perturb at the tree path's six leaves, flash_attention and
     # ssd_scan at the serve paths' shapes
+    check_lattice_normals(count_lib)
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
             for noisy in (True, False):
-                timed = dtype == torch.float32 and (N == PATH_N or noisy)
+                timed = N == PATH_N or (dtype == torch.float32 and noisy)
                 rec = check_dp_mix(N, PATH_D, dtype, noisy, timed, counts,
                                    rates)
-                if N == PATH_N and timed and noisy:
+                if N == PATH_N and dtype == torch.float32 and noisy:
                     path_rec = rec
                 torch.cuda.empty_cache()
-    for N in (65, 128, 256):
-        check_dp_mix(N, PATH_D, torch.float32, True, N > 65, counts, rates)
+    last = max(N for N in range(1, 257) if dp_mix_route(N, PATH_D) == "columns")
+    for N, noisy in ((last, True), (last, False), (last + 1, True), (65, True),
+                     (128, True), (256, True)):
+        check_dp_mix(N, PATH_D, torch.float32, noisy,
+                     noisy and N not in (last + 1, 65), counts, rates)
         torch.cuda.empty_cache()
     check_dp_mix_windows(2048, PATH_D, counts, rates)
     torch.cuda.empty_cache()

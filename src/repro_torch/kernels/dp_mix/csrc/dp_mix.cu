@@ -30,16 +30,19 @@
 //
 // * Column route (while 8 warps' worth of its blocks fit an SM's shared
 //   memory: N up to about 50). A thread owns kCols neighbouring columns,
-//   read 8 bytes at a time; a block of 128 threads walks the N rows kRows
-//   at a time, each batch's loads issued before its normals (which do not
-//   need them). A batch's normals are drawn together, a step over all of
+//   read 8 bytes at a time (bfloat16: 4); a block of 128 threads walks the
+//   N rows kRows at a time, each batch's loads issued together before its
+//   normals (which do not need them), converted to float32 only where
+//   used. A batch's normals are drawn together, a step over all of
 //   them before the next, so their chains interleave: both log1p branches
 //   and XLA's select (a warp's lanes take both), the erfinv tail only in a
 //   warp with a tail lane, the division without the compiler's slow path.
 //   z and v wait in shared memory (only the thread's own columns, so no
 //   barrier) until the thread forms its columns' outputs 4 kQuads
 //   receivers at a time, with W transposed in shared memory so one 16-byte
-//   load serves four.
+//   load serves four. Gossip (no normals) has its own instantiation: it
+//   stages x alone (v follows from it) and loads kGossipRows rows a batch:
+//   with no normals to hide them under, its time is the loads' latency.
 // * Large-N route (beyond): two kernels. dp_mix_prep writes z and nf, one
 //   normal an element, to a float32 workspace [2, N, d] that the wrapper
 //   allocates; dp_mix_tiled forms W @ z over 64 x 64 tiles of receivers
@@ -63,6 +66,7 @@ constexpr int kThreads = 128;                  // column route: threads a block
 constexpr int kCols = 2;                       // columns a thread
 constexpr int kTileCols = kThreads * kCols;    // columns a block
 constexpr int kRows = 2;                       // rows a batch of normals
+constexpr int kGossipRows = 8;                 // rows a batch, gossip
 constexpr int kQuads = 3;                      // receiver quads a pass of the mix
 constexpr int kMinWarps = 8;                   // column route: warps an SM at least
 
@@ -138,45 +142,59 @@ __device__ __forceinline__ void store_cols(T* __restrict__ row, int col, int d, 
   }
 }
 
-// kCols columns from col of a row into registers; columns past d as 0.
+// kCols columns from col of a row, one at a time (the ragged edge, or a
+// row the pack cannot be read from whole); columns past d as 0.
 template <typename T>
-__device__ __forceinline__ void load_cols(const T* __restrict__ row, int col, int d, bool vec,
-                                          float (&v)[kCols]) {
-  if (vec && col + kCols <= d) {
-    const Pack<T, kCols> pk = *reinterpret_cast<const Pack<T, kCols>*>(row + col);
+__device__ __forceinline__ Pack<T, kCols> load_edge(const T* __restrict__ row, int col, int d) {
+  Pack<T, kCols> pk;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) v[c] = to_f(pk.v[c]);
-  } else {
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) v[c] = col + c < d ? load_f(row, col + c) : 0.0f;
-  }
+  for (int c = 0; c < kCols; ++c) from_f(pk.v[c], col + c < d ? load_f(row, col + c) : 0.0f);
+  return pk;
 }
+
+// Floats a row and column the column route stages: z and v, or (gossip)
+// x alone.
+__host__ __device__ constexpr int staged(bool noisy) { return noisy ? 2 : 1; }
 
 // Shared memory of the column route at n receivers: the receivers'
-// constants, W transposed (rows padded to 4 with zeros), z and v of the
-// block's columns.
-__host__ __device__ inline size_t columns_smem_bytes(int n) {
+// constants, W transposed (rows padded to 4 with zeros), the staged
+// floats of the block's columns. The route is chosen by the noisy size,
+// the larger.
+__host__ __device__ inline size_t columns_smem_bytes(int n, bool noisy = true) {
   const size_t np = round_up(n, 4);
-  return sizeof(float4) * n + sizeof(float) * (n * np + 2 * (size_t)n * kTileCols);
+  return sizeof(float4) * n +
+         sizeof(float) * (n * np + staged(noisy) * (size_t)n * kTileCols);
 }
 
-// The R rows from k0 of this thread's columns: their loads, the two noise
-// fields, x, then z and v into shared memory.
-template <int R, typename T>
+// The R rows from k0 of this thread's columns: their loads, x, and
+// (Noisy) the two noise fields, then z and v into shared memory; gossip
+// stages x alone, in z.
+template <int R, bool Noisy, typename T>
 __device__ __forceinline__ void rows_batch(const Args& a, int k0, int col, uint32_t gcol,
                                            uint32_t seed, bool vec, const T* __restrict__ p,
                                            const T* __restrict__ g, const float4* sRow, float* z,
                                            float* v) {
   using namespace repro_noise;
   constexpr int M = 2 * R * kCols;   // [row][column][Gn, Gm]
-  float pv[R][kCols], gv[R][kCols];
+  // The batch's rows as they are stored, converted only where used: a
+  // conversion next to its load would wait for it before the next load
+  // issues (bfloat16), and the batch's loads would run one at a time.
+  Pack<T, kCols> pr[R], gr[R];
+  if (vec && col + kCols <= a.d) {
 #pragma unroll
-  for (int r = 0; r < R; ++r) {
-    load_cols(p + (size_t)(k0 + r) * a.d, col, a.d, vec, pv[r]);
-    load_cols(g + (size_t)(k0 + r) * a.d, col, a.d, vec, gv[r]);
+    for (int r = 0; r < R; ++r) {
+      pr[r] = *reinterpret_cast<const Pack<T, kCols>*>(p + (size_t)(k0 + r) * a.d + col);
+      gr[r] = *reinterpret_cast<const Pack<T, kCols>*>(g + (size_t)(k0 + r) * a.d + col);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      pr[r] = load_edge(p + (size_t)(k0 + r) * a.d, col, a.d);
+      gr[r] = load_edge(g + (size_t)(k0 + r) * a.d, col, a.d);
+    }
   }
   float nrm[M];
-  if (a.noisy) {
+  if (Noisy) {
     float t[M], w[M];
 #pragma unroll
     for (int j = 0; j < M; ++j) {
@@ -192,34 +210,33 @@ __device__ __forceinline__ void rows_batch(const Args& a, int k0, int col, uint3
   }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const float4 rc = sRow[k0 + r];
     Pack<float, kCols> zk, vk;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const float x = local_step(pv[r][c], gv[r][c], a.gamma);
-      if (a.noisy) {
+      const float x = local_step(to_f(pr[r].v[c]), to_f(gr[r].v[c]), a.gamma);
+      if (Noisy) {
+        const float4 rc = sRow[k0 + r];
         const float nf = __fmul_rn(rc.x, nrm[(r * kCols + c) * 2]);
         zk.v[c] = __fadd_rn(x, nf);
         vk.v[c] = partial(x, nf, nrm[(r * kCols + c) * 2 + 1], rc);
       } else {
         zk.v[c] = x;
-        vk.v[c] = partial(x, 0.0f, 0.0f, rc);
       }
     }
     *reinterpret_cast<Pack<float, kCols>*>(z + (size_t)(k0 + r) * kTileCols) = zk;
-    *reinterpret_cast<Pack<float, kCols>*>(v + (size_t)(k0 + r) * kTileCols) = vk;
+    if (Noisy) *reinterpret_cast<Pack<float, kCols>*>(v + (size_t)(k0 + r) * kTileCols) = vk;
   }
 }
 
-template <typename T>
+template <typename T, bool Noisy>
 __global__ void __launch_bounds__(kThreads)
 dp_mix_columns(const Args a, const bool vec) {
   extern __shared__ float4 smem[];
   const int n = a.n, d = a.d, np = round_up(n, 4), tid = threadIdx.x;
   float4* sRow = smem;                                        // [n]
   float* sWt = reinterpret_cast<float*>(sRow + n);            // [n senders][np receivers]
-  float* z = sWt + (size_t)n * np + tid * kCols;              // [n][kTileCols], z
-  float* v = z + (size_t)n * kTileCols;                       // [n][kTileCols], v
+  float* z = sWt + (size_t)n * np + tid * kCols;              // [n][kTileCols], z (gossip: x)
+  float* v = z + (size_t)n * kTileCols;                       // [n][kTileCols], v (noisy)
   for (int i = tid; i < n * np; i += kThreads) {
     const int k = i / np, r = i - k * np;
     sWt[i] = r < n ? a.W[r * n + k] : 0.0f;
@@ -234,9 +251,10 @@ dp_mix_columns(const Args a, const bool vec) {
   const T* __restrict__ g = static_cast<const T*>(a.g);
   const int col = (blockIdx.x * kThreads + tid) * kCols;
   const uint32_t seed = (uint32_t)a.seed[0], gcol = (uint32_t)a.col0[0] + (uint32_t)col;
+  constexpr int R = Noisy ? kRows : kGossipRows;
   int k0 = 0;
-  for (; k0 + kRows <= n; k0 += kRows) rows_batch<kRows>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
-  for (; k0 < n; ++k0) rows_batch<1>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
+  for (; k0 + R <= n; k0 += R) rows_batch<R, Noisy>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
+  for (; k0 < n; ++k0) rows_batch<1, Noisy>(a, k0, col, gcol, seed, vec, p, g, sRow, z, v);
 
   // pass 2: 4 kQuads receivers at a time from the staged columns, one
   // 16-byte load of W a quad
@@ -265,10 +283,12 @@ dp_mix_columns(const Args a, const bool vec) {
         const int i = i0 + 4 * q + r;
         if (i >= n) break;
         const float le = sRow[i].w;
-        const Pack<float, kCols> vi = *reinterpret_cast<const Pack<float, kCols>*>(v + (size_t)i * kTileCols);
+        const Pack<float, kCols> vi =
+            *reinterpret_cast<const Pack<float, kCols>*>((Noisy ? v : z) + (size_t)i * kTileCols);
         float o[kCols];
 #pragma unroll
-        for (int c = 0; c < kCols; ++c) o[c] = fmaf(le, acc[q][r][c], vi.v[c]);
+        for (int c = 0; c < kCols; ++c)   // gossip: v = x + le (0 - x), from x
+          o[c] = fmaf(le, acc[q][r][c], Noisy ? vi.v[c] : partial(vi.v[c], 0.0f, 0.0f, sRow[i]));
         store_cols(out + (size_t)i * d, col, d, vec, o);
       }
   }
@@ -376,24 +396,28 @@ bool columns_route(int n) {
          per_sm / (bytes + reserved) * (kThreads / 32) >= (size_t)kMinWarps;
 }
 
+template <typename T, bool Noisy>
+int launch_columns(const Args& a, cudaStream_t stream) {
+  const size_t bytes = columns_smem_bytes(a.n, Noisy);
+  static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
+  if (bytes > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dp_mix_columns<T, Noisy>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = bytes;
+  }
+  const size_t pack = sizeof(T) * kCols;
+  const bool vec = a.d % kCols == 0 && (uintptr_t)a.p % pack == 0 &&
+                   (uintptr_t)a.g % pack == 0 && (uintptr_t)a.out % pack == 0;
+  const int blocks = (a.d + kTileCols - 1) / kTileCols;
+  dp_mix_columns<T, Noisy><<<blocks, kThreads, bytes, stream>>>(a, vec);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch(const Args& a, cudaStream_t stream) {
-  if (columns_route(a.n)) {
-    const size_t bytes = columns_smem_bytes(a.n);
-    static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
-    if (bytes > opted_in) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          dp_mix_columns<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-      if (err != cudaSuccess) return (int)err;
-      opted_in = bytes;
-    }
-    const size_t pack = sizeof(T) * kCols;
-    const bool vec = a.d % kCols == 0 && (uintptr_t)a.p % pack == 0 &&
-                     (uintptr_t)a.g % pack == 0 && (uintptr_t)a.out % pack == 0;
-    const int blocks = (a.d + kTileCols - 1) / kTileCols;
-    dp_mix_columns<T><<<blocks, kThreads, bytes, stream>>>(a, vec);
-    return (int)cudaGetLastError();
-  }
+  if (columns_route(a.n))
+    return a.noisy ? launch_columns<T, true>(a, stream) : launch_columns<T, false>(a, stream);
   if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
   dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();

@@ -324,8 +324,12 @@ def test_chip_smoke_counts_each_normal_on_its_branches():
 def test_chip_smoke_dp_mix_bound_at_the_path_shape():
     """The three terms of B1's bound at (10, 855,050, float32): 102.6 MB
     over 3.35 TB/s, the instructions over 132 SMs x 128 lanes at 1.98 GHz,
-    and 10^2 d FMAs at 67 TFLOP/s; the longest bounds it."""
+    and 10^2 d FMAs at 67 TFLOP/s; the longest bounds it. An element's
+    instructions besides its normals are its arithmetic alone (20 noisy,
+    14 gossip at N = 10): its loads and store are in the byte term."""
     N, d = 10, 855_050
+    assert chip_smoke.dp_mix_element_ops(N, True) == 20
+    assert chip_smoke.dp_mix_element_ops(N, False) == 14
     counts = {"small": 52, "large": 58, "tail_extra": 14}
     rates = {"sms": 132, "sm_clock_hz": 1.98e9}
     branches = {"small": 11_000_000, "large": 6_101_000, "tail": 58_000}
