@@ -28,13 +28,26 @@ Phases, each fatal on failure (exit code 1, no result line):
              (timed), all at the path's d, its two noise fields bitwise the
              plain version's at N = 10 and 128, and its bound the longest
              of its bytes, its instructions and its mix's fused
-             multiply-adds;
+             multiply-adds; dp_mix under the dynamic network's plans: a
+             churned iot_dense round's (identity rows of W with listen =
+             0 beside a Metropolis W), sampled participation's (half of
+             self_scale 0) and a ring's (a sparse W), at the path's shape
+             in float32 and bfloat16, the dynamic one also at N = 50 and
+             51 (both routes), the rows with listen = 0 within 1 ULP of
+             the plain version's p - gamma g;
 4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
              batch 32, d = 855,050), 51 rounds; every loss finite and
              dp_mix launched once per round; the same CLI at N = 128 (the
              large-N route), 5 rounds, launched once a round; one small
              flat round on the card against the same round on the CPU;
+             the flat CLI on the dynamic network (``--channel-model
+             dynamic --scenario iot_dense``, N = 10, 51 rounds): dp_mix
+             once a round, every loss finite, the per-round epsilon
+             trajectory over every round; vehicular under a total budget
+             (``--total-epsilon 8 --accountant rdp``), 5 rounds; one small
+             dynamic flat round on the card against the CPU's from the same
+             replayed channel, W and seed;
 5. tree    — the worker-tree path, ``make_train_step(DWFL_PAPER,
              ProtocolConfig(scheme=..., use_pallas=True))`` through the
              trajectory body at full width for each of dwfl, gossip,
@@ -43,7 +56,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              once per round (all six leaves in one launch); the CLI's
              worker-tree run with and without --no-scan; one small tree
              round on the card against the same round on the CPU with the
-             same normals;
+             same normals; the dynamic tree round
+             (``make_dynamic_train_step``, drone_sparse, use_pallas=True)
+             11 rounds, one dp_perturb launch a round; one warm dynamic
+             flat round under ``torch.cuda.set_sync_debug_mode("error")``:
+             sim.round, its plan and the dp_mix call synchronize nothing;
+             the static and the dynamic flat round and the simulator's
+             round timed in turns, and the flat CLI, static and dynamic,
+             warm and without evals, in turns;
 6. serve   — gemma-2b at full width (2,506,172,416 parameters, random
              from a seed): the serve CLI as the reference runs it
              (``--arch gemma-2b --full``: batch 4, prompt 64, gen 32, no
@@ -61,10 +81,13 @@ Phases, each fatal on failure (exit code 1, no result line):
              memory; one reduced gemma-2b prefill and decode on the card
              against the same on the CPU;
 7. profile — the steady-state time of a full-width round of each training
-             path, and under torch.profiler the device's busy share and
-             the operators that take the device's and the host's time, for
-             those rounds and for one full-width prefill and decode step,
-             in float32 and in bfloat16;
+             path (the static flat and tree rounds and the dynamic flat
+             round, and the simulator's round alone; the rounds in turns
+             again, after serving), and under
+             torch.profiler the device's busy share and the operators that
+             take the device's and the host's time, for those rounds and
+             for one full-width prefill and decode step, in float32 and in
+             bfloat16;
 8. zamba2  — zamba2-7b at full width and depth (81 layers, 6,751,130,832
              parameters, random from a seed; gemma-2b's freed first): the
              serve CLI as the reference runs it (``--arch zamba2-7b
@@ -77,8 +100,10 @@ Phases, each fatal on failure (exit code 1, no result line):
              prefill and decode on the card against the same on the CPU;
              the profile of one prefill and one decode step.
 
-The last three lines of standard output are the kernels' JSON record,
-the nvidia-smi line, and {"ok": true, "device": {...}}.
+Each phase of the dynamic network is preceded by a ``[predict]`` line, what
+it was expected to show (PREDICTIONS). The last three lines of standard
+output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -187,6 +212,54 @@ SSD_CASES = [(2, 128, 8, 16, 16, 32), (1, 256, 16, 32, 64, 64),
              (2, 256, 8, 128, 128, 256)]
 ZAMBA_PARAMS = 6_751_130_832
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+# the dynamic network's paths: the flat CLI's scenario and rounds, the tree
+# round's scenario, and the worker counts of dp_mix's dynamic plan (the
+# path's N, the column route's last on an H100 and the large-N route's
+# first)
+DYN_SCENARIO, DYN_STEPS, DYN_TREE_SCENARIO = "iot_dense", 50, "drone_sparse"
+DYN_PLAN_N = (PATH_N, 50, 51)
+# What each phase of the dynamic network is expected to show, written
+# before the card ran it; each is printed on a line before its phase.
+PREDICTIONS = {
+    "plans": "dp_mix within dp_mix_tolerance of its plain twin under the "
+             "dynamic, sampled and ring plans at (10, 855,050), float32 and "
+             "bfloat16, and the dynamic plan at N = 50 (column route) and "
+             "51 (large-N route); the rows with listen = 0 within 1 ULP of "
+             "the plain twin's p - gamma g (0 ULP expected: both round p - "
+             "gamma g once)",
+    "dynamic_cli": "51 dp_mix launches in 51 rounds, every loss finite, the "
+                   "per-round epsilon trajectory printed; 100-160 rounds/s "
+                   "(the static flat CLI ran 174.11 in PR 19's call 11, and "
+                   "a simulator round adds about 1 ms of launches); the "
+                   "vehicular --total-epsilon 8 --accountant rdp run one "
+                   "launch a round, its rdp total at most 8",
+    "dynamic_tree": "one dp_perturb launch (sgd_update_leaves) a dynamic "
+                    "tree round, 11 in 11, every loss finite",
+    "cpu_vs_cuda": "the dynamic flat round on the card within 1e-4 (1 + "
+                   "max|x|) of the CPU's, its dp_mix part within "
+                   "dp_mix_tolerance",
+    "sync": "no synchronizing call in sim.round, plan_dynamic and the dp_mix "
+            "call under set_sync_debug_mode('error'); the whole round body "
+            "(batch, gradients, metrics) also free of one",
+    "profile": "the steady dynamic flat round 3.4-5.8 ms against the "
+               "static flat round's 2.7-4.3, 12-22% busy; the simulator's "
+               "round 0.6-1.5 ms of host time with about 105 launches, "
+               "under 5% busy (N = 10: each kernel a few microseconds), so "
+               "15-35% of the dynamic round",
+    "turns": "right after the training phases, in turns: the static flat "
+             "round 2.6-3.2 ms, the dynamic one 3.4-4.4, the simulator's "
+             "round alone 1.0-1.6 (the phase-4 dynamic CLI ran 3.59 ms a "
+             "round, evals included, in PR 20's call 3)",
+    "cli_turns": "warm, without evals, in turns, right after the training "
+                 "phases: the static flat CLI 280-360 rounds/s, the dynamic "
+                 "one 220-300 (PR 20's call 3 measured 311.70-316.38 and "
+                 "171.32-177.31 after serving)",
+    "turns_late": "the same in turns after serving gemma-2b and the "
+                  "profiles: the static round within 10% of its early "
+                  "reading, the dynamic one and the simulator's 1.0-2.0 ms "
+                  "slower than early (call 3: 4.98-5.57 and 2.37-2.46), with "
+                  "the collector tracking several times more objects",
+}
 
 
 def fail(msg: str) -> None:
@@ -605,6 +678,441 @@ def flat_cli(workers: int, steps: int) -> dict:
     return {"launches": launches, "rounds": rounds}
 
 
+def predict(phase: str) -> None:
+    print(f"[predict] {phase}: {PREDICTIONS[phase]}", flush=True)
+
+
+def dynamic_proto(N: int, scenario: str = DYN_SCENARIO, **kw):
+    from repro_torch.core.protocol import ProtocolConfig
+    return ProtocolConfig(n_workers=N, gamma=0.01, eta=0.4,
+                          target_epsilon=1.0, channel_model="dynamic",
+                          scenario=scenario, **kw)
+
+
+def dynamic_round(N: int, seed: int = 0):
+    """A churned iot_dense round of the port's simulator on the card: the
+    first whose W has identity rows (a worker churned out, so listen = 0)
+    beside at least two listening workers and a Metropolis W. Returns
+    (proto, plan, chan, W)."""
+    import torch
+    proto = dynamic_proto(N)
+    sim = proto.simulator("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state = sim.init(gen)
+    for _ in range(200):
+        state, chan, mask, W = sim.round(gen, state)
+        plan = proto.plan(chan, "cuda", W)
+        idle = plan.listen == 0
+        if bool((~mask).any()) and int((~idle).sum()) >= 2:
+            return proto, plan, chan, W
+    fail(f"no churned iot_dense round at N = {N} in 200 rounds")
+
+
+def mix_plans(N: int) -> dict:
+    """dp_mix's plans of this slice at N workers: the dynamic round's, the
+    sampled one with every other worker silent (half of self_scale 0) and
+    the ring's (a sparse W, m_scale 1/(c deg))."""
+    import torch
+    from repro_torch.core import exchange as X
+    from repro_torch.core.protocol import ProtocolConfig
+    kw = dict(n_workers=N, gamma=0.01, eta=0.4, target_epsilon=1.0)
+    sampled = ProtocolConfig(participation=0.5, **kw)
+    ring = ProtocolConfig(topology="ring", **kw)
+    return {"dynamic": dynamic_round(N)[:2],
+            "sampled": (sampled, X.plan_sampled(
+                sampled, sampled.channel(), "cuda",
+                torch.arange(N, device="cuda") % 2 == 0)),
+            "ring": (ring, ring.plan(ring.channel(), "cuda"))}
+
+
+def check_dp_mix_plan(name: str, proto, plan, N: int, d: int, dtype) -> dict:
+    """dp_mix under one of this slice's plans against its plain twin on
+    the card (dp_mix_tolerance), and the rows with listen = 0 — no noise,
+    no mix: p - gamma g — within 1 ULP of the plain twin's (in the output's
+    dtype)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    gen = torch.Generator(device="cuda").manual_seed(N + d)
+    p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.1 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
+    seed, col0 = (torch.tensor([s], dtype=torch.int32, device="cuda")
+                  for s in (1234567, 0))
+    c = plan.c.reshape(())
+    ones = torch.ones(N, device="cuda")
+    vec = lambda v: ones if v is None else v
+    args = (p, g, seed, col0, torch.stack([c, plan.sigma_m.reshape(())]),
+            plan.amp, vec(plan.self_scale), plan.m_scale, vec(plan.listen),
+            plan.W.contiguous())
+    kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
+              counter_width=ops._roundup(d, ops.LANES))
+    out = ops._launch(*args, **kw)
+    ref = dp_mix_plain(*args, **kw)
+    torch.cuda.synchronize()
+    k32, r32 = out.float(), ref.float()
+    del out, ref
+    if not torch.isfinite(k32).all():
+        fail(f"dp_mix {name} N={N} {dtype}: non-finite output")
+    bf16 = dtype == torch.bfloat16
+    allowed, tol = dp_mix_tolerance(N, p, g, proto.gamma, plan, True, k32,
+                                    r32, bf16)
+    err = (k32 - r32).abs()
+    rec = {"plan": name, "N": N, "d": d, "dtype": str(dtype).split(".")[-1],
+           "route": dp_mix_route(N, d), "max_abs_err": float(err.max()),
+           "tol_f32": tol, "violations": int((err > allowed).sum()),
+           "self_zero": int((vec(plan.self_scale) == 0).sum()),
+           "listen_zero": int((vec(plan.listen) == 0).sum())}
+    del err, allowed
+    idle = vec(plan.listen) == 0
+    if bool(idle.any()):
+        ulps = ulp_dist(k32[idle], r32[idle])
+        rec["idle_max_ulp"] = int(ulps.max()) // (1 << 16 if bf16 else 1)
+    print(f"[kernels] dp_mix plan {json.dumps(rec)}", flush=True)
+    if rec["violations"] or rec.get("idle_max_ulp", 0) > 1:
+        fail(f"dp_mix under the {name} plan at N={N} {rec['dtype']}: {rec}")
+    return rec
+
+
+def dp_mix_plans_phase() -> list:
+    """dp_mix under the dynamic, sampled and ring plans at the path's shape
+    in float32 and bfloat16, and the dynamic plan also at N = 50 and 51."""
+    import torch
+    predict("plans")
+    recs = []
+    for N in DYN_PLAN_N:
+        plans = mix_plans(N)
+        for name in (plans if N == PATH_N else ("dynamic",)):
+            for dtype in (torch.float32, torch.bfloat16):
+                recs.append(check_dp_mix_plan(name, *plans[name], N, PATH_D,
+                                              dtype))
+                torch.cuda.empty_cache()
+    routes = {r["route"] for r in recs if r["plan"] == "dynamic"}
+    if routes != {"columns", "large-N"}:
+        fail(f"the dynamic plan ran on the routes {routes}, not on both")
+    return recs
+
+
+def dynamic_cli() -> dict:
+    """The dynamic flat CLI at full width (iot_dense, N = 10, 51 rounds),
+    dp_mix's count set to 0 just before and read just after: one launch a
+    round, every loss finite, the epsilon trajectory over every round;
+    then vehicular under a total budget (--total-epsilon 8 --accountant
+    rdp), 5 rounds."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    predict("dynamic_cli")
+    counts = {}
+    for scenario, steps, extra in (
+            (DYN_SCENARIO, DYN_STEPS, []),
+            ("vehicular", 4, ["--total-epsilon", "8", "--accountant", "rdp"])):
+        ops.dp_mix_round.launches = 0
+        res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                         "--channel-model", "dynamic", "--scenario", scenario,
+                         "--workers", str(PATH_N), "--batch-size", "32",
+                         "--steps", str(steps), "--eval-every",
+                         str(max(steps // 2, 1)), "--device", "cuda", *extra])
+        launches = ops.dp_mix_round.launches
+        rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
+        rec = {"scenario": scenario, "rounds": rounds,
+               "seconds": res["seconds"],
+               "rounds_per_s": rounds / res["seconds"], "launches": launches,
+               "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+               "eps_rounds": rep["rounds"], "eps_worst": rep["epsilon_worst"],
+               "eps_total": rep["epsilon_total"],
+               "eps_rdp": rep["epsilon_rdp"]}
+        print(f"[dynamic] cli {json.dumps(rec)}", flush=True)
+        if launches != rounds or rep["rounds"] != rounds:
+            fail(f"dynamic cli {scenario}: dp_mix launched {launches} times, "
+                 f"epsilon over {rep['rounds']} rounds, for {rounds} rounds")
+        if not (torch.isfinite(losses).all()
+                and torch.isfinite(res["params"]).all()
+                and np_finite(rep["epsilon_per_round"])):
+            fail(f"dynamic cli {scenario}: non-finite losses, parameters or "
+                 f"epsilons")
+        if extra and rep["epsilon_rdp"] > 8.0 * (1 + 1e-6):
+            fail(f"dynamic cli {scenario}: rdp total {rep['epsilon_rdp']} "
+                 f"over its budget of 8")
+        counts[scenario] = launches
+    return counts
+
+
+def np_finite(a) -> bool:
+    import numpy as np
+    return bool(np.isfinite(np.asarray(a)).all())
+
+
+def dynamic_tree(store) -> int:
+    """The dynamic worker-tree round at full width through
+    make_dynamic_train_step (drone_sparse, use_pallas=True) in the
+    trajectory body, the dp_perturb counts set to 0 just before and read
+    just after: one sgd_update_leaves launch a round."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_perturb import ops
+    predict("dynamic_tree")
+    proto = dynamic_proto(PATH_N, DYN_TREE_SCENARIO, use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
+    sim = proto.simulator("cuda")
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, device="cuda",
+                              sim=sim)
+    carry = TJ.TrajCarry(gen, wp, sim.init(gen))
+    ops.sgd_update_leaves.launches = 0
+    ops.sgd_update.launches = ops.dp_perturb.launches = 0
+    carry, out = TJ.run_chunk(body, carry, TREE_ROUNDS)
+    torch.cuda.synchronize()
+    launches = ops.sgd_update_leaves.launches
+    others = ops.sgd_update.launches + ops.dp_perturb.launches
+    rep = P.epsilon_report(proto, out["chan"], Ws=out["W"])
+    losses = out["metrics"]["loss"].cpu()
+    rec = {"scenario": DYN_TREE_SCENARIO, "rounds": TREE_ROUNDS,
+           "launches": launches, "first_loss": float(losses[0]),
+           "last_loss": float(losses[-1]), "eps_worst": rep["epsilon_worst"]}
+    print(f"[dynamic] tree {json.dumps(rec)}", flush=True)
+    if launches != TREE_ROUNDS or others:
+        fail(f"dynamic tree: sgd_update_leaves launched {launches} times for "
+             f"{TREE_ROUNDS} rounds, the per-leaf wrappers {others} times")
+    if not (torch.isfinite(losses).all() and tree_leaves_finite(carry.params)
+            and np_finite(rep["epsilon_per_round"])):
+        fail("dynamic tree: non-finite losses, parameters or epsilons")
+    return launches
+
+
+def dynamic_round_cpu_vs_cuda() -> float:
+    """One dynamic flat round (hidden 16, N = 10, iot_dense) on the card
+    against the same round on the CPU from the same replayed channel, W,
+    buffer, batch and seed (within 1e-4 (1 + max|x|): the gradients'
+    products differ); and its dp_mix part from the same gradients within
+    dp_mix_tolerance."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.kernels.dp_mix import ops
+    predict("cpu_vs_cuda")
+    cfg = dataclasses.replace(DWFL_PAPER, d_model=16)
+    proto = dynamic_proto(PATH_N)
+    sim = proto.simulator("cpu")
+    gen = torch.Generator().manual_seed(7)
+    state = sim.init(gen)
+    for _ in range(3):
+        state, chan, _, W = sim.round(gen, state)
+    wp = P.init_worker_params(gen, cfg, PATH_N, "cpu")
+    spec = X.FlatSpec(wp)
+    flat = spec.flatten(wp)
+    batch = {"x": torch.randn((PATH_N, 8, 3072), generator=gen),
+             "y": torch.randint(0, 10, (PATH_N, 8), generator=gen)}
+    seed = torch.tensor([99], dtype=torch.int32)
+    to = lambda tree, dev: X.tree_map(lambda t: t.to(dev), tree)
+    outs, mixes = {}, {}
+    g = P.make_flat_local_pass(cfg, proto, spec)(flat, batch)[1]
+    for dev in ("cpu", "cuda"):
+        step = P.make_dynamic_flat_train_step(cfg, proto, spec, dev)
+        out, _ = step(flat.to(dev), to(batch, dev), seed.to(dev),
+                      chan.to(dev), W.to(dev))
+        outs[dev] = out.cpu()
+        plan = proto.plan(chan.to(dev), dev, W.to(dev))
+        mixes[dev] = ops.dp_mix_round_plan(
+            flat.to(dev), g.to(dev), seed.to(dev), plan, gamma=proto.gamma,
+            eta=proto.eta).cpu()
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    tol = 1e-4 * (1.0 + float(outs["cpu"].abs().max()))
+    allowed, mix_tol = dp_mix_tolerance(PATH_N, flat, g, proto.gamma, plan,
+                                        True, mixes["cuda"], mixes["cpu"],
+                                        False)
+    mix_err = float((mixes["cuda"] - mixes["cpu"]).abs().max())
+    print(f"[dynamic] small round cuda vs cpu: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g}); its dp_mix: max_abs_err={mix_err:.3g} "
+          f"(tol {mix_tol:.3g})", flush=True)
+    if not math.isfinite(err) or err > tol or mix_err > mix_tol:
+        fail(f"dynamic round: cuda and cpu differ by {err:.3g} (tol "
+             f"{tol:.3g}), their dp_mix by {mix_err:.3g} (tol {mix_tol:.3g})")
+    return err
+
+
+def dynamic_round_sync_free(store) -> dict:
+    """A warm full-width dynamic flat round with the device's synchronizing
+    calls made errors (torch.cuda.set_sync_debug_mode("error")): first
+    around sim.round, plan_dynamic and the dp_mix call, which must pass;
+    then around the whole round body (batch, gradients, metrics), noted.
+    A .item() under the same mode must raise, or the guard guards
+    nothing."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_mix import ops
+    predict("sync")
+    proto = dynamic_proto(PATH_N)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
+    spec = X.FlatSpec(wp)
+    sim = proto.simulator("cuda")
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda", sim=sim)
+    carry, _ = TJ.run_chunk(body, TJ.TrajCarry(gen, spec.flatten(wp),
+                                               sim.init(gen)), 3)
+    g = P.make_flat_local_pass(DWFL_PAPER, proto, spec)(
+        carry.params, store.draw(gen))[1]
+    probe = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    rec, out = {}, None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            net, chan, _, W = sim.round(gen, carry.net)
+            plan = proto.plan(chan, "cuda", W)
+            out = ops.dp_mix_round_plan(carry.params, g, TJ.round_seed(gen),
+                                        plan, gamma=proto.gamma,
+                                        eta=proto.eta)
+            rec["round_sync_free"] = True
+        except RuntimeError as e:
+            rec["round_sync_free"] = False
+            rec["round_error"] = str(e).splitlines()[0]
+        try:
+            body(TJ.TrajCarry(gen, carry.params, carry.net))
+            rec["body_sync_free"] = True
+        except RuntimeError as e:
+            rec["body_sync_free"] = False
+            rec["body_error"] = str(e).splitlines()[0]
+        try:
+            probe.sum().item()
+            rec["guard_raises"] = False
+        except RuntimeError:
+            rec["guard_raises"] = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[dynamic] sync debug mode 'error': {json.dumps(rec)}", flush=True)
+    if not (rec["round_sync_free"] and rec["guard_raises"]):
+        fail(f"the dynamic round synchronizes with the host: {rec}")
+    if not torch.isfinite(out).all():
+        fail("the guarded dynamic round gave non-finite parameters")
+    return rec
+
+
+def profile_simulator(n_rounds: int = 20) -> dict:
+    """The simulator's round alone (iot_dense, N = 10, the CLI's
+    calibration): host time per round around n_rounds ending in a
+    synchronize, and under torch.profiler its launches and busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    sim = dynamic_proto(PATH_N).simulator("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = sim.init(gen)
+    for _ in range(5):
+        state, *_ = sim.round(gen, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_rounds):
+        state, *_ = sim.round(gen, state)
+    torch.cuda.synchronize()
+    round_ms = 1e3 * (time.perf_counter() - t0) / n_rounds
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            state, *_ = sim.round(gen, state)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    stats = prof.key_averages()
+    busy_us = device_us(stats)
+    launches = sum(e.count for e in stats if e.key == "cudaLaunchKernel")
+    rec = {"path": "simulator", "round_ms": round_ms, "rounds": n_rounds,
+           "profiled_round_ms": wall_us / 1e3 / n_rounds,
+           "launches_per_round": launches / n_rounds,
+           "device_us_per_round": busy_us / n_rounds,
+           "device_busy_share": (busy_us / wall_us if busy_us > 0
+                                 else "not measured"),
+           "top_host_us_per_round": [
+               (e.key, e.self_cpu_time_total / n_rounds) for e in
+               sorted(stats, key=lambda e: e.self_cpu_time_total,
+                      reverse=True)[:8]]}
+    print(f"[profile] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def round_turns(store, when: str, n_rounds: int = 30) -> dict:
+    """The static and the dynamic flat round at full width, and the
+    simulator's round alone, each warm, timed by the host clock around
+    ``n_rounds`` rounds ending in a synchronize, in turns (static,
+    dynamic, simulator, simulator, dynamic, static): the host's speed
+    drifts within a call, so the three are compared only side by side.
+    ``when`` names the point of the run (the phases before it), printed
+    with the Python objects the collector tracks then."""
+    import gc
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    ticks = {}
+    for name in ("static", "dynamic"):
+        proto = (dynamic_proto(PATH_N) if name == "dynamic" else
+                 P.ProtocolConfig(n_workers=PATH_N, gamma=0.01, eta=0.4,
+                                  target_epsilon=1.0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
+        spec = X.FlatSpec(wp)
+        sim = proto.simulator("cuda") if name == "dynamic" else None
+        body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda",
+                                  sim=sim)
+        state = {"carry": TJ.TrajCarry(gen, spec.flatten(wp),
+                                       sim.init(gen) if sim else None)}
+
+        def tick(body=body, state=state):
+            state["carry"] = body(state["carry"])[0]
+
+        ticks[name] = tick
+    net = {"state": sim.init(gen)}
+
+    def sim_tick():
+        net["state"] = sim.round(gen, net["state"])[0]
+
+    ticks["simulator"] = sim_tick
+    for tick in ticks.values():
+        for _ in range(5):
+            tick()
+    ms = {name: [] for name in ticks}
+    for name in ("static", "dynamic", "simulator", "simulator", "dynamic",
+                 "static"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            ticks[name]()
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / n_rounds)
+    rec = {"when": when, "gc_objects": len(gc.get_objects()),
+           "rounds": n_rounds, "round_ms": ms,
+           "dynamic_minus_static_ms": [d - s for d, s in
+                                       zip(ms["dynamic"], ms["static"])],
+           "simulator_share_of_dynamic": [
+               s / d for s, d in zip(ms["simulator"], ms["dynamic"])]}
+    print(f"[profile] in turns {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def cli_turns(steps: int = 50) -> dict:
+    """The flat CLI on the static and on the dynamic (iot_dense) channel,
+    warm and without evals, in turns (static, dynamic, dynamic, static):
+    rounds/s of each, as the CLI measures it (its loop, ending in a
+    synchronize)."""
+    from repro_torch.launch import train
+    rate = {"static": [], "dynamic": []}
+    for name in ("static", "dynamic", "dynamic", "static"):
+        extra = (["--channel-model", "dynamic", "--scenario", DYN_SCENARIO]
+                 if name == "dynamic" else [])
+        res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                         "--workers", str(PATH_N), "--steps", str(steps),
+                         "--eval-every", "0", "--device", "cuda", *extra])
+        rate[name].append(res["rounds"] / res["seconds"])
+    print(f"[profile] cli in turns, rounds/s {json.dumps(rate)}", flush=True)
+    return rate
+
+
 def ulp_dist(a, b):
     """Elementwise ULP distance of two float32 tensors."""
     import torch
@@ -925,10 +1433,12 @@ def self_device_us(e) -> float:
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
+def profile_rounds(store, flat: bool, n_rounds: int = 20,
+                   dynamic: bool = False) -> dict:
     """Where a full-width round's time goes on one path (flat: the dp_mix
-    round; else the worker-tree round, dwfl with use_pallas=True): the
-    round body after a warm-up, timed by the host clock around
+    round; else the worker-tree round, dwfl with use_pallas=True; with
+    ``dynamic`` on the iot_dense network, the simulator's round in it):
+    the round body after a warm-up, timed by the host clock around
     ``n_rounds`` rounds ending in a synchronize, then the same number of
     rounds under torch.profiler for the device's busy share and the top
     operators by device and host time."""
@@ -938,13 +1448,16 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
     from repro_torch.core import exchange as X
     from repro_torch.core import protocol as P
     from repro_torch.core import trajectory as TJ
-    proto = P.ProtocolConfig(n_workers=PATH_N, gamma=0.01, eta=0.4,
-                             target_epsilon=1.0, use_pallas=not flat)
+    proto = (dynamic_proto(PATH_N, use_pallas=not flat) if dynamic else
+             P.ProtocolConfig(n_workers=PATH_N, gamma=0.01, eta=0.4,
+                              target_epsilon=1.0, use_pallas=not flat))
     gen = torch.Generator(device="cuda").manual_seed(0)
     wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
     spec = X.FlatSpec(wp) if flat else None
-    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda")
-    carry = TJ.TrajCarry(gen, spec.flatten(wp) if flat else wp)
+    sim = proto.simulator("cuda") if dynamic else None
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda", sim=sim)
+    carry = TJ.TrajCarry(gen, spec.flatten(wp) if flat else wp,
+                         sim.init(gen) if dynamic else None)
     carry, _ = TJ.run_chunk(body, carry, 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -959,7 +1472,9 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20) -> dict:
         wall_us = 1e6 * (time.perf_counter() - t0)
     stats = prof.key_averages()
     dev, busy_us = self_device_us, device_us(stats)
-    rec = {"path": "flat" if flat else "tree", "round_ms": round_ms,
+    rec = {"path": ("dynamic " if dynamic else "") + ("flat" if flat
+                                                      else "tree"),
+           "round_ms": round_ms,
            "rounds": n_rounds,
            "profiled_round_ms": wall_us / 1e3 / n_rounds,
            "device_busy_share": (busy_us / wall_us if busy_us > 0
@@ -1544,20 +2059,32 @@ def main() -> int:
     for N in (PATH_N, 128):
         check_noise_fields(N, PATH_D)
         torch.cuda.empty_cache()
+    dp_mix_plans_phase()
     perturb_rec = dp_perturb_phase()
     flash_rec, flash16_rec = flash_phase()
     ssd_rec = ssd_phase()
 
-    # 4. the flat path, counted: the main path at N = 10, then N = 128
+    # 4. the flat path, counted: the main path at N = 10, then N = 128;
+    # then on the dynamic network (iot_dense, then vehicular under a total
+    # budget)
     launches = flat_cli(PATH_N, 50)["launches"]
     flat_cli(128, 4)
     train_step_cpu_vs_cuda()
+    dyn_launches = dynamic_cli()
+    dynamic_round_cpu_vs_cuda()
 
-    # 5. the worker-tree path, counted per scheme
+    # 5. the worker-tree path, counted per scheme; then on the dynamic
+    # network
     store = paper_store()
     perturb_launches = train_tree_schemes(store)
     tree_cli()
     tree_round_cpu_vs_cuda()
+    dyn_perturb_launches = dynamic_tree(store)
+    dynamic_round_sync_free(store)
+    predict("turns")
+    round_turns(store, "after the training phases")
+    predict("cli_turns")
+    cli_turns()
 
     # 6. serve: gemma-2b at full width, the CLI and the kernel path, counted
     serve_cli("gemma-2b", fa_ops.flash_attention)
@@ -1577,6 +2104,11 @@ def main() -> int:
     # 7. profiles
     profile_rounds(store, flat=True)
     profile_rounds(store, flat=False)
+    predict("profile")
+    profile_rounds(store, flat=True, dynamic=True)
+    profile_simulator()
+    predict("turns_late")
+    round_turns(store, "after serving gemma-2b and the profiles")
     profile_serve(cfg, params, batch)
     profile_serve(cfg16, params16, batch)
     del params, params16, batch
@@ -1599,7 +2131,12 @@ def main() -> int:
         "name": "dp_mix", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
-        "launches": launches,
+        "launches": dyn_launches[DYN_SCENARIO],
+        "launches_by_path": {"flat": launches,
+                             "flat dynamic " + DYN_SCENARIO:
+                                 dyn_launches[DYN_SCENARIO],
+                             "flat dynamic vehicular, total budget":
+                                 dyn_launches["vehicular"]},
         "max_abs_err": path_rec["max_abs_err"],
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
         "bound_ms": path_rec["bound_ms"], "bound_by": path_rec["bound_by"],
@@ -1607,7 +2144,10 @@ def main() -> int:
         "name": "dp_perturb", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_perturb/csrc/dp_perturb.cu",
         "replaces": "src/repro/kernels/dp_perturb/dp_perturb.py:42",
-        "launches": perturb_launches,
+        "launches": dyn_perturb_launches,
+        "launches_by_path": {"tree, four schemes": perturb_launches,
+                             "tree dynamic " + DYN_TREE_SCENARIO:
+                                 dyn_perturb_launches},
         "max_abs_err": perturb_rec["max_abs_err"],
         "ms": perturb_rec["ms"], "plain_ms": perturb_rec["plain_ms"],
         "bound_ms": perturb_rec["bound_ms"],

@@ -1,5 +1,5 @@
 """The mixing-matrix exchange engine and the flat parameter buffer — the
-static part of the reference's ``repro.core.exchange``.
+port of the reference's ``repro.core.exchange``.
 
 Every exchange of the mixing family is the one receiver-side update
 
@@ -7,22 +7,29 @@ Every exchange of the mixing family is the one receiver-side update
                                     - x_i - self_i * n_i / c ]
 
 (``mix_exchange``, over worker-stacked leaves [N, ...]). A ``MixPlan``
-carries its W and per-receiver vectors as device tensors, built once per
-train-step factory, and feeds both the worker-tree round (``run_mix``)
-and the fused flat round (``repro_torch.kernels.dp_mix.ops.
-dp_mix_round_plan``). The four static schemes of the paper's comparison:
+carries its W and per-receiver vectors as device tensors and feeds both
+the worker-tree round (``run_mix``) and the fused flat round
+(``repro_torch.kernels.dp_mix.ops.dp_mix_round_plan``):
 
     ===========  ======================================  =================
     scheme       W                                       self / m / listen
     ===========  ======================================  =================
     dwfl         ((1) - I)/(N-1)  (``plan_complete``)    1 / m/(c(N-1)) / 1
+    ring/torus   core.topology W  (``plan_topology``)    1 / m/(c deg)  / 1
+    dynamic      the round's net W  (``plan_dynamic``)   1 / m/(c deg)  / deg > 0
+    sampled      p_k(1-d_ik)/max(n_tx-p_i, 1)            p / m/(c den)  / 1
     gossip       complete, sigma = sigma_m = 0           1 / 0          / 1
     orthogonal   complete, c = 1, gain-inverted noise    0 / link AWGN  / 1
     centralized  (1)/N, eta = 1, shared PS AWGN          0 / m/(cN)     / 1
     ===========  ======================================  =================
 
-``resolve_spec`` routes a ProtocolConfig to its ``ExchangeSpec``; only
-dwfl and gossip (``fuse_ok``) may run as the fused flat round.
+A plan is built once per train-step factory where it is static, and per
+round from the round's W (dynamic) or participation mask (sampled), on
+the device: the dynamic plan reads a ``net.TracedChannelState``'s tensors
+as they are, with no host round trip. ``resolve_spec`` routes a
+ProtocolConfig to its ``ExchangeSpec``; only the mixing family
+(``fuse_ok``) may run as the fused flat round. The neighbor-list round
+(ROADMAP A10) and the collective one (A14) are not ported yet.
 
 Randomness: a round's exchange consumes standard normals as a tree
 ({"n": ..., "m": ...}, ``draw_normals``), drawn from an explicit
@@ -35,6 +42,7 @@ sorted, so each layer is b then w).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Union
 
@@ -45,11 +53,21 @@ from repro_torch.runtime import resolve_device
 
 
 def mix_noise_amp(chan, device="cuda") -> torch.Tensor:
-    """Per-worker DP-noise amplitude |h_k| sqrt(beta_k P_k) sigma, [N]."""
+    """Per-worker DP-noise amplitude |h_k| sqrt(beta_k P_k) sigma, [N]: of
+    the static ChannelState, or of a round's TracedChannelState, whose
+    tensors it takes as they are on their device."""
     dev = resolve_device(device)
+    if torch.is_tensor(chan.noise_scale):
+        return (chan.noise_scale * chan.dp_sigma).to(dev)
     return (torch.as_tensor(np.asarray(chan.noise_scale), dtype=torch.float32,
                             device=dev)
             * torch.tensor(chan.dp_sigma, dtype=torch.float32, device=dev))
+
+
+def _scalar(v, dev) -> torch.Tensor:
+    """A channel scalar (a float, or a 0-d tensor of a traced channel) as
+    a float32 tensor on ``dev``; a tensor already there is not copied."""
+    return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
 
 def complete_W(N: int, device="cuda") -> torch.Tensor:
@@ -57,6 +75,33 @@ def complete_W(N: int, device="cuda") -> torch.Tensor:
     dev = resolve_device(device)
     return (torch.ones((N, N), device=dev)
             - torch.eye(N, device=dev)) / (N - 1)
+
+
+def masked_complete_W(mask: torch.Tensor) -> torch.Tensor:
+    """The complete graph on the active workers: each active worker
+    averages the other active ones (the paper's W when all are), an
+    inactive worker gets the identity row. Symmetric, doubly stochastic
+    for >= 2 active workers; on the mask's device."""
+    p = mask.to(torch.float32)
+    n = p.shape[0]
+    n_act = torch.clamp_min(p.sum(), 2.0)
+    off = p[:, None] * p[None, :] * (1.0 - torch.eye(n, device=p.device))
+    W = off / (n_act - 1.0)
+    return W + torch.diag(1.0 - W.sum(1))
+
+
+def sampled_W(participate: torch.Tensor):
+    """Mixing under per-round participation (amplification by
+    subsampling): receiver i averages the transmitters it hears, W_ik =
+    p_k (1 - d_ik) / max(n_tx - p_i, 1). Returns (W, p, denom): ``p`` is
+    also the self-correction mask (a worker subtracts its own noise only
+    in rounds it sent), ``denom`` scales the receiver AWGN."""
+    p = participate.to(torch.float32)
+    N = p.shape[0]
+    n_tx = torch.clamp_min(p.sum(), 2.0)
+    denom = torch.clamp_min(n_tx - p, 1.0)
+    W = (p[None, :] * (1.0 - torch.eye(N, device=p.device))) / denom[:, None]
+    return W, p, denom
 
 
 Vector = Union[torch.Tensor, float]      # [N] tensor, or one number for all
@@ -75,7 +120,7 @@ class MixPlan:
     noisy: bool = True
 
 
-def plan_complete(proto, chan, device="cuda") -> MixPlan:
+def plan_complete(proto, chan, device="cuda", W=None) -> MixPlan:
     dev = resolve_device(device)
     N = chan.n_workers
     c = torch.tensor(chan.c, dtype=torch.float32, device=dev)
@@ -86,7 +131,7 @@ def plan_complete(proto, chan, device="cuda") -> MixPlan:
                    / float(chan.c * (N - 1)))
 
 
-def plan_gossip(proto, chan, device="cuda") -> MixPlan:
+def plan_gossip(proto, chan, device="cuda", W=None) -> MixPlan:
     dev = resolve_device(device)
     N = chan.n_workers
     return MixPlan(W=complete_W(N, dev),
@@ -96,6 +141,60 @@ def plan_gossip(proto, chan, device="cuda") -> MixPlan:
                    m_scale=torch.zeros((N,), device=dev), noisy=False)
 
 
+def _deg_scale(W: torch.Tensor, c) -> torch.Tensor:
+    """m_scale_i = 1/(c deg_i): the receiver AWGN over the neighborhood
+    size (deg counts the positive entries of the row, diagonal too)."""
+    deg = (W > 0).sum(1).to(torch.float32)
+    return 1.0 / (c * torch.clamp_min(deg, 1.0))
+
+
+def plan_topology(proto, chan, device="cuda", W=None) -> MixPlan:
+    """A static gossip topology: ``proto.mixing_matrix()`` unless W is
+    given."""
+    dev = resolve_device(device)
+    W = torch.as_tensor(proto.mixing_matrix() if W is None else W,
+                        dtype=torch.float32, device=dev)
+    return MixPlan(W=W, c=_scalar(chan.c, dev), amp=mix_noise_amp(chan, dev),
+                   sigma_m=_scalar(chan.awgn_sigma, dev),
+                   m_scale=_deg_scale(W, chan.c))
+
+
+def plan_dynamic(proto, chan, device="cuda", W=None) -> MixPlan:
+    """A round of the dynamic network from its W (``net``): a worker with
+    no active neighbor (churned out, or isolated by the interference
+    graph; its W row is e_i) takes no update this round — it hears
+    neither the superposition nor its AWGN (listen = 0)."""
+    dev = resolve_device(device)
+    if W is None:
+        raise ValueError("the dynamic plan needs the round's mixing matrix")
+    W = W.to(device=dev, dtype=torch.float32)
+    off_deg = ((W > 0) & ~torch.eye(W.shape[0], dtype=torch.bool,
+                                     device=dev)).sum(1)
+    deg = torch.clamp_min(off_deg.to(torch.float32), 1.0)
+    c = _scalar(chan.c, dev)
+    return MixPlan(W=W, c=c, amp=mix_noise_amp(chan, dev),
+                   sigma_m=_scalar(chan.awgn_sigma, dev),
+                   m_scale=1.0 / (c * deg),
+                   listen=(off_deg > 0).to(torch.float32))
+
+
+def resample(plan: MixPlan, mask: torch.Tensor) -> MixPlan:
+    """``plan``'s channel terms on a round's participation mask: the
+    sampled W, ``self_scale`` = the mask, m_scale = 1/(c denom)."""
+    W, p, denom = sampled_W(mask.to(plan.W.device))
+    return dataclasses.replace(plan, W=W, self_scale=p,
+                               m_scale=1.0 / (plan.c * denom))
+
+
+def plan_sampled(proto, chan, device="cuda", W=None) -> MixPlan:
+    """Per-round participation; W here is the round's bool [N] transmit
+    mask (``protocol.sample_participation``)."""
+    if W is None:
+        raise ValueError("the sampled plan needs the round's participation "
+                         "mask")
+    return resample(plan_complete(proto, chan, device), W)
+
+
 # Floor for the inverted per-link gain |h_j| sqrt(alpha_j P_j) of the
 # orthogonal baseline: a deep-fade draw would send the inverted AWGN std to
 # infinity. The clamp caps any single link's noise inflation at 40 dB
@@ -103,7 +202,7 @@ def plan_gossip(proto, chan, device="cuda") -> MixPlan:
 ORTHOGONAL_GAIN_FLOOR = 1e-2
 
 
-def plan_orthogonal(proto, chan, device="cuda") -> MixPlan:
+def plan_orthogonal(proto, chan, device="cuda", W=None) -> MixPlan:
     """The orthogonal (pairwise, digital-style) baseline in engine terms:
     complete-graph W over gain-inverted signals (noise already at
     parameter scale, so c = 1), no self-correction; ``amp`` is the
@@ -127,7 +226,7 @@ def plan_orthogonal(proto, chan, device="cuda") -> MixPlan:
                    self_scale=0.0)
 
 
-def plan_centralized(proto, chan, device="cuda") -> MixPlan:
+def plan_centralized(proto, chan, device="cuda", W=None) -> MixPlan:
     """The centralized parameter-server baseline: every worker transmits
     over the MAC to the server, which broadcasts the average — W = (1)/N
     (self included), eta = 1, no self-correction, one AWGN draw at the
@@ -342,7 +441,7 @@ def run_centralized(X, noise_n, G_m, plan: MixPlan):
                         self_scale=plan.self_scale, m_scale=plan.m_scale)
 
 
-def _run_complete(X, G, plan: MixPlan, proto):
+def _run_noisy(X, G, plan: MixPlan, proto):
     n = dp_noise(G["n"], X, plan.amp)
     m = channel_noise(G["m"], X, plan.sigma_m)
     return run_mix(X, n, m, proto.eta, plan)
@@ -368,8 +467,10 @@ def _run_centralized_spec(X, G, plan: MixPlan, proto):
 
 @dataclass(frozen=True)
 class ExchangeSpec:
-    """One exchange variant: ``plan(proto, chan, device)`` builds its
-    MixPlan once, ``run(X, G, plan, proto)`` runs a round on the worker
+    """One exchange variant: ``plan(proto, chan, device, W=None)`` builds
+    its MixPlan (W: the round's mixing matrix for "dynamic", its
+    participation mask for "sampled", an override of the topology's W for
+    "topology"), ``run(X, G, plan, proto)`` runs a round on the worker
     tree X with standard normals G (``draw_normals``; unused when the
     plan is not noisy). ``fuse_ok``: the pure mixing family, which treats
     every parameter entry alike, so the tree may be bucketed into one
@@ -384,8 +485,11 @@ class ExchangeSpec:
 
 
 SPECS = {
-    "complete": ExchangeSpec("complete", _run_complete, plan_complete),
+    "complete": ExchangeSpec("complete", _run_noisy, plan_complete),
     "gossip": ExchangeSpec("gossip", _run_gossip, plan_gossip),
+    "topology": ExchangeSpec("topology", _run_noisy, plan_topology),
+    "dynamic": ExchangeSpec("dynamic", _run_noisy, plan_dynamic),
+    "sampled": ExchangeSpec("sampled", _run_noisy, plan_sampled),
     "orthogonal": ExchangeSpec("orthogonal", _run_orthogonal_spec,
                                plan_orthogonal, fuse_ok=False),
     "centralized": ExchangeSpec("centralized", _run_centralized_spec,
@@ -396,23 +500,29 @@ SPECS = {
 
 def resolve_spec(proto, axis: Optional[str] = None,
                  dynamic: bool = False) -> ExchangeSpec:
-    """Scheme -> ExchangeSpec: the one routing table of the flat and the
-    worker-tree train steps. What the reference routes elsewhere raises,
-    naming the ROADMAP item that ports it."""
-    if dynamic:
-        raise NotImplementedError("the dynamic channel model is not ported "
-                                  "yet (ROADMAP A9)")
+    """Scheme -> ExchangeSpec: the one routing table of the static and the
+    dynamic train steps, flat and worker-tree. Only dwfl has dynamic
+    semantics (the baselines compare on the static channel). What the
+    reference routes elsewhere raises, naming the ROADMAP item that ports
+    it."""
     if axis is not None:
         raise NotImplementedError("the collective (shard_map) exchange is "
                                   "not ported yet (ROADMAP A14)")
+    if dynamic:
+        if proto.scheme != "dwfl":
+            raise ValueError(f"dynamic channel model requires scheme='dwfl', "
+                             f"got {proto.scheme!r}")
+        if getattr(proto, "sparse_neighbors", 0):
+            raise NotImplementedError("the neighbor-list round "
+                                      "(dynamic_sparse) is not ported yet "
+                                      "(ROADMAP A10)")
+        return SPECS["dynamic"]
     if proto.scheme in ("gossip", "orthogonal", "centralized"):
         return SPECS[proto.scheme]
     if proto.scheme == "dwfl":
         if proto.topology != "complete":
-            raise NotImplementedError(f"topology {proto.topology!r} is not "
-                                      f"ported yet (ROADMAP A4)")
+            return SPECS["topology"]
         if proto.participation < 1.0:
-            raise NotImplementedError("sampled participation is not ported "
-                                      "yet (ROADMAP A4)")
+            return SPECS["sampled"]
         return SPECS["complete"]
     raise ValueError(proto.scheme)

@@ -1,15 +1,18 @@
-"""The static trajectory as a Python loop over rounds — the port of the
-reference's ``repro.core.trajectory`` static path (``make_round_body``,
-``run_per_round``, ``plan_chunks``, ``auto_chunk``).
+"""The trajectory as a Python loop over rounds — the port of the
+reference's ``repro.core.trajectory`` (``make_round_body`` on the static
+and the dynamic paths, ``run_per_round``, ``plan_chunks``,
+``auto_chunk``).
 
 Key discipline: ONE explicit ``torch.Generator`` is the carry's
-randomness. Each round draws, in order, its data and then its noise from
-it — on the flat path its [W, B] data uniforms and then its int32 noise
-seed, on the worker-tree path its uniforms and then the exchange's
-standard normals — so the realized stream is a function of the
-generator's seed and the round index, never of how rounds are cut into
-chunks. A chunk of K rounds is K eager rounds; its metrics come back
-stacked [K] on the device, read by the host only at chunk ends.
+randomness. Each round draws from it in a fixed order: its data, then on
+the dynamic path its network round (``NetworkSimulator.round``), then its
+noise — on the flat path an int32 noise seed (and, under sampled
+participation, its mask), on the worker-tree path the exchange's standard
+normals — so the realized stream is a function of the generator's seed
+and the round index, never of how rounds are cut into chunks. A chunk of
+K rounds is K eager rounds; its metrics (and on the dynamic path the
+rounds' channels and mixing matrices) come back stacked [K, ...] on the
+device, read by the host only at chunk ends.
 """
 from __future__ import annotations
 
@@ -18,16 +21,19 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import protocol as protocol_lib
+from repro_torch.net.state import concat_states, stack_states
 from repro_torch.runtime import resolve_device
 
 _INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
 
 
 class TrajCarry(NamedTuple):
-    """Everything a round consumes and rewrites: the generator and the
-    parameters (the worker tree, or the flat [N, d] buffer)."""
+    """Everything a round consumes and rewrites: the generator, the
+    parameters (the worker tree, or the flat [N, d] buffer) and, on the
+    dynamic path, the network's ``net.NetState``."""
     generator: torch.Generator
     params: Any
+    net: Any = None
 
 
 class HostBatches:
@@ -50,21 +56,48 @@ def round_seed(generator: torch.Generator) -> torch.Tensor:
                          generator=generator, device=generator.device)
 
 
-def make_round_body(cfg, proto, store, spec=None, device="cuda") -> Callable:
-    """``body(carry) -> (carry', out)``: one full DWFL round on the static
-    channel, its batch from ``store`` (data.device.ClassificationStore,
-    sampled on the device, or ``HostBatches``). The path follows ``spec``:
-    given (an exchange.FlatSpec), the fused flat-buffer round over the
-    carry's [N, d] buffer laid out by it; ``None``, the worker-tree round
-    (protocol.make_train_step) over the carry's worker tree. ``out`` is
-    {"metrics": {...}}."""
-    if spec is not None:
+def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
+                    sim=None) -> Callable:
+    """``body(carry) -> (carry', out)``: one full DWFL round, its batch
+    from ``store`` (data.device.ClassificationStore, sampled on the
+    device, or ``HostBatches``). The path follows ``spec``: given (an
+    exchange.FlatSpec), the fused flat-buffer round over the carry's
+    [N, d] buffer laid out by it; ``None``, the worker-tree round over
+    the carry's worker tree. With ``sim`` (net.NetworkSimulator) the
+    round runs on the dynamic network, advancing the carry's ``net``.
+    ``out`` is {"metrics": {...}}, and on the dynamic path also the
+    round's "chan" and "W"."""
+    if sim is not None:
+        if spec is not None:
+            step = protocol_lib.make_dynamic_flat_train_step(cfg, proto,
+                                                             spec, device)
+
+            def body(carry: TrajCarry):
+                gen = carry.generator
+                batch = store.draw(gen)
+                net, chan, _, W = sim.round(gen, carry.net)
+                params, metrics = step(carry.params, batch, round_seed(gen),
+                                       chan, W)
+                return (TrajCarry(gen, params, net),
+                        {"metrics": metrics, "chan": chan, "W": W})
+        else:
+            step = protocol_lib.make_dynamic_train_step(cfg, proto, device)
+
+            def body(carry: TrajCarry):
+                gen = carry.generator
+                batch = store.draw(gen)
+                net, chan, _, W = sim.round(gen, carry.net)
+                params, metrics = step(carry.params, batch, gen, chan, W)
+                return (TrajCarry(gen, params, net),
+                        {"metrics": metrics, "chan": chan, "W": W})
+    elif spec is not None:
         step = protocol_lib.make_flat_train_step(cfg, proto, spec, device)
 
         def body(carry: TrajCarry):
             batch = store.draw(carry.generator)
             seed = round_seed(carry.generator)
-            params, metrics = step(carry.params, batch, seed)
+            params, metrics = step(carry.params, batch, seed,
+                                   generator=carry.generator)
             return TrajCarry(carry.generator, params), {"metrics": metrics}
     else:
         step = protocol_lib.make_train_step(cfg, proto, device)
@@ -77,6 +110,17 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda") -> Callable:
     return body
 
 
+def _stack(outs: List[dict]) -> dict:
+    """Rounds' outputs stacked [k, ...]: the metrics and, on the dynamic
+    path, the channels and the Ws."""
+    out = {"metrics": {n: torch.stack([o["metrics"][n] for o in outs])
+                       for n in outs[0]["metrics"]}}
+    if "chan" in outs[0]:
+        out["chan"] = stack_states([o["chan"] for o in outs])
+        out["W"] = torch.stack([o["W"] for o in outs])
+    return out
+
+
 def run_chunk(body: Callable, carry: TrajCarry, k: int
               ) -> Tuple[TrajCarry, Any]:
     """Advance ``k`` rounds; the outputs come back stacked [k, ...] on the
@@ -86,9 +130,8 @@ def run_chunk(body: Callable, carry: TrajCarry, k: int
     outs = []
     for _ in range(int(k)):
         carry, out = body(carry)
-        outs.append(out["metrics"])
-    return carry, {"metrics": {name: torch.stack([o[name] for o in outs])
-                               for name in outs[0]}}
+        outs.append(out)
+    return carry, _stack(outs)
 
 
 def run_per_round(body: Callable, carry: TrajCarry, k: int
@@ -100,9 +143,16 @@ def run_per_round(body: Callable, carry: TrajCarry, k: int
     outs = []
     for _ in range(int(k)):
         carry, out = body(carry)
-        outs.append({name: v.cpu() for name, v in out["metrics"].items()})
-    return carry, {"metrics": {name: torch.stack([o[name] for o in outs])
-                               for name in outs[0]}}
+        outs.append(dict(out, metrics={n: v.cpu() for n, v
+                                        in out["metrics"].items()}))
+    return carry, _stack(outs)
+
+
+def concat_chunks(chunks: List[dict]) -> dict:
+    """The chunks' stacked "chan" and "W" joined into one [T, ...]
+    trajectory."""
+    return {"chan": concat_states([c["chan"] for c in chunks]),
+            "W": torch.cat([c["W"] for c in chunks])}
 
 
 def plan_chunks(total: int, k: int, eval_every: int

@@ -1,15 +1,21 @@
-"""End-to-end DWFL training CLI of the port — the static paths of the
-reference's ``repro.launch.train``: the paper's MLP, the static Rayleigh
-channel, one of the four schemes of the paper's comparison (dwfl,
-orthogonal, centralized, gossip), K-round chunks with on-device batch
-sampling. Without ``--flat-buffer`` it runs the worker-tree round
-(protocol.make_train_step: per-leaf noise, the mixing engine); with it the
-fused dp_mix round on the flat [N, d] buffer (dwfl and gossip only), as
-the reference does. ``--no-scan`` takes each round's batch from the host
-batcher instead, one round at a time.
+"""End-to-end DWFL training CLI of the port — the reference's
+``repro.launch.train`` for the paper's MLP: the static Rayleigh channel
+with one of the four schemes of the paper's comparison (dwfl, orthogonal,
+centralized, gossip), or the dynamic wireless network (``--channel-model
+dynamic --scenario ...``: fading, geometry, mobility and churn, a new
+channel and W every round, dwfl only), K-round chunks with on-device
+batch sampling. Without ``--flat-buffer`` it runs the worker-tree round
+(per-leaf noise, the mixing engine); with it the fused dp_mix round on
+the flat [N, d] buffer (dwfl and gossip only), as the reference does.
+``--no-scan`` takes each round's batch from the host batcher instead, one
+round at a time. A dynamic run ends with the per-round epsilon
+trajectory and its composition under both accountants;
+``--total-epsilon`` calibrates sigma every round against a whole-run
+budget under ``--accountant``.
 
     python -m repro_torch.launch.train --arch dwfl-paper --flat-buffer
     python -m repro_torch.launch.train --scheme orthogonal --steps 300
+    python -m repro_torch.launch.train --flat-buffer --channel-model dynamic --scenario iot_dense
     python -m repro_torch.launch.train --device cpu --hidden 16 --workers 4 --steps 3
 
 Runs on the card by default and raises without one; ``--device cpu``
@@ -35,10 +41,7 @@ from repro_torch.runtime import resolve_device
 
 # reference flags not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "--reduced": "A15",
-    "--seq-len": "A15", "--total-epsilon": "A6", "--accountant": "A6",
-    "--channel-model": "A9", "--scenario": "A9", "--coherence-rounds": "A9",
-    "--graph-fallback": "A9", "--sparse-neighbors": "A10",
+    "--reduced": "A15", "--seq-len": "A15", "--sparse-neighbors": "A10",
     "--worker-shards": "A14", "--model-shards": "A14",
     "--max-chunk-cols": "A14", "--remat": "A14", "--replicates": "A12",
     "--checkpoint": "A13", "--log": "A11", "--runlog-dir": "A11",
@@ -64,10 +67,35 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--clip", type=float, default=1.0)
     ap.add_argument("--epsilon", type=float, default=1.0,
                     help="per-round target epsilon (0 = fixed sigma)")
+    ap.add_argument("--total-epsilon", type=float, default=0.0,
+                    help="whole-run (eps, delta) budget over all --steps + 1 "
+                         "rounds; sigma is calibrated per round against it "
+                         "under --accountant (overrides --epsilon; dynamic "
+                         "channel only)")
+    ap.add_argument("--accountant", default="composition",
+                    choices=["composition", "rdp"],
+                    help="privacy ledger: 'composition' = delta-split "
+                         "advanced composition; 'rdp' = Renyi-DP moments "
+                         "(tighter). Picks the --total-epsilon calibration "
+                         "and the report's headline")
     ap.add_argument("--sigma", type=float, default=1.0)
     ap.add_argument("--sigma-m", type=float, default=1.0)
     ap.add_argument("--p-dbm", type=float, default=60.0)
     ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
+    ap.add_argument("--channel-model", default="static",
+                    choices=["static", "dynamic"],
+                    help="static: the paper's one-shot channel; dynamic: a "
+                         "new channel and mixing matrix every round "
+                         "(repro_torch.net)")
+    ap.add_argument("--scenario", default="static_paper",
+                    help="network scenario (dynamic only): static_paper, "
+                         "iot_dense, vehicular, drone_sparse, mesh_sparse")
+    ap.add_argument("--coherence-rounds", type=int, default=0,
+                    help="override the scenario's fading block length")
+    ap.add_argument("--graph-fallback", action="store_true",
+                    help="bridge radius-isolated workers to their nearest "
+                         "active neighbor instead of letting them sit out "
+                         "the round")
     ap.add_argument("--chunk-rounds", type=int, default=0,
                     help="rounds per chunk (0 = one eval interval)")
     ap.add_argument("--seed", type=int, default=0)
@@ -91,7 +119,45 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.arch != "dwfl-paper":
         raise SystemExit(f"--arch {args.arch} is not ported to repro_torch "
                          f"yet (ROADMAP A15); only dwfl-paper is")
+    if args.total_epsilon > 0 and args.channel_model != "dynamic":
+        raise SystemExit("--total-epsilon calibrates sigma against the "
+                         "realized per-round neighborhoods; it requires "
+                         "--channel-model dynamic (static runs: invert "
+                         "accounting.sigma_for_total_epsilon by hand)")
     return args
+
+
+def isolated_workers(sim, state, seed: int) -> int:
+    """Active workers with no neighbor in a first graph draw, from a
+    generator of its own (the training stream is untouched). A worker
+    isolated by the radius sits out its rounds (listen = 0), which looks
+    like slow convergence rather than a connectivity problem."""
+    gen = torch.Generator(device=sim.device)
+    gen.manual_seed(seed ^ 0x150)
+    _, _, mask, W = sim.round(gen, state)
+    off = (W > 0) & ~torch.eye(W.shape[0], dtype=torch.bool, device=W.device)
+    return int(((off.sum(1) == 0) & mask).sum())
+
+
+def report_dynamic(proto, chunks) -> dict:
+    """The per-round epsilon trajectory of the realized channels and Ws,
+    printed as the reference prints it."""
+    traj = TJ.concat_chunks(chunks)
+    rep = P.epsilon_report(proto, traj["chan"], Ws=traj["W"])
+    eps = rep["epsilon_per_round"]
+    print(f"[train] per-round eps over {rep['rounds']} rounds: "
+          f"min={eps.min():.3g} mean={rep['epsilon_mean']:.3g} "
+          f"max={rep['epsilon_worst']:.3g}  "
+          f"composed(eps,delta)=({rep['epsilon_trajectory_composed']:.3g}, "
+          f"{rep['delta_trajectory_composed']:.2g})")
+    print(f"[train] accountant[{rep['accountant']}]: "
+          f"rdp={rep['epsilon_rdp']:.3g} vs "
+          f"advanced={rep['epsilon_advanced']:.3g} "
+          f"-> quoting {rep['epsilon_total']:.3g} "
+          f"(delta={rep['delta_total']:.2g}, "
+          f"gap {rep['accountant_gap']:.2g}x, "
+          f"order={rep['rdp_order']:.3g})")
+    return rep
 
 
 def run(argv=None) -> dict:
@@ -105,22 +171,39 @@ def run(argv=None) -> dict:
     if args.hidden > 0:
         cfg = dataclasses.replace(cfg, d_model=args.hidden)
     W = args.workers
+    total = args.total_epsilon > 0
     proto = P.ProtocolConfig(
         scheme=args.scheme, n_workers=W, gamma=args.gamma, eta=args.eta,
         clip=args.clip, sigma=args.sigma, sigma_m=args.sigma_m,
-        p_dbm=args.p_dbm, seed=args.seed, target_epsilon=args.epsilon,
-        flat_buffer=args.flat_buffer)
+        p_dbm=args.p_dbm, seed=args.seed,
+        target_epsilon=0.0 if total else args.epsilon,
+        flat_buffer=args.flat_buffer, channel_model=args.channel_model,
+        scenario=args.scenario, coherence_rounds=args.coherence_rounds,
+        graph_fallback=args.graph_fallback, accountant=args.accountant,
+        target_total_epsilon=args.total_epsilon,
+        horizon=args.steps + 1 if total else 0)
+    if total:
+        print(f"[train] total budget: eps={args.total_epsilon} "
+              f"delta={proto.delta} over {args.steps + 1} rounds "
+              f"(accountant={args.accountant})")
     if proto.flat_buffer and args.scheme not in ("dwfl", "gossip"):
         raise SystemExit("--flat-buffer supports the mixing-family schemes "
                          "only (dwfl/gossip)")
-    chan = proto.channel()
-    rep = P.epsilon_report(proto, chan)
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     print(f"[train] device: {dev} ({name})")
-    print(f"[train] {args.arch} scheme={args.scheme} N={W} "
-          f"eps={rep['epsilon_worst']:.3g}/round sigma={rep['sigma']:.3g} "
-          f"(orthogonal would be eps={rep['epsilon_orthogonal_worst']:.3g})")
+    sim, rep = None, None
+    if args.channel_model == "dynamic":
+        sim = proto.simulator(dev)
+        print(f"[train] {args.arch} scheme={args.scheme} N={W} "
+              f"dynamic scenario={args.scenario} "
+              f"coherence={sim.scenario.fading.coherence_rounds} rounds")
+    else:
+        rep = P.epsilon_report(proto, proto.channel())
+        print(f"[train] {args.arch} scheme={args.scheme} N={W} "
+              f"eps={rep['epsilon_worst']:.3g}/round "
+              f"sigma={rep['sigma']:.3g} (orthogonal would be "
+              f"eps={rep['epsilon_orthogonal_worst']:.3g})")
 
     x, y = classification_dataset(args.dataset_size, seed=args.seed)
     parts = dirichlet_partition(y, W, alpha=args.dirichlet_alpha,
@@ -134,6 +217,17 @@ def run(argv=None) -> dict:
     spec = layout if proto.flat_buffer else None
     print(f"[train] params/worker: {layout.d / 1e6:.2f}M"
           + (" (flat dp_mix buffer)" if proto.flat_buffer else ""))
+    net = None
+    if sim is not None:
+        net = sim.init(gen)
+        if sim.scenario.geometry.comm_radius > 0:
+            iso = isolated_workers(sim, net, args.seed)
+            if iso:
+                print(f"[train] WARNING: {iso}/{W} active workers isolated "
+                      f"in the first graph draw (comm_radius="
+                      f"{sim.scenario.geometry.comm_radius:g})"
+                      + ("" if args.graph_fallback
+                         else " — consider --graph-fallback"))
 
     evaluate = P.make_eval_fn(cfg)
     eval_batch = None
@@ -147,19 +241,24 @@ def run(argv=None) -> dict:
     else:
         source = ClassificationStore.build(x, y, parts, args.batch_size, dev)
         run_rounds = TJ.run_chunk
+        coher = (sim.scenario.fading.coherence_rounds
+                 if sim is not None else None)
         chunk = (args.chunk_rounds if args.chunk_rounds > 0
-                 else TJ.auto_chunk(args.eval_every))
+                 else TJ.auto_chunk(args.eval_every, coher))
         print(f"[train] chunked trajectory: chunk={chunk} rounds")
-    body = TJ.make_round_body(cfg, proto, source, spec, dev)
+    body = TJ.make_round_body(cfg, proto, source, spec, dev, sim=sim)
 
-    carry = TJ.TrajCarry(gen, spec.flatten(wp) if spec is not None else wp)
-    losses, evals = [], []
+    carry = TJ.TrajCarry(gen, spec.flatten(wp) if spec is not None else wp,
+                         net)
+    losses, evals, chunks = [], [], []
     t0 = time.time()
     t = 0
     for n, do_eval in TJ.plan_chunks(args.steps + 1, chunk, args.eval_every):
         carry, out = run_rounds(body, carry, n)
         t += n
         losses.append(out["metrics"]["loss"])
+        if "chan" in out:
+            chunks.append(out)
         if do_eval:
             params = (spec.unravel(carry.params) if spec is not None
                       else carry.params)
@@ -176,9 +275,11 @@ def run(argv=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     seconds = time.time() - t0
+    if sim is not None:
+        rep = report_dynamic(proto, chunks)
     return {"losses": torch.cat([l.cpu() for l in losses]), "evals": evals,
             "rounds": t, "seconds": seconds, "params": carry.params,
-            "epsilon_worst": rep["epsilon_worst"]}
+            "epsilon_worst": rep["epsilon_worst"], "epsilon_report": rep}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,179 @@
+"""Worker geometry: placement, log-distance path loss, random-waypoint
+mobility and unit-disk interference graphs — the port of the reference's
+``repro.net.geometry``. Everything that runs in a round is tensor math on
+the device over [N] and [N, 2] state.
+
+  * Path gain: g_k = g0 (max(d_k, d0)/d0)^(-n), d_k worker k's distance to
+    the centroid (the paper's MAC has one scalar gain per worker, and the
+    centroid stands for the plane every superposition crosses); it scales
+    the fading amplitude as sqrt(g_k).
+  * Interference graph: workers within ``comm_radius`` hear each other;
+    Metropolis-Hastings weights make it a doubly-stochastic W.
+  * Mobility: random waypoint, a fresh waypoint and speed on arrival.
+
+The draws come from the caller's ``torch.Generator`` (the port's own,
+checked in distribution). ``sparse_metropolis`` and ``_block_topk``, the
+neighbor-list graph, are not ported yet (ROADMAP A10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class GeometryConfig:
+    area: float = 1000.0          # side of the square region [m]
+    placement: str = "uniform"    # uniform | cluster
+    n_clusters: int = 4
+    cluster_std: float = 60.0     # [m] spread around each cluster center
+    pl_exponent: float = 0.0      # path-loss exponent n (0 = off)
+    ref_distance: float = 1.0     # d0 [m]
+    ref_gain_db: float = 0.0      # 10 log10 g0, the power gain at d0
+    mobility: str = "static"      # static | waypoint
+    speed_min: float = 0.0        # [m/round]
+    speed_max: float = 0.0
+    comm_radius: float = 0.0      # unit-disk radius [m]; 0 = complete graph
+    normalize_gain: bool = True   # divide out the geometric-mean gain: the
+                                  # absolute link budget is the protocol's
+                                  # p_dbm; geometry gives the spread
+
+
+@dataclass(frozen=True)
+class GeometryState:
+    pos: torch.Tensor        # [N, 2]
+    waypoint: torch.Tensor   # [N, 2]
+    speed: torch.Tensor      # [N] meters per round
+
+
+def _uniform(generator, shape, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=generator.device)
+    return lo + (hi - lo) * u
+
+
+def _draw_speed(cfg: GeometryConfig, generator, n: int) -> torch.Tensor:
+    return _uniform(generator, (n,), cfg.speed_min,
+                    max(cfg.speed_max, cfg.speed_min + 1e-9))
+
+
+def init_geometry(cfg: GeometryConfig, generator: torch.Generator,
+                  n_workers: int) -> GeometryState:
+    if cfg.placement == "cluster":
+        centers = _uniform(generator, (cfg.n_clusters, 2), 0.2 * cfg.area,
+                           0.8 * cfg.area)
+        assign = torch.randint(0, cfg.n_clusters, (n_workers,),
+                               generator=generator, device=generator.device)
+        jitter = cfg.cluster_std * torch.randn(
+            (n_workers, 2), generator=generator, device=generator.device)
+        pos = torch.clamp(centers[assign] + jitter, 0.0, cfg.area)
+    elif cfg.placement == "uniform":
+        pos = _uniform(generator, (n_workers, 2), 0.0, cfg.area)
+    else:
+        raise ValueError(cfg.placement)
+    waypoint = _uniform(generator, (n_workers, 2), 0.0, cfg.area)
+    return GeometryState(pos=pos, waypoint=waypoint,
+                         speed=_draw_speed(cfg, generator, n_workers))
+
+
+def advance(cfg: GeometryConfig, generator: torch.Generator,
+            state: GeometryState) -> GeometryState:
+    """One round of random-waypoint motion (none when static)."""
+    if cfg.mobility == "static" or cfg.speed_max <= 0.0:
+        return state
+    delta = state.waypoint - state.pos
+    dist = torch.sqrt((delta * delta).sum(1))
+    arrive = dist <= state.speed                     # reaches it this round
+    step = torch.where(dist[:, None] > 1e-9,
+                       delta / torch.clamp_min(dist[:, None], 1e-9)
+                       * state.speed[:, None], 0.0)
+    pos = torch.where(arrive[:, None], state.waypoint, state.pos + step)
+    new_way = _uniform(generator, tuple(state.waypoint.shape), 0.0, cfg.area)
+    new_spd = _draw_speed(cfg, generator, state.speed.shape[0])
+    return GeometryState(
+        pos=pos, waypoint=torch.where(arrive[:, None], new_way,
+                                      state.waypoint),
+        speed=torch.where(arrive, new_spd, state.speed))
+
+
+def path_gain(cfg: GeometryConfig, pos: torch.Tensor) -> torch.Tensor:
+    """Each worker's linear power gain by log-distance path loss to the
+    centroid, g0 (max(d, d0)/d0)^(-n); g0 everywhere when n = 0."""
+    g0 = 10.0 ** (cfg.ref_gain_db / 10.0)
+    if cfg.pl_exponent <= 0.0:
+        return torch.full((pos.shape[0],), g0, device=pos.device)
+    off = pos - pos.mean(0, keepdim=True)
+    d = torch.clamp_min(torch.sqrt((off * off).sum(1)), cfg.ref_distance)
+    g = g0 * (d / cfg.ref_distance) ** (-cfg.pl_exponent)
+    if cfg.normalize_gain:
+        g = g / torch.exp(torch.log(g).mean())     # geometric mean 1
+    return g.to(torch.float32)
+
+
+def adjacency(cfg: GeometryConfig, pos: torch.Tensor, mask=None,
+              fallback: bool = False) -> torch.Tensor:
+    """The unit-disk interference graph, float [N, N], symmetric, zero
+    diagonal; comm_radius <= 0 is the complete graph. ``mask`` [N] takes
+    churned-out workers out (they neither send nor listen). ``fallback``
+    bridges each radius-isolated active worker to its nearest active
+    neighbor (both ways), so a sparse draw does not silently train
+    identity rows."""
+    n = pos.shape[0]
+    eye = torch.eye(n, dtype=torch.bool, device=pos.device)
+    if cfg.comm_radius <= 0.0:
+        adj = torch.ones((n, n), device=pos.device)
+        d2 = None
+    else:
+        d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        adj = (d2 <= cfg.comm_radius ** 2).to(torch.float32)
+    adj = adj * (~eye).to(torch.float32)
+    if mask is None:
+        active = torch.ones((n,), dtype=torch.bool, device=pos.device)
+    else:
+        active = mask > 0
+        p = active.to(torch.float32)
+        adj = adj * p[:, None] * p[None, :]
+    if fallback and d2 is not None:
+        blocked = eye | ~active[None, :] | ~active[:, None]
+        d2m = torch.where(blocked, torch.inf, d2)
+        nearest = torch.argmin(d2m, dim=1)
+        need = (active & (adj.sum(1) <= 0)
+                & torch.isfinite(d2m.amin(1)))
+        cols = torch.arange(n, device=pos.device)
+        fb = ((cols[None, :] == nearest[:, None]) & need[:, None]
+              ).to(torch.float32)
+        adj = torch.maximum(adj, torch.maximum(fb, fb.T))
+    return adj
+
+
+def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
+    """The symmetric doubly-stochastic W of a graph by Metropolis-Hastings
+    weights, W_ij = A_ij / (1 + max(deg_i, deg_j)), W_ii = 1 - sum_j W_ij;
+    an isolated worker gets the identity row."""
+    deg = (adj > 0).sum(1).to(torch.float32)
+    pair = 1.0 + torch.maximum(deg[:, None], deg[None, :])
+    W = torch.where(adj > 0, adj / pair, 0.0)
+    return W + torch.diag(1.0 - W.sum(1))
+
+
+def connectivity_fraction(adj) -> float:
+    """The share of workers in the largest connected component (a host
+    diagnostic)."""
+    A = np.asarray(adj.cpu() if torch.is_tensor(adj) else adj) > 0
+    n = A.shape[0]
+    seen = np.zeros(n, bool)
+    best = 0
+    for s in range(n):
+        if seen[s]:
+            continue
+        stack, comp = [s], 0
+        seen[s] = True
+        while stack:
+            i = stack.pop()
+            comp += 1
+            for j in np.nonzero(A[i] & ~seen)[0]:
+                seen[j] = True
+                stack.append(j)
+        best = max(best, comp)
+    return best / n

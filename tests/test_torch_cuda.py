@@ -42,18 +42,56 @@ def _need_card():
         pytest.skip("needs a CUDA card and nvcc")
 
 
+def _plan(kind: str, N: int, chan):
+    """A MixPlan on the card: the complete graph, gossip, a ring, sampled
+    participation (half the workers sending, so half of self_scale is 0)
+    or a dynamic round (iot_dense's radio range over positions drawn from
+    a seed, worker 1 churned out and the last worker out of range: two
+    identity rows of W with listen = 0, a Metropolis W elsewhere)."""
+    from repro_torch.core import protocol as P
+    from repro_torch.net import fading, geometry, scenarios
+    if kind in ("complete", "gossip"):
+        return (X.plan_complete if kind == "complete" else X.plan_gossip)(
+            None, chan, "cuda")
+    if kind == "ring":
+        return X.plan_topology(P.ProtocolConfig(n_workers=N, topology="ring"),
+                               chan, "cuda")
+    if kind == "sampled":
+        return X.plan_sampled(None, chan, "cuda",
+                              torch.arange(N, device="cuda") % 2 == 0)
+    scn = scenarios.get_scenario("iot_dense")
+    gen = torch.Generator().manual_seed(N)
+    pos = geometry.init_geometry(scn.geometry, gen, N).pos
+    pos[-1] = 10.0 * scn.geometry.area
+    mask = torch.arange(N) != 1
+    W = geometry.metropolis_weights(geometry.adjacency(scn.geometry, pos,
+                                                       mask=mask))
+    tr = fading.channel_state(scn.fading, fading.init_fading(scn.fading, gen,
+                                                             N),
+                              float(chan.P[0]), chan.dp_sigma,
+                              chan.awgn_sigma,
+                              path_gain=geometry.path_gain(scn.geometry, pos))
+    return X.plan_dynamic(None, tr.to("cuda"), "cuda", W.cuda())
+
+
 # (50, 1001) and (51, 1001): the largest N of the column route on an H100
-# (its shared memory opted in past 48 KiB) and the first of the large-N route
+# (its shared memory opted in past 48 KiB) and the first of the large-N
+# route. The ring, sampled and dynamic plans bring what the complete graph
+# never gives: a sparse W with a per-receiver m_scale, a self_scale of 0
+# for the workers that did not send, and identity rows of W with listen =
+# 0, whose outputs must be p - gamma g (within 1 ULP of the plain twin's).
 @pytest.mark.parametrize("N,d", [(10, 5000), (3, 130), (64, 1000),
                                  (65, 1001), (128, 777), (256, 333),
                                  (50, 1001), (51, 1001)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("noisy", [True, False])
-def test_kernel_matches_plain(N, d, dtype, noisy):
+@pytest.mark.parametrize("kind", ["complete", "gossip", "ring", "sampled",
+                                  "dynamic"])
+def test_kernel_matches_plain(N, d, dtype, kind):
     _need_card()
     chan = ChannelConfig(n_workers=N, p_dbm=30.0, sigma=0.7, sigma_m=0.4,
                          seed=N).realize()
-    plan = (X.plan_complete if noisy else X.plan_gossip)(None, chan, "cuda")
+    plan = _plan(kind, N, chan)
+    noisy = plan.noisy
     gen = torch.Generator(device="cuda").manual_seed(d)
     p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
     g = (0.2 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
@@ -61,8 +99,10 @@ def test_kernel_matches_plain(N, d, dtype, noisy):
                   for v in (77, 256))
     c = plan.c.reshape(())
     ones = torch.ones(N, device="cuda")
+    vec = lambda v: ones if v is None else v
     args = (p, g, seed, col0, torch.stack([c, plan.sigma_m.reshape(())]),
-            plan.amp, ones, plan.m_scale, ones, plan.W.contiguous())
+            plan.amp, vec(plan.self_scale), plan.m_scale, vec(plan.listen),
+            plan.W.contiguous())
     kw = dict(gamma=0.05, eta=0.4, noisy=noisy, counter_width=8192)
     before = ops.dp_mix_round.launches
     out = ops._launch(*args, **kw)
@@ -80,6 +120,12 @@ def test_kernel_matches_plain(N, d, dtype, noisy):
     if dtype == torch.bfloat16:
         allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
     assert bool(((k32 - r32).abs() <= allowed).all())
+    if plan.listen is not None:
+        idle = plan.listen == 0
+        assert bool(idle.any())
+        ulps = (k32[idle].view(torch.int32).long()
+                - r32[idle].view(torch.int32).long()).abs()
+        assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
 
 
 def test_wrapper_limits_on_the_card():

@@ -1,9 +1,10 @@
 """The port's exchange engine (``repro_torch.core.exchange``, ``dwfl``,
 ``baselines``) against the reference's on the CPU: ``mix_exchange``, the
 four static scheme runners with the reference's realized ``jax.random``
-normals replayed, ``resolve_spec`` routing, the orthogonal calibration,
-the scheme-aware ``epsilon_report`` and the Eqt. (8) oracle. The port's
-own generator draws are checked in distribution.
+normals replayed, ``resolve_spec`` routing, the orthogonal and the
+ring/torus calibration, the scheme-aware ``epsilon_report`` and the
+Eqt. (8) oracle. The port's own generator draws are checked in
+distribution.
 
 Tolerance: both packages compute in float32 and differ only in the order
 of the N-term mixing sum, |port - ref| <= N 2^-24 (|x| + |n/c|) per term;
@@ -156,21 +157,27 @@ def test_matrix_form_reference_equals_reference_and_the_engine():
                                atol=1e-5 * (1.0 + np.abs(want).max()))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(scheme="dwfl", topology="ring"), "A4"),
-    (dict(scheme="dwfl", participation=0.5), "A4")])
-def test_resolve_spec_routes_like_the_reference(kw, item):
+@pytest.mark.parametrize("kw,name", [
+    (dict(scheme="dwfl", topology="ring"), "topology"),
+    (dict(scheme="dwfl", participation=0.5), "sampled")])
+def test_resolve_spec_routes_like_the_reference(kw, name):
     for scheme in ("dwfl", "gossip", "orthogonal", "centralized"):
         rs = RX.resolve_spec(RP.ProtocolConfig(scheme=scheme))
         s = X.resolve_spec(P.ProtocolConfig(scheme=scheme))
         assert (s.name, s.fuse_ok) == (rs.name, rs.fuse_ok)
         assert (rs.plan is not None) == s.fuse_ok
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+    rs, s = RX.resolve_spec(RP.ProtocolConfig(**kw)), \
         X.resolve_spec(P.ProtocolConfig(**kw))
+    assert (s.name, s.fuse_ok) == (rs.name, rs.fuse_ok) == (name, True)
+    rs = RX.resolve_spec(RP.ProtocolConfig(**kw), dynamic=True)
+    s = X.resolve_spec(P.ProtocolConfig(**kw), dynamic=True)
+    assert s.name == rs.name == "dynamic"
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         X.resolve_spec(P.ProtocolConfig(), axis="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        X.resolve_spec(P.ProtocolConfig(), dynamic=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+        X.resolve_spec(P.ProtocolConfig(sparse_neighbors=4), dynamic=True)
+    with pytest.raises(ValueError, match="scheme='dwfl'"):
+        X.resolve_spec(P.ProtocolConfig(scheme="gossip"), dynamic=True)
     with pytest.raises(ValueError, match="mixing-family"):
         P.ProtocolConfig(scheme="orthogonal").plan(
             P.ProtocolConfig(scheme="orthogonal").channel(), "cpu")
@@ -206,22 +213,31 @@ def test_scheme_aware_channel_and_report_equal_reference(scheme):
 
 
 @pytest.mark.parametrize("topology,n", [("ring", 10), ("torus", 9)])
-def test_dwfl_topology_calibration_and_report_refuse(topology, n):
-    """A dwfl run on a ring or torus: the reference calibrates sigma and
-    quotes epsilon with its topology formulas; the port has not ported
-    them (A4), so both refuse instead of quoting the complete graph's."""
-    proto = P.ProtocolConfig(scheme="dwfl", n_workers=n, topology=topology,
-                             target_epsilon=0.1)
-    rproto = RP.ProtocolConfig(scheme="dwfl", n_workers=n, topology=topology,
-                               target_epsilon=0.1)
-    chan = P.ProtocolConfig(n_workers=n, target_epsilon=0.1).channel()
-    rchan = rproto.channel()
-    # the budget the complete-graph formula would understate
-    assert rchan.cfg.sigma > chan.cfg.sigma
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        proto.channel()
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        P.epsilon_report(proto, chan)
+def test_dwfl_topology_calibration_and_report_equal_reference(topology, n):
+    """A dwfl run on a ring or torus: sigma calibrated and epsilon quoted
+    with the topology's formulas (each receiver masked by its neighbors
+    only), as the reference does — more noise than the complete graph's
+    calibration gives, which would understate the budget (C5)."""
+    kw = dict(scheme="dwfl", n_workers=n, topology=topology,
+              target_epsilon=0.1)
+    proto, rproto = P.ProtocolConfig(**kw), RP.ProtocolConfig(**kw)
+    chan, rchan = proto.channel(), rproto.channel()
+    assert chan.cfg.sigma == rchan.cfg.sigma
+    assert chan.cfg.sigma > P.ProtocolConfig(
+        n_workers=n, target_epsilon=0.1).channel().cfg.sigma
+    for T in (None, 64):
+        rep = P.epsilon_report(proto, chan, T=T)
+        rrep = RP.epsilon_report(rproto, rchan, T=T)
+        assert set(rep) == set(rrep)
+        for k in rep:
+            np.testing.assert_array_equal(rep[k], rrep[k])
+    assert rep["epsilon_worst"] == pytest.approx(0.1, rel=1e-9)
+    W = proto.mixing_matrix()
+    np.testing.assert_array_equal(
+        privacy.epsilon_dwfl_topology(0.05, 1.0, chan, 1e-5, W),
+        rpriv.epsilon_dwfl_topology(0.05, 1.0, rchan, 1e-5, W))
+    assert privacy.sigma_for_epsilon_topology(0.3, 0.05, 1.0, chan, 1e-5, W) \
+        == rpriv.sigma_for_epsilon_topology(0.3, 0.05, 1.0, rchan, 1e-5, W)
 
 
 @pytest.mark.parametrize("scheme,topology", [

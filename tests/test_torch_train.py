@@ -168,8 +168,8 @@ def test_cli_runs_on_cpu_flat_buffer():
     assert "[train] step=    0 loss=" in r.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["--total-epsilon", "1"], "A6"),
-                                       (["--channel-model=dynamic"], "A9"),
+@pytest.mark.parametrize("argv,item", [(["--sparse-neighbors", "4"], "A10"),
+                                       (["--log", "x"], "A11"),
                                        (["--arch", "gemma-2b"], "A15"),
                                        (["--replicates", "2"], "A12")])
 def test_cli_names_the_roadmap_item_of_unported_flags(argv, item):
@@ -205,6 +205,8 @@ def test_no_source_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    assert {"simulator.py", "fading.py", "geometry.py"} <= {
+        f.name for f in files if f.parent.name == "net"}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
