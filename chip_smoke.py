@@ -34,7 +34,16 @@ Phases, each fatal on failure (exit code 1, no result line):
              self_scale 0) and a ring's (a sparse W), at the path's shape
              in float32 and bfloat16, the dynamic one also at N = 50 and
              51 (both routes), the rows with listen = 0 within 1 ULP of
-             the plain version's p - gamma g;
+             the plain version's p - gamma g; the sparse round
+             (neighbor-list mixing: dp_mix_prep + dp_mix_gather) at the
+             worker-scale path's shape (N = 2048, d = 855,050, a
+             mesh_sparse round's list capped at k = 12) in float32 and
+             bfloat16, noisy and gossip, against its plain twin over three
+             column windows, float32 noisy timed beside the twin over the
+             whole round and its bound (sparse_work); with zero weights
+             bitwise the dense kernel's round at N = 64 (col0 0 and 4096)
+             and 2048, and the list against SparseW.dense() through the
+             dense kernel at N = 64;
 4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
              batch 32, d = 855,050), 51 rounds; every loss finite and
@@ -47,7 +56,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              trajectory over every round; vehicular under a total budget
              (``--total-epsilon 8 --accountant rdp``), 5 rounds; one small
              dynamic flat round on the card against the CPU's from the same
-             replayed channel, W and seed;
+             replayed channel, W and seed; the worker-scale CLI
+             (``--channel-model dynamic --scenario mesh_sparse
+             --sparse-neighbors 12 --workers 2048``, 5 rounds): one sparse
+             dp_mix call a round and no dense one, its rounds/s and peak
+             device memory;
 5. tree    — the worker-tree path, ``make_train_step(DWFL_PAPER,
              ProtocolConfig(scheme=..., use_pallas=True))`` through the
              trajectory body at full width for each of dwfl, gossip,
@@ -61,6 +74,12 @@ Phases, each fatal on failure (exit code 1, no result line):
              11 rounds, one dp_perturb launch a round; one warm dynamic
              flat round under ``torch.cuda.set_sync_debug_mode("error")``:
              sim.round, its plan and the dp_mix call synchronize nothing;
+             the same for the sparse round at N = 2048 (its round body at
+             N = 64); the sparse dynamic tree round (mesh_sparse, N = 64,
+             use_pallas=True) 11 rounds, one dp_perturb launch a round;
+             in turns at N = 2048, the sparse round against the dense
+             large-N route and the simulator's sparse round against its
+             dense one;
              the static and the dynamic flat round and the simulator's
              round timed in turns, and the flat CLI, static and dynamic,
              warm and without evals, in turns;
@@ -218,6 +237,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
 # first)
 DYN_SCENARIO, DYN_STEPS, DYN_TREE_SCENARIO = "iot_dense", 50, "drone_sparse"
 DYN_PLAN_N = (PATH_N, 50, 51)
+# the worker-scale path (ROADMAP A10): mesh_sparse at N = 2048 with a degree
+# cap of 12 (benchmarks/workers_bench.py's k), 5 rounds (the CLI runs
+# --steps + 1); the tree round's N
+SPARSE_SCENARIO, SPARSE_N, SPARSE_K, SPARSE_STEPS = "mesh_sparse", 2048, 12, 4
+SPARSE_TREE_N = 64
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
@@ -254,6 +278,36 @@ PREDICTIONS = {
                  "phases: the static flat CLI 280-360 rounds/s, the dynamic "
                  "one 220-300 (PR 20's call 3 measured 311.70-316.38 and "
                  "171.32-177.31 after serving)",
+    "sparse_kernel": "the sparse round (dp_mix_prep + dp_mix_gather) within "
+                     "its tolerance of the plain twin at (2048, 855,050, k "
+                     "12) in float32 and bfloat16, noisy and gossip; float32 "
+                     "noisy 30-40 ms (PR 21's probe: 35.2) against a bound "
+                     "of ~7 ms (operations) and a workspace floor of 18.8; "
+                     "with zero weights bitwise the dense kernel's round at "
+                     "N = 64 and 2048; the graph against SparseW.dense() "
+                     "at N = 64 within 1e-5",
+    "sparse_cli": "5 dp_mix_round_sparse calls in 5 rounds and no dense "
+                  "dp_mix_round, every loss finite, epsilon over 5 rounds; "
+                  "6-9 rounds/s over the 5 rounds, the first eval and "
+                  "first calls included (PR 21's probe: 7.51); peak 38-44 "
+                  "GiB (the probe: 40.6: the buffer, its clipped gradient, "
+                  "the output and the [2, N, d] workspace, 6.5 GiB each "
+                  "but the workspace's 13)",
+    "sparse_sync": "no synchronizing call in sim.round's neighbor-list "
+                   "build, plan_dynamic_sparse and the sparse dp_mix call at "
+                   "N = 2048; the whole round body at N = 64 also free of one",
+    "sparse_turns": "in turns at N = 2048: the sparse round 30-40 ms, the "
+                    "dense large-N route 250-280 ms (PR 19: 266.6), so "
+                    "7-9x (PR 21's probe: 34.8 against 265.7); the "
+                    "simulator's sparse round 1.5-2.5 ms against its dense "
+                    "one's 0.9-1.3 (the probe: 1.84 against 1.06: the block "
+                    "sort and the gathers are more launches than the [N, N] "
+                    "graph); the whole sparse flat round 60-100 ms (the mix "
+                    "35, the gradient pass, its clip and the metrics over "
+                    "the 7 GB buffer 20-50, the simulator 2)",
+    "sparse_tree": "one dp_perturb launch (sgd_update_leaves) a sparse "
+                   "dynamic tree round at N = 64, 11 in 11, W a SparseW, "
+                   "every loss finite",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -1113,6 +1167,446 @@ def cli_turns(steps: int = 50) -> dict:
     return rate
 
 
+# ---- the sparse round (neighbor-list mixing, ROADMAP A10) -------------------
+
+
+def sparse_proto(N: int, **kw):
+    """The worker-scale path's protocol: mesh_sparse with a degree cap of
+    SPARSE_K."""
+    return dynamic_proto(N, SPARSE_SCENARIO, sparse_neighbors=SPARSE_K, **kw)
+
+
+def sparse_round(N: int, seed: int = 0):
+    """A mesh_sparse round of the port's simulator on the card at N
+    workers: (proto, plan, chan, W), W a SparseW, the plan
+    plan_dynamic_sparse's."""
+    import torch
+    proto = sparse_proto(N)
+    sim = proto.simulator("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    state, chan, _, W = sim.round(gen, sim.init(gen))
+    return proto, proto.plan(chan, "cuda", W), chan, W
+
+
+def sparse_args(plan, p, g, seed: int = 1234567, col0: int = 0):
+    """A sparse round's operands as ops._launch_sparse takes them."""
+    import torch
+    N = p.shape[0]
+    seed_t, col0_t = (torch.tensor([s], dtype=torch.int32, device="cuda")
+                      for s in (seed, col0))
+    c = plan.c.reshape(())
+    ones = torch.ones(N, device="cuda")
+    return (p, g, seed_t, col0_t, torch.stack([c, plan.sigma_m.reshape(())]),
+            plan.amp, ones, plan.m_scale, plan.listen,
+            plan.W.idx.contiguous(), plan.W.w.contiguous(),
+            plan.W.self_w.contiguous())
+
+
+def sparse_element_ops(slots: float, noisy: bool) -> float:
+    """dp_mix_element_ops with the mix's N products replaced by the
+    element's realized slots and its self term."""
+    return 2 + (7 if noisy else 1) + 1 + slots + 1
+
+
+def sparse_work(N: int, d: int, k: int, elem: int, noisy: bool, nnz: int,
+                counts: dict, rates: dict, branches: Optional[dict]) -> dict:
+    """The least time the card could take for a sparse round, the longest
+    of: its bytes (p and g read, out written once, the neighbor list and
+    the vectors) over 3.35 TB/s; its instructions (each normal on the
+    branches its t takes, from the SASS, and sparse_element_ops at this
+    run's mean realized slots an element) over SMs x 128 lanes x the SM
+    clock; the mix's (nnz + N) d fused multiply-adds (the realized slots
+    and the self term) at 67 TFLOP/s. Beside it, the design's own floor:
+    the prep writes z and nf (float32) and the gather reads p, g, nf and z
+    once, so 2 (elem + 8) + elem bytes an element (gathered_from_hbm_ms:
+    each of the k gathered rows of z from HBM as well)."""
+    nbytes = 3 * N * d * elem + N * k * 8 + 6 * N * 4 + 16
+    instr = N * d * sparse_element_ops(nnz / N, noisy)
+    if noisy:
+        instr += (branches["small"] * counts["small"]
+                  + branches["large"] * counts["large"]
+                  + branches["tail"] * counts["tail_extra"])
+    t = {"bytes": nbytes / HBM_BYTES_PER_S,
+         "instructions": instr / (rates["sms"] * 128 * rates["sm_clock_hz"]),
+         "fma": 2 * (nnz + N) * d / F32_FLOP_PER_S}
+    bound = max(t.values())
+    ws = (2 * elem + (8 if noisy else 4)) + (2 * elem + (8 if noisy else 4)
+                                             + elem)
+    return {"bytes": nbytes, "lane_instructions": instr,
+            "fmas": (nnz + N) * d, "bytes_ms": 1e3 * t["bytes"],
+            "instructions_ms": 1e3 * t["instructions"],
+            "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
+            "bound_by": "bytes" if t["bytes"] == bound else "operations",
+            "workspace_bytes": N * d * ws,
+            "workspace_floor_ms": 1e3 * N * d * ws / HBM_BYTES_PER_S,
+            "gathered_from_hbm_ms": 1e3 * N * d * (ws + 4 * k)
+            / HBM_BYTES_PER_S}
+
+
+def check_sparse(N: int, d: int, dtype, noisy: bool, counts: dict,
+                 rates: dict, timed: bool, width: int = 4096) -> dict:
+    """The sparse round (dp_mix_prep + dp_mix_gather) at [N, d] on a
+    mesh_sparse round's neighbor list, once, held against its plain twin
+    over three column windows (the first, one in the middle, the ragged
+    last), each with its col0 and the full counter_width so it draws the
+    same noise; tolerance dp_mix_tolerance with the k + 1 terms of the
+    mix in place of N. Timed: the kernel, the plain twin over the whole
+    round in windows of 2^16 columns, and the bound (sparse_work)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_sparse_plain
+    from repro_torch.net.sparse import isolated_count
+    proto, plan, _, W = sparse_round(N)
+    gen = torch.Generator(device="cuda").manual_seed(N + d)
+    p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.1 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
+    args = sparse_args(plan, p, g)
+    kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=noisy,
+              counter_width=ops._roundup(d, ops.LANES))
+    kernel = lambda: ops._launch_sparse(*args, **kw)
+    out = kernel()
+    torch.cuda.synchronize()
+    seed, _, *rest = args[2:]
+
+    def window(a, b):
+        col0 = torch.tensor([a], dtype=torch.int32, device="cuda")
+        return dp_mix_sparse_plain(p[:, a:b].contiguous(),
+                                   g[:, a:b].contiguous(), seed, col0, *rest,
+                                   **kw)
+
+    max_err, bad, tol = 0.0, 0, 0.0
+    k = W.k
+    for a in (0, (d // 2) // width * width, d - (d % width or width)):
+        b = min(a + width, d)
+        ref = window(a, b).float()
+        k32 = out[:, a:b].float()
+        if not torch.isfinite(k32).all():
+            fail(f"sparse round N={N}: non-finite output in [{a}, {b})")
+        allowed, tol = dp_mix_tolerance(k + 1, p[:, a:b], g[:, a:b],
+                                        proto.gamma, plan, noisy, k32, ref,
+                                        dtype == torch.bfloat16)
+        err = (k32 - ref).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > allowed).sum())
+        del ref, k32, err, allowed
+    del out
+    nnz = int(W.valid().sum())
+    rec = {"N": N, "d": d, "k": k, "dtype": str(dtype).split(".")[-1],
+           "noisy": noisy, "realized_slots": nnz,
+           "isolated": int(isolated_count(W)), "windows": 3, "window": width,
+           "max_abs_err": max_err, "tol_f32": tol, "violations": bad}
+    if timed:
+        rec["ms"] = cuda_ms(kernel, iters=3, warmup=1)
+        torch.cuda.empty_cache()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        window(0, min(d, 1 << 16))
+        torch.cuda.synchronize()
+        start.record()
+        for a in range(0, d, 1 << 16):
+            window(a, min(a + (1 << 16), d))
+        end.record()
+        torch.cuda.synchronize()
+        rec["plain_ms"] = start.elapsed_time(end)
+        branches = (noise_branches(N, d, kw["counter_width"], 1234567)
+                    if noisy else None)
+        rec.update(sparse_work(N, d, k, p.element_size(), noisy, nnz, counts,
+                               rates, branches))
+        rec["branches"] = branches
+    print(f"[kernels] dp_mix sparse {json.dumps(rec)}", flush=True)
+    if bad:
+        fail(f"sparse round N={N} {rec['dtype']} noisy={noisy}: {bad} "
+             f"elements beyond tolerance (max err {max_err:.3g})")
+    return rec
+
+
+def check_sparse_against_dense(N: int, d: int, col0: int) -> dict:
+    """With every slot weight and self_w 0 the sparse round is v alone:
+    bitwise the dense kernel's round with W = 0 at the same seed, col0 and
+    counter_width (the noise fields of both, and v, the same arithmetic).
+    With the round's own neighbor list, the sparse kernel against the
+    dense kernel given SparseW.dense() (N = 64 only: an [N, N] W), within
+    1e-5 (their sums run in other orders)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    _, plan, _, W = sparse_round(N)
+    gen = torch.Generator(device="cuda").manual_seed(N)
+    p = torch.randn((N, d), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((N, d), generator=gen, device="cuda")
+    args = list(sparse_args(plan, p, g, col0=col0))
+    kw = dict(gamma=0.01, eta=0.4, noisy=True,
+              counter_width=ops._roundup(d + col0, ops.LANES))
+    rec = {"N": N, "d": d, "col0": col0, "dense_route": dp_mix_route(N, d)}
+    if N <= 64:
+        sparse = ops._launch_sparse(*args, **kw)
+        dense = ops._launch(*args[:9], W.dense().contiguous(), **kw)
+        torch.cuda.synchronize()
+        rec["graph_max_abs_err"] = float((sparse - dense).abs().max())
+        del sparse, dense
+    args[10], args[11] = torch.zeros_like(args[10]), torch.zeros_like(args[11])
+    sparse = ops._launch_sparse(*args, **kw)
+    torch.cuda.synchronize()
+    dense = ops._launch(*args[:9], torch.zeros((N, N), device="cuda"), **kw)
+    torch.cuda.synchronize()
+    rec["zero_w_differ"] = int((sparse.view(torch.int32)
+                                != dense.view(torch.int32)).sum())
+    del sparse, dense
+    print(f"[kernels] dp_mix sparse vs dense {json.dumps(rec)}", flush=True)
+    if rec["zero_w_differ"] or rec.get("graph_max_abs_err", 0.0) > 1e-5:
+        fail(f"the sparse round against the dense one: {rec}")
+    return rec
+
+
+def sparse_kernel_phase(counts: dict, rates: dict) -> dict:
+    """The sparse round at the path's shape (N = 2048, d = 855,050, k =
+    12) in float32 and bfloat16, noisy and gossip, float32 noisy timed;
+    bitwise the dense kernel with zero weights at N = 64 and 2048; the
+    prediction printed first."""
+    import torch
+    predict("sparse_kernel")
+    path = None
+    for dtype in (torch.float32, torch.bfloat16):
+        for noisy in (True, False):
+            timed = dtype == torch.float32
+            rec = check_sparse(SPARSE_N, PATH_D, dtype, noisy, counts, rates,
+                               timed)
+            if timed and noisy:
+                path = rec
+            torch.cuda.empty_cache()
+    for N, col0 in ((64, 0), (64, 4096), (SPARSE_N, 0)):
+        check_sparse_against_dense(N, PATH_D - col0, col0)
+        torch.cuda.empty_cache()
+    return path
+
+
+def sparse_cli() -> dict:
+    """The worker-scale CLI at full width (dwfl-paper, mesh_sparse, N =
+    2048, --sparse-neighbors 12, 5 rounds), the dp_mix counts set to 0
+    just before and read just after: one dp_mix_round_sparse call a round
+    and no dense dp_mix_round; every loss finite, the epsilon trajectory
+    over every round; its rounds/s, peak device memory and the active
+    workers the CLI found isolated in its first graph draw (it prints a
+    warning when there are any)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    predict("sparse_cli")
+    torch.cuda.reset_peak_memory_stats()
+    ops.dp_mix_round_sparse.launches = ops.dp_mix_round.launches = 0
+    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                     "--channel-model", "dynamic", "--scenario",
+                     SPARSE_SCENARIO, "--sparse-neighbors", str(SPARSE_K),
+                     "--workers", str(SPARSE_N), "--steps",
+                     str(SPARSE_STEPS), "--device", "cuda"])
+    sparse, dense = ops.dp_mix_round_sparse.launches, ops.dp_mix_round.launches
+    rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
+    rec = {"scenario": SPARSE_SCENARIO, "N": SPARSE_N, "k": SPARSE_K,
+           "rounds": rounds, "seconds": res["seconds"],
+           "rounds_per_s": rounds / res["seconds"],
+           "sparse_launches": sparse, "dense_launches": dense,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "isolated_workers": res["isolated_workers"],
+           "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+           "eps_rounds": rep["rounds"], "eps_worst": rep["epsilon_worst"],
+           "eps_total": rep["epsilon_total"]}
+    print(f"[sparse] cli {json.dumps(rec)}", flush=True)
+    if sparse != rounds or dense or rep["rounds"] != rounds:
+        fail(f"sparse cli: {sparse} sparse and {dense} dense dp_mix calls, "
+             f"epsilon over {rep['rounds']} rounds, for {rounds} rounds")
+    if not (torch.isfinite(losses).all()
+            and torch.isfinite(res["params"]).all()
+            and np_finite(rep["epsilon_per_round"])):
+        fail("sparse cli: non-finite losses, parameters or epsilons")
+    return rec
+
+
+def sparse_round_sync_free() -> dict:
+    """The sparse dynamic flat round with the device's synchronizing calls
+    made errors, as dynamic_round_sync_free: sim.round (the neighbor-list
+    build), plan_dynamic_sparse and the sparse dp_mix call at N = 2048,
+    which must pass; the whole round body at N = 64 (batch, gradients,
+    metrics), noted."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_mix import ops
+    predict("sparse_sync")
+    proto = sparse_proto(SPARSE_N)
+    sim = proto.simulator("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    net = sim.init(gen)
+    net, *_ = sim.round(gen, net)
+    flat = torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    small = sparse_proto(64)
+    store = paper_store(64)
+    wp = P.init_worker_params(gen, DWFL_PAPER, 64, "cuda")
+    spec = X.FlatSpec(wp)
+    small_sim = small.simulator("cuda")
+    body = TJ.make_round_body(DWFL_PAPER, small, store, spec, "cuda",
+                              sim=small_sim)
+    carry, _ = TJ.run_chunk(body, TJ.TrajCarry(gen, spec.flatten(wp),
+                                               small_sim.init(gen)), 2)
+    probe = torch.ones(1, device="cuda")
+    torch.cuda.synchronize()
+    rec, out = {}, None
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        try:
+            net, chan, _, W = sim.round(gen, net)
+            plan = proto.plan(chan, "cuda", W)
+            out = ops.dp_mix_round_plan(flat, g, TJ.round_seed(gen), plan,
+                                        gamma=proto.gamma, eta=proto.eta)
+            rec["round_sync_free"] = True
+        except RuntimeError as e:
+            rec["round_sync_free"] = False
+            rec["round_error"] = str(e).splitlines()[0]
+        try:
+            body(carry)
+            rec["body_sync_free"] = True
+        except RuntimeError as e:
+            rec["body_sync_free"] = False
+            rec["body_error"] = str(e).splitlines()[0]
+        try:
+            probe.sum().item()
+            rec["guard_raises"] = False
+        except RuntimeError:
+            rec["guard_raises"] = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print(f"[sparse] sync debug mode 'error': {json.dumps(rec)}", flush=True)
+    if not (rec["round_sync_free"] and rec["guard_raises"]):
+        fail(f"the sparse round synchronizes with the host: {rec}")
+    if not torch.isfinite(out).all():
+        fail("the guarded sparse round gave non-finite parameters")
+    return rec
+
+
+def sparse_flat_round_ms(proto, n_rounds: int = 3) -> list:
+    """The whole dynamic sparse flat round at full width and N = 2048
+    (batch, the simulator's round, gradients and clip, the sparse dp_mix
+    call, metrics) through the trajectory body, warm: host clock around
+    ``n_rounds`` rounds ending in a synchronize, twice."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, SPARSE_N, "cuda")
+    spec = X.FlatSpec(wp)
+    sim = proto.simulator("cuda")
+    body = TJ.make_round_body(DWFL_PAPER, proto, paper_store(SPARSE_N), spec,
+                              "cuda", sim=sim)
+    carry = TJ.TrajCarry(gen, spec.flatten(wp), sim.init(gen))
+    del wp
+    carry, _ = TJ.run_chunk(body, carry, 2)
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = TJ.run_chunk(body, carry, n_rounds)
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0) / n_rounds)
+    return out
+
+
+def sparse_turns() -> dict:
+    """At N = 2048 and the path's d, in turns (sparse, dense, dense,
+    sparse), each timed by CUDA events: the sparse round's kernels against
+    the dense large-N route given the same round's SparseW.dense(); then
+    the simulator's mesh_sparse round with the neighbor list against the
+    same scenario's dense round (Metropolis weights of the [N, N]
+    unit-disk graph), host clock around 10 rounds ending in a
+    synchronize, in turns; then the whole sparse flat round
+    (sparse_flat_round_ms)."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    predict("sparse_turns")
+    proto, plan, _, W = sparse_round(SPARSE_N)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    p = torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    args = sparse_args(plan, p, g)
+    kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
+              counter_width=ops._roundup(PATH_D, ops.LANES))
+    dense_W = W.dense().contiguous()
+    runs = {"sparse": lambda: ops._launch_sparse(*args, **kw),
+            "dense": lambda: ops._launch(*args[:9], dense_W, **kw)}
+    ms = {"sparse": [], "dense": []}
+    for name in ("sparse", "dense", "dense", "sparse"):
+        ms[name].append(cuda_ms(runs[name], iters=2, warmup=1))
+        torch.cuda.empty_cache()
+    sims = {"sparse": proto.simulator("cuda"),
+            "dense": dynamic_proto(SPARSE_N, SPARSE_SCENARIO).simulator(
+                "cuda")}
+    gens = {n: torch.Generator(device="cuda").manual_seed(0) for n in sims}
+    states = {n: sims[n].init(gens[n]) for n in sims}
+    for n in sims:
+        for _ in range(3):
+            states[n] = sims[n].round(gens[n], states[n])[0]
+    sim_ms = {"sparse": [], "dense": []}
+    for name in ("sparse", "dense", "dense", "sparse"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            states[name] = sims[name].round(gens[name], states[name])[0]
+        torch.cuda.synchronize()
+        sim_ms[name].append(1e3 * (time.perf_counter() - t0) / 10)
+    del p, g, args, runs
+    torch.cuda.empty_cache()
+    rec = {"N": SPARSE_N, "d": PATH_D, "k": SPARSE_K, "round_ms": ms,
+           "simulator_round_ms": sim_ms,
+           "flat_round_ms": sparse_flat_round_ms(proto)}
+    print(f"[sparse] in turns {json.dumps(rec)}; {nvidia_smi()}", flush=True)
+    return rec
+
+
+def sparse_tree(N: int = 64) -> int:
+    """The dynamic worker-tree round with the neighbor list (mesh_sparse,
+    --sparse-neighbors, use_pallas=True) at full width and N workers
+    through the trajectory body, dp_perturb's counts set to 0 just before
+    and read just after: one sgd_update_leaves launch a round."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_perturb import ops
+    from repro_torch.net.sparse import SparseW
+    predict("sparse_tree")
+    proto = sparse_proto(N, use_pallas=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, N, "cuda")
+    sim = proto.simulator("cuda")
+    body = TJ.make_round_body(DWFL_PAPER, proto, paper_store(N),
+                              device="cuda", sim=sim)
+    carry = TJ.TrajCarry(gen, wp, sim.init(gen))
+    ops.sgd_update_leaves.launches = 0
+    ops.sgd_update.launches = ops.dp_perturb.launches = 0
+    carry, out = TJ.run_chunk(body, carry, TREE_ROUNDS)
+    torch.cuda.synchronize()
+    launches = ops.sgd_update_leaves.launches
+    others = ops.sgd_update.launches + ops.dp_perturb.launches
+    rep = P.epsilon_report(proto, out["chan"], Ws=out["W"])
+    losses = out["metrics"]["loss"].cpu()
+    rec = {"scenario": SPARSE_SCENARIO, "N": N, "k": SPARSE_K,
+           "rounds": TREE_ROUNDS, "launches": launches,
+           "w_is_sparse": isinstance(out["W"], SparseW),
+           "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
+           "eps_worst": rep["epsilon_worst"]}
+    print(f"[sparse] tree {json.dumps(rec)}", flush=True)
+    if launches != TREE_ROUNDS or others or not rec["w_is_sparse"]:
+        fail(f"sparse tree: sgd_update_leaves launched {launches} times for "
+             f"{TREE_ROUNDS} rounds, the per-leaf wrappers {others} times, "
+             f"W sparse: {rec['w_is_sparse']}")
+    if not (torch.isfinite(losses).all() and tree_leaves_finite(carry.params)
+            and np_finite(rep["epsilon_per_round"])):
+        fail("sparse tree: non-finite losses, parameters or epsilons")
+    return launches
+
+
 def ulp_dist(a, b):
     """Elementwise ULP distance of two float32 tensors."""
     import torch
@@ -1351,13 +1845,14 @@ def tree_leaves_finite(tree) -> bool:
     return all(bool(torch.isfinite(l).all()) for l in X.tree_flatten(tree)[0])
 
 
-def paper_store():
-    """dwfl-paper's training data on the card, as the CLI builds it."""
+def paper_store(N: int = PATH_N):
+    """dwfl-paper's training data on the card for N workers, as the CLI
+    builds it."""
     from repro_torch.data import (ClassificationStore, classification_dataset,
                                   dirichlet_partition)
     x, y = classification_dataset(20000, seed=0)
     return ClassificationStore.build(
-        x, y, dirichlet_partition(y, PATH_N, alpha=0.5, seed=0), 32, "cuda")
+        x, y, dirichlet_partition(y, N, alpha=0.5, seed=0), 32, "cuda")
 
 
 def train_tree_schemes(store) -> int:
@@ -2060,6 +2555,7 @@ def main() -> int:
         check_noise_fields(N, PATH_D)
         torch.cuda.empty_cache()
     dp_mix_plans_phase()
+    sparse_rec = sparse_kernel_phase(counts, rates)
     perturb_rec = dp_perturb_phase()
     flash_rec, flash16_rec = flash_phase()
     ssd_rec = ssd_phase()
@@ -2072,6 +2568,8 @@ def main() -> int:
     train_step_cpu_vs_cuda()
     dyn_launches = dynamic_cli()
     dynamic_round_cpu_vs_cuda()
+    sparse_launches = sparse_cli()["sparse_launches"]
+    torch.cuda.empty_cache()
 
     # 5. the worker-tree path, counted per scheme; then on the dynamic
     # network
@@ -2081,6 +2579,10 @@ def main() -> int:
     tree_round_cpu_vs_cuda()
     dyn_perturb_launches = dynamic_tree(store)
     dynamic_round_sync_free(store)
+    sparse_round_sync_free()
+    sparse_tree(SPARSE_TREE_N)
+    sparse_turns()
+    torch.cuda.empty_cache()
     predict("turns")
     round_turns(store, "after the training phases")
     predict("cli_turns")
@@ -2141,6 +2643,15 @@ def main() -> int:
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
         "bound_ms": path_rec["bound_ms"], "bound_by": path_rec["bound_by"],
         "library_ms": None}, {
+        "name": "dp_mix sparse round (dp_mix_prep + dp_mix_gather)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:153",
+        "launches": sparse_launches,
+        "max_abs_err": sparse_rec["max_abs_err"],
+        "ms": sparse_rec["ms"], "plain_ms": sparse_rec["plain_ms"],
+        "bound_ms": sparse_rec["bound_ms"],
+        "bound_by": sparse_rec["bound_by"], "library_ms": None}, {
         "name": "dp_perturb", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_perturb/csrc/dp_perturb.cu",
         "replaces": "src/repro/kernels/dp_perturb/dp_perturb.py:42",

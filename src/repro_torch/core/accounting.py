@@ -125,7 +125,7 @@ def rdp_dwfl_traced(gamma: float, g_max: float, chan, W=None) -> torch.Tensor:
     """The worst receiver's per-round RDP vector eps(alpha) [A] on the
     order grid, on the channel's device (W None: the complete graph). A
     receiver that hears nothing contributes rho = 0. A stacked trajectory
-    (leaves [T, ...], Ws [T, N, N]) gives [T, A]."""
+    (leaves [T, ...], Ws [T, N, N] or a stacked SparseW) gives [T, A]."""
     from repro_torch.core.privacy import _masking_sums, _rx
     num = 2.0 * gamma * g_max * _rx(chan.c)
     mask_sum, listening = _masking_sums(chan, W)

@@ -1,7 +1,10 @@
-"""DWFL, Algorithm 1 — the static exchanges of the reference's
-``repro.core.dwfl`` over worker-stacked trees ([N, ...] leaves), each a
-named wrapper over the mixing engine (``repro_torch.core.exchange``), and
-the Eqt. (8) matrix-form oracle.
+"""DWFL, Algorithm 1 — the exchanges of the reference's ``repro.core.dwfl``
+over worker-stacked trees ([N, ...] leaves), each a named wrapper over the
+mixing engine (``repro_torch.core.exchange``): the paper's complete graph,
+the orthogonal and centralized baselines, a gossip topology, a round of
+the dynamic network (dense W or neighbor list) and sampled participation;
+and the Eqt. (8) matrix-form oracle. The collective exchanges are ROADMAP
+A14.
 
 Interpretation (the reference's, DESIGN.md): the self-correction term of
 Eqt. (7) contains the receiver's own channel noise m_i, which a real
@@ -43,6 +46,40 @@ def exchange_centralized(X, noise_n, G_m, chan: ChannelState):
     one [1, ...] standard-normal field per leaf."""
     return engine.run_centralized(
         X, noise_n, G_m, engine.plan_centralized(None, chan, _device(X)))
+
+
+def exchange_dwfl_topology(X, noise_n, noise_m, chan: ChannelState,
+                           eta: float, W):
+    """DWFL over a doubly-stochastic gossip topology W (worker i's
+    superposition covers its radio neighborhood; core.topology): the
+    engine with ``plan_topology``'s W and m_scale = 1/(c deg). The complete
+    graph gives ``exchange_dwfl``."""
+    return engine.run_mix(X, noise_n, noise_m, eta,
+                          engine.plan_topology(None, chan, _device(X), W=W))
+
+
+def exchange_dwfl_dynamic(X, noise_n, noise_m, chan, eta: float, W):
+    """DWFL over a round of the dynamic network: its channel (a
+    ``net.TracedChannelState``) and W, dense [N, N] or a neighbor list
+    (``net.sparse.SparseW``, mixed by row gathers). A worker with no active
+    neighbor takes no update (the plan's listen = 0)."""
+    from repro_torch.net.sparse import SparseW
+    plan = (engine.plan_dynamic_sparse if isinstance(W, SparseW)
+            else engine.plan_dynamic)
+    return engine.run_mix(X, noise_n, noise_m, eta,
+                          plan(None, chan, _device(X), W=W))
+
+
+def exchange_dwfl_sampled(X, noise_n, noise_m, chan: ChannelState,
+                          eta: float, participate):
+    """DWFL under per-round participation (amplification by subsampling):
+    ``participate`` bool [N] is the round's transmit set. A receiver
+    averages the transmitters it hears, W_ik = p_k (1 - d_ik) /
+    max(n_tx - p_i, 1); everyone mixes, and subtracts its own DP noise only
+    in a round it sent (self_scale = p)."""
+    W, p, denom = engine.sampled_W(participate.to(_device(X)))
+    return engine.mix_exchange(X, noise_n, noise_m, chan.c, eta, W,
+                               self_scale=p, m_scale=1.0 / (chan.c * denom))
 
 
 def matrix_form_reference(X_flat, G_flat, noise_n_flat, noise_m_flat,

@@ -17,6 +17,7 @@ the worker-tree round (``run_mix``) and the fused flat round
     dwfl         ((1) - I)/(N-1)  (``plan_complete``)    1 / m/(c(N-1)) / 1
     ring/torus   core.topology W  (``plan_topology``)    1 / m/(c deg)  / 1
     dynamic      the round's net W  (``plan_dynamic``)   1 / m/(c deg)  / deg > 0
+    dyn. sparse  its neighbor list (``plan_dynamic_sparse``)  the same
     sampled      p_k(1-d_ik)/max(n_tx-p_i, 1)            p / m/(c den)  / 1
     gossip       complete, sigma = sigma_m = 0           1 / 0          / 1
     orthogonal   complete, c = 1, gain-inverted noise    0 / link AWGN  / 1
@@ -28,8 +29,10 @@ round from the round's W (dynamic) or participation mask (sampled), on
 the device: the dynamic plan reads a ``net.TracedChannelState``'s tensors
 as they are, with no host round trip. ``resolve_spec`` routes a
 ProtocolConfig to its ``ExchangeSpec``; only the mixing family
-(``fuse_ok``) may run as the fused flat round. The neighbor-list round
-(ROADMAP A10) and the collective one (A14) are not ported yet.
+(``fuse_ok``) may run as the fused flat round. A neighbor-list W
+(``net.sparse.SparseW``) mixes by k row gathers (``mix_exchange_sparse``;
+``run_mix`` dispatches on it). The collective round (ROADMAP A14) is not
+ported yet.
 
 Randomness: a round's exchange consumes standard normals as a tree
 ({"n": ..., "m": ...}, ``draw_normals``), drawn from an explicit
@@ -110,7 +113,7 @@ Vector = Union[torch.Tensor, float]      # [N] tensor, or one number for all
 @dataclass(frozen=True)
 class MixPlan:
     """Everything a round of one scheme needs beyond (params, grads)."""
-    W: torch.Tensor                          # [N, N]
+    W: Any                                   # [N, N], or a SparseW
     c: torch.Tensor                          # alignment constant
     amp: torch.Tensor                        # [N] DP-noise amplitude
     sigma_m: torch.Tensor                    # receiver AWGN std
@@ -175,6 +178,23 @@ def plan_dynamic(proto, chan, device="cuda", W=None) -> MixPlan:
     return MixPlan(W=W, c=c, amp=mix_noise_amp(chan, dev),
                    sigma_m=_scalar(chan.awgn_sigma, dev),
                    m_scale=1.0 / (c * deg),
+                   listen=(off_deg > 0).to(torch.float32))
+
+
+def plan_dynamic_sparse(proto, chan, device="cuda", W=None) -> MixPlan:
+    """``plan_dynamic`` for a round's neighbor list (``net.sparse.SparseW``):
+    the plan carries the SparseW as its W, and its listen and m_scale are
+    the dense plan's (the off-degree counts the same integers as
+    sum((W > 0) & ~eye, 1))."""
+    dev = resolve_device(device)
+    if W is None:
+        raise ValueError("the dynamic plan needs the round's mixing matrix")
+    sw = W.to(dev)
+    off_deg = sw.off_degree()
+    c = _scalar(chan.c, dev)
+    return MixPlan(W=sw, c=c, amp=mix_noise_amp(chan, dev),
+                   sigma_m=_scalar(chan.awgn_sigma, dev),
+                   m_scale=1.0 / (c * torch.clamp_min(off_deg, 1.0)),
                    listen=(off_deg > 0).to(torch.float32))
 
 
@@ -260,19 +280,21 @@ def tree_flatten(tree):
     return [tree], None
 
 
+def _build(s, it):
+    if s is None:
+        return next(it)
+    kind, keys, subs = s
+    children = [_build(c, it) for c in subs]
+    if kind == "dict":
+        return dict(zip(keys, children))
+    return children if kind == "list" else tuple(children)
+
+
 def tree_unflatten(structure, leaves: List[Any]):
-    it = iter(leaves)
-
-    def build(s):
-        if s is None:
-            return next(it)
-        kind, keys, subs = s
-        children = [build(c) for c in subs]
-        if kind == "dict":
-            return dict(zip(keys, children))
-        return children if kind == "list" else tuple(children)
-
-    return build(structure)
+    """The tree of ``structure`` with ``leaves`` in order. (A recursive
+    closure here would be a reference cycle holding the leaves until the
+    cyclic collector runs: gigabytes of gradients on a large buffer.)"""
+    return _build(structure, iter(leaves))
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -414,11 +436,46 @@ def mix_exchange(X, noise_n, noise_m, c, eta: float, W, *, self_scale=None,
     return tree_map(one, X, noise_n, noise_m)
 
 
+def mix_exchange_sparse(X, noise_n, noise_m, c, eta: float, sw, *,
+                        self_scale=None, m_scale=None, listen=None):
+    """``mix_exchange`` through a neighbor list (``net.sparse.SparseW``):
+    the [N, N] contraction becomes k row gathers of z = x + n/c,
+
+        mix_i = self_w_i z_i + sum_s w_is z_{idx_is}      (slot order)
+
+    O(N k) a leaf entry; the same update otherwise."""
+    N = sw.n_workers
+
+    def one(x, n, m):
+        xf = x.float()
+        nf = n.float() / c
+        z = xf + nf
+        col = lambda v: v.reshape((N,) + (1,) * (x.ndim - 1))
+        mixed = col(sw.self_w.float()) * z
+        for s in range(sw.k):
+            mixed = mixed + col(sw.w[:, s]) * z[sw.idx[:, s].long()]
+        selfs = _vec(self_scale, N, x.ndim)
+        upd = mixed - xf - (nf if selfs is None else selfs * nf)
+        if m is not None:
+            mf = m.float()
+            ms = _vec(m_scale, m.shape[0], m.ndim)
+            upd = upd + (mf if ms is None else ms * mf)
+        li = _vec(listen, N, x.ndim)
+        if li is not None:
+            upd = li * upd
+        return (xf + eta * upd).to(x.dtype)
+
+    return tree_map(one, X, noise_n, noise_m)
+
+
 def run_mix(X, noise_n, noise_m, eta: float, plan: MixPlan):
-    """``mix_exchange`` with a plan's W and vectors (dense W)."""
-    return mix_exchange(X, noise_n, noise_m, plan.c, eta, plan.W,
-                        self_scale=plan.self_scale, m_scale=plan.m_scale,
-                        listen=plan.listen)
+    """The exchange with a plan's W and vectors: ``mix_exchange`` for a
+    dense W, ``mix_exchange_sparse`` for a neighbor list."""
+    from repro_torch.net.sparse import SparseW
+    mix = mix_exchange_sparse if isinstance(plan.W, SparseW) else mix_exchange
+    return mix(X, noise_n, noise_m, plan.c, eta, plan.W,
+               self_scale=plan.self_scale, m_scale=plan.m_scale,
+               listen=plan.listen)
 
 
 def run_orthogonal(X, G, plan: MixPlan, eta: float):
@@ -489,6 +546,8 @@ SPECS = {
     "gossip": ExchangeSpec("gossip", _run_gossip, plan_gossip),
     "topology": ExchangeSpec("topology", _run_noisy, plan_topology),
     "dynamic": ExchangeSpec("dynamic", _run_noisy, plan_dynamic),
+    "dynamic_sparse": ExchangeSpec("dynamic_sparse", _run_noisy,
+                                   plan_dynamic_sparse),
     "sampled": ExchangeSpec("sampled", _run_noisy, plan_sampled),
     "orthogonal": ExchangeSpec("orthogonal", _run_orthogonal_spec,
                                plan_orthogonal, fuse_ok=False),
@@ -512,10 +571,10 @@ def resolve_spec(proto, axis: Optional[str] = None,
         if proto.scheme != "dwfl":
             raise ValueError(f"dynamic channel model requires scheme='dwfl', "
                              f"got {proto.scheme!r}")
+        # sparse_neighbors > 0: the round's W is a neighbor list, mixed
+        # O(N k)
         if getattr(proto, "sparse_neighbors", 0):
-            raise NotImplementedError("the neighbor-list round "
-                                      "(dynamic_sparse) is not ported yet "
-                                      "(ROADMAP A10)")
+            return SPECS["dynamic_sparse"]
         return SPECS["dynamic"]
     if proto.scheme in ("gossip", "orthogonal", "centralized"):
         return SPECS[proto.scheme]

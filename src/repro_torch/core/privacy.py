@@ -7,8 +7,7 @@ budgets of a time-varying channel (on the device, from a round's
 per-worker gradient clip.
 
 The ``_batched`` fleet form of ``epsilon_trajectory`` is not ported yet
-(ROADMAP A12); ``_masking_sums`` takes a dense W only (the neighbor-list
-W is ROADMAP A10).
+(ROADMAP A12).
 """
 from __future__ import annotations
 
@@ -157,10 +156,18 @@ def _masking_sums(chan, W=None):
     graph. With the round's dense W, a receiver is masked by its active
     off-diagonal neighbors only: churned-out workers have zero rows and
     columns, and a worker with no neighbor hears nothing. Leaves may carry
-    a leading round axis ([T, N], W [T, N, N])."""
+    a leading round axis ([T, N], W [T, N, N]). W may be a neighbor list
+    (``net.sparse.SparseW``, [T, N, k] leaves when stacked): the sum then
+    gathers each receiver's realized neighbors' s^2, O(N k)."""
+    from repro_torch.net.sparse import SparseW
     s2 = chan.noise_scale ** 2
     if W is None:
         return s2.sum(-1, keepdim=True) - s2, torch.ones_like(s2, dtype=torch.bool)
+    if isinstance(W, SparseW):
+        rows = s2.unsqueeze(-2).expand(*W.idx.shape[:-1], s2.shape[-1])
+        heard = torch.gather(rows, -1, W.idx.long())
+        return ((W.valid().to(s2.dtype) * heard).sum(-1),
+                W.off_degree() > 0)
     n = s2.shape[-1]
     adj = ((W > 0) & ~torch.eye(n, dtype=torch.bool, device=W.device)
            ).to(s2.dtype)
@@ -201,9 +208,9 @@ def epsilon_trajectory(gamma: float, g_max: float, chans, delta: float,
                        Ws=None) -> torch.Tensor:
     """Per-round, per-receiver budgets [T, N] over a stacked trajectory
     (``net.stack_states``; ``Ws`` the matching [T, N, N] mixing matrices
-    — pass them whenever the scenario has limited range or churn, or the
-    complete-graph formula over-counts the masking noise). One batched
-    evaluation, no loop over rounds."""
+    or a SparseW of [T, N, k] leaves — pass them whenever the scenario has
+    limited range or churn, or the complete-graph formula over-counts the
+    masking noise). One batched evaluation, no loop over rounds."""
     return epsilon_dwfl_traced(gamma, g_max, chans, delta, Ws)
 
 
@@ -338,8 +345,7 @@ def clip_gradient_tree(grads, g_max: float):
     def one(g):
         col = (g.shape[0],) + (1,) * (g.ndim - 1)
         keep = finite.reshape(col) & torch.isfinite(g)
-        return torch.where(keep, g * scale.reshape(col),
-                           torch.zeros_like(g)).to(g.dtype)
+        return torch.where(keep, g * scale.reshape(col), 0.0).to(g.dtype)
 
     return (tree_unflatten(structure, [one(g) for g in leaves]),
             torch.where(finite, norm, torch.zeros_like(norm)))

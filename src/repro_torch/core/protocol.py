@@ -71,7 +71,9 @@ class ProtocolConfig:
     coherence_rounds: int = 0     # > 0: the scenario's fading block length
     graph_fallback: bool = False  # bridge radius-isolated workers to their
                                   # nearest active neighbor
-    sparse_neighbors: int = 0     # > 0: the neighbor-list W (ROADMAP A10)
+    sparse_neighbors: int = 0     # > 0: degree cap k of the dynamic round's
+                                  # neighbor-list W (net.sparse.SparseW) and
+                                  # its O(N k) mix (exchange "dynamic_sparse")
     accountant: str = "composition"  # the trajectory ledger of the sigma
                                   # calibration and the report headline:
                                   # composition (advanced) | rdp
@@ -206,7 +208,7 @@ def epsilon_report(proto: ProtocolConfig, chan, T: Optional[int] = None,
     samples, and with ``T`` the T-round totals under both accountants at
     the configured delta. Dynamic channel: ``chan`` is the stacked
     trajectory ([T, ...], ``net.stack_states``) and ``Ws`` its [T, N, N]
-    mixing matrices — each receiver is credited with the masking noise of
+    mixing matrices (or a stacked SparseW) — each receiver is credited with the masking noise of
     the workers it heard — and the report carries the per-round worst
     budgets and their composition under both accountants."""
     if proto.channel_model == "dynamic":
@@ -442,12 +444,21 @@ def make_dynamic_train_step(cfg: ModelConfig, proto: ProtocolConfig,
 
 def make_flat_local_pass(cfg: ModelConfig, proto: ProtocolConfig,
                          spec: exchange_lib.FlatSpec) -> Callable:
-    """flat [N, d], batch -> (losses [N], clipped grads [N, d], norms [N])."""
+    """flat [N, d], batch -> (losses [N], clipped grads [N, d], norms [N]).
+
+    The gradients are taken per leaf, of views of the buffer, and raveled
+    once: through the views of one [N, d] tensor, autograd would make a
+    zero-padded [N, d] gradient for every leaf and add them up."""
     def local_grads(flat, batch):
         with torch.enable_grad():
-            f = flat.detach().requires_grad_(True)
-            losses = M.loss_fn(spec.unravel(f), batch, cfg)
-            (g,) = torch.autograd.grad(losses.sum(), f)
+            leaves, structure = exchange_lib.tree_flatten(
+                spec.unravel(flat.detach()))
+            ps = [l.detach().requires_grad_(True) for l in leaves]
+            losses = M.loss_fn(exchange_lib.tree_unflatten(structure, ps),
+                               batch, cfg)
+            gs = torch.autograd.grad(losses.sum(), ps)
+        g = spec.flatten(exchange_lib.tree_unflatten(structure, list(gs)))
+        del gs
         g, gnorms = privacy.clip_gradient_tree(g, proto.clip)
         return losses.detach(), g, gnorms
     return local_grads

@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import protocol as protocol_lib
+from repro_torch.net.sparse import cat_w, stack_w
 from repro_torch.net.state import concat_states, stack_states
 from repro_torch.runtime import resolve_device
 
@@ -112,12 +113,12 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
 
 def _stack(outs: List[dict]) -> dict:
     """Rounds' outputs stacked [k, ...]: the metrics and, on the dynamic
-    path, the channels and the Ws."""
+    path, the channels and the Ws (dense, or a stacked SparseW)."""
     out = {"metrics": {n: torch.stack([o["metrics"][n] for o in outs])
                        for n in outs[0]["metrics"]}}
     if "chan" in outs[0]:
         out["chan"] = stack_states([o["chan"] for o in outs])
-        out["W"] = torch.stack([o["W"] for o in outs])
+        out["W"] = stack_w([o["W"] for o in outs])
     return out
 
 
@@ -152,7 +153,7 @@ def concat_chunks(chunks: List[dict]) -> dict:
     """The chunks' stacked "chan" and "W" joined into one [T, ...]
     trajectory."""
     return {"chan": concat_states([c["chan"] for c in chunks]),
-            "W": torch.cat([c["W"] for c in chunks])}
+            "W": cat_w([c["W"] for c in chunks])}
 
 
 def plan_chunks(total: int, k: int, eval_every: int

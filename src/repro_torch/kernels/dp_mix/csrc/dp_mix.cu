@@ -49,6 +49,21 @@
 //   and columns from 16-sender slabs in shared memory (FMAs on the CUDA
 //   cores) and draws Gm in its epilogue, once an element. A tensor-core
 //   mix for large N is later work.
+//
+// The sparse round (dp_mix_sparse_launch) mixes through a padded neighbor
+// list instead of W: idx, w [n, k], self_w [n] (net/sparse.py's SparseW),
+//
+//   mix_i = self_w_i z_i + sum_s w_is z[idx_is]            (slot order)
+//
+// the reference's dp_mix_sparse_jnp (XLA gathers, no Pallas body), which
+// is replaced here. Two launches: dp_mix_prep, as above, writes z and nf
+// to the workspace [2, n, d]; dp_mix_gather gives each block one receiver
+// row and a 1024-column slab, reads its k slots once into shared memory,
+// gathers the k rows of z, draws Gm in its epilogue and writes out = v +
+// (eta * listen) * mix. Receivers are the grid's fastest axis, so the
+// blocks in flight share one column slab of z (n x 1024 floats, 8 MB at
+// n = 2048) and the gathered rows come from L2. Element offsets are 64-bit:
+// the workspace's second half starts past 2^31 elements at n = 2048.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -74,6 +89,9 @@ constexpr int kTile = 64;                      // large-N route: receivers and c
 constexpr int kSlab = 16;                      // senders a slab
 constexpr int kTiledThreads = 256;             // each 4 x 4 outputs
 constexpr int kPrepThreads = 256;
+constexpr int kGatherThreads = 256;            // sparse round: threads a block
+constexpr int kGatherCols = 4;                 // columns a thread, kGatherThreads apart
+constexpr int kGatherTile = kGatherThreads * kGatherCols;   // columns a block
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -380,6 +398,86 @@ __global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args a) {
   }
 }
 
+// ---- the sparse round -------------------------------------------------------
+
+struct Neighbors {
+  const int32_t* idx;   // [n, k], each in [0, n) (clamped, as XLA's gather clamps)
+  const float* w;       // [n, k]
+  const float* self_w;  // [n]
+  int k;
+};
+
+// out of one receiver (blockIdx.x) over kGatherTile columns: the mix from
+// the workspace's z, v from p, g, nf and Gm, out = v + (eta listen) mix.
+template <typename T>
+__global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, const Neighbors nb) {
+  extern __shared__ float slots[];
+  float* sW = slots;                                         // [k]
+  int* sIdx = reinterpret_cast<int*>(slots + nb.k);          // [k]
+  const int n = a.n, d = a.d, i = blockIdx.x;
+  for (int s = threadIdx.x; s < nb.k; s += kGatherThreads) {
+    sW[s] = nb.w[(size_t)i * nb.k + s];
+    sIdx[s] = min(max(nb.idx[(size_t)i * nb.k + s], 0), n - 1);
+  }
+  __syncthreads();
+  const float* __restrict__ z = a.ws;
+  const float* __restrict__ nf = a.ws + (size_t)n * d;
+  const int j0 = blockIdx.y * kGatherTile + threadIdx.x;
+  int col[kGatherCols];
+  float acc[kGatherCols];
+  const float self_w = nb.self_w[i];
+#pragma unroll
+  for (int c = 0; c < kGatherCols; ++c) {   // lanes past d read column d - 1, store nothing
+    col[c] = min(j0 + c * kGatherThreads, d - 1);
+    acc[c] = __fmul_rn(self_w, z[(size_t)i * d + col[c]]);
+  }
+  for (int s = 0; s < nb.k; ++s) {
+    const float ws = sW[s];
+    const float* __restrict__ zr = z + (size_t)sIdx[s] * d;
+#pragma unroll
+    for (int c = 0; c < kGatherCols; ++c) acc[c] = fmaf(ws, zr[col[c]], acc[c]);
+  }
+  const T* __restrict__ p = static_cast<const T*>(a.p);
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const float4 rc = row_const(a, i);
+  const uint32_t seed = (uint32_t)a.seed[0], gcol0 = (uint32_t)a.col0[0];
+#pragma unroll
+  for (int c = 0; c < kGatherCols; ++c) {
+    const int j = j0 + c * kGatherThreads;
+    const size_t off = (size_t)i * d + col[c];
+    const float x = local_step(load_f(p, off), load_f(g, off), a.gamma);
+    float v;
+    if (a.noisy) {
+      const uint32_t idx = counter(i, a.counter_width, gcol0 + (uint32_t)j);
+      const float gm = repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
+      v = partial(x, nf[off], gm, rc);
+    } else {
+      v = partial(x, 0.0f, 0.0f, rc);
+    }
+    if (j < d) store_f(out, off, fmaf(rc.w, acc[c], v));
+  }
+}
+
+template <typename T>
+int launch_sparse(const Args& a, const Neighbors& nb, cudaStream_t stream) {
+  if (a.ws == nullptr || a.n > 65535 || nb.k < 0) return (int)cudaErrorInvalidValue;
+  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t bytes = (sizeof(float) + sizeof(int)) * (size_t)nb.k;
+  static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
+  if (bytes > opted_in) {
+    err = cudaFuncSetAttribute(dp_mix_gather<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = bytes;
+  }
+  dp_mix_gather<T><<<dim3(a.n, (a.d + kGatherTile - 1) / kGatherTile), kGatherThreads, bytes,
+                     stream>>>(a, nb);
+  return (int)cudaGetLastError();
+}
+
 // ---- routes and launch -------------------------------------------------------
 
 // The column route while kMinWarps warps of its blocks fit an SM's shared
@@ -454,6 +552,29 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The sparse round: idx int32 [n, k], w float32 [n, k], self_w float32 [n]
+// take W's place; ws is a float32 workspace of 2 n d floats (z, then nf).
+// The rest as dp_mix_launch. Returns the cudaError_t of the launches.
+int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
+                         const void* w, const void* self_w, const void* amp, const void* selfs,
+                         const void* mscale, const void* listen, const void* scal,
+                         const void* seed, const void* col0, void* ws, int n, int d, int k,
+                         unsigned int counter_width, float gamma, float eta, int noisy,
+                         void* stream) {
+  if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  const Args a{p, g, out, nullptr, static_cast<const float*>(amp),
+               static_cast<const float*>(selfs), static_cast<const float*>(mscale),
+               static_cast<const float*>(listen), static_cast<const float*>(scal),
+               static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
+               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy};
+  const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
+                     static_cast<const float*>(self_w), k};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_sparse<float>(a, nb, s);
+  if (dtype == 1) return launch_sparse<__nv_bfloat16>(a, nb, s);
   return (int)cudaErrorInvalidValue;
 }
 

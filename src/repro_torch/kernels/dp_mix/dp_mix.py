@@ -1,11 +1,14 @@
 """The fused DWFL round in plain PyTorch: ``dp_mix_plain``, the twin of
 the reference's ``dp_mix_fused_jnp`` (repro/kernels/dp_mix/dp_mix.py) with
-the ``_round_math`` arithmetic.
+the ``_round_math`` arithmetic, and ``dp_mix_sparse_plain``, the twin of
+its ``dp_mix_sparse_jnp`` (``_sparse_round_math``: the mix through a
+padded neighbor list).
 
-It is what ``ops.dp_mix_round`` runs for a tensor on the CPU, and what the
-CUDA kernel (``csrc/dp_mix.cu``) is held against on the card. The noise is
-the counter-hash stream of ``repro_torch.kernels.noise``, so this version
-draws the reference's normals from the same seed.
+They are what ``ops.dp_mix_round`` and ``ops.dp_mix_round_sparse`` run for
+a tensor on the CPU, and what the CUDA kernels (``csrc/dp_mix.cu``) are
+held against on the card. The noise is the counter-hash stream of
+``repro_torch.kernels.noise``, so both draw the reference's normals from
+the same seed, and the same fields as each other.
 """
 from __future__ import annotations
 
@@ -40,4 +43,37 @@ def dp_mix_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
         upd = blocks @ torch.cat([x, nf, g_m], dim=0)
     else:
         upd = W @ x
+    return (x + eta * col(listen) * (upd - x)).to(p.dtype)
+
+
+def dp_mix_sparse_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen,
+                        idx, w, self_w, *, gamma: float, eta: float,
+                        noisy: bool, counter_width: int) -> torch.Tensor:
+    """``dp_mix_plain`` with the mix through a padded neighbor list: idx,
+    w [N, k] (int32, float32), self_w [N] float32; the other operands as
+    there. z = x + n/c is made once, then
+
+        mix = self_w z + sum_s w[:, s] z[idx[:, s]]      (slot order)
+        out = x + eta listen (mix + m_scale sigma_m Gm - x - self n/c)
+
+    the reference's order. Gossip mixes x."""
+    N, D = p.shape
+    x = p.float() - gamma * g.float()
+    col = lambda v: v.reshape(N, 1)
+    rows = idx.long()
+
+    def gather_mix(z):
+        acc = col(self_w) * z
+        for s in range(idx.shape[1]):
+            acc = acc + w[:, s:s + 1] * z[rows[:, s]]
+        return acc
+
+    if noisy:
+        g_n, g_m = noise.normal_pair_hash(
+            (N, D), counter_width, col0.reshape(-1)[0], seed.reshape(-1)[0],
+            device=p.device)
+        nf = (col(amp) / scal[0]) * g_n
+        upd = gather_mix(x + nf) + (col(mscale) * scal[1]) * g_m - col(selfs) * nf
+    else:
+        upd = gather_mix(x)
     return (x + eta * col(listen) * (upd - x)).to(p.dtype)

@@ -11,11 +11,15 @@ the flat [N, d] buffer (dwfl and gossip only), as the reference does.
 round at a time. A dynamic run ends with the per-round epsilon
 trajectory and its composition under both accountants;
 ``--total-epsilon`` calibrates sigma every round against a whole-run
-budget under ``--accountant``.
+budget under ``--accountant``; ``--sparse-neighbors k`` makes each round's
+W the capped neighbor list (``net.sparse.SparseW``) and mixes it O(N k),
+the worker-scale path (``--scenario mesh_sparse``).
 
     python -m repro_torch.launch.train --arch dwfl-paper --flat-buffer
     python -m repro_torch.launch.train --scheme orthogonal --steps 300
     python -m repro_torch.launch.train --flat-buffer --channel-model dynamic --scenario iot_dense
+    python -m repro_torch.launch.train --flat-buffer --channel-model dynamic \
+        --scenario mesh_sparse --sparse-neighbors 12 --workers 2048 --steps 4
     python -m repro_torch.launch.train --device cpu --hidden 16 --workers 4 --steps 3
 
 Runs on the card by default and raises without one; ``--device cpu``
@@ -37,11 +41,12 @@ from repro_torch.core import protocol as P
 from repro_torch.core import trajectory as TJ
 from repro_torch.data import (ClassificationStore, FederatedBatcher,
                               classification_dataset, dirichlet_partition)
+from repro_torch.net.sparse import SparseW, isolated_count
 from repro_torch.runtime import resolve_device
 
 # reference flags not ported yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "--reduced": "A15", "--seq-len": "A15", "--sparse-neighbors": "A10",
+    "--reduced": "A15", "--seq-len": "A15",
     "--worker-shards": "A14", "--model-shards": "A14",
     "--max-chunk-cols": "A14", "--remat": "A14", "--replicates": "A12",
     "--checkpoint": "A13", "--log": "A11", "--runlog-dir": "A11",
@@ -90,6 +95,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--scenario", default="static_paper",
                     help="network scenario (dynamic only): static_paper, "
                          "iot_dense, vehicular, drone_sparse, mesh_sparse")
+    ap.add_argument("--sparse-neighbors", type=int, default=0,
+                    help="> 0: degree cap k of the per-round neighbor-list "
+                         "mixing matrix (net.sparse.SparseW), mixed O(N k) "
+                         "instead of O(N^2) (dynamic only; pair with "
+                         "--scenario mesh_sparse)")
     ap.add_argument("--coherence-rounds", type=int, default=0,
                     help="override the scenario's fading block length")
     ap.add_argument("--graph-fallback", action="store_true",
@@ -119,6 +129,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     if args.arch != "dwfl-paper":
         raise SystemExit(f"--arch {args.arch} is not ported to repro_torch "
                          f"yet (ROADMAP A15); only dwfl-paper is")
+    if args.sparse_neighbors > 0 and args.channel_model != "dynamic":
+        raise SystemExit("--sparse-neighbors requires --channel-model "
+                         "dynamic (the sparse neighbor list is the "
+                         "per-round unit-disk graph)")
     if args.total_epsilon > 0 and args.channel_model != "dynamic":
         raise SystemExit("--total-epsilon calibrates sigma against the "
                          "realized per-round neighborhoods; it requires "
@@ -131,10 +145,14 @@ def isolated_workers(sim, state, seed: int) -> int:
     """Active workers with no neighbor in a first graph draw, from a
     generator of its own (the training stream is untouched). A worker
     isolated by the radius sits out its rounds (listen = 0), which looks
-    like slow convergence rather than a connectivity problem."""
+    like slow convergence rather than a connectivity problem. A neighbor
+    list is counted as it is (``net.sparse.isolated_count``), without a
+    dense W."""
     gen = torch.Generator(device=sim.device)
     gen.manual_seed(seed ^ 0x150)
     _, _, mask, W = sim.round(gen, state)
+    if isinstance(W, SparseW):
+        return int(isolated_count(W, mask))
     off = (W > 0) & ~torch.eye(W.shape[0], dtype=torch.bool, device=W.device)
     return int(((off.sum(1) == 0) & mask).sum())
 
@@ -162,9 +180,10 @@ def report_dynamic(proto, chunks) -> dict:
 
 def run(argv=None) -> dict:
     """Train as ``main`` does and return what the run measured: per-round
-    losses [T] (CPU tensor), the eval records, the loop's wall seconds
-    and the final parameters (the flat buffer with ``--flat-buffer``,
-    else the worker tree)."""
+    losses [T] (CPU tensor), the eval records, the loop's wall seconds,
+    the final parameters (the flat buffer with ``--flat-buffer``, else the
+    worker tree) and, on a limited-range network, the active workers
+    isolated in the first graph draw."""
     args = parse_args(argv)
     dev = resolve_device(args.device)
     cfg = DWFL_PAPER
@@ -179,7 +198,8 @@ def run(argv=None) -> dict:
         target_epsilon=0.0 if total else args.epsilon,
         flat_buffer=args.flat_buffer, channel_model=args.channel_model,
         scenario=args.scenario, coherence_rounds=args.coherence_rounds,
-        graph_fallback=args.graph_fallback, accountant=args.accountant,
+        graph_fallback=args.graph_fallback,
+        sparse_neighbors=args.sparse_neighbors, accountant=args.accountant,
         target_total_epsilon=args.total_epsilon,
         horizon=args.steps + 1 if total else 0)
     if total:
@@ -217,10 +237,10 @@ def run(argv=None) -> dict:
     spec = layout if proto.flat_buffer else None
     print(f"[train] params/worker: {layout.d / 1e6:.2f}M"
           + (" (flat dp_mix buffer)" if proto.flat_buffer else ""))
-    net = None
+    net, iso = None, None
     if sim is not None:
         net = sim.init(gen)
-        if sim.scenario.geometry.comm_radius > 0:
+        if sim.sparse_k > 0 or sim.scenario.geometry.comm_radius > 0:
             iso = isolated_workers(sim, net, args.seed)
             if iso:
                 print(f"[train] WARNING: {iso}/{W} active workers isolated "
@@ -250,6 +270,7 @@ def run(argv=None) -> dict:
 
     carry = TJ.TrajCarry(gen, spec.flatten(wp) if spec is not None else wp,
                          net)
+    del wp       # the flat path trains on its copy: one [N, d] less held
     losses, evals, chunks = [], [], []
     t0 = time.time()
     t = 0
@@ -260,9 +281,9 @@ def run(argv=None) -> dict:
         if "chan" in out:
             chunks.append(out)
         if do_eval:
-            params = (spec.unravel(carry.params) if spec is not None
-                      else carry.params)
-            ev_loss, ev_acc = evaluate(params, eval_batch)
+            ev_loss, ev_acc = evaluate(
+                spec.unravel(carry.params) if spec is not None
+                else carry.params, eval_batch)
             rec = {"step": t - 1,
                    "loss": float(out["metrics"]["loss"][-1]),
                    "eval_loss": float(ev_loss), "eval_acc": float(ev_acc),
@@ -279,7 +300,8 @@ def run(argv=None) -> dict:
         rep = report_dynamic(proto, chunks)
     return {"losses": torch.cat([l.cpu() for l in losses]), "evals": evals,
             "rounds": t, "seconds": seconds, "params": carry.params,
-            "epsilon_worst": rep["epsilon_worst"], "epsilon_report": rep}
+            "epsilon_worst": rep["epsilon_worst"], "epsilon_report": rep,
+            "isolated_workers": iso}
 
 
 def main(argv=None) -> int:

@@ -11,9 +11,12 @@ the device over [N] and [N, 2] state.
     Metropolis-Hastings weights make it a doubly-stochastic W.
   * Mobility: random waypoint, a fresh waypoint and speed on arrival.
 
+  * Neighbor-list graph (``sparse_metropolis``): the mutual-kNN ∩
+    unit-disk graph at a degree cap k, built in row blocks
+    (``_block_topk``) so no [N, N] tensor is made, as a ``sparse.SparseW``.
+
 The draws come from the caller's ``torch.Generator`` (the port's own,
-checked in distribution). ``sparse_metropolis`` and ``_block_topk``, the
-neighbor-list graph, are not ported yet (ROADMAP A10).
+checked in distribution).
 """
 from __future__ import annotations
 
@@ -21,6 +24,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from repro_torch.net.sparse import SparseW, top_k_stable
 
 
 @dataclass(frozen=True)
@@ -155,6 +160,84 @@ def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
     pair = 1.0 + torch.maximum(deg[:, None], deg[None, :])
     W = torch.where(adj > 0, adj / pair, 0.0)
     return W + torch.diag(1.0 - W.sum(1))
+
+
+def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,
+                block: int = 0):
+    """Each worker's k nearest neighbors (active, and within ``radius``
+    when it is > 0), over row blocks so the largest transient is
+    [block, N], never [N, N]. Returns (idx [N, k] int32, valid [N, k]
+    bool); an invalid slot's index is arbitrary. Ties go to the lower
+    index, as ``lax.top_k`` breaks them (``sparse.top_k_stable``)."""
+    n = pos.shape[0]
+    if not 0 < k <= n:
+        raise ValueError(f"degree cap k={k} must be in [1, N={n}]")
+    r2 = radius ** 2 if radius > 0.0 else None
+    active = None if mask is None else torch.as_tensor(mask) > 0
+    cols = torch.arange(n, dtype=torch.int32, device=pos.device)
+
+    def rows_topk(rows):                       # rows: [B] int32
+        d2 = ((pos[rows][:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        bad = rows[:, None] == cols[None, :]
+        if r2 is not None:
+            bad = bad | (d2 > r2)
+        if active is not None:
+            bad = bad | ~active[None, :] | ~active[rows][:, None]
+        vals, idx = top_k_stable(torch.where(bad, -torch.inf, -d2), k)
+        return idx.to(torch.int32), torch.isfinite(vals)
+
+    if block <= 0 or block >= n:
+        return rows_topk(cols)
+    # the reference's lax.map over blocks: the last block's rows past N - 1
+    # are clipped to it, computed, and cut off
+    step = torch.arange(block, dtype=torch.int32, device=pos.device)
+    parts = [rows_topk(torch.clamp(s + step, 0, n - 1))
+             for s in range(0, n, block)]
+    return (torch.cat([p[0] for p in parts])[:n],
+            torch.cat([p[1] for p in parts])[:n])
+
+
+def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
+                      mask=None, *, fallback: bool = False,
+                      block: int = 0) -> SparseW:
+    """The capped neighbor-list W: the mutual-kNN ∩ unit-disk graph (an
+    edge is kept iff each end ranks the other among its k nearest
+    in-radius active neighbors: symmetric, degree <= k) with the dense
+    path's Metropolis-Hastings weights. comm_radius <= 0 is the pure
+    mutual-kNN graph; with k >= the largest disk degree it is the disk
+    graph.
+
+    ``fallback`` gives each active worker whose row came out empty one
+    listen-only edge to its nearest active neighbor (ignoring the radius);
+    the partner's list is not reopened, so that edge is one-way. ``block``
+    bounds the distance transient to [block, N] rows. Tensor math on the
+    device, no host round trip."""
+    n = pos.shape[0]
+    rows = torch.arange(n, dtype=torch.int32, device=pos.device)[:, None]
+    idx, valid = _block_topk(pos, k, radius=cfg.comm_radius, mask=mask,
+                             block=block)
+    idx = torch.where(valid, idx, rows)
+    li = idx.long()
+    cand, vc = idx[li], valid[li]                       # [N, k, k]
+    adj = valid & ((cand == rows[:, :, None]) & vc).any(-1)
+    if fallback:
+        nn_idx, nn_ok = _block_topk(pos, 1, radius=0.0, mask=mask,
+                                    block=block)
+        active = (torch.ones((n,), dtype=torch.bool, device=pos.device)
+                  if mask is None else torch.as_tensor(mask) > 0)
+        need = active & ~adj.any(-1) & nn_ok[:, 0]
+        idx = torch.cat([torch.where(need, nn_idx[:, 0], idx[:, 0])[:, None],
+                         idx[:, 1:]], dim=1)
+        adj = torch.cat([(adj[:, 0] | need)[:, None], adj[:, 1:]], dim=1)
+        li = idx.long()
+    deg = adj.sum(-1).to(torch.float32)
+    pair = 1.0 + torch.maximum(deg[:, None], deg[li])
+    w = torch.where(adj, 1.0 / pair, 0.0).to(torch.float32)
+    # 1 - sum w, slot by slot in slot order
+    total = w[:, 0]
+    for s in range(1, k):
+        total = total + w[:, s]
+    return SparseW(idx=torch.where(adj, idx, rows), w=w, self_w=1.0 - total)
 
 
 def connectivity_fraction(adj) -> float:

@@ -11,8 +11,9 @@ stds stay protocol knobs: a scenario is the radio environment.
     drone_sparse  a sparse aerial swarm with line of sight: Rician K = 6,
                   clustered launch sites, fast motion, battery churn;
     mesh_sparse   a city-scale static mesh whose radio range is far below
-                  its area (the neighbor-list path, ROADMAP A10, is made
-                  for it; the dense path runs it as well).
+                  its area (the neighbor-list path, ``sparse_k`` /
+                  ``--sparse-neighbors``, is made for it; the dense path
+                  runs it as well).
 """
 from __future__ import annotations
 

@@ -11,14 +11,18 @@ never asks the host, so a training loop around it keeps the card busy:
     geometry.path_gain    log-distance gain to the centroid
     fading.channel_state  |h| = |g| sqrt(gain), re-aligned (Eqt. 3-4)
     [optional]            sigma calibrated to the round (three targets)
-    mixing matrix         the masked complete graph, or Metropolis weights
-                          of the masked unit-disk graph (comm_radius > 0)
+    mixing matrix         the masked complete graph, Metropolis weights of
+                          the masked unit-disk graph (comm_radius > 0), or
+                          with ``sparse_k`` > 0 the capped neighbor list
+                          (``geometry.sparse_metropolis``, a SparseW: no
+                          [N, N] tensor, its build in [graph_block, N] rows)
 
 Randomness: one ``torch.Generator`` drawn in that fixed order (the port's
 own draws, checked in distribution). ``trajectory`` rolls the channel
 alone for T rounds into the stacked state that ``protocol.
 epsilon_report`` turns into the per-round epsilon trajectory. The
-neighbor-list graph (``sparse_k > 0``) is not ported yet (ROADMAP A10).
+neighbor-list graph draws nothing, so ``sparse_k`` leaves the generator's
+order as it is.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.net import churn as churn_lib
 from repro_torch.net import fading as fading_lib
 from repro_torch.net import geometry as geometry_lib
 from repro_torch.net.scenarios import Scenario
+from repro_torch.net.sparse import stack_w
 from repro_torch.net.state import TracedChannelState, stack_states
 from repro_torch.runtime import resolve_device
 
@@ -61,12 +66,9 @@ class NetworkSimulator:
                  target_epsilon: float = 0.0, gamma: float = 0.05,
                  clip: float = 1.0, delta: float = 1e-5,
                  sparse_k: int = 0, graph_fallback: bool = False,
-                 target_total_epsilon: float = 0.0, horizon: int = 0,
-                 accountant: str = "composition", device="cuda"):
-        if sparse_k > 0:
-            raise NotImplementedError("the neighbor-list mixing matrix "
-                                      "(sparse_k > 0) is not ported yet "
-                                      "(ROADMAP A10)")
+                 graph_block: int = 0, target_total_epsilon: float = 0.0,
+                 horizon: int = 0, accountant: str = "composition",
+                 device="cuda"):
         if coherence_rounds > 0:
             scenario = scenario.with_coherence(coherence_rounds)
         self.device = resolve_device(device)
@@ -102,6 +104,19 @@ class NetworkSimulator:
             else:
                 raise ValueError(f"accountant must be 'rdp' or "
                                  f"'composition', got {accountant!r}")
+        # sparse_k > 0: each round's W is the capped neighbor list
+        # (sparse.SparseW, degree <= sparse_k), built over [graph_block, N]
+        # row blocks (0: min(1024, N))
+        self.sparse_k = int(sparse_k)
+        if self.sparse_k > self.n_workers:
+            raise ValueError(f"sparse_k={sparse_k} exceeds n_workers="
+                             f"{n_workers}")
+        if self.sparse_k > 0 and scenario.geometry.comm_radius <= 0:
+            raise ValueError(
+                "sparse_k requires a unit-disk scenario (comm_radius > 0); "
+                f"scenario {scenario.name!r} has no interference radius")
+        self.graph_block = (int(graph_block) if graph_block
+                            else min(1024, self.n_workers))
 
     def init(self, generator: torch.Generator) -> NetState:
         scn, n = self.scenario, self.n_workers
@@ -137,8 +152,9 @@ class NetworkSimulator:
     def round(self, generator: torch.Generator, state: NetState
               ) -> Tuple[NetState, TracedChannelState, torch.Tensor,
                          torch.Tensor]:
-        """One round: (state', chan, mask [N] bool, W [N, N]), all on the
-        device; ``state`` is left as it was."""
+        """One round: (state', chan, mask [N] bool, W), all on the device;
+        W is [N, N], or a SparseW when ``sparse_k`` > 0. ``state`` is left
+        as it was."""
         scn = self.scenario
         state = NetState(
             fading=fading_lib.advance(scn.fading, generator, state.fading),
@@ -146,7 +162,11 @@ class NetworkSimulator:
                                           state.geometry),
             churn=churn_lib.advance(scn.churn, generator, state.churn))
         mask = churn_lib.participation_mask(scn.churn, generator, state.churn)
-        if scn.geometry.comm_radius > 0:
+        if self.sparse_k > 0:
+            W = geometry_lib.sparse_metropolis(
+                scn.geometry, state.geometry.pos, self.sparse_k, mask=mask,
+                fallback=self.graph_fallback, block=self.graph_block)
+        elif scn.geometry.comm_radius > 0:
             W = geometry_lib.metropolis_weights(geometry_lib.adjacency(
                 scn.geometry, state.geometry.pos, mask=mask,
                 fallback=self.graph_fallback))
@@ -159,7 +179,8 @@ class NetworkSimulator:
                    ) -> Tuple[TracedChannelState, torch.Tensor, torch.Tensor]:
         """T rounds of the channel alone (no model): the stacked state
         ([T, ...] fields), the [T, N] masks and the [T, N, N] mixing
-        matrices, for ``protocol.epsilon_report``."""
+        matrices (a SparseW of [T, N, k] leaves when ``sparse_k`` > 0), for
+        ``protocol.epsilon_report``."""
         if state is None:
             state = self.init(generator)
         chans, masks, Ws = [], [], []
@@ -168,4 +189,4 @@ class NetworkSimulator:
             chans.append(chan)
             masks.append(mask)
             Ws.append(W)
-        return stack_states(chans), torch.stack(masks), torch.stack(Ws)
+        return stack_states(chans), torch.stack(masks), stack_w(Ws)

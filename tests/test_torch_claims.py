@@ -6,7 +6,12 @@ calibrated sigma that shrinks with N, and Fig. 5's accuracy claim (DWFL >=
 orthogonal at matched per-worker epsilon) trained by the port's own
 worker-tree step on the CPU, at the reference test's sizes and seeds
 (N = 8, d_model 64, 300 rounds, data and channel seeds 0 and 1), with the
-port's own generator draws. Tolerances are the reference test's.
+port's own generator draws; advanced composition sublinear in T at a small
+per-round epsilon, and the Renyi ledger never looser than delta-split
+advanced composition, over the static grid and a realized dynamic
+trajectory (the reference's ``sim.trajectory(PRNGKey(0), 64)``, its
+channels and Ws replayed: jax.random draws are not re-derived). Bounds
+and tolerances are the reference test's.
 """
 import dataclasses
 
@@ -119,6 +124,56 @@ def test_calibrated_sigma_shrinks_with_n():
         sig.append(float(np.mean(vals)))
     assert (np.diff(sig) < 0).all(), sig
     assert _loglog_slope(N_GRID, sig) < -0.4, sig
+
+
+def test_composition_sublinear_in_small_epsilon_regime():
+    """Advanced composition beats naive T eps at a small per-round eps, and
+    the heterogeneous composer is the homogeneous one on a constant
+    trajectory."""
+    e_round, delta, T = 0.05, 1e-5, 200
+    e_adv, d_adv = privacy.compose_advanced(e_round, delta, T)
+    e_naive, _ = privacy.compose_naive(e_round, delta, T)
+    assert e_adv < e_naive, (e_adv, e_naive)
+    e_het, d_het = privacy.compose_heterogeneous(np.full(T, e_round), delta)
+    assert e_het == pytest.approx(e_adv, rel=1e-9)
+    assert d_het == pytest.approx(d_adv, rel=1e-9)
+
+
+def test_rdp_never_looser_than_advanced_composition():
+    """The Renyi ledger quotes at most the delta-split advanced composition
+    at the same total delta, over the N x scheme/topology x fading static
+    grid and a realized dynamic iot_dense trajectory of 64 rounds."""
+    T = 256
+    for N in N_GRID:
+        for scheme, topology in (("dwfl", "complete"), ("dwfl", "ring"),
+                                 ("orthogonal", "complete")):
+            for fading in ("rayleigh", "unit"):
+                for seed in (0, 3):
+                    proto = P.ProtocolConfig(
+                        scheme=scheme, n_workers=N, gamma=0.02, clip=1.0,
+                        sigma=1.0, sigma_m=1.0, p_dbm=60.0, fading=fading,
+                        seed=seed, topology=topology, target_epsilon=0.0)
+                    rep = P.epsilon_report(proto, proto.channel(), T=T)
+                    ctx = (N, scheme, topology, fading, seed)
+                    assert (rep["epsilon_T_rdp"]
+                            <= rep["epsilon_T_advanced_split"]), ctx
+                    assert rep["delta_T_total"] == proto.delta, ctx
+    import jax
+    from repro.core import protocol as RP
+    from test_torch_net import port_chan, t
+    kw = dict(scheme="dwfl", n_workers=8, gamma=0.02, clip=1.0, sigma=1.0,
+              sigma_m=1.0, channel_model="dynamic", scenario="iot_dense",
+              target_epsilon=0.0)
+    chans, _, Ws = RP.ProtocolConfig(**kw).simulator().trajectory(
+        jax.random.PRNGKey(0), 64)
+    proto = P.ProtocolConfig(**kw)
+    rep = P.epsilon_report(proto, port_chan(chans), Ws=t(Ws))
+    assert rep["rounds"] == 64
+    assert rep["epsilon_rdp"] <= rep["epsilon_advanced"]
+    assert rep["epsilon_total"] == pytest.approx(
+        min(rep["epsilon_rdp"], rep["epsilon_advanced"]))
+    assert rep["delta_total"] == proto.delta
+    assert rep["accountant_gap"] > 1.15
 
 
 def _train_accuracy(scheme, *, steps, N=8, epsilon=1.0, seed=0):

@@ -19,14 +19,16 @@ bfloat16 step further (the bfloat16 kernel runs on the tensor cores:
 exact products of q k^T, P v as P_hi + P_lo, a residual of 2^-17 |P|). ssd_scan: rtol 1e-4 / atol 1e-5 on y, the states
 and the decays (the reference's tolerance for its kernel against its
 oracle; both take cs in the reference's float32 order), a bfloat16 y one
-bfloat16 step further."""
+bfloat16 step further. The sparse dp_mix round (dp_mix_prep +
+dp_mix_gather): the same tolerance with the mix's k + 1 terms in place of
+N; with zero weights bitwise the dense kernel's round."""
 import pytest
 import torch
 
 from repro_torch.core import exchange as X
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.kernels.dp_mix import ops
-from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain, dp_mix_sparse_plain
 from repro_torch.kernels.dp_perturb import ops as dp_ops
 from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
 from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -126,6 +128,89 @@ def test_kernel_matches_plain(N, d, dtype, kind):
         ulps = (k32[idle].view(torch.int32).long()
                 - r32[idle].view(torch.int32).long()).abs()
         assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
+
+
+def _sparse_args(N, d, k, dtype, seed):
+    """A sparse round's operands on the card: a capped unit-disk list over
+    seeded positions (~8 in-disk neighbors, so some rows fill all k slots
+    and some are empty), random p, g and vectors, listen = 0 on the empty
+    rows, as plan_dynamic_sparse gives it."""
+    from repro_torch.net import geometry
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pos = torch.rand((N, 2), generator=gen, device="cuda") * 100.0
+    pos[0] = 1e4                                    # one isolated worker
+    r = 100.0 * (8.0 / (3.14159 * N)) ** 0.5
+    sw = geometry.sparse_metropolis(
+        geometry.GeometryConfig(area=100.0, comm_radius=r), pos, k,
+        block=max(1, N // 3))
+    p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.2 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
+    amp = torch.rand(N, generator=gen, device="cuda") + 0.5
+    mscale = 0.3 * torch.rand(N, generator=gen, device="cuda")
+    seed_t, col0 = (torch.tensor([v], dtype=torch.int32, device="cuda")
+                    for v in (77, 256))
+    args = (p, g, seed_t, col0, torch.tensor([2.0, 0.3], device="cuda"), amp,
+            torch.ones(N, device="cuda"), mscale,
+            (sw.off_degree() > 0).float(), sw.idx.contiguous(),
+            sw.w.contiguous(), sw.self_w.contiguous())
+    return args, amp, mscale
+
+
+@pytest.mark.parametrize("N,d,k", [(8, 40, 2), (10, 5000, 4), (64, 1000, 12),
+                                   (130, 5003, 12), (2048, 3001, 12),
+                                   (33, 70001, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
+def test_sparse_kernel_matches_plain(N, d, k, dtype, noisy):
+    _need_card()
+    args, amp, mscale = _sparse_args(N, d, k, dtype, N + d)
+    kw = dict(gamma=0.05, eta=0.4, noisy=noisy, counter_width=80000)
+    before = ops.dp_mix_round_sparse.launches
+    out = ops._launch_sparse(*args, **kw)
+    assert ops.dp_mix_round_sparse.launches == before + 1
+    ref = dp_mix_sparse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == args[0].shape
+    k32, r32 = out.float(), ref.float()
+    x = args[0].float() - 0.05 * args[1].float()
+    scale = float(x.abs().max())
+    if noisy:
+        scale += 5.42 * float((amp / 2.0).abs().max()
+                              + (mscale * 0.3).abs().max())
+    allowed = (k + 1 + 8) * 2.0 ** -23 * scale
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
+    assert bool(((k32 - r32).abs() <= allowed).all())
+    idle = args[8] == 0
+    assert bool(idle.any())
+    ulps = (k32[idle].view(torch.int32).long()
+            - r32[idle].view(torch.int32).long()).abs()
+    assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
+
+
+@pytest.mark.parametrize("N,d", [(10, 5000), (64, 1001), (200, 3000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_kernel_with_zero_weights_is_the_dense_kernel(N, d, dtype):
+    """Every slot weight and self_w 0: the sparse round is v alone,
+    bitwise the dense kernel's round with W = 0 (either route), and
+    through the wrapper (the padded rows of N = 10 too)."""
+    _need_card()
+    args, amp, mscale = _sparse_args(N, d, 4, dtype, 3)
+    args = args[:10] + (torch.zeros_like(args[10]),
+                        torch.zeros_like(args[11]))
+    kw = dict(gamma=0.05, eta=0.4, noisy=True, counter_width=8192)
+    sparse = ops._launch_sparse(*args, **kw)
+    dense = ops._launch(*args[:9], torch.zeros((N, N), device="cuda"), **kw)
+    torch.cuda.synchronize()
+    bits = lambda a: a.contiguous().view(torch.int16 if a.dtype ==
+                                         torch.bfloat16 else torch.int32)
+    assert torch.equal(bits(sparse), bits(dense))
+    from repro_torch.net.sparse import SparseW
+    sw = SparseW(args[9], args[10], args[11])
+    wrapped = ops.dp_mix_round_sparse(
+        args[0], args[1], 77, sw, amp, 2.0, 0.3, gamma=0.05, eta=0.4,
+        m_scale=mscale, listen=args[8], col0=256, counter_width=8192)
+    assert torch.equal(bits(wrapped), bits(dense))
 
 
 def test_wrapper_limits_on_the_card():

@@ -287,9 +287,13 @@ def test_dynamic_steps_refuse_other_schemes():
     with pytest.raises(ValueError, match="scheme='dwfl'"):
         P.make_dynamic_train_step(cfg, P.ProtocolConfig(
             **dict(KW, scheme="orthogonal")), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+    # sparse_neighbors takes the neighbor-list route (ROADMAP A10)
+    sparse = P.ProtocolConfig(**dict(KW, sparse_neighbors=4))
+    P.make_dynamic_train_step(cfg, sparse, "cpu")
+    assert X.resolve_spec(sparse, dynamic=True).name == "dynamic_sparse"
+    with pytest.raises(ValueError, match="scheme='dwfl'"):
         P.make_dynamic_train_step(cfg, P.ProtocolConfig(
-            **dict(KW, sparse_neighbors=4)), "cpu")
+            **dict(KW, scheme="gossip", sparse_neighbors=4)), "cpu")
     with pytest.raises(ValueError, match="channel_model='dynamic'"):
         P.ProtocolConfig(n_workers=N).simulator("cpu")
 

@@ -174,8 +174,11 @@ def test_resolve_spec_routes_like_the_reference(kw, name):
     assert s.name == rs.name == "dynamic"
     with pytest.raises(NotImplementedError, match="ROADMAP A14"):
         X.resolve_spec(P.ProtocolConfig(), axis="data")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        X.resolve_spec(P.ProtocolConfig(sparse_neighbors=4), dynamic=True)
+    rs = RX.resolve_spec(RP.ProtocolConfig(sparse_neighbors=4), dynamic=True)
+    s = X.resolve_spec(P.ProtocolConfig(sparse_neighbors=4), dynamic=True)
+    assert (s.name, s.fuse_ok) == (rs.name, rs.fuse_ok) == ("dynamic_sparse",
+                                                           True)
+    assert s.plan is X.plan_dynamic_sparse
     with pytest.raises(ValueError, match="scheme='dwfl'"):
         X.resolve_spec(P.ProtocolConfig(scheme="gossip"), dynamic=True)
     with pytest.raises(ValueError, match="mixing-family"):

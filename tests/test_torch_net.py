@@ -35,6 +35,7 @@ from repro.net import simulator as rsimulator
 from repro.net import state as rstate
 from repro_torch.core.channel import ChannelConfig
 from repro_torch.net import churn, fading, geometry, scenarios, simulator
+from repro_torch.net.sparse import SparseW
 from repro_torch.net.state import (FIELDS, TracedChannelState, concat_states,
                                    stack_states)
 
@@ -385,8 +386,12 @@ def test_static_paper_reduces_to_the_static_channel():
 
 def test_simulator_refuses_what_is_not_ported():
     scn = scenarios.get_scenario("mesh_sparse")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        simulator.NetworkSimulator(scn, 16, sparse_k=4, device="cpu")
+    # sparse_k is ported (ROADMAP A10): a round's W is the neighbor list
+    sim = simulator.NetworkSimulator(scn, 16, sparse_k=4, device="cpu")
+    st, _, _, W = sim.round(gen(0), sim.init(gen(0)))
+    assert isinstance(W, SparseW) and W.idx.shape == (16, 4)
+    with pytest.raises(ValueError, match="exceeds n_workers"):
+        simulator.NetworkSimulator(scn, 16, sparse_k=17, device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         simulator.NetworkSimulator(scn, 16, target_epsilon=1.0,
                                    target_total_epsilon=4.0, horizon=10,

@@ -213,3 +213,62 @@ def test_sampled_round_draws_its_mask_from_the_generator():
     torch.testing.assert_close(out, again, rtol=0, atol=0)
     with pytest.raises(ValueError, match="participation mask"):
         step(spec.flatten(wp), batch, 5)      # neither mask nor generator
+
+
+def _facade_tree(seed, n):
+    rng = np.random.default_rng(seed)
+    return {"w": rng.normal(size=(n, 7, 3)).astype(np.float32),
+            "b": rng.normal(size=(n, 3)).astype(np.float32)}
+
+
+@pytest.mark.parametrize("facade", ["topology", "dynamic", "dynamic_sparse",
+                                    "sampled"])
+def test_dwfl_facades_equal_reference(facade):
+    """core.dwfl's exchange_dwfl_topology, exchange_dwfl_dynamic (a dense W,
+    and a neighbor list) and exchange_dwfl_sampled against the
+    reference's on the same parameters and replayed noise, the channel
+    and W (or mask) replayed: atol ROUND_TOL * (1 + max|x|)."""
+    from repro.core import dwfl as rdwfl
+    from repro.core.channel import ChannelConfig as RefChannelConfig
+    from repro_torch.core import dwfl
+    from repro_torch.core.channel import ChannelConfig
+    from test_torch_net import port_chan, ref_round, t
+    from test_torch_sparse import port_sw
+    n = 8
+    Xn, nn, mn = (_facade_tree(s, n) for s in (0, 1, 2))
+    jx = lambda tr: jax.tree_util.tree_map(jax.numpy.asarray, tr)
+    tx = lambda tr: {k: torch.from_numpy(v) for k, v in tr.items()}
+    chan_kw = dict(n_workers=n, p_dbm=30.0, sigma=0.7, sigma_m=0.4, seed=3)
+    rchan, chan = (RefChannelConfig(**chan_kw).realize(),
+                   ChannelConfig(**chan_kw).realize())
+    if facade == "topology":
+        W = topology.make("ring", n, k=2)
+        want = rdwfl.exchange_dwfl_topology(jx(Xn), jx(nn), jx(mn), rchan,
+                                            0.4, W)
+        got = dwfl.exchange_dwfl_topology(tx(Xn), tx(nn), tx(mn), chan, 0.4,
+                                          W)
+    elif facade == "sampled":
+        mask = np.array([1, 0, 1, 1, 0, 1, 1, 0], bool)
+        want = rdwfl.exchange_dwfl_sampled(jx(Xn), jx(nn), jx(mn), rchan,
+                                           0.4, jax.numpy.asarray(mask))
+        got = dwfl.exchange_dwfl_sampled(tx(Xn), tx(nn), tx(mn), chan, 0.4,
+                                         torch.from_numpy(mask))
+    else:
+        sparse = facade == "dynamic_sparse"
+        _, _, rchan, _, rW = ref_round("iot_dense", n, 7, rounds=2,
+                                       sigma=0.5, sigma_m=0.3, p_dbm=30.0,
+                                       sparse_k=3 if sparse else 0)
+        if sparse:   # the reference's facade builds the dense plan only
+            want = RX.run_mix(jx(Xn), jx(nn), jx(mn), 0.4,
+                              RX.plan_dynamic_sparse(None, rchan, W_arg=rW))
+            W = port_sw(rW)
+        else:
+            want = rdwfl.exchange_dwfl_dynamic(jx(Xn), jx(nn), jx(mn), rchan,
+                                               0.4, rW)
+            W = t(rW)
+        got = dwfl.exchange_dwfl_dynamic(tx(Xn), tx(nn), tx(mn),
+                                         port_chan(rchan), 0.4, W)
+    for k in ("w", "b"):
+        w_ = np.asarray(want[k])
+        err = float(np.abs(got[k].numpy() - w_).max())
+        assert err < ROUND_TOL * (1.0 + float(np.abs(w_).max())), (k, err)

@@ -168,7 +168,7 @@ def test_cli_runs_on_cpu_flat_buffer():
     assert "[train] step=    0 loss=" in r.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["--sparse-neighbors", "4"], "A10"),
+@pytest.mark.parametrize("argv,item", [(["--checkpoint", "x"], "A13"),
                                        (["--log", "x"], "A11"),
                                        (["--arch", "gemma-2b"], "A15"),
                                        (["--replicates", "2"], "A12")])
