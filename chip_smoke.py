@@ -79,7 +79,23 @@ Phases, each fatal on failure (exit code 1, no result line):
              use_pallas=True) 11 rounds, one dp_perturb launch a round;
              in turns at N = 2048, the sparse round against the dense
              large-N route and the simulator's sparse round against its
-             dense one;
+             dense one; then the fleet and telemetry: dp_mix's replicate
+             axis (one launch over [R, N, d]) bitwise R separate launches
+             and within tolerance of the plain twin at (R 8, N 10, d =
+             855,050) in float32 and bfloat16 (column route) and (R 4,
+             N 64) (large-N route), timed in turns with the separate
+             launches beside its bound; the fleet CLI (``--channel-model
+             dynamic --scenario vehicular --replicates 8 --flat-buffer``,
+             N = 10, full width, 101 rounds) under its sync guard, one
+             dp_mix launch a round for all 8; the fleet's tree round (R 8,
+             use_pallas) under the guard, one dp_perturb launch a round;
+             launches per fleet round at R = 2 and R = 8 under
+             torch.profiler (equal); the single dynamic round and the R 8
+             fleet round in turns; the static and iot_dense flat CLI with
+             a run log (telemetry on) read back by ``obs.report``, and
+             its rounds/s with telemetry on and off in turns; the sweep
+             (``python -m repro_torch.fleet.sweep``, 8 cells, 5 steps),
+             its rows with the reference's keys;
              the static and the dynamic flat round and the simulator's
              round timed in turns, and the flat CLI, static and dynamic,
              warm and without evals, in turns;
@@ -119,8 +135,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              prefill and decode on the card against the same on the CPU;
              the profile of one prefill and one decode step.
 
-Each phase of the dynamic network is preceded by a ``[predict]`` line, what
-it was expected to show (PREDICTIONS). The last three lines of standard
+Each phase of the dynamic network and of the fleet is preceded by a
+``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
 output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 "device": {...}}.
 """
@@ -242,6 +258,22 @@ DYN_PLAN_N = (PATH_N, 50, 51)
 # --steps + 1); the tree round's N
 SPARSE_SCENARIO, SPARSE_N, SPARSE_K, SPARSE_STEPS = "mesh_sparse", 2048, 12, 4
 SPARSE_TREE_N = 64
+# the fleet (ROADMAP A12): the README's vehicular line, R = 8 replicates at
+# the path's N and width, 100 steps (101 rounds); dp_mix's replicate axis
+# also on the large-N route at (R 4, N 64); the tree round's rounds
+FLEET_SCENARIO, FLEET_R, FLEET_STEPS, FLEET_TREE_ROUNDS = "vehicular", 8, 100, 5
+RAXIS_CASES = ((FLEET_R, PATH_N, PATH_D), (4, 64, PATH_D))
+# the keys of a sweep row: the reference's run_point returns these and the
+# grid point's four (tests/test_torch_fleet.py holds them against it)
+SWEEP_KEYS = frozenset((
+    "scenario", "n_workers", "p_dbm", "target_epsilon", "seed", "replicates",
+    "steps", "config", "us_per_round", "loss_mean", "loss_ci95", "acc_mean",
+    "acc_ci95", "epsilon_composed_mean", "epsilon_composed_ci95",
+    "epsilon_round_worst", "delta_composed", "epsilon_rdp_mean",
+    "epsilon_total_mean", "epsilon_total_ci95", "delta_total", "accountant",
+    "accountant_gap"))
+# the reference's telemetry overhead ceiling (BENCH_obs.json)
+TELEMETRY_CEILING = 0.05
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
@@ -308,6 +340,41 @@ PREDICTIONS = {
     "sparse_tree": "one dp_perturb launch (sgd_update_leaves) a sparse "
                    "dynamic tree round at N = 64, 11 in 11, W a SparseW, "
                    "every loss finite",
+    "raxis": "dp_mix's replicate axis bitwise R separate launches (0 "
+             "elements differ) at (R 8, N 10, 855,050) in float32 and "
+             "bfloat16 (column route) and at (R 4, N 64) (large-N route), "
+             "within dp_mix_tolerance of the plain twin replicate by "
+             "replicate; R 8 float32 0.50-0.56 ms (PR 22's call 1: 0.517) "
+             "against R separate launches' 0.56-0.62 (0.577-0.597) and a "
+             "bound of ~0.262 ms (8 x 0.0328, operations)",
+    "fleet_cli": "the fleet CLI (vehicular, R 8, N 10, full width, 101 "
+                 "rounds) under the sync guard: 101 dp_mix launches in 101 "
+                 "rounds, every loss finite, the epsilon report over 8 "
+                 "replicates; 700-1500 replicate-rounds/s (call 1: 1374.9 "
+                 "over 21 rounds); peak memory ~2-3 GiB (8 [10, 855,050] "
+                 "buffers of 274 MB: p, g, out and the views of the "
+                 "gradient pass)",
+    "fleet_tree": "one sgd_update_leaves launch a fleet tree round (R 8, "
+                  "use_pallas), 5 in 5, no per-leaf launch, under the sync "
+                  "guard",
+    "fleet_launches": "the same kernel launches per fleet round at R = 2 "
+                      "and R = 8 (about 240, the single dynamic round's, "
+                      "PERF.md §5); device busy 30-60% at R 8 (the gradient "
+                      "pass and dp_mix grow 8x, the launches do not)",
+    "fleet_turns": "in turns: the single dynamic flat round 3.5-6 ms (PR "
+                   "20: 4.17-5.65), the R 8 fleet round 6-9 ms (device work "
+                   "8 x ~0.8 ms under ~4-5 ms of host launches), so the "
+                   "fleet 4-6x the single round's replicate-rounds/s",
+    "telemetry": "the static and the iot_dense flat CLI (51 rounds) with a "
+                 "run log: 51 round events of 7 fields, the epsilon events "
+                 "at each eval, the report reading the directory back; "
+                 "telemetry on against off in turns costs 3-15% of the "
+                 "CLI's rounds/s (a few dozen small launches a round for "
+                 "consensus and the stack, and one host read a chunk), so "
+                 "it may miss the reference's 5% ceiling",
+    "sweep": "the sweep (iot_dense and vehicular x N 8, 16 x eps 0.5, 1.0, "
+             "R 8, 5 steps) writes 8 rows with the reference's keys, every "
+             "number finite, in 10-40 s",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -2478,6 +2545,408 @@ def profile_serve(cfg, params, batch) -> list:
         recs.append(rec)
     return recs
 
+# ---- the fleet (ROADMAP A12) and telemetry (A11) ----------------------------
+
+
+def fleet_operands(R: int, N: int, d: int, dtype, seed: int = 3):
+    """R rounds' operands of dp_mix at [R, N, d] from a fleet round of the
+    port's simulator on the card (vehicular: listen = 0 rows where a
+    worker straggles): the stacked plan, random p, g and R seeds. Returns
+    (proto, args as ops._launch takes them, its keywords)."""
+    import torch
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.kernels.dp_mix import ops
+    proto = dynamic_proto(N, FLEET_SCENARIO)
+    fleet = FleetEngine(proto, R, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    st = fleet.init(gen)
+    for _ in range(3):
+        st, chans, _, Ws = fleet.round(gen, st)
+    plan = proto.plan(chans, "cuda", Ws)
+    p = torch.randn((R, N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.1 * torch.randn((R, N, d), generator=gen, device="cuda")).to(dtype)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (R,), dtype=torch.int32,
+                          generator=gen, device="cuda")
+    vecs = ops._round_vectors(N, p.device, seeds, 0, plan.amp, plan.c,
+                              plan.sigma_m, plan.self_scale, plan.m_scale,
+                              plan.listen, (R,))
+    kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
+              counter_width=ops._roundup(d, ops.LANES))
+    return proto, (p, g, *vecs, plan.W.contiguous()), kw
+
+
+def replicate_args(args, r: int):
+    """Replicate r's operands of a stack, as one round's launch takes them
+    (col0 is shared)."""
+    p, g, seed, col0, scal, amp, selfs, mscale, listen, W = args
+    return (p[r], g[r], seed[r:r + 1], col0, scal[r], amp[r], selfs[r],
+            mscale[r], listen[r], W[r])
+
+
+def check_raxis(R: int, N: int, d: int, dtype, timed: bool,
+                counts: dict, rates: dict) -> dict:
+    """dp_mix's replicate axis: one launch over [R, N, d] bitwise R
+    separate launches on each replicate's operands, and within
+    dp_mix_tolerance of the plain twin replicate by replicate; timed: the
+    launch and the R separate launches in turns, the plain stack, and the
+    bound (the R rounds' bytes, instructions and FMAs summed)."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    proto, args, kw = fleet_operands(R, N, d, dtype)
+    batched = lambda: ops._launch(*args, **kw)
+    separate = lambda: [ops._launch(*replicate_args(args, r), **kw)
+                        for r in range(R)]
+    out = batched()
+    sep = torch.stack(separate())
+    torch.cuda.synchronize()
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    differ = int((out.view(bits) != sep.view(bits)).sum())
+    del sep
+    max_err, bad, tol = 0.0, 0, 0.0
+    for r in range(R):
+        a = replicate_args(args, r)
+        ref = dp_mix_plain(*a, **kw).float()
+        k32 = out[r].float()
+        plan = SimpleNamespace(amp=a[5], c=a[4][0], m_scale=a[7],
+                               sigma_m=a[4][1])
+        allowed, tol_r = dp_mix_tolerance(N, a[0], a[1], proto.gamma, plan,
+                                          True, k32, ref,
+                                          dtype == torch.bfloat16)
+        err = (k32 - ref).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > allowed).sum())
+        tol = max(tol, tol_r)
+        if not torch.isfinite(k32).all():
+            fail(f"dp_mix replicate axis R={R} N={N}: non-finite output")
+    del out
+    rec = {"R": R, "N": N, "d": d, "dtype": str(dtype).split(".")[-1],
+           "route": dp_mix_route(N, d), "differ_vs_separate": differ,
+           "max_abs_err": max_err, "tol_f32": tol, "violations": bad,
+           "listen_zero": int((args[8] == 0).sum())}
+    if timed:
+        ms = {"batched": [], "separate": []}
+        for name in ("batched", "separate", "separate", "batched"):
+            ms[name].append(cuda_ms(batched if name == "batched" else separate,
+                                    iters=20 if N <= 16 else 3))
+        rec["ms_in_turns"] = ms
+        rec["ms"] = min(ms["batched"])
+        rec["separate_ms"] = min(ms["separate"])
+        rec["plain_ms"] = cuda_ms(lambda: [dp_mix_plain(
+            *replicate_args(args, r), **kw) for r in range(R)], iters=1,
+            warmup=1)
+        works = [dp_mix_work(N, d, args[0].element_size(), True, counts,
+                             rates, noise_branches(N, d, kw["counter_width"],
+                                                   int(args[2][r])))
+                 for r in range(R)]
+        t = {"bytes": sum(w["bytes"] for w in works) / HBM_BYTES_PER_S,
+             "instructions": sum(w["lane_instructions"] for w in works)
+             / (rates["sms"] * 128 * rates["sm_clock_hz"]),
+             "fma": 2 * sum(w["fmas"] for w in works) / F32_FLOP_PER_S}
+        bound = max(t.values())
+        rec.update({"bytes_ms": 1e3 * t["bytes"],
+                    "instructions_ms": 1e3 * t["instructions"],
+                    "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
+                    "bound_by": ("bytes" if t["bytes"] == bound
+                                 else "operations")})
+    print(f"[kernels] dp_mix replicate axis {json.dumps(rec)}", flush=True)
+    if differ or bad:
+        fail(f"dp_mix replicate axis R={R} N={N} {rec['dtype']}: {differ} "
+             f"elements differ from the separate launches, {bad} beyond the "
+             f"plain twin's tolerance (max err {max_err:.3g})")
+    return rec
+
+
+def raxis_phase(counts: dict, rates: dict) -> dict:
+    """The replicate axis on both routes; returns the path case's record
+    (R 8, N 10, float32)."""
+    import torch
+    predict("raxis")
+    path_rec = None
+    for R, N, d in RAXIS_CASES:
+        for dtype in ((torch.float32, torch.bfloat16) if N == PATH_N
+                      else (torch.float32,)):
+            rec = check_raxis(R, N, d, dtype, True, counts, rates)
+            if N == PATH_N and dtype == torch.float32:
+                path_rec = rec
+            torch.cuda.empty_cache()
+    return path_rec
+
+
+def fleet_cli() -> dict:
+    """The fleet CLI at full width (the README's vehicular line with the
+    flat buffer), the dp_mix count set to 0 just before and read just
+    after: one launch a fleet round for all R, under the CLI's sync guard
+    (on by default); the guard must raise on a .item()."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    from repro_torch.obs import no_implicit_transfers
+    predict("fleet_cli")
+    probe = torch.ones(1, device="cuda")
+    try:
+        with no_implicit_transfers(True, "cuda"):
+            probe.sum().item()
+        fail("sync debug mode 'error' let a .item() through")
+    except RuntimeError:
+        pass
+    ops.dp_mix_round.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                     "--channel-model", "dynamic", "--scenario",
+                     FLEET_SCENARIO, "--replicates", str(FLEET_R),
+                     "--workers", str(PATH_N), "--steps", str(FLEET_STEPS),
+                     "--eval-every", str(FLEET_STEPS // 2),
+                     "--device", "cuda"])
+    launches = ops.dp_mix_round.launches
+    rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
+    rec = {"scenario": FLEET_SCENARIO, "replicates": FLEET_R,
+           "rounds": rounds, "launches": launches, "seconds": res["seconds"],
+           "rounds_per_s": rounds / res["seconds"],
+           "replicate_rounds_per_s": FLEET_R * rounds / res["seconds"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_loss": losses[0].tolist(), "last_loss": losses[-1].tolist(),
+           "eps_replicates": rep["replicates"], "eps_rounds": rep["rounds"],
+           "eps_composed_mean": rep["epsilon_composed_mean"],
+           "eps_total_mean": rep["epsilon_total_mean"]}
+    print(f"[fleet] cli {json.dumps(rec)}", flush=True)
+    if launches != rounds:
+        fail(f"fleet cli: dp_mix launched {launches} times for {rounds} "
+             f"rounds of {FLEET_R} replicates")
+    if (tuple(losses.shape) != (rounds, FLEET_R)
+            or not torch.isfinite(losses).all()
+            or not torch.isfinite(res["params"]).all()
+            or rep["replicates"] != FLEET_R or rep["rounds"] != rounds
+            or not np_finite(rep["epsilon_per_round"])):
+        fail("fleet cli: non-finite or misshapen losses, parameters or "
+             "epsilons")
+    return rec
+
+
+def fleet_body(store, R: int, flat: bool, use_pallas: bool = False):
+    """A fleet round body at full width (vehicular, N = 10) and its carry."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.fleet import FleetEngine
+    proto = dynamic_proto(PATH_N, FLEET_SCENARIO, use_pallas=use_pallas)
+    fleet = FleetEngine(proto, R, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(R)
+    wp = fleet.init_worker_params(gen, DWFL_PAPER)
+    spec = X.FlatSpec(wp, lead_axes=2) if flat else None
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda",
+                              fleet=fleet)
+    return body, TJ.TrajCarry(gen, spec.flatten(wp) if flat else wp,
+                              fleet.init(gen))
+
+
+def fleet_tree(store) -> int:
+    """The fleet's tree round (R 8, use_pallas) under the sync guard, the
+    dp_perturb counts set to 0 just before and read just after: one
+    sgd_update_leaves launch a round for all R."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_perturb import ops
+    from repro_torch.obs import no_implicit_transfers
+    predict("fleet_tree")
+    body, carry = fleet_body(store, FLEET_R, flat=False, use_pallas=True)
+    carry, _ = TJ.run_chunk(body, carry, 1)
+    torch.cuda.synchronize()
+    ops.sgd_update_leaves.launches = 0
+    ops.sgd_update.launches = ops.dp_perturb.launches = 0
+    with no_implicit_transfers(True, "cuda"):
+        carry, out = TJ.run_chunk(body, carry, FLEET_TREE_ROUNDS)
+    torch.cuda.synchronize()
+    launches = ops.sgd_update_leaves.launches
+    others = ops.sgd_update.launches + ops.dp_perturb.launches
+    losses = out["metrics"]["loss"].cpu()
+    print(f"[fleet] tree {json.dumps({'replicates': FLEET_R, 'rounds': FLEET_TREE_ROUNDS, 'launches': launches, 'last_loss': losses[-1].tolist()})}",
+          flush=True)
+    if launches != FLEET_TREE_ROUNDS or others:
+        fail(f"fleet tree: sgd_update_leaves launched {launches} times for "
+             f"{FLEET_TREE_ROUNDS} rounds, the per-leaf wrappers {others}")
+    if not (torch.isfinite(losses).all() and tree_leaves_finite(carry.params)):
+        fail("fleet tree: non-finite losses or parameters")
+    return launches
+
+
+_LAUNCH_KEYS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def fleet_launches(store, n_rounds: int = 10) -> dict:
+    """Kernel launches per fleet flat round at R = 2 and R = 8 under
+    torch.profiler (the host's launch calls, and the device's kernels),
+    which must be equal: the replicates add work to each launch, not
+    launches; and the device's busy share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import trajectory as TJ
+    predict("fleet_launches")
+    rec = {}
+    for R in (2, FLEET_R):
+        body, carry = fleet_body(store, R, flat=True)
+        carry, _ = TJ.run_chunk(body, carry, 3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, _ = TJ.run_chunk(body, carry, n_rounds)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        stats = prof.key_averages()
+        host = sum(e.count for e in stats if e.key in _LAUNCH_KEYS)
+        kernels = sum(e.count for e in stats
+                      if e.device_type == DeviceType.CUDA)
+        busy = device_us(stats)
+        rec[R] = {"launch_calls_per_round": host / n_rounds,
+                  "device_ops_per_round": kernels / n_rounds,
+                  "profiled_round_ms": wall_us / 1e3 / n_rounds,
+                  "device_us_per_round": busy / n_rounds,
+                  "device_busy_share": (busy / wall_us if busy > 0
+                                        else "not measured")}
+        del body, carry
+        torch.cuda.empty_cache()
+    print(f"[fleet] launches per round {json.dumps(rec)}", flush=True)
+    a, b = rec[2], rec[FLEET_R]
+    if (a["launch_calls_per_round"] != b["launch_calls_per_round"]
+            or a["device_ops_per_round"] != b["device_ops_per_round"]):
+        fail(f"fleet round: launches differ between R = 2 and R = {FLEET_R}:"
+             f" {rec}")
+    return rec
+
+
+def fleet_turns(store, n_rounds: int = 20) -> dict:
+    """The single dynamic flat round (N = 10, vehicular) and the R 8 fleet
+    round, warm, host clock around n_rounds ending in a synchronize, in
+    turns (single, fleet, fleet, single): rounds/s and replicate-rounds/s."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    predict("fleet_turns")
+    proto = dynamic_proto(PATH_N, FLEET_SCENARIO)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, "cuda")
+    spec = X.FlatSpec(wp)
+    sim = proto.simulator("cuda")
+    single = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda",
+                                sim=sim)
+    state = {"single": TJ.TrajCarry(gen, spec.flatten(wp), sim.init(gen))}
+    fleet, state["fleet"] = fleet_body(store, FLEET_R, flat=True)
+    bodies = {"single": single, "fleet": fleet}
+    for name in bodies:
+        for _ in range(5):
+            state[name] = bodies[name](state[name])[0]
+    ms = {"single": [], "fleet": []}
+    for name in ("single", "fleet", "fleet", "single"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n_rounds):
+            state[name] = bodies[name](state[name])[0]
+        torch.cuda.synchronize()
+        ms[name].append(1e3 * (time.perf_counter() - t0) / n_rounds)
+    rec = {"rounds": n_rounds, "replicates": FLEET_R, "round_ms": ms,
+           "single_rounds_per_s": [1e3 / m for m in ms["single"]],
+           "fleet_replicate_rounds_per_s": [FLEET_R * 1e3 / m
+                                            for m in ms["fleet"]]}
+    # each fleet reading against the single reading beside it in the turns
+    rec["speedup"] = [f / s for f, s in zip(
+        rec["fleet_replicate_rounds_per_s"], rec["single_rounds_per_s"])]
+    print(f"[fleet] in turns {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def telemetry_cli() -> dict:
+    """The static and the iot_dense flat CLI at full width (51 rounds) with
+    a run log (telemetry auto on) and an epsilon budget: a round event a
+    round with every field, the report reading the directory back; then
+    the CLI's rounds/s with telemetry on against off, warm, without evals,
+    in turns (off, on, on, off), beside the reference's 5% ceiling."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.obs import report
+    from repro_torch.obs.telemetry import TelemetrySpec
+    predict("telemetry")
+    runs = ROOT / "build" / "runs"
+    rec = {}
+    fields = TelemetrySpec().fields
+    for name, extra in (("static", []),
+                        ("dynamic", ["--channel-model", "dynamic",
+                                     "--scenario", DYN_SCENARIO])):
+        res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                         "--workers", str(PATH_N), "--steps", str(DYN_STEPS),
+                         "--eval-every", str(DYN_STEPS // 2), "--runlog-dir",
+                         str(runs), "--eps-budget", "20", "--device", "cuda",
+                         *extra])
+        summary = report.summarize_run(res["runlog_dir"])
+        counts = summary["event_counts"]
+        rows = res["telemetry"]
+        rec[name] = {"rounds": res["rounds"],
+                     "rounds_per_s": res["rounds"] / res["seconds"],
+                     "event_counts": counts,
+                     "telemetry_last": dict(zip(fields, rows[-1].tolist())),
+                     "eps_composed": summary["epsilon"].get("eps_composed"),
+                     "warnings": len(summary["warnings"])}
+        if (counts.get("round") != res["rounds"] or not counts.get("epsilon")
+                or set(summary["telemetry"]) != set(fields)
+                or tuple(rows.shape) != (res["rounds"], len(fields))):
+            fail(f"telemetry cli {name}: the run log holds {counts}, "
+                 f"telemetry {tuple(rows.shape)}")
+        finite = torch.isfinite(rows[:, [fields.index(f) for f in fields
+                                         if f != "snr_db"]]).all()
+        if not finite or report.main([str(res["runlog_dir"])]) != 0:
+            fail(f"telemetry cli {name}: non-finite telemetry or an "
+                 f"unreadable run directory")
+    rate = {}
+    for name, extra in (("static", []),
+                        ("dynamic", ["--channel-model", "dynamic",
+                                     "--scenario", DYN_SCENARIO])):
+        rate[name] = {"off": [], "on": []}
+        for t in ("off", "on", "on", "off"):
+            res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                             "--workers", str(PATH_N), "--steps",
+                             str(DYN_STEPS), "--eval-every", "0",
+                             "--telemetry", t, "--device", "cuda", *extra])
+            rate[name][t].append(res["rounds"] / res["seconds"])
+        off, on = (sum(v) / 2 for v in (rate[name]["off"], rate[name]["on"]))
+        rate[name]["overhead"] = off / on - 1.0
+        rate[name]["within_ceiling"] = off / on - 1.0 <= TELEMETRY_CEILING
+    rec["rounds_per_s_in_turns"] = rate
+    print(f"[telemetry] {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def sweep_phase() -> dict:
+    """``python -m repro_torch.fleet.sweep`` as the README runs it, at 5
+    steps a cell: 8 rows with the reference's keys, every number finite."""
+    from repro_torch.fleet import sweep
+    predict("sweep")
+    path = ROOT / "build" / "sweep.json"
+    t0 = time.perf_counter()
+    out = sweep.main(["--scenarios", "iot_dense,vehicular", "--workers",
+                      "8,16", "--epsilon", "0.5,1.0", "--replicates",
+                      str(FLEET_R), "--steps", "5", "--json", str(path),
+                      "--device", "cuda"])
+    rows = json.loads(path.read_text())["rows"]
+    rec = {"cells": len(rows), "seconds": time.perf_counter() - t0,
+           "us_per_round": [r["us_per_round"] for r in rows],
+           "acc_mean": [r["acc_mean"] for r in rows]}
+    print(f"[sweep] {json.dumps(rec)}", flush=True)
+    numbers = [v for r in rows for k, v in r.items()
+               if isinstance(v, float)]
+    if (len(rows) != 8 or any(set(r) != SWEEP_KEYS for r in rows)
+            or not all(math.isfinite(v) for v in numbers)
+            or len(out["rows"]) != 8):
+        fail(f"sweep: {len(rows)} rows, keys {sorted(set(rows[0]) ^ SWEEP_KEYS) if rows else None}, "
+             f"or non-finite numbers")
+    return rec
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -2583,6 +3052,18 @@ def main() -> int:
     sparse_tree(SPARSE_TREE_N)
     sparse_turns()
     torch.cuda.empty_cache()
+
+    # the fleet and telemetry: dp_mix's replicate axis, the fleet CLI
+    # (counted), its tree round, its launches, it in turns against the
+    # single round; the telemetry CLI and its cost; the sweep
+    raxis_rec = raxis_phase(counts, rates)
+    fleet_rec = fleet_cli()
+    fleet_tree(store)
+    fleet_launches(store)
+    fleet_turns(store)
+    telemetry_cli()
+    sweep_phase()
+    torch.cuda.empty_cache()
     predict("turns")
     round_turns(store, "after the training phases")
     predict("cli_turns")
@@ -2652,6 +3133,14 @@ def main() -> int:
         "ms": sparse_rec["ms"], "plain_ms": sparse_rec["plain_ms"],
         "bound_ms": sparse_rec["bound_ms"],
         "bound_by": sparse_rec["bound_by"], "library_ms": None}, {
+        "name": "dp_mix replicate axis", "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
+        "launches": fleet_rec["launches"],
+        "max_abs_err": raxis_rec["max_abs_err"],
+        "ms": raxis_rec["ms"], "plain_ms": raxis_rec["plain_ms"],
+        "bound_ms": raxis_rec["bound_ms"], "bound_by": raxis_rec["bound_by"],
+        "separate_ms": raxis_rec["separate_ms"], "library_ms": None}, {
         "name": "dp_perturb", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_perturb/csrc/dp_perturb.cu",
         "replaces": "src/repro/kernels/dp_perturb/dp_perturb.py:42",

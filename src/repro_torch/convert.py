@@ -7,7 +7,8 @@ leading worker axis ([N, in, out], [N, out]), and returns the port's flat
 worker-stacked tree, so both packages compute on the same numbers. The
 tree's leaves are materialized copies, each worker its own memory: a
 stride-0 view handed to a kernel by its pointer would make every worker
-read worker 0's parameters.
+read worker 0's parameters. ``fleet_params_from_jax`` does the same for
+the fleet's [R, N, ...] parameters: the [R, N, d] buffer and its tree.
 """
 from __future__ import annotations
 
@@ -38,6 +39,20 @@ def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
     tensors = tree_unflatten(structure, [
         torch.as_tensor(np.array(a), device=dev) for a in arrs])
     spec = FlatSpec(tensors, lead_axes=1)
+    return spec.flatten(tensors), tensors, spec
+
+
+def fleet_params_from_jax(tree, device="cuda"
+                          ) -> Tuple[torch.Tensor, dict, FlatSpec]:
+    """The reference fleet's [R, N, ...] MLP parameters (numpy leaves, as
+    ``FleetEngine.init_worker_params`` makes them) -> (flat [R, N, d]
+    float32 in the reference's ravel order, the tree of contiguous [R, N,
+    ...] leaves, FlatSpec with lead axes 2)."""
+    dev = resolve_device(device)
+    leaves, structure = tree_flatten(tree)
+    tensors = tree_unflatten(structure, [
+        torch.as_tensor(np.array(l), device=dev) for l in leaves])
+    spec = FlatSpec(tensors, lead_axes=2)
     return spec.flatten(tensors), tensors, spec
 
 

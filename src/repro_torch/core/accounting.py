@@ -121,17 +121,23 @@ def rho_from_epsilon(eps, delta: float):
     return eps ** 2 / (4.0 * math.log(1.25 / delta))
 
 
-def rdp_dwfl_traced(gamma: float, g_max: float, chan, W=None) -> torch.Tensor:
+def rdp_dwfl_traced(gamma: float, g_max: float, chan, W=None,
+                    orders: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The worst receiver's per-round RDP vector eps(alpha) [A] on the
     order grid, on the channel's device (W None: the complete graph). A
     receiver that hears nothing contributes rho = 0. A stacked trajectory
-    (leaves [T, ...], Ws [T, N, N] or a stacked SparseW) gives [T, A]."""
+    (leaves [T, ...], Ws [T, N, N] or a stacked SparseW) gives [T, A].
+    ``orders``: the grid as a float32 tensor on that device, made once by
+    a caller in a loop (building it here is a host-to-device copy, which
+    waits for the device)."""
     from repro_torch.core.privacy import _masking_sums, _rx
     num = 2.0 * gamma * g_max * _rx(chan.c)
     mask_sum, listening = _masking_sums(chan, W)
     agg2 = mask_sum * _rx(chan.sigma) ** 2 + _rx(chan.sigma_m) ** 2
     rho = torch.where(listening, num ** 2 / (2.0 * agg2), 0.0)
-    orders = torch.tensor(ORDER_GRID, dtype=torch.float32, device=rho.device)
+    if orders is None:
+        orders = torch.tensor(ORDER_GRID, dtype=torch.float32,
+                              device=rho.device)
     return orders * rho.amax(-1, keepdim=True)
 
 

@@ -58,10 +58,11 @@ from repro_torch.runtime import resolve_device
 def mix_noise_amp(chan, device="cuda") -> torch.Tensor:
     """Per-worker DP-noise amplitude |h_k| sqrt(beta_k P_k) sigma, [N]: of
     the static ChannelState, or of a round's TracedChannelState, whose
-    tensors it takes as they are on their device."""
+    tensors it takes as they are on their device ([R, N] for a stack of
+    networks)."""
     dev = resolve_device(device)
     if torch.is_tensor(chan.noise_scale):
-        return (chan.noise_scale * chan.dp_sigma).to(dev)
+        return (chan.noise_scale * chan.dp_sigma.unsqueeze(-1)).to(dev)
     return (torch.as_tensor(np.asarray(chan.noise_scale), dtype=torch.float32,
                             device=dev)
             * torch.tensor(chan.dp_sigma, dtype=torch.float32, device=dev))
@@ -84,13 +85,15 @@ def masked_complete_W(mask: torch.Tensor) -> torch.Tensor:
     """The complete graph on the active workers: each active worker
     averages the other active ones (the paper's W when all are), an
     inactive worker gets the identity row. Symmetric, doubly stochastic
-    for >= 2 active workers; on the mask's device."""
+    for >= 2 active workers; on the mask's device. A mask [R, N] (a stack
+    of networks) gives [R, N, N]."""
     p = mask.to(torch.float32)
-    n = p.shape[0]
-    n_act = torch.clamp_min(p.sum(), 2.0)
-    off = p[:, None] * p[None, :] * (1.0 - torch.eye(n, device=p.device))
+    n = p.shape[-1]
+    n_act = torch.clamp_min(p.sum(-1), 2.0)[..., None, None]
+    off = (p[..., :, None] * p[..., None, :]
+           * (1.0 - torch.eye(n, device=p.device)))
     W = off / (n_act - 1.0)
-    return W + torch.diag(1.0 - W.sum(1))
+    return W + torch.diag_embed(1.0 - W.sum(-1))
 
 
 def sampled_W(participate: torch.Tensor):
@@ -166,18 +169,20 @@ def plan_dynamic(proto, chan, device="cuda", W=None) -> MixPlan:
     """A round of the dynamic network from its W (``net``): a worker with
     no active neighbor (churned out, or isolated by the interference
     graph; its W row is e_i) takes no update this round — it hears
-    neither the superposition nor its AWGN (listen = 0)."""
+    neither the superposition nor its AWGN (listen = 0). A stack of R
+    networks (W [R, N, N], the channel's leaves [R, ...]) gives the stack
+    of their plans: W [R, N, N], c and sigma_m [R], the vectors [R, N]."""
     dev = resolve_device(device)
     if W is None:
         raise ValueError("the dynamic plan needs the round's mixing matrix")
     W = W.to(device=dev, dtype=torch.float32)
-    off_deg = ((W > 0) & ~torch.eye(W.shape[0], dtype=torch.bool,
-                                     device=dev)).sum(1)
+    off_deg = ((W > 0) & ~torch.eye(W.shape[-1], dtype=torch.bool,
+                                     device=dev)).sum(-1)
     deg = torch.clamp_min(off_deg.to(torch.float32), 1.0)
     c = _scalar(chan.c, dev)
     return MixPlan(W=W, c=c, amp=mix_noise_amp(chan, dev),
                    sigma_m=_scalar(chan.awgn_sigma, dev),
-                   m_scale=1.0 / (c * deg),
+                   m_scale=1.0 / (c.unsqueeze(-1) * deg),
                    listen=(off_deg > 0).to(torch.float32))
 
 
@@ -324,10 +329,13 @@ class FlatSpec:
         self.d = int(sum(self._sizes))
 
     def flatten(self, X) -> torch.Tensor:
+        """Each leaf's trailing (per-worker) axes raveled: a tree with the
+        template's leading axes, or with any others in their place (the
+        fleet's [R N] as one axis), -> [lead..., d] float32."""
         leaves, _ = tree_flatten(X)
         return torch.cat(
-            [l.reshape(l.shape[:self.lead_axes] + (-1,)).float()
-             for l in leaves], dim=-1)
+            [l.reshape(l.shape[:l.ndim - len(s) + self.lead_axes] + (-1,))
+             .float() for l, s in zip(leaves, self._shapes)], dim=-1)
 
     def _split(self, flat, lead):
         out, off = [], 0
@@ -378,8 +386,9 @@ def draw_normals(X, generator: torch.Generator, *, shared_m: bool = False
 
 
 def _col(v: torch.Tensor, ndim: int) -> torch.Tensor:
-    """A per-worker [N] vector as [N, 1, ...] against an ndim leaf."""
-    return v.reshape((v.shape[0],) + (1,) * (ndim - 1))
+    """A per-worker [N] vector (the fleet's [R, N]) as [N, 1, ...] ([R,
+    N, 1, ...]) against an ndim leaf."""
+    return v.reshape(tuple(v.shape) + (1,) * (ndim - v.ndim))
 
 
 def dp_noise(G, X, amp: torch.Tensor):
@@ -390,8 +399,10 @@ def dp_noise(G, X, amp: torch.Tensor):
 
 
 def channel_noise(G, X, sigma_m):
-    """m_i = sigma_m G_i per receiver and entry, in the leaf's dtype."""
-    return tree_map(lambda g, x: (sigma_m * g).to(x.dtype), G, X)
+    """m_i = sigma_m G_i per receiver and entry, in the leaf's dtype
+    (sigma_m a number, a 0-d tensor, or the fleet's [R])."""
+    return tree_map(lambda g, x: (_vec(sigma_m, x.ndim) * g).to(x.dtype),
+                    G, X)
 
 
 # ---------------------------------------------------------------------------
@@ -399,12 +410,13 @@ def channel_noise(G, X, sigma_m):
 # ---------------------------------------------------------------------------
 
 
-def _vec(v, n_lead: int, ndim: int):
-    """A per-receiver vector as [n_lead, 1, ...]; numbers and 0-d tensors
-    pass through (they broadcast as they are)."""
+def _vec(v, ndim: int):
+    """A per-receiver vector [N] (the fleet's [R, N], or [R] per
+    replicate) as [N, 1, ...] against an ndim leaf; numbers and 0-d
+    tensors pass through (they broadcast as they are)."""
     if v is None or not torch.is_tensor(v) or v.ndim == 0:
         return v
-    return v.float().reshape((n_lead,) + (1,) * (ndim - 1))
+    return v.float().reshape(tuple(v.shape) + (1,) * (ndim - v.ndim))
 
 
 def mix_exchange(X, noise_n, noise_m, c, eta: float, W, *, self_scale=None,
@@ -415,20 +427,27 @@ def mix_exchange(X, noise_n, noise_m, c, eta: float, W, *, self_scale=None,
                                     - x_i - self_scale_i n_i/c ]
 
     ``self_scale``/``listen`` default to 1, ``m_scale`` to 1 (noise_m
-    pre-scaled). All arithmetic is float32; leaves keep their dtype."""
-    N = W.shape[0]
+    pre-scaled). All arithmetic is float32; leaves keep their dtype. A
+    stack of R networks (the fleet) takes W [R, N, N], leaves [R, N,
+    ...], c [R] and the vectors [R, N]: a batched product."""
+    lead = tuple(W.shape[:-2])
 
     def one(x, n, m):
         xf = x.float()
-        nf = n.float() / c
-        mixed = torch.tensordot(W.float(), xf + nf, dims=1)
-        selfs = _vec(self_scale, N, x.ndim)
+        nf = n.float() / _vec(c, x.ndim)
+        z = xf + nf
+        if lead:
+            mixed = torch.matmul(W.float(), z.reshape(
+                lead + (z.shape[len(lead)], -1))).reshape(z.shape)
+        else:
+            mixed = torch.tensordot(W.float(), z, dims=1)
+        selfs = _vec(self_scale, x.ndim)
         upd = mixed - xf - (nf if selfs is None else selfs * nf)
         if m is not None:
             mf = m.float()
-            ms = _vec(m_scale, m.shape[0], m.ndim)
+            ms = _vec(m_scale, m.ndim)
             upd = upd + (mf if ms is None else ms * mf)
-        li = _vec(listen, N, x.ndim)
+        li = _vec(listen, x.ndim)
         if li is not None:
             upd = li * upd
         return (xf + eta * upd).to(x.dtype)
@@ -454,13 +473,13 @@ def mix_exchange_sparse(X, noise_n, noise_m, c, eta: float, sw, *,
         mixed = col(sw.self_w.float()) * z
         for s in range(sw.k):
             mixed = mixed + col(sw.w[:, s]) * z[sw.idx[:, s].long()]
-        selfs = _vec(self_scale, N, x.ndim)
+        selfs = _vec(self_scale, x.ndim)
         upd = mixed - xf - (nf if selfs is None else selfs * nf)
         if m is not None:
             mf = m.float()
-            ms = _vec(m_scale, m.shape[0], m.ndim)
+            ms = _vec(m_scale, m.ndim)
             upd = upd + (mf if ms is None else ms * mf)
-        li = _vec(listen, N, x.ndim)
+        li = _vec(listen, x.ndim)
         if li is not None:
             upd = li * upd
         return (xf + eta * upd).to(x.dtype)

@@ -4,10 +4,8 @@ O(1/sqrt(N - 1)) bound on it, the orthogonal scheme's per-link budget,
 the budget and sigma calibration on a gossip topology, the per-round
 budgets of a time-varying channel (on the device, from a round's
 ``net.TracedChannelState`` and W), composition over T rounds, and the
-per-worker gradient clip.
-
-The ``_batched`` fleet form of ``epsilon_trajectory`` is not ported yet
-(ROADMAP A12).
+per-worker gradient clip, and the fleet's replicated trajectories
+(``epsilon_trajectory_batched``).
 """
 from __future__ import annotations
 
@@ -211,6 +209,16 @@ def epsilon_trajectory(gamma: float, g_max: float, chans, delta: float,
     or a SparseW of [T, N, k] leaves — pass them whenever the scenario has
     limited range or churn, or the complete-graph formula over-counts the
     masking noise). One batched evaluation, no loop over rounds."""
+    return epsilon_dwfl_traced(gamma, g_max, chans, delta, Ws)
+
+
+def epsilon_trajectory_batched(gamma: float, g_max: float, chans,
+                               delta: float, Ws=None) -> torch.Tensor:
+    """The fleet's form of ``epsilon_trajectory``: ``chans`` with [R, T,
+    ...] leaves (R networks, e.g. ``fleet.FleetEngine.trajectory`` or
+    ``trajectory.replicate_major`` of a fleet log) and ``Ws`` the matching
+    [R, T, N, N] mixing matrices. Returns [R, T, N] in one evaluation over
+    both leading axes, no loop over replicates."""
     return epsilon_dwfl_traced(gamma, g_max, chans, delta, Ws)
 
 

@@ -13,7 +13,12 @@ buffer -> one fused dp_mix round (local step, counter-hash DP noise,
 mixing, self-correction and AWGN). ``make_dynamic_train_step`` and
 ``make_dynamic_flat_train_step`` are the same two rounds on the dynamic
 network (``repro_torch.net``): the round's channel and W are arguments,
-so one step serves every realization. All route the scheme through
+so one step serves every realization. ``make_fleet_flat_train_step``
+and ``make_fleet_train_step`` run those two rounds over R networks at
+once ([R, ...] leaves; the reference vmaps the dynamic steps): the
+gradient pass takes the R N workers as one batch, the flat round's mix is
+one dp_mix launch for all R, the tree round's local step one
+``sgd_update_leaves`` launch. All route the scheme through
 ``exchange.resolve_spec``.
 
 Per-worker gradients need no vmap: every worker's forward runs at once
@@ -81,6 +86,7 @@ class ProtocolConfig:
                                   # whole ``horizon``-round budget under
                                   # ``accountant`` (not with target_epsilon)
     horizon: int = 0              # T of the total budget
+    replicates: int = 1           # the fleet's R (fleet.FleetEngine)
 
     def mixing_matrix(self) -> np.ndarray:
         from repro_torch.core import topology
@@ -329,11 +335,11 @@ def _make_local_pass(cfg: ModelConfig, proto: ProtocolConfig):
     return local_grads, local_step
 
 
-def _bucket(X):
+def _bucket(X, lead_axes: int = 1):
     """Worker tree -> ({"flat": [N, d] float32}, unravel): the per-round
-    fuse_exchange bucketing."""
-    unravel, _ = exchange_lib.worker_unravelers(X)
-    return {"flat": exchange_lib.flatten_worker_tree(X)}, unravel
+    fuse_exchange bucketing (the fleet's [R, N, d]: lead_axes 2)."""
+    spec = exchange_lib.FlatSpec(X, lead_axes)
+    return {"flat": spec.flatten(X)}, spec.unravel
 
 
 def _metrics(losses, gnorms, X):
@@ -367,13 +373,13 @@ def _round_plan(proto: ProtocolConfig, spec: exchange_lib.ExchangeSpec,
     return plan_of
 
 
-def _exchange(X, spec, plan, proto, generator, normals):
+def _exchange(X, spec, plan, proto, generator, normals, lead_axes=1):
     """The worker-tree exchange of a round: bucketed into one flat leaf
     with ``fuse_exchange``, its normals drawn from ``generator`` unless
     given."""
     unravel = None
     if proto.fuse_exchange and spec.fuse_ok:
-        X, unravel = _bucket(X)
+        X, unravel = _bucket(X, lead_axes)
     if normals is None and plan.noisy:
         normals = exchange_lib.draw_normals(X, generator,
                                             shared_m=spec.shared_m)
@@ -526,6 +532,107 @@ def make_dynamic_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
                 flat, g, seed, mix.plan(proto, chan, dev, W),
                 gamma=gamma, eta=eta)
         return flat, _flat_metrics(losses, gnorms, flat)
+
+    return step
+
+
+def _fold(tree, R: int, N: int):
+    """[R, N, ...] leaves -> [R N, ...] (the fleet's workers as one
+    batch), and back with ``_unfold``."""
+    return exchange_lib.tree_map(lambda l: l.reshape((R * N,) + l.shape[2:]),
+                                 tree)
+
+
+def _unfold(tree, R: int, N: int):
+    return exchange_lib.tree_map(lambda l: l.reshape((R, N) + l.shape[1:]),
+                                 tree)
+
+
+def _fleet_metrics(losses, gnorms, leaves, R: int, N: int) -> dict:
+    """Per replicate [R]: mean loss and gradient norm over its workers,
+    the norm of its parameters."""
+    sq = sum(torch.sum(x.float().reshape(R, -1) ** 2, dim=1) for x in leaves)
+    return {"loss": losses.reshape(R, N).mean(-1),
+            "grad_norm": gnorms.reshape(R, N).mean(-1),
+            "param_norm": torch.sqrt(sq)}
+
+
+def _fleet_spec(proto: ProtocolConfig) -> exchange_lib.ExchangeSpec:
+    spec = exchange_lib.resolve_spec(proto, dynamic=True)
+    if spec.name == "dynamic_sparse":
+        raise NotImplementedError(
+            "the fleet's round with a neighbor-list W (sparse_neighbors > "
+            "0) is not ported yet (ROADMAP A20)")
+    return spec
+
+
+def make_fleet_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
+                               spec: exchange_lib.FlatSpec, device="cuda"
+                               ) -> Callable:
+    """The dynamic flat round of R networks at once:
+
+        step(flat, batch, seeds, chans, Ws) -> (flat', metrics)
+
+    flat [R, N, d] float32; batch leaves [R, N, B, ...]; seeds int32 [R],
+    one a replicate (each replicate's noise counters from 0); chans the
+    networks' stacked channel ([R, ...] leaves) and Ws [R, N, N], from one
+    ``NetworkSimulator.round`` of a stacked state; metrics [R] each.
+    Replicate r is ``make_dynamic_flat_train_step``'s round on replicate
+    r's operands (up to the order of the gradient pass's products). The
+    gradients of the R N workers come from one pass, the stacked plan
+    (``exchange.plan_dynamic``) from one call, and the mix is one dp_mix
+    call and one launch for all R."""
+    dev = resolve_device(device)
+    mix = _flat_spec(proto, dynamic=True)
+    _fleet_spec(proto)
+    local_grads = make_flat_local_pass(cfg, proto, spec)
+    gamma, eta = proto.gamma, proto.eta
+
+    def step(flat, batch, seeds, chans, Ws):
+        R, N, d = flat.shape
+        losses, g, gnorms = local_grads(flat.reshape(R * N, d),
+                                        _fold(batch, R, N))
+        g = g.reshape(R, N, d)
+        if proto.n_workers < 2:
+            flat = flat - gamma * g
+        else:
+            flat = mix_ops.dp_mix_round_plan(
+                flat, g, seeds, mix.plan(proto, chans, dev, Ws),
+                gamma=gamma, eta=eta)
+        return flat, _fleet_metrics(losses, gnorms, [flat], R, N)
+
+    return step
+
+
+def make_fleet_train_step(cfg: ModelConfig, proto: ProtocolConfig,
+                          device="cuda") -> Callable:
+    """The dynamic worker-tree round of R networks at once:
+
+        step(worker_params, batch, generator, chans, Ws, normals=None)
+            -> (worker_params', metrics)
+
+    worker_params leaves [R, N, ...], the rest as
+    ``make_fleet_flat_train_step``'s. The gradients of the R N workers
+    come from one pass; the local step takes the [R, N, ...] leaves as
+    they are (with ``use_pallas`` one ``sgd_update_leaves`` launch a
+    round); the exchange mixes each replicate by its own W in batched
+    products, its normals drawn from ``generator`` over the [R, N, ...]
+    leaves unless given."""
+    dev = resolve_device(device)
+    spec = _fleet_spec(proto)
+    local_grads, local_step = _make_local_pass(cfg, proto)
+
+    def step(worker_params, batch, generator, chans, Ws, normals=None):
+        leaves, _ = exchange_lib.tree_flatten(worker_params)
+        R, N = leaves[0].shape[:2]
+        losses, grads, gnorms = local_grads(_fold(worker_params, R, N),
+                                            _fold(batch, R, N))
+        X = local_step(worker_params, _unfold(grads, R, N))
+        if proto.n_workers >= 2:
+            X = _exchange(X, spec, spec.plan(proto, chans, dev, Ws), proto,
+                          generator, normals, lead_axes=2)
+        return X, _fleet_metrics(losses, gnorms,
+                                 exchange_lib.tree_flatten(X)[0], R, N)
 
     return step
 

@@ -2,7 +2,8 @@
 (the reference's ``repro.data.device.ClassificationStore``).
 
 The whole dataset and the per-worker index pools live on the device; a
-round's [W, B] batch is a gather. Pools have unequal sizes (Dirichlet
+round's [W, B] batch is a gather (the fleet's [R, W, B]: ``sample_fleet``).
+Pools have unequal sizes (Dirichlet
 partitions), so the pool is a padded [W, m] matrix and the draw for
 worker w is j = min(floor(u * size_w), size_w - 1) for a uniform u in
 [0, 1). The uniforms are an argument of ``sample`` — drawn by the caller
@@ -48,6 +49,25 @@ class ClassificationStore:
         j = torch.minimum((u.float() * size.float()).long(), size - 1)
         gidx = torch.gather(self.pool, 1, j)
         return {"x": self.x[gidx], "y": self.y[gidx]}
+
+    def sample_fleet(self, u: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The fleet's batch {"x": [R, W, B, D], "y": [R, W, B]} from the
+        uniforms ``u`` [R, W, B]: replicate r is ``sample(u[r])``, all R
+        in one gather."""
+        R = u.shape[0]
+        size = self.pool_size[:, None]
+        j = torch.minimum((u.float() * size.float()).long(), size - 1)
+        gidx = torch.gather(self.pool.expand((R,) + self.pool.shape), 2, j)
+        return {"x": self.x[gidx], "y": self.y[gidx]}
+
+    def draw_fleet(self, generator: torch.Generator,
+                   replicates: int) -> Dict[str, torch.Tensor]:
+        """One fleet round's batch: [R, W, B] uniforms from ``generator``
+        in one draw (at R = 1 the values ``draw`` takes), then
+        ``sample_fleet``."""
+        u = torch.rand((int(replicates), self.n_workers, self.batch),
+                       generator=generator, device=self.pool.device)
+        return self.sample_fleet(u)
 
     @classmethod
     def build(cls, x, y, partitions: List[np.ndarray], batch_size: int,

@@ -9,6 +9,9 @@ one is loaded as it is. The first use builds; ``build_all`` builds every
 library at once, one ``nvcc`` each, all started together.
 
 A missing ``nvcc`` or a failed build raises: there is no fallback.
+``BUILDS`` counts each library's builds and loads in this process
+(``obs.guard.LibraryBuilds`` watches it: a run's later chunks must add
+none).
 """
 from __future__ import annotations
 
@@ -90,6 +93,7 @@ def build_all(libs: Iterable[Library]) -> Dict[str, float]:
     times = {lib.name: 0.0 for lib in libs}
     failed = []
     for lib, (tmp, proc) in procs.items():
+        _count(f"{lib.name} build")
         log, _ = proc.communicate()
         times[lib.name] = time.perf_counter() - t0
         lib.log_path.write_text(log)
@@ -104,6 +108,11 @@ def build_all(libs: Iterable[Library]) -> Dict[str, float]:
 
 
 _LOADED: Dict[Library, ctypes.CDLL] = {}
+BUILDS: Dict[str, int] = {}     # "<name> build" / "<name> load" -> count
+
+
+def _count(key: str) -> None:
+    BUILDS[key] = BUILDS.get(key, 0) + 1
 
 
 def load(lib: Library) -> ctypes.CDLL:
@@ -112,4 +121,5 @@ def load(lib: Library) -> ctypes.CDLL:
     if lib not in _LOADED:
         build_all([lib])
         _LOADED[lib] = ctypes.CDLL(str(lib.path))
+        _count(f"{lib.name} load")
     return _LOADED[lib]

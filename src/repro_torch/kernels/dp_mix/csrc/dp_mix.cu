@@ -50,6 +50,16 @@
 //   cores) and draws Gm in its epilogue, once an element. A tensor-core
 //   mix for large N is later work.
 //
+// A stack of R rounds (the fleet's replicates, reps = R) is one launch on
+// either route: the replicate is a grid axis (the column route's y, the
+// large-N kernels' z), and each block first moves its Args to its
+// replicate's operands (replicate(): p, g and out r n d elements on, W r
+// n n, the vectors r n, scal 2 r, seed r, the workspace 2 r n d; 64-bit
+// offsets). col0 is shared and the counters start at 0 in every
+// replicate, as each replicate of the reference's vmap has its own seed
+// and counter space. The arithmetic of an element is unchanged, so
+// replicate r is bitwise the launch of replicate r's operands alone.
+//
 // The sparse round (dp_mix_sparse_launch) mixes through a padded neighbor
 // list instead of W: idx, w [n, k], self_w [n] (net/sparse.py's SparseW),
 //
@@ -131,6 +141,26 @@ __device__ __forceinline__ float partial(float x, float nf, float gm, float4 rc)
 
 __device__ __forceinline__ uint32_t counter(uint32_t row, uint32_t cw, uint32_t gcol) {
   return row * cw + gcol;
+}
+
+// Replicate r's operands of a stack of rounds (see the header).
+template <typename T>
+__device__ __forceinline__ Args replicate(const Args& a, unsigned r) {
+  if (r == 0) return a;
+  Args b = a;
+  const size_t n = a.n, nd = n * a.d;
+  b.p = static_cast<const T*>(a.p) + r * nd;
+  b.g = static_cast<const T*>(a.g) + r * nd;
+  b.out = static_cast<T*>(a.out) + r * nd;
+  b.W = a.W + r * n * n;
+  b.amp = a.amp + r * n;
+  b.selfs = a.selfs + r * n;
+  b.mscale = a.mscale + r * n;
+  b.listen = a.listen + r * n;
+  b.scal = a.scal + 2 * (size_t)r;
+  b.seed = a.seed + r;
+  if (a.ws != nullptr) b.ws = a.ws + 2 * r * nd;
+  return b;
 }
 
 // ---- column route -------------------------------------------------------
@@ -248,7 +278,8 @@ __device__ __forceinline__ void rows_batch(const Args& a, int k0, int col, uint3
 
 template <typename T, bool Noisy>
 __global__ void __launch_bounds__(kThreads)
-dp_mix_columns(const Args a, const bool vec) {
+dp_mix_columns(const Args args, const bool vec) {
+  const Args a = replicate<T>(args, blockIdx.y);
   extern __shared__ float4 smem[];
   const int n = a.n, d = a.d, np = round_up(n, 4), tid = threadIdx.x;
   float4* sRow = smem;                                        // [n]
@@ -316,7 +347,8 @@ dp_mix_columns(const Args a, const bool vec) {
 
 // z (x when gossip) and nf of every element into the workspace.
 template <typename T>
-__global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args a) {
+__global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args args) {
+  const Args a = replicate<T>(args, blockIdx.z);
   const int k = blockIdx.y, j = blockIdx.x * kPrepThreads + threadIdx.x;
   const size_t off = (size_t)k * a.d + min(j, a.d - 1);   // lanes past d draw along
   const float x = local_step(load_f(static_cast<const T*>(a.p), off),
@@ -339,7 +371,8 @@ __global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args a) {
 // kSlab-sender slabs of W (transposed) and z in shared memory, each
 // thread 4 receivers x 4 columns; then v and the store.
 template <typename T>
-__global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args a) {
+__global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args args) {
+  const Args a = replicate<T>(args, blockIdx.z);
   constexpr int ld = kTile + 4;   // row stride: float4 reads, few bank conflicts on the stores
   __shared__ __align__(16) float sW[kSlab][ld];
   __shared__ __align__(16) float sZ[kSlab][ld];
@@ -495,7 +528,7 @@ bool columns_route(int n) {
 }
 
 template <typename T, bool Noisy>
-int launch_columns(const Args& a, cudaStream_t stream) {
+int launch_columns(const Args& a, int reps, cudaStream_t stream) {
   const size_t bytes = columns_smem_bytes(a.n, Noisy);
   static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
   if (bytes > opted_in) {
@@ -504,24 +537,28 @@ int launch_columns(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     opted_in = bytes;
   }
+  // d even: every replicate's rows start on a pack too
   const size_t pack = sizeof(T) * kCols;
   const bool vec = a.d % kCols == 0 && (uintptr_t)a.p % pack == 0 &&
                    (uintptr_t)a.g % pack == 0 && (uintptr_t)a.out % pack == 0;
   const int blocks = (a.d + kTileCols - 1) / kTileCols;
-  dp_mix_columns<T, Noisy><<<blocks, kThreads, bytes, stream>>>(a, vec);
+  dp_mix_columns<T, Noisy><<<dim3(blocks, reps), kThreads, bytes, stream>>>(a, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, int reps, cudaStream_t stream) {
+  if (reps < 1 || reps > 65535) return (int)cudaErrorInvalidValue;
   if (columns_route(a.n))
-    return a.noisy ? launch_columns<T, true>(a, stream) : launch_columns<T, false>(a, stream);
+    return a.noisy ? launch_columns<T, true>(a, reps, stream)
+                   : launch_columns<T, false>(a, reps, stream);
   if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
-  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
+  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n, reps), kPrepThreads, 0,
+                   stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  dp_mix_tiled<T><<<dim3((a.d + kTile - 1) / kTile, (a.n + kTile - 1) / kTile), kTiledThreads, 0,
-                    stream>>>(a);
+  dp_mix_tiled<T><<<dim3((a.d + kTile - 1) / kTile, (a.n + kTile - 1) / kTile, reps),
+                    kTiledThreads, 0, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -530,19 +567,23 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // Floats of the workspace the launch needs at [n, d]: 0 on the column
-// route, 2 n d (z and nf, float32) on the large-N route.
+// route, 2 n d (z and nf, float32) on the large-N route; a stack of reps
+// rounds needs reps times that.
 size_t dp_mix_workspace_floats(int n, int d) {
   return n < 1 || d < 1 || columns_route(n) ? 0 : 2 * (size_t)n * d;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (p, g, out). Every other array is
-// float32 on the device except seed and col0, int32 [1]; ws is the
-// workspace of dp_mix_workspace_floats (null when that is 0). Returns the
+// float32 on the device except seed and col0, int32; ws is the workspace
+// of dp_mix_workspace_floats (null when that is 0). reps rounds stacked:
+// p, g, out [reps, n, d], W [reps, n, n], amp, selfs, mscale, listen
+// [reps, n], scal [reps, 2], seed [reps], col0 [1] (shared). Returns the
 // cudaError_t of the launch (0 = launched).
 int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void* W,
                   const void* amp, const void* selfs, const void* mscale, const void* listen,
-                  const void* scal, const void* seed, const void* col0, void* ws, int n, int d,
-                  unsigned int counter_width, float gamma, float eta, int noisy, void* stream) {
+                  const void* scal, const void* seed, const void* col0, void* ws, int reps,
+                  int n, int d, unsigned int counter_width, float gamma, float eta, int noisy,
+                  void* stream) {
   if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const Args a{p, g, out, static_cast<const float*>(W), static_cast<const float*>(amp),
                static_cast<const float*>(selfs), static_cast<const float*>(mscale),
@@ -550,8 +591,8 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
                static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
                static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(a, s);
+  if (dtype == 0) return launch<float>(a, reps, s);
+  if (dtype == 1) return launch<__nv_bfloat16>(a, reps, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,9 @@
 """The fused DWFL round in plain PyTorch: ``dp_mix_plain``, the twin of
 the reference's ``dp_mix_fused_jnp`` (repro/kernels/dp_mix/dp_mix.py) with
-the ``_round_math`` arithmetic, and ``dp_mix_sparse_plain``, the twin of
-its ``dp_mix_sparse_jnp`` (``_sparse_round_math``: the mix through a
-padded neighbor list).
+the ``_round_math`` arithmetic (``dp_mix_plain_stack`` for a stack of
+rounds, the twin of the kernel's replicate axis), and
+``dp_mix_sparse_plain``, the twin of its ``dp_mix_sparse_jnp``
+(``_sparse_round_math``: the mix through a padded neighbor list).
 
 They are what ``ops.dp_mix_round`` and ``ops.dp_mix_round_sparse`` run for
 a tensor on the CPU, and what the CUDA kernels (``csrc/dp_mix.cu``) are
@@ -44,6 +45,17 @@ def dp_mix_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
     else:
         upd = W @ x
     return (x + eta * col(listen) * (upd - x)).to(p.dtype)
+
+
+def dp_mix_plain_stack(p, g, seed, col0, scal, amp, selfs, mscale, listen, W,
+                       **kw) -> torch.Tensor:
+    """The plain version of a stack of R rounds (the fleet's): ``dp_mix_plain``
+    on each replicate's operands (p, g [R, N, D], seed [R], scal [R, 2],
+    the vectors [R, N], W [R, N, N]; col0 shared)."""
+    return torch.stack([
+        dp_mix_plain(p[r], g[r], seed[r:r + 1], col0, scal[r], amp[r],
+                     selfs[r], mscale[r], listen[r], W[r], **kw)
+        for r in range(p.shape[0])])
 
 
 def dp_mix_sparse_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen,

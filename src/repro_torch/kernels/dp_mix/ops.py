@@ -8,6 +8,13 @@ hand-written kernel (``csrc/dp_mix.cu``) or raises; a CPU tensor runs the
 plain version (``dp_mix.dp_mix_plain``). There is no fallback between the
 two. ``dp_mix_round.launches`` counts the kernel launches.
 
+A stack of R rounds (the fleet: p, g [R, N, d], W [R, N, N], the
+per-receiver vectors [R, N], c, sigma_m and seed [R]) is one call and one
+launch: the replicate is a grid axis of the kernel, each replicate's
+noise counters start at 0 under its own seed, and replicate r is bitwise
+``dp_mix_round`` on replicate r's operands. Its plain version is
+``dp_mix.dp_mix_plain_stack``, ``dp_mix_plain`` applied to each replicate.
+
 Dtype contract (the reference's): the output has the input buffer's dtype
 (float32 or bfloat16 on the card); the arithmetic is float32.
 
@@ -32,7 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain, dp_mix_sparse_plain
+from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_plain, dp_mix_plain_stack,
+                                              dp_mix_sparse_plain)
 
 LANES = 128            # noise-counter row stride multiple (the reference's)
 SUBLANES = 8           # the sparse round's worker-axis pad (the reference's)
@@ -44,8 +52,9 @@ LIBRARY = build.Library("dp_mix", sources=(_CSRC / "dp_mix.cu",),
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR = ctypes.c_void_p
 # dp_mix_launch's parameters, in order
-ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int, ctypes.c_int,
-            ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int, _PTR])
+ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int] * 3
+            + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+               _PTR])
 # dp_mix_sparse_launch's parameters, in order
 SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 3
                    + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
@@ -71,10 +80,6 @@ def _on(v, shape, dtype, device) -> torch.Tensor:
         return torch.full(shape, v, dtype=dtype, device=device)
     v = torch.as_tensor(v, dtype=dtype, device=device)
     return (v.expand(shape) if v.ndim == 0 else v.reshape(shape)).contiguous()
-
-
-def _vec(v, N: int, device) -> torch.Tensor:
-    return _on(v, (N,), torch.float32, device)
 
 
 def _library() -> ctypes.CDLL:
@@ -107,13 +112,17 @@ def _check(p, operands) -> None:
 
 
 def _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen):
-    """The operands every round shares, as ``_check`` takes them."""
-    N, d = p.shape
+    """The operands every round shares, as ``_check`` takes them (with
+    the leading replicate axis of a stack of rounds)."""
+    *lead, N, d = p.shape
+    lead = tuple(lead)
     f32, i32 = torch.float32, torch.int32
-    return (("g", g, (N, d), p.dtype), ("amp", amp, (N,), f32),
-            ("self", selfs, (N,), f32), ("m_scale", mscale, (N,), f32),
-            ("listen", listen, (N,), f32), ("scal", scal, (2,), f32),
-            ("seed", seed, (1,), i32), ("col0", col0, (1,), i32))
+    return (("g", g, lead + (N, d), p.dtype), ("amp", amp, lead + (N,), f32),
+            ("self", selfs, lead + (N,), f32),
+            ("m_scale", mscale, lead + (N,), f32),
+            ("listen", listen, lead + (N,), f32),
+            ("scal", scal, lead + (2,), f32),
+            ("seed", seed, lead or (1,), i32), ("col0", col0, (1,), i32))
 
 
 def _raise_on(lib, rc: int) -> None:
@@ -124,13 +133,15 @@ def _raise_on(lib, rc: int) -> None:
 
 def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
             gamma, eta, noisy, counter_width) -> torch.Tensor:
-    N, d = p.shape
+    """One launch over [N, d], or over a stack [R, N, d] of R rounds."""
+    *lead, N, d = p.shape
+    R = lead[0] if lead else 1
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
-           + (("W", W, (N, N), torch.float32),))
+           + (("W", W, tuple(lead) + (N, N), torch.float32),))
     p, g = p.contiguous(), g.contiguous()
     out = torch.empty_like(p)
     lib = _library()
-    ws_floats = lib.dp_mix_workspace_floats(N, d)
+    ws_floats = R * lib.dp_mix_workspace_floats(N, d)
     ws = (torch.empty(ws_floats, dtype=torch.float32, device=p.device)
           if ws_floats else None)
     rc = lib.dp_mix_launch(
@@ -138,7 +149,7 @@ def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
         W.data_ptr(), amp.data_ptr(), selfs.data_ptr(), mscale.data_ptr(),
         listen.data_ptr(), scal.data_ptr(), seed.data_ptr(), col0.data_ptr(),
         None if ws is None else ws.data_ptr(),
-        N, d, counter_width, gamma, eta, int(noisy),
+        R, N, d, counter_width, gamma, eta, int(noisy),
         torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, rc)
     dp_mix_round.launches += 1
@@ -186,26 +197,37 @@ def dp_mix_round(p, g, seed, W, amp, c, sigma_m, *, gamma: float, eta: float,
     full self-correction, AWGN scaled by 1/(c (N - 1)), everyone
     listening). noisy=False skips the noise (gossip).
 
+    A stack of R rounds takes p, g [R, N, d], W [R, N, N], amp and the
+    vectors [R, N], c, sigma_m and seed [R] (each replicate its own seed,
+    its counters from 0): one launch, replicate r bitwise the round of
+    replicate r's operands.
+
     col0 / counter_width: the column-window hooks for a buffer sharded
     over columns — the window's global column offset and the canonical
     noise-counter row stride (default roundup(d, 128), the stride the
     reference's CPU lowering uses).
     """
-    N, d = p.shape
+    if p.ndim not in (2, 3):
+        raise ValueError(f"p must be [N, d] or [R, N, d], got "
+                         f"{tuple(p.shape)}")
+    *lead, N, d = p.shape
+    lead = tuple(lead)
     cw = _counter_width(N, d, counter_width)
     dev = p.device
     vecs = _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale,
-                          m_scale, listen)
+                          m_scale, listen, lead)
     W = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
-    if W.shape != (N, N):
-        raise ValueError(f"W must be [{N}, {N}], got {tuple(W.shape)}")
+    if W.shape != lead + (N, N):
+        raise ValueError(f"W must be {list(lead + (N, N))}, got "
+                         f"{tuple(W.shape)}")
     args = (p, g, *vecs, W)
     kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
               counter_width=cw)
     if dev.type == "cuda":
         return _launch(*args, **kw)
     if dev.type == "cpu":
-        return dp_mix_plain(*args, **kw)
+        return dp_mix_plain_stack(*args, **kw) if lead else dp_mix_plain(
+            *args, **kw)
     raise ValueError(f"dp_mix_round has no path for device {dev}")
 
 
@@ -224,18 +246,23 @@ def _counter_width(N: int, d: int, counter_width) -> int:
 
 
 def _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale, m_scale,
-                   listen):
+                   listen, lead=()):
     """(seed, col0, scal = [c, sigma_m], amp, self, m_scale, listen) as the
-    kernels take them, with the defaults of ``dp_mix_round``."""
-    c = _on(c, (), torch.float32, dev)
-    scal = torch.stack([c, _on(sigma_m, (), torch.float32, dev)])
+    kernels take them, with the defaults of ``dp_mix_round``; ``lead``
+    (R,) for a stack of rounds: seed [R], scal [R, 2], the vectors [R,
+    N]."""
+    f32 = torch.float32
+    c = _on(c, lead, f32, dev)
+    scal = torch.stack([c, _on(sigma_m, lead, f32, dev)], dim=-1)
     if m_scale is None:
-        m_scale = torch.full((N,), 1.0, device=dev) / (c * max(N - 1, 1))
-    return (_on(seed, (1,), torch.int32, dev),
-            _on(col0, (1,), torch.int32, dev), scal, _vec(amp, N, dev),
-            _vec(1.0 if self_scale is None else self_scale, N, dev),
-            _vec(m_scale, N, dev), _vec(1.0 if listen is None else listen,
-                                        N, dev))
+        m_scale = (torch.full(lead + (N,), 1.0, device=dev)
+                   / (c.unsqueeze(-1) * max(N - 1, 1)))
+    vec = lambda v: _on(v, lead + (N,), f32, dev)
+    return (_on(seed, lead or (1,), torch.int32, dev),
+            _on(col0, (1,), torch.int32, dev), scal, vec(amp),
+            vec(1.0 if self_scale is None else self_scale), vec(m_scale),
+            vec(1.0 if listen is None else listen))
+
 
 
 def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
@@ -255,6 +282,10 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     listens nor reaches a real row (no real row gathers an index >= N);
     the columns are not padded, each is independent of the others.
     """
+    if p.ndim != 2:
+        raise NotImplementedError(
+            "a stack of rounds mixed through neighbor lists is not ported "
+            "yet (ROADMAP A20)")
     N, d = p.shape
     cw = _counter_width(N, d, counter_width)
     dev = p.device

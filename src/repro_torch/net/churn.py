@@ -37,15 +37,16 @@ class ChurnState:
     up: torch.Tensor   # [N] float32 in {0, 1}
 
 
-def _rand(generator, n: int) -> torch.Tensor:
-    return torch.rand((n,), generator=generator, device=generator.device)
+def _rand(generator, shape) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=generator.device)
 
 
 def init_churn(cfg: ChurnConfig, generator: torch.Generator,
-               n_workers: int) -> ChurnState:
+               n_workers: int, lead: tuple = ()) -> ChurnState:
     """Start from the stationary distribution (everyone up at the start
-    would bias short trajectories' privacy optimistic)."""
-    return ChurnState(up=(_rand(generator, n_workers)
+    would bias short trajectories' privacy optimistic). ``lead``: leading
+    axes of a stack of networks."""
+    return ChurnState(up=(_rand(generator, lead + (n_workers,))
                           < cfg.stationary_up).to(torch.float32))
 
 
@@ -53,19 +54,19 @@ def advance(cfg: ChurnConfig, generator: torch.Generator,
             state: ChurnState) -> ChurnState:
     if cfg.p_drop <= 0.0 and cfg.p_join >= 1.0:
         return ChurnState(up=torch.ones_like(state.up))
-    u = _rand(generator, state.up.shape[0])
+    u = _rand(generator, state.up.shape)
     up = torch.where(state.up > 0, u >= cfg.p_drop, u < cfg.p_join)
     return ChurnState(up=up.to(torch.float32))
 
 
 def participation_mask(cfg: ChurnConfig, generator: torch.Generator,
                        state: ChurnState) -> torch.Tensor:
-    """Bool [N]: up and not straggling this round, the first
+    """Bool [..., N]: up and not straggling this round, the first
     ``min_active`` workers forced on."""
     mask = state.up > 0
-    n = mask.shape[0]
+    n = mask.shape[-1]
     if cfg.straggler_rate > 0.0:
-        mask = mask & (_rand(generator, n) >= cfg.straggler_rate)
+        mask = mask & (_rand(generator, mask.shape) >= cfg.straggler_rate)
     if cfg.min_active > 0:
         mask = mask | (torch.arange(n, device=mask.device) < cfg.min_active)
     return mask

@@ -92,23 +92,24 @@ class FadingState:
 
 
 def init_fading(cfg: FadingConfig, generator: torch.Generator,
-                n_workers: int) -> FadingState:
+                n_workers: int, lead: tuple = ()) -> FadingState:
+    """``lead``: leading axes of a stack of networks (the fleet's (R,))."""
     dev = generator.device
     if cfg.kind == "unit":
-        diffuse = torch.zeros((n_workers, 2), device=dev)
+        diffuse = torch.zeros(lead + (n_workers, 2), device=dev)
     else:
         diffuse = cfg.diffuse_std * torch.randn(
-            (n_workers, 2), generator=generator, device=dev)
+            lead + (n_workers, 2), generator=generator, device=dev)
     return FadingState(diffuse=diffuse,
-                       t=torch.zeros((), dtype=torch.int32, device=dev))
+                       t=torch.zeros(lead, dtype=torch.int32, device=dev))
 
 
 def magnitudes(cfg: FadingConfig, state: FadingState) -> torch.Tensor:
     """|h_k| = |LOS + diffuse_k|, floored."""
     d = state.diffuse
     if cfg.kind == "unit":
-        return torch.ones((d.shape[0],), device=d.device)
-    re, im = d[:, 0] + cfg.los, d[:, 1]
+        return torch.ones(d.shape[:-1], device=d.device)
+    re, im = d[..., 0] + cfg.los, d[..., 1]
     return torch.clamp_min(torch.sqrt(re * re + im * im), cfg.h_floor)
 
 
@@ -126,7 +127,8 @@ def advance(cfg: FadingConfig, generator: torch.Generator,
     rho = np.float32(cfg.rho)
     stepped = float(rho) * state.diffuse + float(
         np.sqrt(np.float32(1.0) - rho * rho)) * w
-    redraw = torch.remainder(t_next, cfg.coherence_rounds) == 0
+    redraw = (torch.remainder(t_next, cfg.coherence_rounds) == 0)[..., None,
+                                                                   None]
     return FadingState(diffuse=torch.where(redraw, stepped, state.diffuse),
                        t=t_next)
 
@@ -154,15 +156,17 @@ def channel_state(cfg: FadingConfig, state: FadingState, P: float,
                   noise_policy: str = "surplus",
                   beta_slack: float = 1.0) -> TracedChannelState:
     """The round's channel: small-scale magnitudes times the amplitude of
-    the large-scale power gain, then re-aligned; every worker transmits at
-    P watts."""
+    the large-scale power gain, then re-aligned. Every worker transmits at
+    P watts: a number, or a tensor that broadcasts against h ([N], or
+    [R, 1] for a stack of networks)."""
     h = magnitudes(cfg, state)
     if path_gain is not None:
         h = torch.clamp_min(h * torch.sqrt(path_gain), cfg.h_floor)
-    P = torch.full_like(h, P)
+    P = (torch.full_like(h, P) if isinstance(P, (int, float))
+         else P.to(device=h.device, dtype=torch.float32).expand(h.shape))
     alpha, beta, c = align(h, P, noise_policy=noise_policy,
                            beta_slack=beta_slack)
-    full = lambda v: torch.full((), v, device=h.device)
+    full = lambda v: torch.full(h.shape[:-1], v, device=h.device)
     return TracedChannelState(h=h, P=P, alpha=alpha, beta=beta, c=c,
                               sigma=full(sigma), sigma_m=full(sigma_m),
-                              n_workers=int(h.shape[0]))
+                              n_workers=int(h.shape[-1]))

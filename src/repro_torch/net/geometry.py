@@ -58,28 +58,32 @@ def _uniform(generator, shape, lo: float, hi: float) -> torch.Tensor:
     return lo + (hi - lo) * u
 
 
-def _draw_speed(cfg: GeometryConfig, generator, n: int) -> torch.Tensor:
-    return _uniform(generator, (n,), cfg.speed_min,
+def _draw_speed(cfg: GeometryConfig, generator, shape) -> torch.Tensor:
+    return _uniform(generator, shape, cfg.speed_min,
                     max(cfg.speed_max, cfg.speed_min + 1e-9))
 
 
 def init_geometry(cfg: GeometryConfig, generator: torch.Generator,
-                  n_workers: int) -> GeometryState:
+                  n_workers: int, lead: tuple = ()) -> GeometryState:
+    """``lead``: leading axes of a stack of networks (the fleet's (R,))."""
     if cfg.placement == "cluster":
-        centers = _uniform(generator, (cfg.n_clusters, 2), 0.2 * cfg.area,
-                           0.8 * cfg.area)
-        assign = torch.randint(0, cfg.n_clusters, (n_workers,),
+        centers = _uniform(generator, lead + (cfg.n_clusters, 2),
+                           0.2 * cfg.area, 0.8 * cfg.area)
+        assign = torch.randint(0, cfg.n_clusters, lead + (n_workers,),
                                generator=generator, device=generator.device)
         jitter = cfg.cluster_std * torch.randn(
-            (n_workers, 2), generator=generator, device=generator.device)
-        pos = torch.clamp(centers[assign] + jitter, 0.0, cfg.area)
+            lead + (n_workers, 2), generator=generator,
+            device=generator.device)
+        home = torch.gather(centers, -2,
+                            assign[..., None].expand(assign.shape + (2,)))
+        pos = torch.clamp(home + jitter, 0.0, cfg.area)
     elif cfg.placement == "uniform":
-        pos = _uniform(generator, (n_workers, 2), 0.0, cfg.area)
+        pos = _uniform(generator, lead + (n_workers, 2), 0.0, cfg.area)
     else:
         raise ValueError(cfg.placement)
-    waypoint = _uniform(generator, (n_workers, 2), 0.0, cfg.area)
+    waypoint = _uniform(generator, lead + (n_workers, 2), 0.0, cfg.area)
     return GeometryState(pos=pos, waypoint=waypoint,
-                         speed=_draw_speed(cfg, generator, n_workers))
+                         speed=_draw_speed(cfg, generator, lead + (n_workers,)))
 
 
 def advance(cfg: GeometryConfig, generator: torch.Generator,
@@ -88,16 +92,16 @@ def advance(cfg: GeometryConfig, generator: torch.Generator,
     if cfg.mobility == "static" or cfg.speed_max <= 0.0:
         return state
     delta = state.waypoint - state.pos
-    dist = torch.sqrt((delta * delta).sum(1))
+    dist = torch.sqrt((delta * delta).sum(-1))
     arrive = dist <= state.speed                     # reaches it this round
-    step = torch.where(dist[:, None] > 1e-9,
-                       delta / torch.clamp_min(dist[:, None], 1e-9)
-                       * state.speed[:, None], 0.0)
-    pos = torch.where(arrive[:, None], state.waypoint, state.pos + step)
+    step = torch.where(dist[..., None] > 1e-9,
+                       delta / torch.clamp_min(dist[..., None], 1e-9)
+                       * state.speed[..., None], 0.0)
+    pos = torch.where(arrive[..., None], state.waypoint, state.pos + step)
     new_way = _uniform(generator, tuple(state.waypoint.shape), 0.0, cfg.area)
-    new_spd = _draw_speed(cfg, generator, state.speed.shape[0])
+    new_spd = _draw_speed(cfg, generator, tuple(state.speed.shape))
     return GeometryState(
-        pos=pos, waypoint=torch.where(arrive[:, None], new_way,
+        pos=pos, waypoint=torch.where(arrive[..., None], new_way,
                                       state.waypoint),
         speed=torch.where(arrive, new_spd, state.speed))
 
@@ -107,59 +111,62 @@ def path_gain(cfg: GeometryConfig, pos: torch.Tensor) -> torch.Tensor:
     centroid, g0 (max(d, d0)/d0)^(-n); g0 everywhere when n = 0."""
     g0 = 10.0 ** (cfg.ref_gain_db / 10.0)
     if cfg.pl_exponent <= 0.0:
-        return torch.full((pos.shape[0],), g0, device=pos.device)
-    off = pos - pos.mean(0, keepdim=True)
-    d = torch.clamp_min(torch.sqrt((off * off).sum(1)), cfg.ref_distance)
+        return torch.full(pos.shape[:-1], g0, device=pos.device)
+    off = pos - pos.mean(-2, keepdim=True)
+    d = torch.clamp_min(torch.sqrt((off * off).sum(-1)), cfg.ref_distance)
     g = g0 * (d / cfg.ref_distance) ** (-cfg.pl_exponent)
     if cfg.normalize_gain:
-        g = g / torch.exp(torch.log(g).mean())     # geometric mean 1
+        # geometric mean 1
+        g = g / torch.exp(torch.log(g).mean(-1, keepdim=True))
     return g.to(torch.float32)
 
 
 def adjacency(cfg: GeometryConfig, pos: torch.Tensor, mask=None,
               fallback: bool = False) -> torch.Tensor:
-    """The unit-disk interference graph, float [N, N], symmetric, zero
-    diagonal; comm_radius <= 0 is the complete graph. ``mask`` [N] takes
-    churned-out workers out (they neither send nor listen). ``fallback``
-    bridges each radius-isolated active worker to its nearest active
-    neighbor (both ways), so a sparse draw does not silently train
-    identity rows."""
-    n = pos.shape[0]
+    """The unit-disk interference graph, float [..., N, N], symmetric,
+    zero diagonal; comm_radius <= 0 is the complete graph. ``mask`` [...,
+    N] takes churned-out workers out (they neither send nor listen).
+    ``fallback`` bridges each radius-isolated active worker to its nearest
+    active neighbor (both ways), so a sparse draw does not silently train
+    identity rows. Leading axes are a stack of networks."""
+    n = pos.shape[-2]
     eye = torch.eye(n, dtype=torch.bool, device=pos.device)
     if cfg.comm_radius <= 0.0:
-        adj = torch.ones((n, n), device=pos.device)
+        adj = torch.ones(pos.shape[:-2] + (n, n), device=pos.device)
         d2 = None
     else:
-        d2 = ((pos[:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        d2 = ((pos[..., :, None, :] - pos[..., None, :, :]) ** 2).sum(-1)
         adj = (d2 <= cfg.comm_radius ** 2).to(torch.float32)
     adj = adj * (~eye).to(torch.float32)
     if mask is None:
-        active = torch.ones((n,), dtype=torch.bool, device=pos.device)
+        active = torch.ones(pos.shape[:-1], dtype=torch.bool,
+                            device=pos.device)
     else:
         active = mask > 0
         p = active.to(torch.float32)
-        adj = adj * p[:, None] * p[None, :]
+        adj = adj * p[..., :, None] * p[..., None, :]
     if fallback and d2 is not None:
-        blocked = eye | ~active[None, :] | ~active[:, None]
+        blocked = eye | ~active[..., None, :] | ~active[..., :, None]
         d2m = torch.where(blocked, torch.inf, d2)
-        nearest = torch.argmin(d2m, dim=1)
-        need = (active & (adj.sum(1) <= 0)
-                & torch.isfinite(d2m.amin(1)))
+        nearest = torch.argmin(d2m, dim=-1)
+        need = (active & (adj.sum(-1) <= 0)
+                & torch.isfinite(d2m.amin(-1)))
         cols = torch.arange(n, device=pos.device)
-        fb = ((cols[None, :] == nearest[:, None]) & need[:, None]
+        fb = ((cols == nearest[..., :, None]) & need[..., :, None]
               ).to(torch.float32)
-        adj = torch.maximum(adj, torch.maximum(fb, fb.T))
+        adj = torch.maximum(adj, torch.maximum(fb, fb.transpose(-1, -2)))
     return adj
 
 
 def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
     """The symmetric doubly-stochastic W of a graph by Metropolis-Hastings
     weights, W_ij = A_ij / (1 + max(deg_i, deg_j)), W_ii = 1 - sum_j W_ij;
-    an isolated worker gets the identity row."""
-    deg = (adj > 0).sum(1).to(torch.float32)
-    pair = 1.0 + torch.maximum(deg[:, None], deg[None, :])
+    an isolated worker gets the identity row. Leading axes are a stack of
+    graphs."""
+    deg = (adj > 0).sum(-1).to(torch.float32)
+    pair = 1.0 + torch.maximum(deg[..., :, None], deg[..., None, :])
     W = torch.where(adj > 0, adj / pair, 0.0)
-    return W + torch.diag(1.0 - W.sum(1))
+    return W + torch.diag_embed(1.0 - W.sum(-1))
 
 
 def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,

@@ -17,6 +17,11 @@ never asks the host, so a training loop around it keeps the card busy:
                           (``geometry.sparse_metropolis``, a SparseW: no
                           [N, N] tensor, its build in [graph_block, N] rows)
 
+A stack of R networks (``init(generator, replicates=R)``: [R, ...]
+leaves) advances in one ``round`` call with no loop over replicates: each
+draw takes all R at once, so at R = 1 the round draws what the single
+network's round draws, in the same order, and gives its values.
+
 Randomness: one ``torch.Generator`` drawn in that fixed order (the port's
 own draws, checked in distribution). ``trajectory`` rolls the channel
 alone for T rounds into the stacked state that ``protocol.
@@ -118,18 +123,24 @@ class NetworkSimulator:
         self.graph_block = (int(graph_block) if graph_block
                             else min(1024, self.n_workers))
 
-    def init(self, generator: torch.Generator) -> NetState:
+    def init(self, generator: torch.Generator,
+             replicates: Optional[int] = None) -> NetState:
+        """The initial state; with ``replicates`` R, a stack of R networks
+        ([R, ...] leaves)."""
         scn, n = self.scenario, self.n_workers
+        lead = () if replicates is None else (int(replicates),)
         return NetState(
-            fading=fading_lib.init_fading(scn.fading, generator, n),
-            geometry=geometry_lib.init_geometry(scn.geometry, generator, n),
-            churn=churn_lib.init_churn(scn.churn, generator, n))
+            fading=fading_lib.init_fading(scn.fading, generator, n, lead),
+            geometry=geometry_lib.init_geometry(scn.geometry, generator, n,
+                                                lead),
+            churn=churn_lib.init_churn(scn.churn, generator, n, lead))
 
-    def _channel(self, state: NetState, W) -> TracedChannelState:
+    def _channel(self, state: NetState, W, P=None) -> TracedChannelState:
         scn = self.scenario
         gains = geometry_lib.path_gain(scn.geometry, state.geometry.pos)
         chan = fading_lib.channel_state(
-            scn.fading, state.fading, self.P, self.sigma, self.sigma_m,
+            scn.fading, state.fading, self.P if P is None else P,
+            self.sigma, self.sigma_m,
             path_gain=gains, noise_policy=self.noise_policy,
             beta_slack=self.beta_slack)
         # each target calibrates against the round's actual masking
@@ -149,13 +160,22 @@ class NetworkSimulator:
             return chan
         return chan.with_sigma(torch.clamp_min(sig, 1e-12))
 
-    def round(self, generator: torch.Generator, state: NetState
+    def round(self, generator: torch.Generator, state: NetState, P=None
               ) -> Tuple[NetState, TracedChannelState, torch.Tensor,
                          torch.Tensor]:
         """One round: (state', chan, mask [N] bool, W), all on the device;
         W is [N, N], or a SparseW when ``sparse_k`` > 0. ``state`` is left
-        as it was."""
+        as it was. A stacked state ([R, ...] leaves) advances all R
+        networks: chan's leaves [R, ...], mask [R, N], W [R, N, N].
+
+        ``P``: this call's transmit power in watts in place of the
+        constructor's ``p_dbm`` — a number, a tensor [N], or for a stack
+        [R, 1] (each network its own power)."""
         scn = self.scenario
+        if self.sparse_k > 0 and state.churn.up.ndim > 1:
+            raise NotImplementedError(
+                "a stack of networks with a neighbor-list W (sparse_k > 0) "
+                "is not ported yet (ROADMAP A20)")
         state = NetState(
             fading=fading_lib.advance(scn.fading, generator, state.fading),
             geometry=geometry_lib.advance(scn.geometry, generator,
@@ -172,20 +192,20 @@ class NetworkSimulator:
                 fallback=self.graph_fallback))
         else:
             W = complete_mixing(mask)
-        return state, self._channel(state, W), mask, W
+        return state, self._channel(state, W, P), mask, W
 
     def trajectory(self, generator: torch.Generator, T: int,
-                   state: Optional[NetState] = None
+                   state: Optional[NetState] = None, P=None
                    ) -> Tuple[TracedChannelState, torch.Tensor, torch.Tensor]:
         """T rounds of the channel alone (no model): the stacked state
         ([T, ...] fields), the [T, N] masks and the [T, N, N] mixing
         matrices (a SparseW of [T, N, k] leaves when ``sparse_k`` > 0), for
-        ``protocol.epsilon_report``."""
+        ``protocol.epsilon_report``. ``P`` as in ``round``."""
         if state is None:
             state = self.init(generator)
         chans, masks, Ws = [], [], []
         for _ in range(int(T)):
-            state, chan, mask, W = self.round(generator, state)
+            state, chan, mask, W = self.round(generator, state, P)
             chans.append(chan)
             masks.append(mask)
             Ws.append(W)

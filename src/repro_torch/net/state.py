@@ -10,8 +10,8 @@ surface (``n_workers``, ``c``, ``noise_scale``, ``signal_scale``,
 ``aggregate_noise_std``, ``dp_sigma``, ``awgn_sigma``, ``with_sigma``),
 which the exchange's plans and the privacy functions read; nothing here
 copies to the host. ``stack_states`` stacks rounds along a new leading
-axis T for the per-round privacy trajectory. ``telemetry()`` is not
-ported yet (ROADMAP A11).
+axis T for the per-round privacy trajectory; ``telemetry()`` gives the
+round's channel telemetry scalars (``repro_torch.obs.telemetry``).
 """
 from __future__ import annotations
 
@@ -63,6 +63,14 @@ class TracedChannelState:
         s2 = self.noise_scale ** 2 * self.sigma.unsqueeze(-1) ** 2
         return torch.sqrt(s2.sum(-1, keepdim=True) - s2
                           + self.sigma_m.unsqueeze(-1) ** 2)
+
+    def telemetry(self, spec=None, W=None) -> dict:
+        """The channel-derived telemetry scalars of this round ({name:
+        tensor}; ``spec`` defaults to every field): the same function of
+        the same state the trajectory's telemetry evaluates."""
+        from repro_torch.obs import telemetry as tele_lib
+        return tele_lib.channel_scalars(
+            spec if spec is not None else tele_lib.TelemetrySpec(), self, W)
 
     def with_sigma(self, sigma: torch.Tensor) -> "TracedChannelState":
         return dataclasses.replace(self, sigma=sigma.to(torch.float32))

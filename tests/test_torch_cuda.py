@@ -21,7 +21,10 @@ and the decays (the reference's tolerance for its kernel against its
 oracle; both take cs in the reference's float32 order), a bfloat16 y one
 bfloat16 step further. The sparse dp_mix round (dp_mix_prep +
 dp_mix_gather): the same tolerance with the mix's k + 1 terms in place of
-N; with zero weights bitwise the dense kernel's round."""
+N; with zero weights bitwise the dense kernel's round. dp_mix's replicate
+axis (a stack of R rounds in one launch): each replicate bitwise the
+launch of its own operands, on both routes, and the whole within the
+plain twin's tolerance above, replicate by replicate."""
 import pytest
 import torch
 
@@ -128,6 +131,90 @@ def test_kernel_matches_plain(N, d, dtype, kind):
         ulps = (k32[idle].view(torch.int32).long()
                 - r32[idle].view(torch.int32).long()).abs()
         assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
+
+
+def _stack_args(R, N, d, dtype):
+    """R rounds' operands on the card: random p, g, a row-stochastic W
+    with an identity row (listen 0) in replicate 0, amplitudes, c,
+    sigma_m and seeds of their own."""
+    gen = torch.Generator(device="cuda").manual_seed(R * 1000 + N)
+    dev = "cuda"
+    p = torch.randn((R, N, d), generator=gen, device=dev).to(dtype)
+    g = (0.2 * torch.randn((R, N, d), generator=gen, device=dev)).to(dtype)
+    W = torch.softmax(torch.randn((R, N, N), generator=gen, device=dev), -1)
+    listen = torch.ones((R, N), device=dev)
+    W[0, 0] = torch.nn.functional.one_hot(torch.tensor(0), N).float()
+    listen[0, 0] = 0.0
+    amp = torch.rand((R, N), generator=gen, device=dev)
+    c = torch.rand((R,), generator=gen, device=dev) + 0.5
+    sm = torch.rand((R,), generator=gen, device=dev)
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (R,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    return p, g, seeds, W, amp, c, sm, listen
+
+
+# (50, 1001) and (51, 1001): the column route's last N on an H100 and the
+# large-N route's first
+@pytest.mark.parametrize("R,N,d", [(3, 10, 5000), (2, 3, 130), (2, 50, 1001),
+                                   (2, 51, 1001), (3, 64, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
+def test_replicate_axis_is_r_separate_launches(R, N, d, dtype, noisy):
+    _need_card()
+    p, g, seeds, W, amp, c, sm, listen = _stack_args(R, N, d, dtype)
+    kw = dict(gamma=0.05, eta=0.4, noisy=noisy)
+    before = ops.dp_mix_round.launches
+    out = ops.dp_mix_round(p, g, seeds, W, amp, c, sm, listen=listen, **kw)
+    assert ops.dp_mix_round.launches == before + 1
+    for r in range(R):
+        one = ops.dp_mix_round(p[r], g[r], seeds[r], W[r], amp[r], c[r],
+                               sm[r], listen=listen[r], **kw)
+        assert torch.equal(out[r], one), r
+        vecs = ops._round_vectors(N, p.device, seeds[r], 0, amp[r], c[r],
+                                  sm[r], None, None, listen[r])
+        ref = dp_mix_plain(p[r], g[r], *vecs, W[r], counter_width=ops._roundup(
+            d, ops.LANES), **kw)
+        k32, r32 = out[r].float(), ref.float()
+        x = p[r].float() - 0.05 * g[r].float()
+        scale = float(x.abs().max()) + (
+            5.42 * float((amp[r] / c[r]).abs().max() + sm[r] / (c[r] * (N - 1)))
+            if noisy else 0.0)
+        allowed = (N + 8) * 2.0 ** -23 * scale
+        if dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
+        assert bool(((k32 - r32).abs() <= allowed).all()), r
+    torch.cuda.synchronize()
+
+
+def test_fleet_flat_round_is_one_launch_and_sync_free():
+    _need_card()
+    import dataclasses
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import protocol as P
+    from repro_torch.data import (ClassificationStore, classification_dataset,
+                                  dirichlet_partition)
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.obs import no_implicit_transfers
+    cfg = dataclasses.replace(DWFL_PAPER, d_model=32)
+    proto = P.ProtocolConfig(n_workers=6, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, channel_model="dynamic",
+                             scenario="vehicular")
+    x, y = classification_dataset(600, seed=0)
+    store = ClassificationStore.build(x, y, dirichlet_partition(y, 6), 8,
+                                      "cuda")
+    from repro_torch.core import trajectory as TJ
+    fleet = FleetEngine(proto, 4, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    flat, spec = fleet.init_flat_spec(gen, cfg)
+    body = TJ.make_round_body(cfg, proto, store, spec, "cuda", fleet=fleet)
+    carry = TJ.TrajCarry(gen, flat, fleet.init(gen))
+    carry, _ = TJ.run_chunk(body, carry, 2)          # warm: the library
+    before = ops.dp_mix_round.launches
+    with no_implicit_transfers(True, "cuda"):
+        carry, out = TJ.run_chunk(body, carry, 3)
+    assert ops.dp_mix_round.launches == before + 3
+    assert bool(torch.isfinite(carry.params).all())
+    assert out["metrics"]["loss"].shape == (3, 4)
 
 
 def _sparse_args(N, d, k, dtype, seed):

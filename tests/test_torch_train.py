@@ -168,10 +168,12 @@ def test_cli_runs_on_cpu_flat_buffer():
     assert "[train] step=    0 loss=" in r.stdout
 
 
-@pytest.mark.parametrize("argv,item", [(["--checkpoint", "x"], "A13"),
-                                       (["--log", "x"], "A11"),
-                                       (["--arch", "gemma-2b"], "A15"),
-                                       (["--replicates", "2"], "A12")])
+@pytest.mark.parametrize("argv,item", [
+    (["--checkpoint", "x"], "A13"),
+    (["--worker-shards", "2"], "A14"),
+    (["--arch", "gemma-2b"], "A15"),
+    (["--replicates", "2", "--sparse-neighbors", "4", "--channel-model",
+      "dynamic"], "A20")])
 def test_cli_names_the_roadmap_item_of_unported_flags(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train.parse_args(argv)
