@@ -95,7 +95,28 @@ Phases, each fatal on failure (exit code 1, no result line):
              a run log (telemetry on) read back by ``obs.report``, and
              its rounds/s with telemetry on and off in turns; the sweep
              (``python -m repro_torch.fleet.sweep``, 8 cells, 5 steps),
-             its rows with the reference's keys;
+             its rows with the reference's keys; then sharding and
+             checkpoints: dp_mix over the model axis's S = 2 and
+             4 column windows (logical, one card: one launch over the
+             padded buffer) bitwise the one launch over the unpadded
+             buffer, each window within tolerance of its twin and its own
+             launch at its col0 bitwise its columns, timed on the device
+             by CUDA graphs in turns with the unpadded call; the static and dynamic sharded steps bitwise the
+             unsharded ones at full width; the flat CLI with
+             ``--model-shards 2 --checkpoint`` (10 rounds, one launch a
+             round), bitwise the unsharded CLI, and its checkpoint resumed
+             for 10 more rounds bitwise the 20-round run; the worker
+             axis's S = 2 row windows at the worker-scale shape
+             (dp_mix_prep_rows, z gathered by hand, dp_mix_gather_rows)
+             bitwise the whole sparse round, within tolerance of the
+             twins, timed beside it, with its peak memory; and on a
+             one-rank NCCL group the model-axis mesh step, the (1, 1)
+             fleet mesh round and the worker-axis trajectory at N = 2048
+             (its row-window launches counted), each bitwise its logical
+             or unsharded twin; with two cards (and alone with
+             ``--two-cards``), the CLI at --model-shards 2 and
+             --worker-shards 2 on two torchrun-style ranks against the
+             logical and unsharded runs;
              the static and the dynamic flat round and the simulator's
              round timed in turns, and the flat CLI, static and dynamic,
              warm and without evals, in turns;
@@ -274,6 +295,12 @@ SWEEP_KEYS = frozenset((
     "accountant_gap"))
 # the reference's telemetry overhead ceiling (BENCH_obs.json)
 TELEMETRY_CEILING = 0.05
+# sharding and checkpoints (ROADMAP A13, A14): the model axis's shard
+# counts (logical, one card), the worker axis's (its row windows stitched
+# on one card, at the worker-scale path's shape), and the sharded flat
+# CLI's steps before its checkpoint and after (the resume)
+SHARD_COUNTS, WORKER_SHARDS = (2, 4), 2
+CKPT_STEPS = 9
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
@@ -375,6 +402,58 @@ PREDICTIONS = {
     "sweep": "the sweep (iot_dense and vehicular x N 8, 16 x eps 0.5, 1.0, "
              "R 8, 5 steps) writes 8 rows with the reference's keys, every "
              "number finite, in 10-40 s",
+    "shard_logical": "the logical model-axis round at (10, 855,050) bitwise "
+                     "the unsharded launch at S = 2 and 4 (0 elements "
+                     "differ, the padding columns 0), one launch a round "
+                     "over the padded width, each window within "
+                     "dp_mix_tolerance of its plain twin and each window's "
+                     "own launch (col0 = s shard_width) bitwise its "
+                     "columns; the static and dynamic sharded steps bitwise "
+                     "the unsharded steps (buffer and metrics); on the "
+                     "device (CUDA graphs) 0.074-0.080 ms at S = 2 and 4, "
+                     "within 3% of the unpadded call's 0.074-0.077 (0.12% "
+                     "and 0.06% more columns; before, S calls a window: "
+                     "0.178 and 0.214); on the host's clock within 0.01 ms "
+                     "of the unpadded call (one wrapper call, as it)",
+    "shard_cli": "the flat CLI with --model-shards 2 (logical) and "
+                 "--checkpoint: 10 dp_mix launches in 10 rounds (1 a "
+                 "round), every loss finite, the buffer and losses bitwise "
+                 "the unsharded CLI's; the checkpoint restored and run 10 "
+                 "more rounds through the trajectory body bitwise the "
+                 "20-round CLI's buffer and its last 10 losses",
+    "worker_axis": "the worker axis at (2048, 855,050, k 12) on one card: "
+                   "dp_mix_prep_rows and dp_mix_gather_rows on each of S = "
+                   "2 row windows (global counters from row0), their z "
+                   "gathered by hand, bitwise the unsharded "
+                   "dp_mix_round_sparse (0 elements differ) and within "
+                   "the sparse round's tolerance of the plain twins; the "
+                   "row-window kernels alone (two preps, two gathers) "
+                   "35-37 ms, within 5% of the unsharded round's 34-36 "
+                   "(the same work); the stitched round with its copies "
+                   "(z's and the outputs', 28 GB) 47-49 (first measured: "
+                   "47.7); peak 38-41 GiB (first measured: 39.4)",
+    "mesh_one_rank": "one-rank NCCL groups: the model-axis mesh step (S = "
+                     "1: all_to_all and all-gathers over one rank, under the "
+                     "CLI's sync guard, its communicators started when the "
+                     "mesh is made) bitwise "
+                     "the logical S = 1 step at (10, 855,050); the 2-D (1, "
+                     "1) fleet round bitwise the logical fleet round at R 2; "
+                     "the worker-axis trajectory at N = 2048 (mesh_sparse, "
+                     "k 12, 3 rounds): one dp_mix_prep_rows and one "
+                     "dp_mix_gather_rows launch a round under the guard, no "
+                     "dp_mix_round_sparse call, its buffer bitwise the "
+                     "unsharded trajectory's, peak 45-55 GiB",
+    "two_cards": "the CLI on two cards, each rank started as torchrun "
+                 "starts it (its card set from LOCAL_RANK, NCCL bound to "
+                 "it): --model-shards 2 at (10, 855,050), 3 rounds, "
+                 "bitwise the logical run on one card, buffer and losses; "
+                 "--worker-shards 2 on mesh_sparse at (2048, 855,050, k "
+                 "12), 3 rounds, within rtol 1e-5, atol 3e-5 of the "
+                 "unsharded CLI (bitwise on one rank), its losses bitwise; "
+                 "each start 12-25 s (as first measured: 13.6 and 20.3); "
+                 "the clip's norms no longer round by the row count "
+                 "(privacy.row_sum_squares), so a rank's 5 workers get "
+                 "the bits the logical mode's 10 get",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -2674,6 +2753,563 @@ def raxis_phase(counts: dict, rates: dict) -> dict:
     return path_rec
 
 
+def shard_logical_phase(store, counts: dict, rates: dict) -> dict:
+    """The model axis's logical mode at the path's shape: dp_mix over the
+    padded buffer of S column windows (one launch, col0 = 0, the layout's
+    counter width) bitwise the one launch over the unpadded buffer at S =
+    2 and 4, each window within dp_mix_tolerance of its plain twin at its
+    col0, and each window's own launch (the mesh's form: col0 = s
+    shard_width) bitwise the same columns; timed in turns with the
+    unpadded launch through the same wrapper (the device's time, by CUDA
+    graphs: the host's, which a call of a few kernels outlasts, as well),
+    beside the plain twins and the bound (dp_mix_work over the padded
+    width); then the static and dynamic sharded steps against the
+    unsharded steps. Returns S = 2's record."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    from repro_torch.shard import (ShardLayout, dp_mix_round_sharded,
+                                   make_sharded_dynamic_flat_train_step,
+                                   make_sharded_flat_train_step,
+                                   shard_window_round)
+    predict("shard_logical")
+    proto, plan, args, kw = dp_mix_args(PATH_N, PATH_D, torch.float32, True)
+    p, g, seed, _, *rest = args
+    whole = lambda: ops.dp_mix_round_plan(p, g, seed, plan, gamma=proto.gamma,
+                                          eta=proto.eta)
+    out = whole()
+    bits = lambda t: t.contiguous().view(torch.int32)
+    first = None
+    for S in SHARD_COUNTS:
+        lay = ShardLayout(PATH_D, S)
+        pp, gp = lay.pad(p), lay.pad(g)
+        sharded = lambda: dp_mix_round_sharded(
+            pp, gp, seed, plan, lay, gamma=proto.gamma, eta=proto.eta)
+        ops.dp_mix_round.launches = 0
+        got = sharded()
+        torch.cuda.synchronize()
+        launches = ops.dp_mix_round.launches
+        sw = lay.shard_width
+        windows = [(s * sw, (s + 1) * sw) for s in range(S)]
+
+        def plain():
+            return [dp_mix_plain(
+                pp[:, a:b].contiguous(), gp[:, a:b].contiguous(), seed,
+                torch.tensor([a], dtype=torch.int32, device="cuda"), *rest,
+                gamma=kw["gamma"], eta=kw["eta"], noisy=True,
+                counter_width=lay.counter_width) for a, b in windows]
+
+        max_err, bad = 0.0, 0
+        for (a, b), ref in zip(windows, plain()):
+            real = min(b, PATH_D) - a
+            k32, r32 = got[:, a:a + real].float(), ref[:, :real].float()
+            allowed, tol = dp_mix_tolerance(PATH_N, pp[:, a:a + real],
+                                            gp[:, a:a + real], proto.gamma,
+                                            plan, True, k32, r32, False)
+            err = (k32 - r32).abs()
+            max_err = max(max_err, float(err.max()))
+            bad += int((err > allowed).sum())
+        windows_differ = sum(int((bits(shard_window_round(
+            pp[:, a:b].contiguous(), gp[:, a:b].contiguous(), seed, plan, a,
+            lay, gamma=proto.gamma, eta=proto.eta)) != bits(got[:, a:b]))
+            .sum()) for a, b in windows)
+        rec = {"S": S, "shard_width": sw, "padded_width": lay.padded_width,
+               "launches": launches, "windows_differ": windows_differ,
+               "differ": int((bits(lay.unpad(got)) != bits(out)).sum()),
+               "padding_nonzero": int((got[:, PATH_D:] != 0).sum()),
+               "max_abs_err": max_err, "tol_f32": tol, "violations": bad}
+        del got
+        ms = [graph_ms(f) for f in (whole, sharded, sharded, whole)]
+        host = [cuda_ms(f, iters=20) for f in (whole, sharded, sharded,
+                                                whole)]
+        rec.update(whole_ms=[ms[0], ms[3]], ms=min(ms[1], ms[2]),
+                   ms_turns=[ms[1], ms[2]], host_ms=host,
+                   plain_ms=cuda_ms(plain, iters=2, warmup=1))
+        branches = noise_branches(PATH_N, lay.padded_width,
+                                  lay.counter_width, 1234567)
+        rec.update(dp_mix_work(PATH_N, lay.padded_width, 4, True, counts,
+                               rates, branches))
+        print(f"[shard] model-axis windows {json.dumps(rec)}", flush=True)
+        if (launches != 1 or rec["differ"] or rec["padding_nonzero"]
+                or windows_differ or bad):
+            fail(f"the model axis's windows at S = {S}: {rec}")
+        first = first or rec
+        torch.cuda.empty_cache()
+    del out
+    # the sharded steps at full width against the unsharded ones
+    cfg = DWFL_PAPER
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, PATH_N, "cuda")
+    batch = store.draw(gen)
+    dproto = dynamic_proto(PATH_N, flat_buffer=True)
+    sim = dproto.simulator("cuda")
+    _, chan, _, W = sim.round(gen, sim.init(gen))
+    spec0 = X.FlatSpec(wp)
+    sproto = dataclasses.replace(dproto, channel_model="static")
+    want_s = P.make_flat_train_step(cfg, sproto, spec0, "cuda")(
+        spec0.flatten(wp), batch, 77)
+    want_d = P.make_dynamic_flat_train_step(cfg, dproto, spec0, "cuda")(
+        spec0.flatten(wp), batch, 78, chan, W)
+    steps = {}
+    for S in SHARD_COUNTS:
+        spec = X.make_flat_spec(wp, n_shards=S)
+        got_s = make_sharded_flat_train_step(cfg, sproto, spec,
+                                             device="cuda")(
+            spec.flatten(wp), batch, 77)
+        got_d = make_sharded_dynamic_flat_train_step(cfg, dproto, spec,
+                                                     device="cuda")(
+            spec.flatten(wp), batch, 78, chan, W)
+        for name, want, got in (("static", want_s, got_s),
+                                ("dynamic", want_d, got_d)):
+            steps[f"{name} S={S}"] = {
+                "differ": int((bits(spec.unpad(got[0])) != bits(want[0]))
+                              .sum()),
+                "metrics_differ": [k for k in want[1] if not torch.equal(
+                    want[1][k], got[1][k])]}
+    print(f"[shard] sharded steps against the unsharded ones "
+          f"{json.dumps(steps)}", flush=True)
+    if any(v["differ"] or v["metrics_differ"] for v in steps.values()):
+        fail(f"a logical sharded step is not bitwise the unsharded one: "
+             f"{steps}")
+    return first
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def shard_cli_checkpoint() -> dict:
+    """The sharded flat CLI (--model-shards 2, logical on one card) with
+    --checkpoint, dp_mix's count set to 0 just before and read just after
+    (one launch a round); its buffer and losses against the unsharded
+    CLI's; then the resume: the checkpoint restored (checkpoint.
+    restore_flat, resume_carry) and run CKPT_STEPS + 1 more rounds through
+    the trajectory body, against the CLI run for all the rounds at once."""
+    import torch
+    from repro_torch import checkpoint
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    predict("shard_cli")
+    path = str(ROOT / "build" / "chip_smoke_checkpoint" / "run")
+    base = ["--arch", "dwfl-paper", "--flat-buffer", "--workers",
+            str(PATH_N), "--eval-every", "0", "--device", "cuda"]
+    sharded = base + ["--model-shards", "2"]
+    ops.dp_mix_round.launches = 0
+    res = train.run(sharded + ["--steps", str(CKPT_STEPS), "--checkpoint",
+                               path])
+    launches = ops.dp_mix_round.launches
+    plain = train.run(base + ["--steps", str(CKPT_STEPS)])
+    d = plain["params"].shape[1]
+    bits = lambda t: t.contiguous().view(torch.int32)
+    whole_args = sharded + ["--steps", str(2 * CKPT_STEPS + 1)]
+    whole = train.run(whole_args)
+    args = train.parse_args(whole_args)
+    wp = P.init_worker_params(torch.Generator(device="cuda"), DWFL_PAPER,
+                              PATH_N, "cuda")
+    spec = X.make_flat_spec(wp, n_shards=2)
+    del wp
+    flat, state, manifest = checkpoint.restore_flat(
+        path, spec, {"generator": torch.Generator(device="cuda").get_state()},
+        "cuda")
+    body = TJ.make_round_body(DWFL_PAPER, train.protocol_config(args),
+                              paper_store(), spec, "cuda")
+    carry, out = TJ.run_chunk(body, checkpoint.resume_carry(state, flat,
+                                                            "cuda"),
+                              CKPT_STEPS + 1)
+    rounds = res["rounds"]
+    rec = {"rounds": rounds, "launches": launches,
+           "vs_unsharded_differ": int(
+               (bits(res["params"][:, :d]) != bits(plain["params"])).sum()),
+           "losses_equal": bool(torch.equal(res["losses"], plain["losses"])),
+           "checkpoint_step": manifest["step"],
+           "checkpoint_leaves": sorted(manifest["leaves"]),
+           "resume_differ": int((bits(carry.params)
+                                 != bits(whole["params"])).sum()),
+           "resume_losses_equal": bool(torch.equal(
+               out["metrics"]["loss"].cpu(), whole["losses"][rounds:]))}
+    print(f"[shard] sharded CLI and checkpoint {json.dumps(rec)}", flush=True)
+    if (launches != rounds or rec["vs_unsharded_differ"]
+            or not rec["losses_equal"] or rec["resume_differ"]
+            or not rec["resume_losses_equal"]
+            or not torch.isfinite(res["losses"]).all()):
+        fail(f"the sharded CLI or its resume: {rec}")
+    return rec
+
+
+def worker_rows_case(proto, plan, p, g, S: int):
+    """(stitched, plain_window): the worker axis's round on one card, S row
+    windows stitched by hand (each prep with its row0, every window's z
+    concatenated, each gather), and its plain twin over a column window
+    [a, b) of every row window."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_gather_plain,
+                                                   dp_mix_prep_plain)
+    N = p.shape[0]
+    nb = N // S
+    rows = [slice(s * nb, (s + 1) * nb) for s in range(S)]
+    kw = dict(gamma=proto.gamma, eta=proto.eta)
+
+    def stitched():
+        ws = [ops.dp_mix_prep_rows(p[r], g[r], 1234567, plan.amp[r], plan.c,
+                                   gamma=proto.gamma, row0=r.start,
+                                   n_workers=N) for r in rows]
+        z = torch.cat([w[0] for w in ws])
+        outs = [ops.dp_mix_gather_rows(
+            p[r], g[r], w, z, 1234567, plan.W[r], plan.amp[r], plan.c,
+            plan.sigma_m, row0=r.start, m_scale=plan.m_scale[r],
+            listen=plan.listen[r], **kw) for r, w in zip(rows, ws)]
+        del ws, z
+        return torch.cat(outs)
+
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")
+    scal = torch.stack([plan.c.reshape(()), plan.sigma_m.reshape(())])
+    cw = ops._roundup(p.shape[1], ops.LANES)
+
+    def plain_window(a, b):
+        pw, gw = p[:, a:b].contiguous(), g[:, a:b].contiguous()
+        ws = [dp_mix_prep_plain(pw[r], gw[r], i32(1234567), i32(a), scal,
+                                plan.amp[r], gamma=proto.gamma, noisy=True,
+                                counter_width=cw, row0=r.start) for r in rows]
+        z = torch.cat([w[0] for w in ws])
+        return torch.cat([dp_mix_gather_plain(
+            pw[r], gw[r], w, z, i32(1234567), i32(a), scal, plan.amp[r],
+            torch.ones(nb, device="cuda"), plan.m_scale[r], plan.listen[r],
+            plan.W.idx[r], plan.W.w[r], plan.W.self_w[r], noisy=True,
+            counter_width=cw, row0=r.start, **kw)
+            for r, w in zip(rows, ws)])
+
+    return stitched, plain_window
+
+
+def worker_axis_phase(counts: dict, rates: dict, width: int = 4096) -> dict:
+    """The worker axis's row windows at the worker-scale path's shape (N =
+    2048, d = 855,050, a mesh_sparse round's list at k = 12), S =
+    WORKER_SHARDS windows stitched on one card: bitwise the unsharded
+    dp_mix_round_sparse, within the sparse round's tolerance of the plain
+    twins over three column windows, timed in turns with the unsharded
+    round beside the plain twins (2^16-column windows) and the bound
+    (sparse_work): the row-window kernels alone (the S preps, then the S
+    gathers from a z gathered once) and the stitched round with its
+    copies (z's, and the S outputs' into one buffer); its peak memory."""
+    import torch
+    from repro_torch.kernels.dp_mix import ops
+    predict("worker_axis")
+    proto, plan, _, W = sparse_round(SPARSE_N)
+    gen = torch.Generator(device="cuda").manual_seed(SPARSE_N + PATH_D)
+    p = torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((SPARSE_N, PATH_D), generator=gen, device="cuda")
+    whole = lambda: ops.dp_mix_round_plan(p, g, 1234567, plan,
+                                          gamma=proto.gamma, eta=proto.eta)
+    stitched, plain_window = worker_rows_case(proto, plan, p, g,
+                                              WORKER_SHARDS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ops.dp_mix_prep_rows.launches = ops.dp_mix_gather_rows.launches = 0
+    got = stitched()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = (ops.dp_mix_prep_rows.launches,
+                ops.dp_mix_gather_rows.launches)
+    want = whole()
+    torch.cuda.synchronize()
+    differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+    del want
+    max_err, bad, tol = 0.0, 0, 0.0
+    for a in (0, (PATH_D // 2) // width * width,
+              PATH_D - (PATH_D % width or width)):
+        b = min(a + width, PATH_D)
+        ref = plain_window(a, b).float()
+        k32 = got[:, a:b].float()
+        allowed, tol = dp_mix_tolerance(W.k + 1, p[:, a:b], g[:, a:b],
+                                        proto.gamma, plan, True, k32, ref,
+                                        False)
+        err = (k32 - ref).abs()
+        max_err = max(max_err, float(err.max()))
+        bad += int((err > allowed).sum())
+        del ref, k32, err, allowed
+    finite = bool(torch.isfinite(got).all())
+    del got
+    torch.cuda.empty_cache()
+    ms = [cuda_ms(f, iters=3, warmup=1)
+          for f in (whole, stitched, stitched, whole)]
+    nb = SPARSE_N // WORKER_SHARDS
+    rows = [slice(s * nb, (s + 1) * nb) for s in range(WORKER_SHARDS)]
+    preps = lambda: [ops.dp_mix_prep_rows(
+        p[r], g[r], 1234567, plan.amp[r], plan.c, gamma=proto.gamma,
+        row0=r.start, n_workers=SPARSE_N) for r in rows]
+    ws = preps()
+    z = torch.cat([w[0] for w in ws])
+    gathers = lambda: [ops.dp_mix_gather_rows(
+        p[r], g[r], w, z, 1234567, plan.W[r], plan.amp[r], plan.c,
+        plan.sigma_m, gamma=proto.gamma, eta=proto.eta, row0=r.start,
+        m_scale=plan.m_scale[r], listen=plan.listen[r])
+        for r, w in zip(rows, ws)]
+    kernels = [cuda_ms(preps, iters=3, warmup=1),
+               cuda_ms(gathers, iters=3, warmup=1)]
+    del ws, z
+    torch.cuda.empty_cache()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    plain_window(0, 1 << 16)
+    torch.cuda.synchronize()
+    start.record()
+    for a in range(0, PATH_D, 1 << 16):
+        plain_window(a, min(a + (1 << 16), PATH_D))
+    end.record()
+    torch.cuda.synchronize()
+    nnz = int(W.valid().sum())
+    rec = {"N": SPARSE_N, "d": PATH_D, "k": W.k, "S": WORKER_SHARDS,
+           "launches": launches, "differ": differ, "max_abs_err": max_err,
+           "tol_f32": tol, "violations": bad, "ms": sum(kernels),
+           "prep_gather_ms": kernels, "stitched_ms": [ms[1], ms[2]],
+           "whole_ms": [ms[0], ms[3]],
+           "plain_ms": start.elapsed_time(end),
+           "peak_gib": peak / 2 ** 30, "held_gib": held / 2 ** 30}
+    branches = noise_branches(SPARSE_N, PATH_D,
+                              ops._roundup(PATH_D, ops.LANES), 1234567)
+    rec.update(sparse_work(SPARSE_N, PATH_D, W.k, 4, True, nnz, counts,
+                           rates, branches))
+    print(f"[shard] worker-axis row windows {json.dumps(rec)}", flush=True)
+    if (differ or bad or not finite
+            or launches != (WORKER_SHARDS, WORKER_SHARDS)):
+        fail(f"the worker axis's row windows: {rec}")
+    del p, g
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_one_rank_phase(store) -> dict:
+    """The process-group paths on a one-rank NCCL group (NCCL puts one rank
+    on a card): the model-axis mesh step against the logical one at S =
+    1, the (1, 1) fleet mesh round against the logical fleet round, and
+    the worker-axis trajectory at the worker-scale shape (3 rounds; the
+    row windows' counts set to 0 just before and read just after) against
+    the unsharded trajectory. Returns the worker-axis run's counts."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch.mesh import (make_shard_mesh, make_worker_mesh)
+    from repro_torch.obs import no_implicit_transfers
+    from repro_torch.shard import (ShardLayout, local_rows, local_window,
+                                   make_sharded_flat_train_step)
+    predict("mesh_one_rank")
+    bits = lambda t: t.contiguous().view(torch.int32)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    rec = {"ranks": 1, "cards": torch.cuda.device_count()}
+    try:
+        cfg = DWFL_PAPER
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        wp = P.init_worker_params(gen, cfg, PATH_N, "cuda")
+        batch = store.draw(gen)
+        proto = dynamic_proto(PATH_N, flat_buffer=True)
+        sproto = dataclasses.replace(proto, channel_model="static")
+        spec = X.make_flat_spec(wp, layout=ShardLayout(X.FlatSpec(wp).d, 1))
+        mesh = make_shard_mesh(1, device="cuda")
+        logical = make_sharded_flat_train_step(cfg, sproto, spec,
+                                               device="cuda")
+        meshed = make_sharded_flat_train_step(cfg, sproto, spec, mesh=mesh,
+                                              device="cuda")
+        f_a, m_a = logical(spec.flatten(wp), batch, 5)
+        window = local_window(spec.flatten(wp), spec, mesh)
+        with no_implicit_transfers(True, "cuda"):     # as the CLI runs it
+            f_b, m_b = meshed(window, batch, 5)
+        rec["model_axis_differ"] = int((bits(f_a) != bits(f_b)).sum())
+        rec["model_axis_loss_equal"] = bool(torch.equal(m_a["loss"],
+                                                        m_b["loss"]))
+        # the fleet on a (replicas 1, model 1) mesh
+        fleet = FleetEngine(dataclasses.replace(proto, replicates=2),
+                            device="cuda")
+        wpR = fleet.init_worker_params(gen, cfg)
+        specR = X.make_flat_spec(wpR, lead_axes=2, n_shards=None,
+                                 layout=ShardLayout(spec.d, 1))
+        batchR = store.draw_fleet(gen, 2)
+        fmesh = make_shard_mesh(1, n_replicas=1, device="cuda")
+        outs = []
+        for m in (None, fmesh):
+            fgen = torch.Generator(device="cuda").manual_seed(2)
+            states = fleet.init(fgen)
+            flat = specR.flatten(wpR)
+            if m is not None:
+                flat = local_window(flat, specR, m)
+            _, flat, _, _, _ = fleet.make_fleet_round(cfg, spec=specR,
+                                                      mesh=m)(
+                fgen, states, flat, batchR)
+            outs.append(flat)
+        rec["fleet_2d_differ"] = int((bits(outs[0]) != bits(outs[1])).sum())
+        del wp, wpR, outs, f_a, f_b
+        # the worker axis at the worker-scale shape, through the trajectory
+        wproto = sparse_proto(SPARSE_N, flat_buffer=True)
+        wstore = paper_store(SPARSE_N)
+        wmesh = make_worker_mesh(1, device="cuda")
+        finals = []
+        for m in (wmesh, None):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            wgen = torch.Generator(device="cuda").manual_seed(3)
+            sim = wproto.simulator("cuda")
+            wp = P.init_worker_params(wgen, cfg, SPARSE_N, "cuda")
+            wspec = X.FlatSpec(wp)
+            flat = wspec.flatten(wp)
+            del wp
+            if m is not None:
+                flat = local_rows(flat, m)
+            body = TJ.make_round_body(cfg, wproto, wstore, wspec, "cuda",
+                                      sim=sim, worker_mesh=m)
+            ops.dp_mix_prep_rows.launches = 0
+            ops.dp_mix_gather_rows.launches = 0
+            ops.dp_mix_round_sparse.launches = 0
+            carry = TJ.TrajCarry(wgen, flat, sim.init(wgen))
+            with no_implicit_transfers(True, "cuda"):  # as the CLI runs it
+                carry, out = TJ.run_chunk(body, carry, 3)
+            del flat, body
+            torch.cuda.synchronize()
+            if m is not None:
+                rec["worker_launches"] = {
+                    "dp_mix_prep_rows": ops.dp_mix_prep_rows.launches,
+                    "dp_mix_gather_rows": ops.dp_mix_gather_rows.launches,
+                    "dp_mix_round_sparse": ops.dp_mix_round_sparse.launches}
+                rec["worker_peak_gib"] = (torch.cuda.max_memory_allocated()
+                                          / 2 ** 30)
+                rec["worker_losses_finite"] = bool(
+                    torch.isfinite(out["metrics"]["loss"]).all())
+            finals.append(carry.params)
+            del carry, out
+        rec["worker_axis_differ"] = int((bits(finals[0])
+                                         != bits(finals[1])).sum())
+        del finals
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[shard] process groups {json.dumps(rec)}", flush=True)
+    wl = rec["worker_launches"]
+    if (rec["model_axis_differ"] or not rec["model_axis_loss_equal"]
+            or rec["fleet_2d_differ"] or rec["worker_axis_differ"]
+            or wl["dp_mix_prep_rows"] != 3 or wl["dp_mix_gather_rows"] != 3
+            or wl["dp_mix_round_sparse"]
+            or not rec["worker_losses_finite"]):
+        fail(f"a process-group path: {rec}")
+    return rec
+
+
+TWO_CARD_STEPS = 3
+
+
+def _cli_rank(rank: int, port: int, argv: list, out_dir: str) -> None:
+    """One rank of two_card_cli as torchrun starts it: torchrun's
+    environment (RANK, LOCAL_RANK, WORLD_SIZE, the rendezvous address), then
+    ``launch.train.run(argv)``, which picks its card and starts its NCCL
+    group from that; its parameters (its window or its rows) and losses
+    saved."""
+    import os
+    os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
+                      LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    sys.path.insert(0, str(SRC))
+    import torch
+    from repro_torch.launch import train
+    res = train.run(list(argv))
+    torch.save({"params": res["params"].cpu(), "losses": res["losses"]},
+               f"{out_dir}/rank{rank}.pt")
+
+
+def two_card_cli() -> dict:
+    """The training CLI on two cards, each rank started as torchrun starts
+    it: ``--model-shards 2`` (a column window a card) bitwise the logical
+    run on this card, buffer and losses; ``--worker-shards 2`` on
+    mesh_sparse at N = 2048 (k 12; the rows a card) within rtol 1e-5, atol
+    3e-5 of the unsharded sparse CLI, the losses bitwise."""
+    import torch
+    import torch.multiprocessing as mp
+    from repro_torch.launch import train
+    predict("two_cards")
+    base = ["--arch", "dwfl-paper", "--flat-buffer", "--eval-every", "0",
+            "--steps", str(TWO_CARD_STEPS), "--device", "cuda"]
+    model = base + ["--workers", str(PATH_N), "--model-shards", "2"]
+    sparse = base + ["--workers", str(SPARSE_N), "--channel-model",
+                     "dynamic", "--scenario", SPARSE_SCENARIO,
+                     "--sparse-neighbors", str(SPARSE_K)]
+    rec = {"cards": torch.cuda.device_count(), "steps": TWO_CARD_STEPS}
+    ranks = {}
+    for name, argv in (("model", model),
+                       ("worker", sparse + ["--worker-shards", "2"])):
+        out_dir = ROOT / "build" / f"chip_smoke_two_cards_{name}"
+        out_dir.mkdir(parents=True, exist_ok=True)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mp.spawn(_cli_rank, args=(_free_port(), argv, str(out_dir)),
+                 nprocs=2, join=True)
+        rec[f"{name}_seconds"] = time.perf_counter() - t0
+        ranks[name] = [torch.load(out_dir / f"rank{r}.pt") for r in range(2)]
+    bits = lambda t: t.contiguous().view(torch.int32)
+    want = train.run(model)
+    got = torch.cat([r["params"] for r in ranks["model"]], dim=1)
+    rec["model_differ"] = int((bits(got) != bits(want["params"].cpu()))
+                              .sum())
+    rec["model_losses_equal"] = all(torch.equal(r["losses"], want["losses"])
+                                    for r in ranks["model"])
+    del want, got
+    torch.cuda.empty_cache()
+    want = train.run(sparse)
+    got = torch.cat([r["params"] for r in ranks["worker"]])
+    ref = want["params"].cpu()
+    del want["params"]
+    torch.cuda.empty_cache()
+    err = (got - ref).abs()
+    rec["worker_max_abs_err"] = float(err.max())
+    rec["worker_violations"] = int((err > 3e-5 + 1e-5 * ref.abs()).sum())
+    rec["worker_losses_equal"] = all(torch.equal(r["losses"], want["losses"])
+                                     for r in ranks["worker"])
+    rec["finite"] = bool(torch.isfinite(got).all())
+    del got, ref, err, ranks
+    print(f"[shard] two cards {json.dumps(rec)}", flush=True)
+    if (rec["model_differ"] or not rec["model_losses_equal"]
+            or rec["worker_violations"] or not rec["worker_losses_equal"]
+            or not rec["finite"]):
+        fail(f"the CLI on two cards: {rec}")
+    return rec
+
+
+def two_cards_main() -> int:
+    """``python3 chip_smoke.py --two-cards``: two_card_cli alone, on a
+    machine with two cards or more."""
+    if not (SRC / "repro_torch").is_dir():
+        fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
+    sys.path.insert(0, str(SRC))
+    import torch
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        fail("--two-cards needs two cards")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = nvidia_smi()
+    print(f"[device] {kind} x{count}; nvidia-smi: {smi}", flush=True)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dp_mix import ops
+    build.build_all([ops.LIBRARY])
+    two_card_cli()
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": count}}), flush=True)
+    return 0
+
+
 def fleet_cli() -> dict:
     """The fleet CLI at full width (the README's vehicular line with the
     flat buffer), the dp_mix count set to 0 just before and read just
@@ -3064,6 +3700,21 @@ def main() -> int:
     telemetry_cli()
     sweep_phase()
     torch.cuda.empty_cache()
+
+    # sharding and checkpoints: the model axis's windows (logical) and the
+    # sharded steps; the sharded CLI (counted) with its checkpoint and the
+    # resume; the worker axis's row windows at the worker-scale shape; the
+    # process-group paths on a one-rank NCCL group (the worker axis's
+    # trajectory counted)
+    window_rec = shard_logical_phase(store, counts, rates)
+    shard_cli_rec = shard_cli_checkpoint()
+    rows_rec = worker_axis_phase(counts, rates)
+    group_rec = mesh_one_rank_phase(store)
+    torch.cuda.empty_cache()
+    if torch.cuda.device_count() >= 2:
+        two_card_cli()
+    else:
+        print("[shard] two cards: not run (one card)", flush=True)
     predict("turns")
     round_turns(store, "after the training phases")
     predict("cli_turns")
@@ -3141,6 +3792,28 @@ def main() -> int:
         "ms": raxis_rec["ms"], "plain_ms": raxis_rec["plain_ms"],
         "bound_ms": raxis_rec["bound_ms"], "bound_by": raxis_rec["bound_by"],
         "separate_ms": raxis_rec["separate_ms"], "library_ms": None}, {
+        "name": "dp_mix column windows (model axis, S = 2; logical: the "
+                "padded buffer in one launch)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
+        "launches": shard_cli_rec["launches"],
+        "max_abs_err": window_rec["max_abs_err"],
+        "ms": window_rec["ms"], "plain_ms": window_rec["plain_ms"],
+        "bound_ms": window_rec["bound_ms"],
+        "bound_by": window_rec["bound_by"],
+        "unsharded_ms": window_rec["whole_ms"], "library_ms": None}, {
+        "name": "dp_mix row windows (worker axis, S = 2: dp_mix_prep_rows "
+                "+ dp_mix_gather_rows)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:153",
+        "launches": group_rec["worker_launches"]["dp_mix_prep_rows"],
+        "launches_by_kernel": group_rec["worker_launches"],
+        "max_abs_err": rows_rec["max_abs_err"],
+        "ms": rows_rec["ms"], "plain_ms": rows_rec["plain_ms"],
+        "bound_ms": rows_rec["bound_ms"], "bound_by": rows_rec["bound_by"],
+        "unsharded_ms": rows_rec["whole_ms"], "library_ms": None}, {
         "name": "dp_perturb", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_perturb/csrc/dp_perturb.cu",
         "replaces": "src/repro/kernels/dp_perturb/dp_perturb.py:42",
@@ -3185,4 +3858,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    raise SystemExit(two_cards_main() if sys.argv[1:] == ["--two-cards"]
+                     else main())

@@ -3,8 +3,11 @@ over worker-stacked trees ([N, ...] leaves), each a named wrapper over the
 mixing engine (``repro_torch.core.exchange``): the paper's complete graph,
 the orthogonal and centralized baselines, a gossip topology, a round of
 the dynamic network (dense W or neighbor list) and sampled participation;
-and the Eqt. (8) matrix-form oracle. The collective exchanges are ROADMAP
-A14.
+the Eqt. (8) matrix-form oracle; and the per-worker collective forms, one
+worker a rank of a ``torch.distributed`` process group: the superposition
+as an ``all_reduce`` (``exchange_dwfl_collective``, the reference's
+``psum``) and the orthogonal baseline's N - 1 ring steps
+(``exchange_orthogonal_ring``, its ``ppermute``s).
 
 Interpretation (the reference's, DESIGN.md): the self-correction term of
 Eqt. (7) contains the receiver's own channel noise m_i, which a real
@@ -14,6 +17,7 @@ stays in the received aggregate.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core import exchange as engine
 from repro_torch.core.channel import ChannelState
@@ -106,3 +110,80 @@ def matrix_form_reference(X_flat, G_flat, noise_n_flat, noise_m_flat,
         res[i] = out[i] + eta * ((Wmat[i] @ n) / c + m[i] / (deg[i] * c)
                                  - n[i] / c)
     return res
+
+
+# ---------------------------------------------------------------------------
+# one worker a rank: the collectives
+# ---------------------------------------------------------------------------
+
+
+def collective_mix(x_local, n_local, m_local, c, n_workers: int, eta: float,
+                   group=None):
+    """The complete-graph update of one worker from its own leaves: it
+    transmits c x + n, the channel superposes every worker's transmission
+    (an ``all_reduce`` over ``group``), the worker removes its own and
+    hears the AWGN m:
+
+        v  = sum_k (c x_k + n_k) - (c x + n) + m
+        x <- x + (eta / c) (v / (N - 1) - c x - n)
+
+    the reference's order; leaves keep their dtype."""
+    import torch.distributed as dist
+
+    def one(x, n, m):
+        xf, nf = x.float(), n.float()
+        tx = c * xf + nf
+        rx = tx.clone()
+        dist.all_reduce(rx, op=dist.ReduceOp.SUM, group=group)
+        v = rx - tx + m.float()
+        x_new = xf + (eta / c) * (v / (n_workers - 1) - c * xf - nf)
+        return x_new.to(x.dtype)
+
+    return engine.tree_map(one, x_local, n_local, m_local)
+
+
+def exchange_dwfl_collective(x_local, n_local, m_local, chan: ChannelState,
+                             eta: float, axis=None):
+    """One DWFL exchange with one worker a rank of the process group
+    ``axis`` (None: the default group): each rank holds its own leaves,
+    its DP noise ``n_local`` and its AWGN ``m_local``; the superposition
+    is an ``all_reduce``, the analogue of simultaneous analog
+    transmission. Equal to ``exchange_dwfl`` on the stacked leaves up to
+    the order of the sum."""
+    return collective_mix(x_local, n_local, m_local, chan.c, chan.n_workers,
+                          eta, axis)
+
+
+def exchange_orthogonal_ring(x_local, chan: ChannelState, eta: float,
+                             axis=None, generator=None):
+    """The orthogonal baseline with one worker a rank: N - 1 ring steps,
+    each passing one sender's parameters to the next rank, so every
+    worker hears every other once, N - 1 times the link traffic of the
+    one superposition (the paper's bandwidth argument). With
+    ``generator`` each received copy carries the link's AWGN (std
+    ``chan.awgn_sigma``), drawn in step order; without, none."""
+    import torch.distributed as dist
+    group = dist.group.WORLD if axis is None else axis
+    N = chan.n_workers
+    rank = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (rank + 1) % N)
+    prv = dist.get_global_rank(group, (rank - 1) % N)
+
+    def one(x):
+        xf = x.float()
+        acc = torch.zeros_like(xf)
+        cur = xf.contiguous()
+        for _ in range(N - 1):
+            recv = torch.empty_like(cur)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, cur, nxt, group),
+                    dist.P2POp(dist.irecv, recv, prv, group)]):
+                req.wait()
+            cur = recv
+            if generator is not None:
+                recv = recv + chan.awgn_sigma * torch.randn(
+                    recv.shape, generator=generator, device=recv.device)
+            acc = acc + recv
+        return (xf + eta * (acc / (N - 1) - xf)).to(x.dtype)
+
+    return engine.tree_map(one, x_local)

@@ -31,8 +31,9 @@ as they are, with no host round trip. ``resolve_spec`` routes a
 ProtocolConfig to its ``ExchangeSpec``; only the mixing family
 (``fuse_ok``) may run as the fused flat round. A neighbor-list W
 (``net.sparse.SparseW``) mixes by k row gathers (``mix_exchange_sparse``;
-``run_mix`` dispatches on it). The collective round (ROADMAP A14) is not
-ported yet.
+``run_mix`` dispatches on it). With a process group (``axis``) the
+complete-graph dwfl round is the "collective" route: one worker a rank,
+the superposition an ``all_reduce`` (``core.dwfl.exchange_dwfl_collective``).
 
 Randomness: a round's exchange consumes standard normals as a tree
 ({"n": ..., "m": ...}, ``draw_normals``), drawn from an explicit
@@ -41,7 +42,9 @@ realized ``jax.random`` normals, which are not re-derived here.
 
 ``FlatSpec`` ravels a parameter tree into the persistent [N, d] float32
 buffer in the reference's order (jax's ``tree_flatten``: dict keys
-sorted, so each layer is b then w).
+sorted, so each layer is b then w); with a ``shard.ShardLayout``
+(``make_flat_spec(..., n_shards=S)``) the buffer is padded to the
+layout's width for the model-axis sharded round.
 """
 from __future__ import annotations
 
@@ -311,31 +314,94 @@ def tree_map(fn: Callable, tree, *rest):
 
 
 class FlatSpec:
-    """Flatten/unravel contract of the unsharded flat buffer.
+    """Flatten/unravel contract of the flat buffer.
 
     Built from a template tree (only shapes and dtypes are read) with
-    ``lead_axes`` leading batch axes (1: worker-stacked [N, ...] leaves).
-    ``flatten(X)`` -> [lead..., d] float32; ``unravel(flat)`` -> the
-    worker-stacked tree as views of ``flat`` (autograd flows through
-    them); ``unravel_row(v)`` -> one worker's tree from a [d] row.
+    ``lead_axes`` leading batch axes (1: worker-stacked [N, ...] leaves;
+    2: the fleet's [R, N, ...]). ``ravel(X)`` -> [lead..., d] float32;
+    ``flatten(X)`` -> the physical buffer [lead..., width]; ``unravel(flat)``
+    -> the worker-stacked tree as views of ``flat`` (autograd flows
+    through them); ``unravel_row(v)`` -> one worker's tree from a row.
+
+    With a ``shard.ShardLayout`` (``layout``) the physical width is the
+    layout's padded width, shard s owning global columns [s shard_width,
+    (s + 1) shard_width); the padding columns are zeros past every leaf
+    offset, so ``unravel`` reads the same values whatever the layout and
+    a re-layout is a pad or a slice of the canonical ``unpad`` view.
+    ``max_chunk_cols`` (sharded only) caps the columns each collective of
+    the gather-free gradient pass moves (``chunk_plan``); every budget
+    gives the bitwise same round.
     """
 
-    def __init__(self, template, lead_axes: int = 1):
+    def __init__(self, template, lead_axes: int = 1, layout=None,
+                 max_chunk_cols: Optional[int] = None):
         leaves, self._structure = tree_flatten(template)
         self._shapes = [tuple(l.shape) for l in leaves]
         self._dtypes = [l.dtype for l in leaves]
         self._sizes = [int(np.prod(s[lead_axes:])) for s in self._shapes]
         self.lead_axes = int(lead_axes)
+        self.lead_shape = (tuple(self._shapes[0][:lead_axes])
+                           if self._shapes else ())
         self.d = int(sum(self._sizes))
+        if layout is not None and layout.d != self.d:
+            raise ValueError(f"layout is for d={layout.d}, template ravels "
+                             f"to d={self.d}")
+        if max_chunk_cols is not None and layout is None:
+            raise ValueError("max_chunk_cols is a sharded-buffer knob — "
+                             "it requires a ShardLayout")
+        self.layout = layout
+        self.max_chunk_cols = (None if max_chunk_cols is None
+                               else int(max_chunk_cols))
+        self._chunk_plan = None
 
-    def flatten(self, X) -> torch.Tensor:
+    @property
+    def width(self) -> int:
+        """The physical last-axis width: d, or the layout's padded width."""
+        return self.d if self.layout is None else self.layout.padded_width
+
+    @property
+    def n_shards(self) -> int:
+        return 1 if self.layout is None else self.layout.n_shards
+
+    def leaf_sizes(self) -> list:
+        """Per-leaf flat sizes in ravel order (sum == d)."""
+        return list(self._sizes)
+
+    def leaf_offsets(self) -> list:
+        """Each leaf's global column offset in the canonical [0, d)."""
+        return [int(o) for o in np.cumsum([0] + self._sizes[:-1])]
+
+    @property
+    def chunk_plan(self):
+        """The leaf x shard-window ``shard.ChunkPlan`` of this spec (None
+        unsharded): the schedule of the gather-free gradient pass."""
+        if self.layout is None:
+            return None
+        if self._chunk_plan is None:
+            from repro_torch.shard.layout import plan_chunks
+            self._chunk_plan = plan_chunks(self.layout, self._sizes,
+                                           self.max_chunk_cols)
+        return self._chunk_plan
+
+    def ravel(self, X) -> torch.Tensor:
         """Each leaf's trailing (per-worker) axes raveled: a tree with the
         template's leading axes, or with any others in their place (the
-        fleet's [R N] as one axis), -> [lead..., d] float32."""
+        fleet's [R N] as one axis), -> the canonical [lead..., d] float32."""
         leaves, _ = tree_flatten(X)
         return torch.cat(
             [l.reshape(l.shape[:l.ndim - len(s) + self.lead_axes] + (-1,))
              .float() for l, s in zip(leaves, self._shapes)], dim=-1)
+
+    def flatten(self, X) -> torch.Tensor:
+        """``ravel(X)`` padded to the physical width."""
+        flat = self.ravel(X)
+        if self.width > self.d:
+            flat = torch.nn.functional.pad(flat, (0, self.width - self.d))
+        return flat
+
+    def unpad(self, flat):
+        """The physical buffer's canonical (layout-free) [..., d] view."""
+        return flat[..., :self.d]
 
     def _split(self, flat, lead):
         out, off = [], 0
@@ -350,6 +416,33 @@ class FlatSpec:
 
     def unravel_row(self, v):
         return self._split(v, ())
+
+    def layout_meta(self) -> dict:
+        """The JSON-able layout record of a checkpoint's manifest (the
+        reference's keys)."""
+        meta = {"d": self.d, "lead_axes": self.lead_axes,
+                "lead_shape": list(self.lead_shape),
+                "n_shards": self.n_shards, "width": self.width}
+        if self.layout is not None:
+            meta["chunk_plan"] = self.chunk_plan.to_meta()
+        return meta
+
+
+def make_flat_spec(template, lead_axes: int = 1, layout=None,
+                   n_shards: Optional[int] = None,
+                   max_chunk_cols: Optional[int] = None) -> FlatSpec:
+    """The FlatSpec of ``template``: unsharded by default; with ``layout``
+    (a ``shard.ShardLayout``) or ``n_shards`` > 1 (the layout derived from
+    the raveled width) the model-axis sharded buffer. ``max_chunk_cols``
+    (sharded only) bounds the gradient pass's columns a collective."""
+    if n_shards is not None and n_shards > 1:
+        if layout is not None:
+            raise ValueError("pass layout OR n_shards, not both")
+        from repro_torch.shard.layout import ShardLayout
+        layout = ShardLayout(FlatSpec(template, lead_axes).d, n_shards)
+    if layout is None:
+        max_chunk_cols = None
+    return FlatSpec(template, lead_axes, layout, max_chunk_cols)
 
 
 def flatten_worker_tree(X) -> torch.Tensor:
@@ -517,23 +610,38 @@ def run_centralized(X, noise_n, G_m, plan: MixPlan):
                         self_scale=plan.self_scale, m_scale=plan.m_scale)
 
 
-def _run_noisy(X, G, plan: MixPlan, proto):
+def _run_noisy(X, G, plan: MixPlan, proto, axis=None):
     n = dp_noise(G["n"], X, plan.amp)
     m = channel_noise(G["m"], X, plan.sigma_m)
     return run_mix(X, n, m, proto.eta, plan)
 
 
-def _run_gossip(X, G, plan: MixPlan, proto):
+def _run_gossip(X, G, plan: MixPlan, proto, axis=None):
     zero = tree_map(torch.zeros_like, X)
     return run_mix(X, zero, zero, proto.eta, plan)
 
 
-def _run_orthogonal_spec(X, G, plan: MixPlan, proto):
+def _run_orthogonal_spec(X, G, plan: MixPlan, proto, axis=None):
     return run_orthogonal(X, G, plan, proto.eta)
 
 
-def _run_centralized_spec(X, G, plan: MixPlan, proto):
+def _run_centralized_spec(X, G, plan: MixPlan, proto, axis=None):
     return run_centralized(X, dp_noise(G["n"], X, plan.amp), G["m"], plan)
+
+
+def _run_collective(X, G, plan: MixPlan, proto, axis=None):
+    """The complete-graph round with one worker a rank of the process
+    group ``axis`` (X: this worker's leaves, [1, ...]): its DP noise from
+    its own row of the plan's amplitudes, the superposition a literal
+    ``all_reduce`` (``core.dwfl.exchange_dwfl_collective``) in place of
+    the [N, N] product."""
+    import torch.distributed as dist
+    from repro_torch.core import dwfl
+    rank = dist.get_rank(axis)
+    n = dp_noise(G["n"], X, plan.amp[rank:rank + 1])
+    m = channel_noise(G["m"], X, plan.sigma_m)
+    return dwfl.collective_mix(X, n, m, plan.c, proto.n_workers, proto.eta,
+                               axis)
 
 
 # ---------------------------------------------------------------------------
@@ -548,11 +656,13 @@ class ExchangeSpec:
     participation mask for "sampled", an override of the topology's W for
     "topology"), ``run(X, G, plan, proto)`` runs a round on the worker
     tree X with standard normals G (``draw_normals``; unused when the
-    plan is not noisy). ``fuse_ok``: the pure mixing family, which treats
-    every parameter entry alike, so the tree may be bucketed into one
-    flat leaf and the fused dp_mix round may run it; the baselines keep
-    their per-leaf noise layout. ``shared_m``: m is one [1, ...] draw per
-    leaf, shared by every receiver."""
+    plan is not noisy; ``axis``: the process group of the collective
+    route). ``fuse_ok``: the pure mixing family, which treats every
+    parameter entry alike, so the tree may be bucketed into one flat leaf
+    and (but for the collective, which no flat step routes to) the fused
+    dp_mix round may run it; the baselines keep their per-leaf noise
+    layout. ``shared_m``: m is one [1, ...] draw per leaf, shared by every
+    receiver."""
     name: str
     run: Callable
     plan: Callable
@@ -568,6 +678,7 @@ SPECS = {
     "dynamic_sparse": ExchangeSpec("dynamic_sparse", _run_noisy,
                                    plan_dynamic_sparse),
     "sampled": ExchangeSpec("sampled", _run_noisy, plan_sampled),
+    "collective": ExchangeSpec("collective", _run_collective, plan_complete),
     "orthogonal": ExchangeSpec("orthogonal", _run_orthogonal_spec,
                                plan_orthogonal, fuse_ok=False),
     "centralized": ExchangeSpec("centralized", _run_centralized_spec,
@@ -580,12 +691,9 @@ def resolve_spec(proto, axis: Optional[str] = None,
                  dynamic: bool = False) -> ExchangeSpec:
     """Scheme -> ExchangeSpec: the one routing table of the static and the
     dynamic train steps, flat and worker-tree. Only dwfl has dynamic
-    semantics (the baselines compare on the static channel). What the
-    reference routes elsewhere raises, naming the ROADMAP item that ports
-    it."""
-    if axis is not None:
-        raise NotImplementedError("the collective (shard_map) exchange is "
-                                  "not ported yet (ROADMAP A14)")
+    semantics (the baselines compare on the static channel). ``axis`` (a
+    process group of one worker a rank) makes the complete-graph dwfl
+    round the collective one, as the reference's mesh axis does."""
     if dynamic:
         if proto.scheme != "dwfl":
             raise ValueError(f"dynamic channel model requires scheme='dwfl', "
@@ -602,5 +710,7 @@ def resolve_spec(proto, axis: Optional[str] = None,
             return SPECS["topology"]
         if proto.participation < 1.0:
             return SPECS["sampled"]
+        if axis is not None:
+            return SPECS["collective"]
         return SPECS["complete"]
     raise ValueError(proto.scheme)

@@ -334,6 +334,37 @@ def compose_advanced(eps_round: float, delta_round: float, T: int,
     return eps, T * delta_round + delta_prime
 
 
+# row_sum_squares's stages on the card: K columns, then the rows' M1
+# blocks of K, then their M2 partial sums
+_SUMSQ_K, _SUMSQ_M2 = 1024, 32
+
+
+def row_sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """[R, n] -> [R]: each row's sum of squares in float32, each row's
+    value the same bits whatever R.
+
+    On the card a single reduction over n picks its block shape, and so
+    its summation order, from the number of rows R below 16: a row block
+    of 5 workers would round a worker's norm unlike the 10 of the whole
+    population (the model axis on a mesh against the logical mode). So
+    the squares are summed in three reductions, each wide enough (K
+    columns, then M1 blocks, with at least 32 R outputs) or short enough
+    (the last, M2 = 32 partial sums) that PyTorch's block shape does not
+    follow R; the squares of the tail past n are zeros. On the CPU a
+    row's order does not depend on R: one reduction."""
+    R = x.shape[0]
+    x = x.reshape(R, -1)
+    if x.device.type != "cuda":
+        return torch.sum(x.float() ** 2, dim=1)
+    n = x.shape[1]
+    m1 = max(1, -(-n // (_SUMSQ_K * _SUMSQ_M2)))
+    sq = torch.empty((R, _SUMSQ_M2 * m1 * _SUMSQ_K), device=x.device)
+    torch.square(x.float(), out=sq[:, :n])
+    sq[:, n:] = 0
+    s = sq.view(R, _SUMSQ_M2 * m1, _SUMSQ_K).sum(-1)
+    return s.view(R, _SUMSQ_M2, m1).sum(-1).sum(-1)
+
+
 def clip_gradient_tree(grads, g_max: float):
     """L2-clip each worker's gradient to norm <= g_max. ``grads`` is the
     flat [N, d] buffer or a worker-stacked tree of [N, ...] leaves; a
@@ -343,8 +374,7 @@ def clip_gradient_tree(grads, g_max: float):
     the form and dtypes of ``grads``, the norm 0 where it was not
     finite."""
     leaves, structure = tree_flatten(grads)
-    norm = torch.sqrt(sum(torch.sum(g.float().reshape(g.shape[0], -1) ** 2,
-                                    dim=1) for g in leaves))
+    norm = torch.sqrt(sum(row_sum_squares(g) for g in leaves))
     finite = torch.isfinite(norm)
     scale = torch.where(finite,
                         torch.clamp_max(g_max / torch.clamp_min(norm, 1e-12), 1.0),

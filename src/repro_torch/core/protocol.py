@@ -373,22 +373,23 @@ def _round_plan(proto: ProtocolConfig, spec: exchange_lib.ExchangeSpec,
     return plan_of
 
 
-def _exchange(X, spec, plan, proto, generator, normals, lead_axes=1):
+def _exchange(X, spec, plan, proto, generator, normals, lead_axes=1,
+              axis=None):
     """The worker-tree exchange of a round: bucketed into one flat leaf
     with ``fuse_exchange``, its normals drawn from ``generator`` unless
-    given."""
+    given (``axis``: the collective route's process group)."""
     unravel = None
     if proto.fuse_exchange and spec.fuse_ok:
         X, unravel = _bucket(X, lead_axes)
     if normals is None and plan.noisy:
         normals = exchange_lib.draw_normals(X, generator,
                                             shared_m=spec.shared_m)
-    X = spec.run(X, normals, plan, proto)
+    X = spec.run(X, normals, plan, proto, axis=axis)
     return X if unravel is None else unravel(X["flat"])
 
 
 def make_train_step(cfg: ModelConfig, proto: ProtocolConfig,
-                    device="cuda") -> Callable:
+                    device="cuda", axis=None) -> Callable:
     """The static-channel worker-tree round:
 
         step(worker_params, batch, generator, normals=None, mask=None)
@@ -400,9 +401,14 @@ def make_train_step(cfg: ModelConfig, proto: ProtocolConfig,
     noise (``exchange.draw_normals``), unless ``mask`` (bool [N]) or
     ``normals`` ({"n", "m"} trees of standard normals in that layout) is
     given. The channel and the scheme's plan are realized once, here.
+
+    ``axis``: a process group of one worker a rank (leaves [1, ...]), the
+    reference's collective path: the complete-graph dwfl round is then
+    ``exchange.resolve_spec``'s collective route (an ``all_reduce``); each
+    rank draws its own worker's noise from its ``generator``.
     """
     dev = resolve_device(device)
-    spec = exchange_lib.resolve_spec(proto)
+    spec = exchange_lib.resolve_spec(proto, axis)
     plan_of = _round_plan(proto, spec, dev)
     local_grads, local_step = _make_local_pass(cfg, proto)
 
@@ -413,7 +419,7 @@ def make_train_step(cfg: ModelConfig, proto: ProtocolConfig,
             # no peers to exchange with: a plain local SGD round
             return X, _metrics(losses, gnorms, X)
         X = _exchange(X, spec, plan_of(generator, mask), proto, generator,
-                      normals)
+                      normals, axis=axis)
         return X, _metrics(losses, gnorms, X)
 
     return step
@@ -449,21 +455,32 @@ def make_dynamic_train_step(cfg: ModelConfig, proto: ProtocolConfig,
 
 
 def make_flat_local_pass(cfg: ModelConfig, proto: ProtocolConfig,
-                         spec: exchange_lib.FlatSpec) -> Callable:
-    """flat [N, d], batch -> (losses [N], clipped grads [N, d], norms [N]).
+                         spec: exchange_lib.FlatSpec,
+                         remat: bool = False) -> Callable:
+    """flat [N, width], batch -> (losses [N], clipped grads [N, d], norms
+    [N]): the gradients of the canonical d columns.
 
     The gradients are taken per leaf, of views of the buffer, and raveled
     once: through the views of one [N, d] tensor, autograd would make a
-    zero-padded [N, d] gradient for every leaf and add them up."""
+    zero-padded [N, d] gradient for every leaf and add them up. ``remat``
+    recomputes the workers' forward in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` around
+    each worker's forward; here the workers' forward is one batched pass):
+    activation memory for a second forward, the same gradients."""
     def local_grads(flat, batch):
         with torch.enable_grad():
             leaves, structure = exchange_lib.tree_flatten(
                 spec.unravel(flat.detach()))
             ps = [l.detach().requires_grad_(True) for l in leaves]
-            losses = M.loss_fn(exchange_lib.tree_unflatten(structure, ps),
-                               batch, cfg)
+            forward = lambda *xs: M.loss_fn(
+                exchange_lib.tree_unflatten(structure, list(xs)), batch, cfg)
+            if remat:
+                from torch.utils.checkpoint import checkpoint
+                losses = checkpoint(forward, *ps, use_reentrant=False)
+            else:
+                losses = forward(*ps)
             gs = torch.autograd.grad(losses.sum(), ps)
-        g = spec.flatten(exchange_lib.tree_unflatten(structure, list(gs)))
+        g = spec.ravel(exchange_lib.tree_unflatten(structure, list(gs)))
         del gs
         g, gnorms = privacy.clip_gradient_tree(g, proto.clip)
         return losses.detach(), g, gnorms

@@ -19,6 +19,15 @@ carry holds the [R, ...] state, the [R, N, d] buffer (or [R, N, ...]
 leaves) and, with telemetry, the [R, 4 + A] accountant moments; its
 outputs stack [K, R, ...].
 
+A sharded buffer (``repro_torch.shard``) changes the step, not the key
+discipline: with a model-sharded ``spec`` the carry holds the padded
+buffer (``shard_mesh=None``, the logical mode) or this rank's column
+window (a mesh); with ``worker_mesh`` this rank's worker rows. Every rank
+of a mesh draws the same data, network and seed from its own generator,
+seeded alike, so a sharded trajectory realizes the unsharded stream and
+its canonical columns are bitwise the unsharded trajectory's (the logical
+mode; the model axis's mesh too), whatever the chunks.
+
 Telemetry (``obs.telemetry.TelemetrySpec``) wraps a body without drawing
 from the generator or writing a parameter, so the trajectory with it on
 is bitwise the one with it off: the per-round scalars (loss, gradient
@@ -94,7 +103,8 @@ def round_seed(generator: torch.Generator, n: int = 1) -> torch.Tensor:
 
 
 def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
-                    sim=None, fleet=None, telemetry=None) -> Callable:
+                    sim=None, fleet=None, telemetry=None, shard_mesh=None,
+                    worker_mesh=None, remat: bool = False) -> Callable:
     """``body(carry) -> (carry', out)``: one full DWFL round, its batch
     from ``store`` (data.device.ClassificationStore, sampled on the
     device, or ``HostBatches``). The path follows ``spec``: given (an
@@ -108,10 +118,32 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
     the flat path or the exchange's normals on the tree path).
     ``out`` is {"metrics": {...}}, and on the dynamic path also the
     round's "chan" and "W". ``telemetry`` (obs.telemetry.TelemetrySpec)
-    instruments the body (``_maybe_instrument``)."""
+    instruments the body (``_maybe_instrument``).
+
+    A ``spec`` with a ``shard.ShardLayout`` runs the model-sharded step
+    (``shard.round``): logically on the padded buffer, or over
+    ``shard_mesh``'s "model" axis on this rank's window. ``worker_mesh``
+    (the dynamic flat path with an unsharded spec and a neighbor-list W)
+    runs the worker-sharded step (``shard.worker``) on this rank's rows.
+    ``remat`` recomputes the forward in the sharded gradient pass's
+    backward. Telemetry reads the whole buffer, so it is refused with a
+    mesh (ROADMAP A21)."""
+    sharded = spec is not None and spec.layout is not None
+    if (shard_mesh is not None or worker_mesh is not None) and (
+            telemetry is not None
+            and (telemetry.n_fields or telemetry.epsilon)):
+        raise NotImplementedError("telemetry over a process-group mesh is "
+                                  "not ported yet (ROADMAP A21)")
+    if shard_mesh is not None and not sharded:
+        raise ValueError("shard_mesh requires a FlatSpec with a ShardLayout")
+    if worker_mesh is not None and (sim is None or fleet is not None
+                                    or sharded or spec is None):
+        raise ValueError("worker_mesh requires the sim path with an "
+                         "unsharded flat spec")
     if fleet is not None:
         R = fleet.replicates
-        fleet_round = fleet.make_fleet_round(cfg, spec=spec)
+        fleet_round = fleet.make_fleet_round(cfg, spec=spec, mesh=shard_mesh,
+                                             remat=remat)
 
         def body(carry: TrajCarry):
             gen = carry.generator
@@ -124,8 +156,21 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
         return _maybe_instrument(body, telemetry, proto, device, fleet=fleet)
     if sim is not None:
         if spec is not None:
-            step = protocol_lib.make_dynamic_flat_train_step(cfg, proto,
-                                                             spec, device)
+            if worker_mesh is not None:
+                from repro_torch.shard.worker import \
+                    make_worker_sharded_dynamic_flat_train_step
+                step = make_worker_sharded_dynamic_flat_train_step(
+                    cfg, proto, spec, worker_mesh, device=device,
+                    remat=remat)
+            elif sharded:
+                from repro_torch.shard.round import \
+                    make_sharded_dynamic_flat_train_step
+                step = make_sharded_dynamic_flat_train_step(
+                    cfg, proto, spec, mesh=shard_mesh, device=device,
+                    remat=remat)
+            else:
+                step = protocol_lib.make_dynamic_flat_train_step(
+                    cfg, proto, spec, device)
 
             def body(carry: TrajCarry):
                 gen = carry.generator
@@ -146,7 +191,14 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
                 return (TrajCarry(gen, params, net, carry.eps),
                         {"metrics": metrics, "chan": chan, "W": W})
     elif spec is not None:
-        step = protocol_lib.make_flat_train_step(cfg, proto, spec, device)
+        if sharded:
+            from repro_torch.shard.round import make_sharded_flat_train_step
+            step = make_sharded_flat_train_step(cfg, proto, spec,
+                                                mesh=shard_mesh,
+                                                device=device, remat=remat)
+        else:
+            step = protocol_lib.make_flat_train_step(cfg, proto, spec,
+                                                     device)
 
         def body(carry: TrajCarry):
             batch = store.draw(carry.generator)

@@ -13,8 +13,10 @@ Replicates are independent through the generator's draws alone (fading,
 placement, churn, data order, noise); the scenario, the worker count and
 the protocol are shared — except the transmit power, which may be an [R]
 vector (``power_dbm``: the paper's Fig. 2 power sweep in one round).
-``n_shards > 1`` and a mesh are the reference's sharded fleet (ROADMAP
-A14); a neighbor-list W is ROADMAP A20.
+``n_shards > 1`` shards each replicate's buffer columns
+(``shard.round``): logically on one device, or over a 2-D ("replicas",
+"model") mesh (``launch.mesh.make_shard_mesh``). A neighbor-list W is
+ROADMAP A20.
 """
 from __future__ import annotations
 
@@ -142,31 +144,55 @@ class FleetEngine:
 
     def init_flat_spec(self, generator: torch.Generator, cfg,
                        n_shards: int = 1, max_chunk_cols=None):
-        """The fleet's flat buffer [R, N, d] float32 and its
-        ``exchange.FlatSpec`` (lead axes 2), raveled once here."""
-        if n_shards > 1 or max_chunk_cols is not None:
-            raise NotImplementedError("a model-sharded fleet buffer is not "
-                                      "ported yet (ROADMAP A14)")
+        """The fleet's flat buffer [R, N, width] float32 and its
+        ``exchange.FlatSpec`` (lead axes 2), raveled once here;
+        ``n_shards`` > 1 attaches a model-axis ``shard.ShardLayout`` (the
+        buffer padded to its width; ``max_chunk_cols`` caps the sharded
+        gradient pass's columns a collective)."""
         wp = self.init_worker_params(generator, cfg)
-        spec = exchange_lib.FlatSpec(wp, lead_axes=2)
+        spec = exchange_lib.make_flat_spec(wp, lead_axes=2, n_shards=n_shards,
+                                           max_chunk_cols=max_chunk_cols)
         return spec.flatten(wp), spec
 
-    def make_fleet_step(self, cfg, spec=None, mesh=None):
+    def make_fleet_step(self, cfg, spec=None, mesh=None,
+                        remat: bool = False):
         """The fleet's train step: with ``spec`` (init_flat_spec's) the
         flat round, ``protocol.make_fleet_flat_train_step`` (one dp_mix
         launch for all R); without, the worker-tree round,
-        ``protocol.make_fleet_train_step``. A mesh (the sharded fleet) is
-        ROADMAP A14."""
+        ``protocol.make_fleet_train_step``. A model-sharded spec runs
+        ``shard.round.make_fleet_sharded_step``: logically without a mesh,
+        or on a ("replicas", "model") ``mesh``, where the step takes this
+        rank's replicates (``make_fleet_round`` slices them)."""
+        if spec is not None and spec.layout is not None:
+            from repro_torch.shard.round import make_fleet_sharded_step
+            return make_fleet_sharded_step(cfg, self.proto, spec, mesh,
+                                           device=self.device, remat=remat)
         if mesh is not None:
-            raise NotImplementedError("the fleet over a device mesh is not "
-                                      "ported yet (ROADMAP A14)")
+            raise ValueError("the fleet over a mesh shards a replicate's "
+                             "columns: it needs a spec with n_shards "
+                             "(init_flat_spec(..., n_shards=S))")
         if spec is not None:
             return protocol_lib.make_fleet_flat_train_step(
                 cfg, self.proto, spec, self.device)
         return protocol_lib.make_fleet_train_step(cfg, self.proto,
                                                   self.device)
 
-    def make_fleet_round(self, cfg, spec=None, mesh=None):
+    def replicate_slice(self, mesh) -> slice:
+        """This rank's replicates on ``mesh``'s "replicas" axis (all R
+        without a mesh)."""
+        if mesh is None:
+            return slice(0, self.replicates)
+        names = tuple(mesh.mesh_dim_names)
+        n = mesh.size(names.index("replicas"))
+        if self.replicates % n:
+            raise ValueError(f"replicates={self.replicates} not divisible "
+                             f"by the mesh's {n} replica groups")
+        per = self.replicates // n
+        r = mesh.get_local_rank("replicas")
+        return slice(r * per, (r + 1) * per)
+
+    def make_fleet_round(self, cfg, spec=None, mesh=None,
+                         remat: bool = False):
         """The networks' round and the train step in one call:
 
             fleet_round(generator, states, worker_params, batch)
@@ -174,19 +200,43 @@ class FleetEngine:
 
         After the caller's batch it draws, from ``generator``, the
         networks' round, then the R noise seeds (flat) or the exchange's
-        normals (tree) — the order of the trajectory's fleet body."""
+        normals (tree) — the order of the trajectory's fleet body. On a
+        mesh every rank draws all R networks alike; the step takes this
+        rank's replicates (``replicate_slice``; ``worker_params`` is this
+        rank's [R_loc, N, shard_width]) and the metrics come back [R],
+        gathered over the "replicas" axis."""
         from repro_torch.core.trajectory import round_seed
-        step = self.make_fleet_step(cfg, spec=spec, mesh=mesh)
+        step = self.make_fleet_step(cfg, spec=spec, mesh=mesh, remat=remat)
         R = self.replicates
+        mine = self.replicate_slice(mesh)
 
         def fleet_round(generator, states, worker_params, batch):
             states, chans, _, Ws = self.round(generator, states)
             noise = round_seed(generator, R) if spec is not None else generator
-            worker_params, metrics = step(worker_params, batch, noise, chans,
-                                          Ws)
-            return states, worker_params, metrics, chans, Ws
+            if mesh is None:
+                worker_params, metrics = step(worker_params, batch, noise,
+                                              chans, Ws)
+                return states, worker_params, metrics, chans, Ws
+            local = lambda t: t[mine]
+            worker_params, metrics = step(
+                worker_params, exchange_lib.tree_map(local, batch),
+                noise[mine], dataclasses.replace(chans, **{
+                    f: getattr(chans, f)[mine] for f in FIELDS}), Ws[mine])
+            return (states, worker_params,
+                    {k: _gather_replicas(v, mesh) for k, v in
+                     metrics.items()}, chans, Ws)
 
         return fleet_round
+
+
+def _gather_replicas(v, mesh) -> torch.Tensor:
+    """[R_loc] per replica group -> [R] over ``mesh``'s "replicas" axis."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import gather_into
+    group = mesh.get_group("replicas")
+    out = v.new_empty((dist.get_world_size(group) * v.shape[0],))
+    gather_into(out, v, group)
+    return out
 
 
 def fleet_eval(evaluate, worker_params, batch):

@@ -74,6 +74,19 @@
 // blocks in flight share one column slab of z (n x 1024 floats, 8 MB at
 // n = 2048) and the gathered rows come from L2. Element offsets are 64-bit:
 // the workspace's second half starts past 2^31 elements at n = 2048.
+//
+// Worker-axis shards (repro_torch/shard/worker.py, the reference's
+// shard/worker.py::worker_window_round): a shard holds rows [row0, row0 +
+// n) of an n_src-row population. dp_mix_prep_launch draws its rows' noise
+// with global counters 2 * ((row0 + r) * counter_width + col0 + j), the
+// reference's _normal_pair_hash(..., row0); the caller all-gathers the
+// shards' z into one [n_src, d] float32 tensor; dp_mix_gather_launch then
+// forms receivers [row0, row0 + n), reading their neighbor rows by global
+// index from that tensor and their own z and nf from the local workspace.
+// Each element's arithmetic is the unsharded round's, so stitched shards
+// are bitwise the whole round; row0 = 0 with z_src = the workspace is the
+// whole round (dp_mix_sparse_launch). Same bound and design as the sparse
+// round above: the gather's rows, now from the gathered [n_src, d] tensor.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -122,6 +135,7 @@ struct Args {
   uint32_t counter_width;
   float gamma, eta;
   int noisy;
+  uint32_t row0;        // global row of local row 0 (worker-axis shards)
 };
 
 // A receiver's constants: amp / c, self, m_scale * sigma_m, eta * listen.
@@ -357,7 +371,7 @@ __global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args args) {
     if (j < a.d) a.ws[off] = x;
     return;
   }
-  const uint32_t idx = counter(k, a.counter_width, (uint32_t)a.col0[0] + (uint32_t)j);
+  const uint32_t idx = counter(a.row0 + (uint32_t)k, a.counter_width, (uint32_t)a.col0[0] + (uint32_t)j);
   const float nf = __fmul_rn(__fdiv_rn(a.amp[k], a.scal[0]),
                              repro_noise::normal_from_bits(
                                  repro_noise::hash_bits(2u * idx, (uint32_t)a.seed[0])));
@@ -434,14 +448,17 @@ __global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args args) {
 // ---- the sparse round -------------------------------------------------------
 
 struct Neighbors {
-  const int32_t* idx;   // [n, k], each in [0, n) (clamped, as XLA's gather clamps)
+  const int32_t* idx;   // [n, k], each in [0, n_src) (clamped, as XLA's gather clamps)
   const float* w;       // [n, k]
   const float* self_w;  // [n]
   int k;
+  const float* z_src;   // [n_src, d] float32, the rows idx reads (the whole round: the workspace's z)
+  int n_src;
 };
 
-// out of one receiver (blockIdx.x) over kGatherTile columns: the mix from
-// the workspace's z, v from p, g, nf and Gm, out = v + (eta listen) mix.
+// out of one receiver (blockIdx.x, global row row0 + blockIdx.x) over
+// kGatherTile columns: the mix from its own z in the workspace and its
+// neighbors' in z_src, v from p, g, nf and Gm, out = v + (eta listen) mix.
 template <typename T>
 __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, const Neighbors nb) {
   extern __shared__ float slots[];
@@ -450,7 +467,7 @@ __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, co
   const int n = a.n, d = a.d, i = blockIdx.x;
   for (int s = threadIdx.x; s < nb.k; s += kGatherThreads) {
     sW[s] = nb.w[(size_t)i * nb.k + s];
-    sIdx[s] = min(max(nb.idx[(size_t)i * nb.k + s], 0), n - 1);
+    sIdx[s] = min(max(nb.idx[(size_t)i * nb.k + s], 0), nb.n_src - 1);
   }
   __syncthreads();
   const float* __restrict__ z = a.ws;
@@ -466,7 +483,7 @@ __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, co
   }
   for (int s = 0; s < nb.k; ++s) {
     const float ws = sW[s];
-    const float* __restrict__ zr = z + (size_t)sIdx[s] * d;
+    const float* __restrict__ zr = nb.z_src + (size_t)sIdx[s] * d;
 #pragma unroll
     for (int c = 0; c < kGatherCols; ++c) acc[c] = fmaf(ws, zr[col[c]], acc[c]);
   }
@@ -482,7 +499,7 @@ __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, co
     const float x = local_step(load_f(p, off), load_f(g, off), a.gamma);
     float v;
     if (a.noisy) {
-      const uint32_t idx = counter(i, a.counter_width, gcol0 + (uint32_t)j);
+      const uint32_t idx = counter(a.row0 + (uint32_t)i, a.counter_width, gcol0 + (uint32_t)j);
       const float gm = repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
       v = partial(x, nf[off], gm, rc);
     } else {
@@ -493,22 +510,33 @@ __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, co
 }
 
 template <typename T>
-int launch_sparse(const Args& a, const Neighbors& nb, cudaStream_t stream) {
-  if (a.ws == nullptr || a.n > 65535 || nb.k < 0) return (int)cudaErrorInvalidValue;
+int launch_prep(const Args& a, cudaStream_t stream) {
+  if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
   dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_gather(const Args& a, const Neighbors& nb, cudaStream_t stream) {
+  if (a.ws == nullptr || nb.z_src == nullptr || a.n > 65535 || nb.k < 0 || nb.n_src < 1)
+    return (int)cudaErrorInvalidValue;
   const size_t bytes = (sizeof(float) + sizeof(int)) * (size_t)nb.k;
   static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
   if (bytes > opted_in) {
-    err = cudaFuncSetAttribute(dp_mix_gather<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
+    const cudaError_t err = cudaFuncSetAttribute(
+        dp_mix_gather<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     opted_in = bytes;
   }
   dp_mix_gather<T><<<dim3(a.n, (a.d + kGatherTile - 1) / kGatherTile), kGatherThreads, bytes,
                      stream>>>(a, nb);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_sparse(const Args& a, const Neighbors& nb, cudaStream_t stream) {
+  const int err = launch_prep<T>(a, stream);
+  return err != 0 ? err : launch_gather<T>(a, nb, stream);
 }
 
 // ---- routes and launch -------------------------------------------------------
@@ -589,7 +617,7 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
                static_cast<const float*>(selfs), static_cast<const float*>(mscale),
                static_cast<const float*>(listen), static_cast<const float*>(scal),
                static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
-               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy};
+               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy, 0u};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(a, reps, s);
   if (dtype == 1) return launch<__nv_bfloat16>(a, reps, s);
@@ -597,25 +625,67 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
 }
 
 // The sparse round: idx int32 [n, k], w float32 [n, k], self_w float32 [n]
-// take W's place; ws is a float32 workspace of 2 n d floats (z, then nf).
-// The rest as dp_mix_launch. Returns the cudaError_t of the launches.
+// take W's place; ws is a float32 workspace of 2 n d floats (z, then nf);
+// row0 offsets the noise counters' rows (0: the whole population). The
+// rest as dp_mix_launch. Returns the cudaError_t of the launches.
 int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
                          const void* w, const void* self_w, const void* amp, const void* selfs,
                          const void* mscale, const void* listen, const void* scal,
                          const void* seed, const void* col0, void* ws, int n, int d, int k,
-                         unsigned int counter_width, float gamma, float eta, int noisy,
+                         int row0, unsigned int counter_width, float gamma, float eta, int noisy,
                          void* stream) {
-  if (n < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  if (n < 1 || d < 1 || row0 < 0) return (int)cudaErrorInvalidValue;
   const Args a{p, g, out, nullptr, static_cast<const float*>(amp),
                static_cast<const float*>(selfs), static_cast<const float*>(mscale),
                static_cast<const float*>(listen), static_cast<const float*>(scal),
                static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
-               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy};
+               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy, (uint32_t)row0};
   const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-                     static_cast<const float*>(self_w), k};
+                     static_cast<const float*>(self_w), k, static_cast<const float*>(ws), n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_sparse<float>(a, nb, s);
   if (dtype == 1) return launch_sparse<__nv_bfloat16>(a, nb, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// A worker shard's first half: dp_mix_prep over its n rows, global rows
+// [row0, row0 + n), into ws [2, n, d] (z, then nf; gossip: x alone).
+int dp_mix_prep_launch(int dtype, const void* p, const void* g, const void* amp,
+                       const void* scal, const void* seed, const void* col0, void* ws, int n,
+                       int d, int row0, unsigned int counter_width, float gamma, int noisy,
+                       void* stream) {
+  if (n < 1 || d < 1 || row0 < 0) return (int)cudaErrorInvalidValue;
+  const Args a{p, g, nullptr, nullptr, static_cast<const float*>(amp), nullptr, nullptr,
+               nullptr, static_cast<const float*>(scal), static_cast<const int32_t*>(seed),
+               static_cast<const int32_t*>(col0), static_cast<float*>(ws), n, d, counter_width,
+               gamma, 0.0f, noisy, (uint32_t)row0};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_prep<float>(a, s);
+  if (dtype == 1) return launch_prep<__nv_bfloat16>(a, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Its second half: receivers [row0, row0 + n) from ws (their own z and nf)
+// and z_src [n_src, d] float32 (every shard's z, gathered), neighbors by
+// global index; idx, w [n, k], self_w and the vectors are the shard's rows.
+int dp_mix_gather_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
+                         const void* w, const void* self_w, const void* amp, const void* selfs,
+                         const void* mscale, const void* listen, const void* scal,
+                         const void* seed, const void* col0, void* ws, const void* z_src, int n,
+                         int n_src, int d, int k, int row0, unsigned int counter_width,
+                         float gamma, float eta, int noisy, void* stream) {
+  if (n < 1 || d < 1 || row0 < 0) return (int)cudaErrorInvalidValue;
+  const Args a{p, g, out, nullptr, static_cast<const float*>(amp),
+               static_cast<const float*>(selfs), static_cast<const float*>(mscale),
+               static_cast<const float*>(listen), static_cast<const float*>(scal),
+               static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
+               static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy, (uint32_t)row0};
+  const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
+                     static_cast<const float*>(self_w), k, static_cast<const float*>(z_src),
+                     n_src};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_gather<float>(a, nb, s);
+  if (dtype == 1) return launch_gather<__nv_bfloat16>(a, nb, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -3,7 +3,10 @@ the reference's ``dp_mix_fused_jnp`` (repro/kernels/dp_mix/dp_mix.py) with
 the ``_round_math`` arithmetic (``dp_mix_plain_stack`` for a stack of
 rounds, the twin of the kernel's replicate axis), and
 ``dp_mix_sparse_plain``, the twin of its ``dp_mix_sparse_jnp``
-(``_sparse_round_math``: the mix through a padded neighbor list).
+(``_sparse_round_math``: the mix through a padded neighbor list), in its
+two halves ``dp_mix_prep_plain`` and ``dp_mix_gather_plain``, which a
+worker shard runs on its rows (the reference's
+``shard.worker.worker_window_round``).
 
 They are what ``ops.dp_mix_round`` and ``ops.dp_mix_round_sparse`` run for
 a tensor on the CPU, and what the CUDA kernels (``csrc/dp_mix.cu``) are
@@ -58,9 +61,57 @@ def dp_mix_plain_stack(p, g, seed, col0, scal, amp, selfs, mscale, listen, W,
         for r in range(p.shape[0])])
 
 
+def dp_mix_prep_plain(p, g, seed, col0, scal, amp, *, gamma: float,
+                      noisy: bool, counter_width: int, row0=0) -> torch.Tensor:
+    """The first half of the sparse round over rows [row0, row0 + Nb) of a
+    population: the float32 workspace [2, Nb, D], z = x + n/c and n/c,
+    the noise drawn with global counters (``noise.normal_field``, field
+    0); gossip: x, and zeros."""
+    N, D = p.shape
+    x = p.float() - gamma * g.float()
+    if not noisy:
+        return torch.stack([x, torch.zeros_like(x)])
+    g_n = noise.normal_field((N, D), counter_width, col0.reshape(-1)[0],
+                             seed.reshape(-1)[0], 0, row0=row0,
+                             device=p.device)
+    nf = (amp.reshape(N, 1) / scal[0]) * g_n
+    return torch.stack([x + nf, nf])
+
+
+def dp_mix_gather_plain(p, g, ws, z_src, seed, col0, scal, amp, selfs,
+                        mscale, listen, idx, w, self_w, *, gamma: float,
+                        eta: float, noisy: bool, counter_width: int,
+                        row0=0) -> torch.Tensor:
+    """The second half: receivers [row0, row0 + Nb) from their workspace
+    ``ws`` (``dp_mix_prep_plain``) and z_src [N_src, D], the rows the
+    neighbor list idx [Nb, k] reads (global indices). Gm is field 1 of
+    the global counters. The reference's order:
+
+        mix = self_w z + sum_s w[:, s] z_src[idx[:, s]]      (slot order)
+        out = x + eta listen (mix + m_scale sigma_m Gm - x - self n/c)
+    """
+    N, D = p.shape
+    x = p.float() - gamma * g.float()
+    col = lambda v: v.reshape(N, 1)
+    rows = idx.long()
+    mix = col(self_w) * ws[0]
+    for s in range(idx.shape[1]):
+        mix = mix + w[:, s:s + 1] * z_src[rows[:, s]]
+    if noisy:
+        g_m = noise.normal_field((N, D), counter_width, col0.reshape(-1)[0],
+                                 seed.reshape(-1)[0], 1, row0=row0,
+                                 device=p.device)
+        nf = ws[1]
+        upd = mix + (col(mscale) * scal[1]) * g_m - col(selfs) * nf
+    else:
+        upd = mix
+    return (x + eta * col(listen) * (upd - x)).to(p.dtype)
+
+
 def dp_mix_sparse_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen,
                         idx, w, self_w, *, gamma: float, eta: float,
-                        noisy: bool, counter_width: int) -> torch.Tensor:
+                        noisy: bool, counter_width: int,
+                        row0=0) -> torch.Tensor:
     """``dp_mix_plain`` with the mix through a padded neighbor list: idx,
     w [N, k] (int32, float32), self_w [N] float32; the other operands as
     there. z = x + n/c is made once, then
@@ -68,24 +119,14 @@ def dp_mix_sparse_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen,
         mix = self_w z + sum_s w[:, s] z[idx[:, s]]      (slot order)
         out = x + eta listen (mix + m_scale sigma_m Gm - x - self n/c)
 
-    the reference's order. Gossip mixes x."""
-    N, D = p.shape
-    x = p.float() - gamma * g.float()
-    col = lambda v: v.reshape(N, 1)
-    rows = idx.long()
-
-    def gather_mix(z):
-        acc = col(self_w) * z
-        for s in range(idx.shape[1]):
-            acc = acc + w[:, s:s + 1] * z[rows[:, s]]
-        return acc
-
-    if noisy:
-        g_n, g_m = noise.normal_pair_hash(
-            (N, D), counter_width, col0.reshape(-1)[0], seed.reshape(-1)[0],
-            device=p.device)
-        nf = (col(amp) / scal[0]) * g_n
-        upd = gather_mix(x + nf) + (col(mscale) * scal[1]) * g_m - col(selfs) * nf
-    else:
-        upd = gather_mix(x)
-    return (x + eta * col(listen) * (upd - x)).to(p.dtype)
+    the reference's order. Gossip mixes x. ``row0`` offsets the noise
+    counters' rows (the reference's ``dp_mix_sparse_jnp(row0=)``). It is
+    its two halves, ``dp_mix_prep_plain`` then ``dp_mix_gather_plain``
+    with the workspace's own z, as the card runs it."""
+    ws = dp_mix_prep_plain(p, g, seed, col0, scal, amp, gamma=gamma,
+                           noisy=noisy, counter_width=counter_width,
+                           row0=row0)
+    return dp_mix_gather_plain(p, g, ws, ws[0], seed, col0, scal, amp, selfs,
+                               mscale, listen, idx, w, self_w, gamma=gamma,
+                               eta=eta, noisy=noisy,
+                               counter_width=counter_width, row0=row0)

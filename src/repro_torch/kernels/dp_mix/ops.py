@@ -1,7 +1,8 @@
 """Wrappers of the fused DWFL round: ``dp_mix_round`` over the flat [N, d]
 buffer with a dense W, ``dp_mix_round_sparse`` with a padded neighbor list
 (``net.sparse.SparseW``), ``dp_mix_round_plan`` over a ``MixPlan`` (either
-W), and ``seed_from_key``.
+W), the two halves of a worker shard's sparse round (``dp_mix_prep_rows``,
+``dp_mix_gather_rows``), and ``seed_from_key``.
 
 Dispatch is by the device of the buffer: a CUDA tensor launches the
 hand-written kernel (``csrc/dp_mix.cu``) or raises; a CPU tensor runs the
@@ -28,6 +29,18 @@ round is one call and one count.
 Checked here before any launch, on every device: N * counter_width <=
 2^31. The noise counters 2 * idx are uint32, and past that they wrap and
 two elements would draw the same noise (at dwfl-paper's width, N <= 2,511).
+A row window checks the global rows, (row0 + n) * counter_width.
+
+A worker shard (``repro_torch.shard.worker``) holds rows [row0, row0 +
+Nb) of an N-row population and splits the sparse round in two:
+``dp_mix_prep_rows`` draws its rows' noise with global counters into a
+float32 workspace [2, Nb, d] (z, then n/c); the caller gathers every
+shard's z into one [N, d] tensor; ``dp_mix_gather_rows`` forms the
+shard's receivers from it, their neighbors by global index. Stitched,
+the shards are bitwise ``dp_mix_round_sparse`` on the whole population
+(the same kernels, ``row0`` = 0 and the workspace's own z for the whole
+round); their plain versions are ``dp_mix.dp_mix_prep_plain`` and
+``dp_mix.dp_mix_gather_plain``.
 """
 from __future__ import annotations
 
@@ -39,7 +52,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_plain, dp_mix_plain_stack,
+from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_gather_plain,
+                                              dp_mix_plain, dp_mix_plain_stack,
+                                              dp_mix_prep_plain,
                                               dp_mix_sparse_plain)
 
 LANES = 128            # noise-counter row stride multiple (the reference's)
@@ -56,7 +71,14 @@ ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                _PTR])
 # dp_mix_sparse_launch's parameters, in order
-SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 3
+SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 4
+                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
+                      ctypes.c_int, _PTR])
+# dp_mix_prep_launch's parameters, in order
+PREP_ARGTYPES = ([ctypes.c_int] + [_PTR] * 7 + [ctypes.c_int] * 3
+                 + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, _PTR])
+# dp_mix_gather_launch's parameters, in order
+GATHER_ARGTYPES = ([ctypes.c_int] + [_PTR] * 15 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, _PTR])
 
@@ -92,8 +114,11 @@ def _library() -> ctypes.CDLL:
         lib.dp_mix_workspace_floats.restype = ctypes.c_size_t
         lib.dp_mix_error_string.argtypes = [ctypes.c_int]
         lib.dp_mix_error_string.restype = ctypes.c_char_p
-        lib.dp_mix_sparse_launch.argtypes = SPARSE_ARGTYPES
-        lib.dp_mix_sparse_launch.restype = ctypes.c_int
+        for name, types in (("dp_mix_sparse_launch", SPARSE_ARGTYPES),
+                            ("dp_mix_prep_launch", PREP_ARGTYPES),
+                            ("dp_mix_gather_launch", GATHER_ARGTYPES)):
+            getattr(lib, name).argtypes = types
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -157,10 +182,11 @@ def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
 
 
 def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
-                   w, self_w, *, gamma, eta, noisy, counter_width
+                   w, self_w, *, gamma, eta, noisy, counter_width, row0=0
                    ) -> torch.Tensor:
     """dp_mix_prep then dp_mix_gather over the float32 workspace [2, N, d]
-    (z, then the DP noise n/c)."""
+    (z, then the DP noise n/c); ``row0`` offsets the noise counters'
+    rows."""
     N, d = p.shape
     k = idx.shape[1] if idx.ndim == 2 else -1
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
@@ -176,10 +202,58 @@ def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
         idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), amp.data_ptr(),
         selfs.data_ptr(), mscale.data_ptr(), listen.data_ptr(),
         scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
-        N, d, k, counter_width, gamma, eta, int(noisy),
+        N, d, k, int(row0), counter_width, gamma, eta, int(noisy),
         torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, rc)
     dp_mix_round_sparse.launches += 1
+    return out
+
+
+def _launch_prep(p, g, seed, col0, scal, amp, *, gamma, noisy, counter_width,
+                 row0) -> torch.Tensor:
+    """dp_mix_prep over a shard's rows into a new workspace [2, Nb, d]."""
+    Nb, d = p.shape
+    _check(p, (("g", g, (Nb, d), p.dtype), ("amp", amp, (Nb,), torch.float32),
+               ("scal", scal, (2,), torch.float32),
+               ("seed", seed, (1,), torch.int32),
+               ("col0", col0, (1,), torch.int32)))
+    ws = torch.empty((2, Nb, d), dtype=torch.float32, device=p.device)
+    lib = _library()
+    rc = lib.dp_mix_prep_launch(
+        _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), amp.data_ptr(),
+        scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
+        Nb, d, int(row0), counter_width, gamma, int(noisy),
+        torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, rc)
+    dp_mix_prep_rows.launches += 1
+    return ws
+
+
+def _launch_gather(p, g, ws, z_src, seed, col0, scal, amp, selfs, mscale,
+                   listen, idx, w, self_w, *, gamma, eta, noisy,
+                   counter_width, row0) -> torch.Tensor:
+    """dp_mix_gather for a shard's receivers from its workspace and the
+    gathered z_src [N, d]."""
+    Nb, d = p.shape
+    k = idx.shape[1] if idx.ndim == 2 else -1
+    _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
+           + (("ws", ws, (2, Nb, d), torch.float32),
+              ("z_src", z_src, (z_src.shape[0], d), torch.float32),
+              ("idx", idx, (Nb, k), torch.int32),
+              ("w", w, (Nb, k), torch.float32),
+              ("self_w", self_w, (Nb,), torch.float32)))
+    out = torch.empty_like(p)
+    lib = _library()
+    rc = lib.dp_mix_gather_launch(
+        _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
+        idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), amp.data_ptr(),
+        selfs.data_ptr(), mscale.data_ptr(), listen.data_ptr(),
+        scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
+        z_src.data_ptr(), Nb, z_src.shape[0], d, k, int(row0),
+        counter_width, gamma, eta, int(noisy),
+        torch.cuda.current_stream(p.device).cuda_stream)
+    _raise_on(lib, rc)
+    dp_mix_gather_rows.launches += 1
     return out
 
 
@@ -234,14 +308,17 @@ def dp_mix_round(p, g, seed, W, amp, c, sigma_m, *, gamma: float, eta: float,
 dp_mix_round.launches = 0
 
 
-def _counter_width(N: int, d: int, counter_width) -> int:
+def _counter_width(N: int, d: int, counter_width, row0: int = 0) -> int:
     """The noise counters' row stride (default roundup(d, 128)), refused
-    (C2) where N rows of it pass 2^31: the uint32 counters would wrap."""
+    (C2) where the global rows, row0 + N of it, pass 2^31: the uint32
+    counters would wrap."""
     cw = _roundup(d, LANES) if counter_width is None else int(counter_width)
-    if N * cw > COUNTER_LIMIT:
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    if (row0 + N) * cw > COUNTER_LIMIT:
         raise ValueError(
-            f"N * counter_width = {N} * {cw} exceeds 2^31: the uint32 noise "
-            f"counters would wrap and reuse noise")
+            f"N * counter_width = {row0 + N} * {cw} exceeds 2^31: the uint32 "
+            f"noise counters would wrap and reuse noise")
     return cw
 
 
@@ -268,7 +345,8 @@ def _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale, m_scale,
 def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
                         eta: float, self_scale=None, m_scale=None,
                         listen=None, noisy: bool = True, col0=0,
-                        counter_width: Optional[int] = None) -> torch.Tensor:
+                        counter_width: Optional[int] = None,
+                        row0: int = 0) -> torch.Tensor:
     """One fused DWFL round mixed through a padded neighbor list ``sw``
     (``net.sparse.SparseW``, [N, k] leaves): O(N k d), never an [N, N]
     tensor. The contract of ``dp_mix_round`` with ``sw`` for W; the
@@ -281,13 +359,17 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     it: a padded row gets idx 0, w 0, self_w 0 and listen 0, so it neither
     listens nor reaches a real row (no real row gathers an index >= N);
     the columns are not padded, each is independent of the others.
+
+    ``row0`` offsets the noise counters' rows (the reference's
+    ``dp_mix_sparse_jnp(row0=)``): the rows draw the noise of global rows
+    [row0, row0 + N); the neighbor list indexes this buffer's rows.
     """
     if p.ndim != 2:
         raise NotImplementedError(
             "a stack of rounds mixed through neighbor lists is not ported "
             "yet (ROADMAP A20)")
     N, d = p.shape
-    cw = _counter_width(N, d, counter_width)
+    cw = _counter_width(N, d, counter_width, int(row0))
     dev = p.device
     if tuple(sw.idx.shape[:-1]) != (N,):
         raise ValueError(f"the neighbor list must be [{N}, k], got idx "
@@ -304,7 +386,7 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     args = (pad_rows(p), pad_rows(g), seed, col0, scal,
             *(pad_rows(v).contiguous() for v in rows))
     kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
-              counter_width=cw)
+              counter_width=cw, row0=int(row0))
     if dev.type == "cuda":
         out = _launch_sparse(*args, **kw)
     elif dev.type == "cpu":
@@ -315,6 +397,73 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
 
 
 dp_mix_round_sparse.launches = 0
+
+
+def dp_mix_prep_rows(p, g, seed, amp, c, *, gamma: float, row0: int,
+                     n_workers: int, noisy: bool = True, col0=0,
+                     counter_width: Optional[int] = None) -> torch.Tensor:
+    """A worker shard's first half of the sparse round: p, g [Nb, d] are
+    rows [row0, row0 + Nb) of an ``n_workers``-row buffer, amp [Nb] their
+    DP-noise amplitudes. Returns the float32 workspace [2, Nb, d]: z = x +
+    n/c, then n/c, the noise drawn with global counters (gossip: x, then
+    zeros on the CPU; the card leaves the second half unwritten, and the
+    gather does not read it)."""
+    Nb, d = p.shape
+    if row0 + Nb > n_workers:
+        raise ValueError(f"rows [{row0}, {row0 + Nb}) pass n_workers = "
+                         f"{n_workers}")
+    cw = _counter_width(n_workers, d, counter_width)
+    dev = p.device
+    seed_t, col0_t, scal, amp_t, *_ = _round_vectors(
+        Nb, dev, seed, col0, amp, c, 0.0, None, 0.0, None)
+    args = (p.contiguous(), g.contiguous(), seed_t, col0_t, scal, amp_t)
+    kw = dict(gamma=float(gamma), noisy=bool(noisy), counter_width=cw,
+              row0=int(row0))
+    if dev.type == "cuda":
+        return _launch_prep(*args, **kw)
+    if dev.type == "cpu":
+        return dp_mix_prep_plain(*args, **kw)
+    raise ValueError(f"dp_mix_prep_rows has no path for device {dev}")
+
+
+dp_mix_prep_rows.launches = 0
+
+
+def dp_mix_gather_rows(p, g, ws, z_src, seed, sw, amp, c, sigma_m, *,
+                       gamma: float, eta: float, row0: int, self_scale=None,
+                       m_scale=None, listen=None, noisy: bool = True, col0=0,
+                       counter_width: Optional[int] = None) -> torch.Tensor:
+    """A worker shard's second half: its receivers, rows [row0, row0 +
+    Nb) of the population, from its workspace ``ws`` (``dp_mix_prep_rows``)
+    and z_src [N, d] float32, every shard's z gathered in row order. ``sw``
+    is the shard's rows of the neighbor list (idx global, [Nb, k]); amp
+    and the vectors are the shard's rows ([Nb]; m_scale has no default
+    here, the population's N being the shard's to know)."""
+    Nb, d = p.shape
+    N = z_src.shape[0]
+    if tuple(sw.idx.shape[:-1]) != (Nb,):
+        raise ValueError(f"the neighbor list must be [{Nb}, k], got idx "
+                         f"{tuple(sw.idx.shape)}")
+    if m_scale is None:
+        raise ValueError("dp_mix_gather_rows needs m_scale (the shard's rows)")
+    cw = _counter_width(N, d, counter_width)
+    dev = p.device
+    vecs = _round_vectors(Nb, dev, seed, col0, amp, c, sigma_m, self_scale,
+                          m_scale, listen)
+    args = (p.contiguous(), g.contiguous(), ws, z_src.contiguous(), *vecs,
+            sw.idx.to(device=dev, dtype=torch.int32).contiguous(),
+            sw.w.to(device=dev, dtype=torch.float32).contiguous(),
+            sw.self_w.to(device=dev, dtype=torch.float32).contiguous())
+    kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
+              counter_width=cw, row0=int(row0))
+    if dev.type == "cuda":
+        return _launch_gather(*args, **kw)
+    if dev.type == "cpu":
+        return dp_mix_gather_plain(*args, **kw)
+    raise ValueError(f"dp_mix_gather_rows has no path for device {dev}")
+
+
+dp_mix_gather_rows.launches = 0
 
 
 def dp_mix_round_plan(p, g, seed, plan, *, gamma: float, eta: float,

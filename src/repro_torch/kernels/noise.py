@@ -180,14 +180,22 @@ def counters(shape: Tuple[int, int], counter_width: int, col0: IntLike = 0,
             + _u32(col0, device) + cols) & MASK32
 
 
+def normal_field(shape: Tuple[int, int], counter_width: int, col0: IntLike,
+                 seed: IntLike, field: int, row0: IntLike = 0,
+                 device=None) -> torch.Tensor:
+    """One of the two float32 standard-normal fields over an [R, C]
+    window: field 0 from counters 2*idx, field 1 from 2*idx + 1."""
+    idx2 = (counters(shape, counter_width, col0, row0, device) * 2) & MASK32
+    return normal_from_bits(hash_bits(idx2 + field, seed))
+
+
 def normal_pair_hash(shape: Tuple[int, int], counter_width: int,
                      col0: IntLike, seed: IntLike, row0: IntLike = 0,
                      device=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two independent float32 standard-normal fields over an [R, C]
     window, drawn from counters 2*idx and 2*idx + 1."""
-    idx2 = (counters(shape, counter_width, col0, row0, device) * 2) & MASK32
-    return (normal_from_bits(hash_bits(idx2, seed)),
-            normal_from_bits(hash_bits(idx2 + 1, seed)))
+    return tuple(normal_field(shape, counter_width, col0, seed, f, row0,
+                              device) for f in (0, 1))
 
 
 def perturb_counters(n_elems: int, seed: IntLike, device=None

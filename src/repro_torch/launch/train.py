@@ -17,6 +17,19 @@ the worker-scale path (``--scenario mesh_sparse``). ``--replicates R``
 (dynamic only) runs R networks in one round (``fleet.FleetEngine``: one
 dp_mix launch a flat round for all R) and reports across replicates.
 
+Sharding (``repro_torch.shard``, flat buffer only): ``--model-shards S``
+splits the buffer's columns into S windows, one dp_mix call each, on S
+ranks when the process group has S (``torchrun --nproc-per-node S``; the
+gradient pass trades windows for row blocks by ``all_to_all``, at most
+``--max-chunk-cols`` columns a collective), else logically on one
+device, as the reference does without S devices; ``--worker-shards S``
+(the dynamic sparse round) splits the worker rows over S ranks, which
+``torchrun`` must start (NCCL on cards, one rank a card; gloo with
+``--device cpu``). ``--remat`` recomputes the forward in the sharded
+gradient pass's backward. ``--checkpoint PATH`` writes PATH.npz and
+PATH.json after the run (the reference's format: the canonical buffer,
+its layout, the generator's state and the network's; or the worker tree).
+
 Observability (``repro_torch.obs``): ``--runlog-dir`` opens a run
 directory (manifest.json + events.jsonl, summarized by ``python -m
 repro_torch.obs.report`` or the reference's ``repro.obs.report``);
@@ -34,6 +47,11 @@ The chunks run under ``torch.cuda.set_sync_debug_mode("error")`` unless
     python -m repro_torch.launch.train --device cpu --hidden 16 --workers 4 --steps 3
     python -m repro_torch.launch.train --flat-buffer --channel-model dynamic \
         --scenario vehicular --replicates 8 --runlog-dir runs
+    python -m repro_torch.launch.train --flat-buffer --model-shards 2 \
+        --max-chunk-cols 4096 --checkpoint ckpt/run
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+        --flat-buffer --channel-model dynamic --scenario mesh_sparse \
+        --sparse-neighbors 4 --workers 16 --worker-shards 2
 
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch versions of the kernels. Flags of the reference
@@ -43,8 +61,11 @@ port them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import time
 
 import numpy as np
@@ -62,11 +83,7 @@ from repro_torch.net.sparse import SparseW, isolated_count
 from repro_torch.runtime import resolve_device
 
 # reference flags not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "--reduced": "A15", "--seq-len": "A15",
-    "--worker-shards": "A14", "--model-shards": "A14",
-    "--max-chunk-cols": "A14", "--remat": "A14", "--checkpoint": "A13",
-}
+NOT_PORTED = {"--reduced": "A15", "--seq-len": "A15"}
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -130,6 +147,33 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--no-scan", action="store_true",
                     help="one round at a time, each batch drawn by the "
                          "host batcher")
+    ap.add_argument("--worker-shards", type=int, default=1,
+                    help="shard the flat buffer's worker rows over S ranks "
+                         "(repro_torch.shard.worker): each runs the "
+                         "gradient pass and the sparse mix of its N/S rows. "
+                         "Requires --flat-buffer, --sparse-neighbors > 0, "
+                         "the chunked trajectory and S ranks (torchrun "
+                         "--nproc-per-node S)")
+    ap.add_argument("--model-shards", type=int, default=1,
+                    help="shard the flat buffer's columns into S windows "
+                         "(repro_torch.shard), one dp_mix call each: on S "
+                         "ranks when the process group has S (torchrun), "
+                         "else logically on one device. Requires "
+                         "--flat-buffer")
+    ap.add_argument("--max-chunk-cols", type=int, default=0,
+                    help="cap (in columns) on each collective of the "
+                         "sharded round's gather-free gradient pass (0 = "
+                         "one chunk per leaf x window). Requires "
+                         "--model-shards > 1")
+    ap.add_argument("--remat", action="store_true",
+                    help="recompute the forward in the backward pass of "
+                         "the sharded gradient pass (torch.utils."
+                         "checkpoint): activation memory for a second "
+                         "forward. Requires --model-shards > 1 or "
+                         "--worker-shards > 1")
+    ap.add_argument("--checkpoint", default=None,
+                    help="write a checkpoint here after the run "
+                         "(PATH.npz + PATH.json)")
     ap.add_argument("--replicates", type=int, default=1,
                     help="dynamic only: R independent networks in one "
                          "round (repro_torch.fleet); metrics and the "
@@ -201,6 +245,34 @@ def telemetry_spec(args):
             args.telemetry == "auto" and args.runlog_dir is not None)):
         return obs.TelemetrySpec()
     return None
+
+
+def _process_group(device):
+    """(the default process group's world size, whether this call started
+    it): started from torchrun's environment (WORLD_SIZE > 1) when nothing
+    has, NCCL for a card and gloo on the CPU; (1, False) without one."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size(), False
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return 1, False
+    if device.type == "cuda":
+        # bind NCCL's communicators to this rank's card
+        dist.init_process_group("nccl", device_id=device)
+    else:
+        dist.init_process_group("gloo")
+    return dist.get_world_size(), True
+
+
+def _rank_device(device: str):
+    """``--device``, on this rank's card under torchrun (LOCAL_RANK),
+    made the current device before anything starts CUDA: NCCL and the
+    kernels' launches run on the current device's streams."""
+    if device == "cuda" and "LOCAL_RANK" in os.environ:
+        dev = resolve_device(f"cuda:{int(os.environ['LOCAL_RANK'])}")
+        torch.cuda.set_device(dev)
+        return dev
+    return resolve_device(device)
 
 
 def isolated_workers(sim, state, seed: int) -> int:
@@ -327,6 +399,22 @@ def _quote_eps(args, proto, carry, out, tele, t, do_eval, eps_dog, runlog):
                        **extra)
 
 
+def protocol_config(args) -> P.ProtocolConfig:
+    """The run's ProtocolConfig, from its parsed arguments."""
+    total = args.total_epsilon > 0
+    return P.ProtocolConfig(
+        scheme=args.scheme, n_workers=args.workers, gamma=args.gamma,
+        eta=args.eta, clip=args.clip, sigma=args.sigma, sigma_m=args.sigma_m,
+        p_dbm=args.p_dbm, seed=args.seed,
+        target_epsilon=0.0 if total else args.epsilon,
+        flat_buffer=args.flat_buffer, channel_model=args.channel_model,
+        scenario=args.scenario, coherence_rounds=args.coherence_rounds,
+        graph_fallback=args.graph_fallback,
+        sparse_neighbors=args.sparse_neighbors, accountant=args.accountant,
+        target_total_epsilon=args.total_epsilon,
+        horizon=args.steps + 1 if total else 0, replicates=args.replicates)
+
+
 def run(argv=None) -> dict:
     """Train as ``main`` does and return what the run measured: per-round
     losses [T] (CPU tensor; the fleet's [T, R]), the eval records, the
@@ -337,23 +425,13 @@ def run(argv=None) -> dict:
     and the carry's epsilon moments when telemetry is on, and the run
     directory of a run log."""
     args = parse_args(argv)
-    dev = resolve_device(args.device)
+    dev = _rank_device(args.device)
     cfg = DWFL_PAPER
     if args.hidden > 0:
         cfg = dataclasses.replace(cfg, d_model=args.hidden)
     W = args.workers
     total = args.total_epsilon > 0
-    proto = P.ProtocolConfig(
-        scheme=args.scheme, n_workers=W, gamma=args.gamma, eta=args.eta,
-        clip=args.clip, sigma=args.sigma, sigma_m=args.sigma_m,
-        p_dbm=args.p_dbm, seed=args.seed,
-        target_epsilon=0.0 if total else args.epsilon,
-        flat_buffer=args.flat_buffer, channel_model=args.channel_model,
-        scenario=args.scenario, coherence_rounds=args.coherence_rounds,
-        graph_fallback=args.graph_fallback,
-        sparse_neighbors=args.sparse_neighbors, accountant=args.accountant,
-        target_total_epsilon=args.total_epsilon,
-        horizon=args.steps + 1 if total else 0, replicates=args.replicates)
+    proto = protocol_config(args)
     if total:
         print(f"[train] total budget: eps={args.total_epsilon} "
               f"delta={proto.delta} over {args.steps + 1} rounds "
@@ -365,8 +443,60 @@ def run(argv=None) -> dict:
             else "cpu")
     print(f"[train] device: {dev} ({name})")
     tele = telemetry_spec(args)
+    n_shards = max(1, args.model_shards)
+    if n_shards > 1 and not proto.flat_buffer:
+        raise SystemExit("--model-shards requires --flat-buffer (only the "
+                         "persistent flat buffer has a model axis to shard)")
+    max_chunk_cols = args.max_chunk_cols if args.max_chunk_cols > 0 else None
+    if max_chunk_cols is not None and n_shards <= 1:
+        raise SystemExit("--max-chunk-cols caps the sharded round's "
+                         "collective chunks; it requires --model-shards > 1")
+    if args.remat and n_shards <= 1 and args.worker_shards <= 1:
+        raise SystemExit("--remat rematerializes the sharded grad block; "
+                         "it requires --model-shards > 1 or "
+                         "--worker-shards > 1")
+    from repro_torch.launch import mesh as mesh_lib
+    import torch.distributed as dist
+    if args.worker_shards > 1:
+        if not (proto.flat_buffer and proto.sparse_neighbors > 0
+                and args.channel_model == "dynamic"):
+            raise SystemExit("--worker-shards requires --flat-buffer and "
+                             "--sparse-neighbors > 0 (only the sparse "
+                             "neighbor-list round has a worker-sharded "
+                             "lowering)")
+        if n_shards > 1 or args.replicates > 1 or args.no_scan:
+            raise SystemExit("--worker-shards composes with neither "
+                             "--model-shards, --replicates nor --no-scan "
+                             "yet")
+        if W % args.worker_shards != 0:
+            raise SystemExit(f"--workers {W} must divide evenly over "
+                             f"--worker-shards {args.worker_shards}")
+    # owned: a process group this run started (and stops)
+    world, owned = (_process_group(dev)
+                    if args.worker_shards > 1 or n_shards > 1 else (1, False))
+    worker_mesh = shard_mesh = None
+    if args.worker_shards > 1:
+        if world != args.worker_shards:
+            raise SystemExit(f"--worker-shards {args.worker_shards} needs "
+                             f"that many ranks; have {world} (torchrun "
+                             f"--nproc-per-node {args.worker_shards})")
+        worker_mesh = mesh_lib.make_worker_mesh(args.worker_shards,
+                                                device=dev)
+        print(f"[train] worker shards: {args.worker_shards} x "
+              f"{W // args.worker_shards} rows on a 'workers' mesh")
+    elif n_shards > 1 and world == n_shards:
+        # fleet: a 2-D (replicas=1, model=S) mesh
+        shard_mesh = mesh_lib.make_shard_mesh(
+            n_shards, n_replicas=1 if args.replicates > 1 else None,
+            device=dev)
+    mesh = worker_mesh if worker_mesh is not None else shard_mesh
+    if mesh is not None and tele is not None:
+        raise SystemExit("telemetry over a process-group mesh is not ported "
+                         "to repro_torch yet (ROADMAP A21); run with "
+                         "--telemetry off")
+    lead_rank = mesh is None or dist.get_rank() == 0
     runlog = None
-    if args.runlog_dir is not None:
+    if args.runlog_dir is not None and lead_rank:
         runlog = obs.RunLog.open_under(
             args.runlog_dir, kind="train",
             config={"args": vars(args),
@@ -404,11 +534,26 @@ def run(argv=None) -> dict:
     gen.manual_seed(args.seed)
     if fleet is not None:
         wp = fleet.init_worker_params(gen, cfg)
-        layout = X.FlatSpec(wp, lead_axes=2)
+        lead = 2
     else:
         wp = P.init_worker_params(gen, cfg, W, dev)
-        layout = X.FlatSpec(wp)
+        lead = 1
+    layout = X.make_flat_spec(
+        wp, lead_axes=lead, n_shards=n_shards if proto.flat_buffer else None,
+        max_chunk_cols=max_chunk_cols)
     spec = layout if proto.flat_buffer else None
+    if layout.layout is not None:
+        where = (f"{n_shards} ranks" if shard_mesh is not None else
+                 "1 device (logical; torchrun --nproc-per-node "
+                 f"{n_shards} for a mesh)")
+        plan = layout.chunk_plan
+        print(f"[train] model shards: {n_shards} x "
+              f"{layout.layout.shard_width} cols ({layout.width} padded, "
+              f"d={layout.d}) on {where}; grad-pass chunk plan: "
+              f"{len(plan.chunks)} chunks, {len(plan.exec_segments())} "
+              f"collective segments"
+              + (f", cap {max_chunk_cols} cols" if max_chunk_cols
+                 else " (unbounded)"))
     print(f"[train] params/worker: {layout.d / 1e6:.2f}M"
           + (" (flat dp_mix buffer)" if proto.flat_buffer else ""))
     net, iso = None, None
@@ -455,7 +600,9 @@ def run(argv=None) -> dict:
               + (f", telemetry: {','.join(tele.fields)}" if tele else ""))
     body = TJ.make_round_body(cfg, proto, source, spec, dev,
                               sim=None if fleet is not None else sim,
-                              fleet=fleet, telemetry=tele)
+                              fleet=fleet, telemetry=tele,
+                              shard_mesh=shard_mesh, worker_mesh=worker_mesh,
+                              remat=args.remat)
     guard = lambda: obs.no_implicit_transfers(not args.no_transfer_guard,
                                               dev)
     if args.no_scan:
@@ -475,9 +622,27 @@ def run(argv=None) -> dict:
     eps0 = (obs.init_eps_moments(
                 fleet.replicates if fleet is not None else None, device=dev)
             if tele is not None and tele.epsilon else None)
-    carry = TJ.TrajCarry(gen, spec.flatten(wp) if spec is not None else wp,
-                         net, eps0)
-    del wp       # the flat path trains on its copy: one [N, d] less held
+    params0 = spec.flatten(wp) if spec is not None else wp
+    if shard_mesh is not None:
+        from repro_torch.shard.round import local_window
+        params0 = local_window(params0, spec, shard_mesh)
+        if fleet is not None:
+            params0 = params0[fleet.replicate_slice(shard_mesh)]
+    elif worker_mesh is not None:
+        from repro_torch.shard.worker import local_rows
+        params0 = local_rows(params0, worker_mesh)
+    carry = TJ.TrajCarry(gen, params0, net, eps0)
+    del wp, params0  # the flat path trains on its copy: one [N, d] less held
+
+    def whole(params):
+        """The whole buffer from this rank's part (a collective)."""
+        if shard_mesh is not None:
+            from repro_torch.shard.round import full_buffer
+            return full_buffer(params, spec, shard_mesh)
+        if worker_mesh is not None:
+            from repro_torch.shard.worker import full_rows
+            return full_rows(params, worker_mesh)
+        return params
     eps_dog = (obs.EpsilonBudgetWatchdog(
                    args.eps_budget,
                    on_warn=runlog.warn if runlog is not None else
@@ -506,8 +671,8 @@ def run(argv=None) -> dict:
                 _quote_eps(args, proto, carry, out, tele, t, do_eval,
                            eps_dog, runlog)
             if do_eval:
-                params = (spec.unravel(carry.params) if spec is not None
-                          else carry.params)
+                params = (spec.unravel(whole(carry.params))
+                          if spec is not None else carry.params)
                 ev_loss, ev_acc = evaluate(params, eval_batch)
                 rec = {"step": t - 1,
                        "loss": float(out["metrics"]["loss"][-1].mean()),
@@ -533,6 +698,15 @@ def run(argv=None) -> dict:
             rep = report_fleet(proto, chunks, runlog)
         elif sim is not None:
             rep = report_dynamic(proto, chunks, runlog)
+        if args.checkpoint:
+            # after the loop, outside the sync guard: the copy to the host
+            # is the checkpoint's
+            final = whole(carry.params) if spec is not None else None
+            if lead_rank:
+                save_checkpoint(args, proto, spec, carry, final, rep, chunks)
+                print(f"[train] checkpoint -> {args.checkpoint}")
+                if runlog is not None:
+                    runlog.checkpoint(args.checkpoint, step=args.steps)
     except BaseException:
         if runlog is not None:
             runlog.close("error")
@@ -540,6 +714,8 @@ def run(argv=None) -> dict:
     finally:
         if logf:
             logf.close()
+        if owned:
+            dist.destroy_process_group()
     if runlog is not None:
         # a run whose manifest still says "open" crashed before this line
         runlog.close("ok", steps=args.steps)
@@ -558,8 +734,35 @@ def run(argv=None) -> dict:
             "runlog_dir": None if runlog is None else runlog.dir}
 
 
+def save_checkpoint(args, proto, spec, carry, flat, rep, chunks) -> None:
+    """The reference's end-of-run checkpoint: with the flat buffer
+    (``flat``, the whole of it) ``checkpoint.save_flat`` with the layout and
+    the trajectory's state (the generator's and the network's: a bitwise
+    resume, ``checkpoint.resume_carry``); else the worker tree."""
+    from repro_torch import checkpoint
+    meta = {"arch": args.arch, "scheme": args.scheme,
+            "epsilon": rep["epsilon_worst"]}
+    if proto.sparse_neighbors > 0:
+        # the padded neighbor-list contract of the run's Ws
+        meta["sparse_neighbors"] = proto.sparse_neighbors
+        if chunks and isinstance(chunks[-1]["W"], SparseW):
+            meta["sparse_w"] = chunks[-1]["W"].layout_meta()
+    if spec is not None:
+        checkpoint.save_flat(args.checkpoint, flat, spec, step=args.steps,
+                             state=checkpoint.trajectory_state(carry),
+                             metadata=meta)
+    else:
+        checkpoint.save(args.checkpoint, carry.params, step=args.steps,
+                        metadata=meta)
+
+
 def main(argv=None) -> int:
-    run(argv)
+    if int(os.environ.get("RANK", "0")) != 0:
+        # one rank speaks for a torchrun job
+        with contextlib.redirect_stdout(io.StringIO()):
+            run(argv)
+    else:
+        run(argv)
     return 0
 
 

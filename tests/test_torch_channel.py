@@ -84,3 +84,14 @@ def test_clip_gradient_rows():
     torch.testing.assert_close(c[1], torch.tensor([0.3, 0.4]))
     assert float(c[2:].abs().max()) == 0.0
     torch.testing.assert_close(n, torch.tensor([5.0, 0.5, 0.0, 0.0]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_sum_squares_is_one_reduction_on_the_cpu(dtype):
+    """On the CPU the clip's per-row sum of squares is the one float32
+    reduction it always was (bitwise), for any row block."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(10, 5000)).astype(np.float32)).to(dtype)
+    want = torch.sum(x.float() ** 2, dim=1)
+    assert torch.equal(privacy.row_sum_squares(x), want)
+    assert torch.equal(privacy.row_sum_squares(x[5:]), want[5:])

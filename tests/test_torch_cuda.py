@@ -772,3 +772,159 @@ def test_ssd_wrapper_refuses_on_the_card():
     with pytest.raises(ValueError, match="not a multiple of the chunk"):
         ssd_ops.ssd_scan(z(1, 96, 8, 64), z(1, 96, 8), z(8), z(1, 96, 16),
                          z(1, 96, 16), chunk=64)
+
+
+# ---------------------------------------------------------------------------
+# sharding (repro_torch.shard): B1's column windows and row windows
+# ---------------------------------------------------------------------------
+
+
+def _bits(a):
+    return a.contiguous().view(torch.int16 if a.dtype == torch.bfloat16
+                               else torch.int32)
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("N,d", [(10, 5000), (64, 1001)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_model_axis_windows_are_the_unsharded_launch(n_shards, N, d, dtype):
+    """The logical sharded round (one launch over the padded buffer, the
+    layout's counter width) and each window's own launch (col0 = s
+    shard_width, the mesh's form) bitwise the one launch over the unpadded
+    buffer, on both routes; padding columns zero."""
+    _need_card()
+    from repro_torch.shard import (ShardLayout, dp_mix_round_sharded,
+                                   shard_window_round)
+    chan = ChannelConfig(n_workers=N, p_dbm=30.0, sigma=0.7, sigma_m=0.4,
+                         seed=N).realize()
+    plan = X.plan_complete(None, chan, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.2 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
+    whole = ops.dp_mix_round_plan(p, g, 9, plan, gamma=0.05, eta=0.4)
+    lay = ShardLayout(d, n_shards)
+    before = ops.dp_mix_round.launches
+    out = dp_mix_round_sharded(lay.pad(p), lay.pad(g), 9, plan, lay,
+                               gamma=0.05, eta=0.4)
+    torch.cuda.synchronize()
+    assert ops.dp_mix_round.launches == before + 1
+    assert torch.equal(_bits(lay.unpad(out)), _bits(whole))
+    assert bool((out[:, d:] == 0).all())
+    pp, gp, sw = lay.pad(p), lay.pad(g), lay.shard_width
+    for a in range(0, lay.padded_width, sw):
+        win = shard_window_round(pp[:, a:a + sw].contiguous(),
+                                 gp[:, a:a + sw].contiguous(), 9, plan, a,
+                                 lay, gamma=0.05, eta=0.4)
+        assert torch.equal(_bits(win), _bits(out[:, a:a + sw]))
+
+
+@pytest.mark.parametrize("n_shards", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
+def test_row_windows_stitch_to_the_sparse_round(n_shards, dtype, noisy):
+    """dp_mix_prep_rows on each row window (global counters from row0),
+    their z gathered by hand, dp_mix_gather_rows on each: bitwise the
+    whole population's sparse round. Each workspace bitwise its plain
+    twin's (the same operations in the same order); each window's output
+    within the sparse round's tolerance of its plain twin."""
+    _need_card()
+    from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_gather_plain,
+                                                   dp_mix_prep_plain)
+    from repro_torch.net.sparse import SparseW
+    N, d, k = 64, 1001, 12
+    args, amp, mscale = _sparse_args(N, d, k, dtype, 5)
+    p, g, listen = args[0], args[1], args[8]
+    sw = SparseW(args[9], args[10], args[11])
+    kw = dict(gamma=0.05, eta=0.4, noisy=noisy, col0=256,
+              counter_width=8192)
+    whole = ops.dp_mix_round_sparse(p, g, 77, sw, amp, 2.0, 0.3,
+                                    m_scale=mscale, listen=listen, **kw)
+    nb = N // n_shards
+    rows = [slice(s * nb, (s + 1) * nb) for s in range(n_shards)]
+    preps, gathers = ops.dp_mix_prep_rows.launches, \
+        ops.dp_mix_gather_rows.launches
+    ws = [ops.dp_mix_prep_rows(p[r], g[r], 77, amp[r], 2.0, gamma=0.05,
+                               row0=r.start, n_workers=N, noisy=noisy,
+                               col0=256, counter_width=8192) for r in rows]
+    z = torch.cat([w[0] for w in ws])
+    outs = [ops.dp_mix_gather_rows(p[r], g[r], w, z, 77, sw[r], amp[r], 2.0,
+                                   0.3, row0=r.start, m_scale=mscale[r],
+                                   listen=listen[r], **kw)
+            for r, w in zip(rows, ws)]
+    torch.cuda.synchronize()
+    assert ops.dp_mix_prep_rows.launches == preps + n_shards
+    assert ops.dp_mix_gather_rows.launches == gathers + n_shards
+    assert torch.equal(_bits(torch.cat(outs)), _bits(whole))
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")
+    scal = torch.tensor([2.0, 0.3], device="cuda")
+    for r, w, out in zip(rows, ws, outs):
+        twin = dp_mix_prep_plain(p[r], g[r], i32(77), i32(256), scal, amp[r],
+                                 gamma=0.05, noisy=noisy,
+                                 counter_width=8192, row0=r.start)
+        assert torch.equal(w[0], twin[0])
+        if noisy:
+            assert torch.equal(w[1], twin[1])
+        ref = dp_mix_gather_plain(
+            p[r], g[r], twin, z, i32(77), i32(256), scal, amp[r],
+            torch.ones(nb, device="cuda"), mscale[r], listen[r], sw.idx[r],
+            sw.w[r], sw.self_w[r], gamma=0.05, eta=0.4, noisy=noisy,
+            counter_width=8192, row0=r.start)
+        k32, r32 = out.float(), ref.float()
+        x = p[r].float() - 0.05 * g[r].float()
+        scale = float(x.abs().max())
+        if noisy:
+            scale += 5.42 * float((amp / 2.0).abs().max()
+                                  + (mscale * 0.3).abs().max())
+        allowed = (k + 1 + 8) * 2.0 ** -23 * scale
+        if dtype == torch.bfloat16:
+            allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
+        assert bool(((k32 - r32).abs() <= allowed).all())
+
+
+def test_sparse_row0_zero_is_the_round_without_it():
+    """row0 = 0 is the sparse round as it was launched without the
+    argument (bitwise), and a row0 shifts the noise to the global rows:
+    the round on rows [40, 64) with row0 = 40 draws the workspace the
+    whole round draws for those rows."""
+    _need_card()
+    from repro_torch.net.sparse import SparseW
+    N, d = 64, 3001
+    args, amp, mscale = _sparse_args(N, d, 12, torch.float32, 9)
+    kw = dict(gamma=0.05, eta=0.4, noisy=True, counter_width=8192)
+    plain = ops._launch_sparse(*args, **kw)
+    zero = ops._launch_sparse(*args, row0=0, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(plain), _bits(zero))
+    p, g = args[0], args[1]
+    ws_all = ops.dp_mix_prep_rows(p, g, 77, amp, 2.0, gamma=0.05, row0=0,
+                                  n_workers=N, col0=256, counter_width=8192)
+    ws_40 = ops.dp_mix_prep_rows(p[40:], g[40:], 77, amp[40:], 2.0,
+                                 gamma=0.05, row0=40, n_workers=N, col0=256,
+                                 counter_width=8192)
+    torch.cuda.synchronize()
+    assert torch.equal(ws_40, ws_all[:, 40:])
+    sw = SparseW(args[9], args[10], args[11])
+    with pytest.raises(ValueError, match="2\\^31"):
+        ops.dp_mix_round_sparse(p, g, 77, sw, amp, 2.0, 0.3, gamma=0.05,
+                                eta=0.4, row0=(1 << 31) // 8192,
+                                counter_width=8192)
+
+
+@pytest.mark.parametrize("n", [40, 1001, 855050])
+def test_row_sum_squares_does_not_depend_on_the_row_count(n):
+    """privacy.row_sum_squares (the clip's per-worker norm) gives each row
+    the same bits in a block of 1, 2, 5, 10, 16 or 33 rows as in all 64:
+    a worker's norm on a mesh rank's row block is the logical mode's; and
+    within float32's rounding of the float64 sum."""
+    _need_card()
+    from repro_torch.core import privacy
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    x = torch.randn((64, n), generator=gen, device="cuda")
+    whole = privacy.row_sum_squares(x)
+    for R in (1, 2, 5, 10, 16, 33):
+        for a in (0, 64 - R):
+            part = privacy.row_sum_squares(x[a:a + R].contiguous())
+            assert torch.equal(_bits(part), _bits(whole[a:a + R])), (R, a)
+    ref = torch.sum(x.double() ** 2, dim=1)
+    torch.testing.assert_close(whole.double(), ref, rtol=n * 2 ** -24,
+                               atol=0)

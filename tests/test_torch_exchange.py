@@ -172,8 +172,10 @@ def test_resolve_spec_routes_like_the_reference(kw, name):
     rs = RX.resolve_spec(RP.ProtocolConfig(**kw), dynamic=True)
     s = X.resolve_spec(P.ProtocolConfig(**kw), dynamic=True)
     assert s.name == rs.name == "dynamic"
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        X.resolve_spec(P.ProtocolConfig(), axis="data")
+    s = X.resolve_spec(P.ProtocolConfig(), axis="data")
+    rs = RX.resolve_spec(RP.ProtocolConfig(), axis="data")
+    assert (s.name, s.fuse_ok) == (rs.name, rs.fuse_ok) == ("collective",
+                                                           True)
     rs = RX.resolve_spec(RP.ProtocolConfig(sparse_neighbors=4), dynamic=True)
     s = X.resolve_spec(P.ProtocolConfig(sparse_neighbors=4), dynamic=True)
     assert (s.name, s.fuse_ok) == (rs.name, rs.fuse_ok) == ("dynamic_sparse",

@@ -80,9 +80,9 @@ def test_fleet_refuses_what_it_does_not_run():
                                             sparse_neighbors=2)), 2,
                     device="cpu")
     fleet = FleetEngine(P.ProtocolConfig(**KW), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        fleet.init_flat_spec(torch.Generator(), _cfg(), n_shards=2)
-    with pytest.raises(NotImplementedError, match="A14"):
+    flat, spec = fleet.init_flat_spec(torch.Generator(), _cfg(), n_shards=2)
+    assert spec.n_shards == 2 and flat.shape == (2, N, spec.width)
+    with pytest.raises(ValueError, match="n_shards"):
         fleet.make_fleet_step(_cfg(), mesh=object())
     with pytest.raises(ValueError, match=">= 1"):
         FleetEngine(P.ProtocolConfig(**KW), 0, device="cpu")
@@ -466,7 +466,7 @@ def test_cli_replicates_on_cpu(extra):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--replicates", "2", "--model-shards", "2"], "A14"),
+    (["--replicates", "2", "--seq-len", "256"], "A15"),
     (["--replicates", "2", "--channel-model", "dynamic", "--scenario",
       "mesh_sparse", "--sparse-neighbors", "4"], "A20")])
 def test_cli_replicates_refusals(argv, item):

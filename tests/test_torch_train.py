@@ -169,8 +169,8 @@ def test_cli_runs_on_cpu_flat_buffer():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--checkpoint", "x"], "A13"),
-    (["--worker-shards", "2"], "A14"),
+    (["--reduced"], "A15"),
+    (["--seq-len", "256"], "A15"),
     (["--arch", "gemma-2b"], "A15"),
     (["--replicates", "2", "--sparse-neighbors", "4", "--channel-model",
       "dynamic"], "A20")])
