@@ -154,9 +154,29 @@ Phases, each fatal on failure (exit code 1, no result line):
              the prefill's logits against those without the kernel, prefill
              and decode tokens/s and peak device memory; a reduced zamba2
              prefill and decode on the card against the same on the CPU;
-             the profile of one prefill and one decode step.
+             the profile of one prefill and one decode step;
+9. zoo     — the MoE, xLSTM and encoder-decoder families, whose paths
+             launch no kernel (the reference hands ``use_pallas`` to
+             nothing there): every run counted at zero launches of every
+             kernel wrapper. deepseek-moe-16b at full width and depth in
+             float32 (16,375,728,128 parameters; zamba2-7b's freed
+             first): the serve CLI (``--arch deepseek-moe-16b --full``),
+             the serve driver with ``use_pallas=True`` at batch 4, prompt
+             1024, gen 32, and the profile of one prefill and one decode
+             step; qwen3-moe-235b-a22b at full width on 2 of its 94 layers
+             (6,220,173,312 parameters; the cache's dense part None): the
+             driver at batch 4, prompt 64; xlstm-1.3b at full width and
+             depth (2,875,433,296): the CLI, the driver at batch 4,
+             prompt 1024 (8 mLSTM chunks a layer, the sLSTM loop over 1024
+             steps) and the prefill's time in the sLSTM blocks against the
+             mLSTM blocks; whisper-medium at full width and depth
+             (826,647,552): the CLI (1500 encoder frames, prompt 64,
+             prefill logits [4, 64, 51865]) and the driver; each model
+             freed before the next, each with finite logits, prefill and
+             decode tokens/s and peak device memory; then each of the four
+             at reduced() on the card against the CPU.
 
-Each phase of the dynamic network and of the fleet is preceded by a
+Each phase of the dynamic network, of the fleet and of the zoo is preceded by a
 ``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
 output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 "device": {...}}.
@@ -268,6 +288,14 @@ SSD_CASES = [(2, 128, 8, 16, 16, 32), (1, 256, 16, 32, 64, 64),
              (2, 256, 8, 128, 128, 256)]
 ZAMBA_PARAMS = 6_751_130_832
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 1024, 32
+# phase 9, the zoo (ROADMAP A15): each arch's parameters at the depth
+# served (qwen3-moe-235b-a22b: 2 of its 94 layers, 24.9 GB in float32; the
+# others whole) and the driver's prompt length (qwen3 and whisper: the
+# CLI's 64; whisper's encoder takes its 1500 frames besides)
+ZOO = {"deepseek-moe-16b": (16_375_728_128, None, SERVE_PROMPT),
+       "qwen3-moe-235b-a22b": (6_220_173_312, 2, 64),
+       "xlstm-1.3b": (2_875_433_296, None, SERVE_PROMPT),
+       "whisper-medium": (826_647_552, None, 64)}
 # the dynamic network's paths: the flat CLI's scenario and rounds, the tree
 # round's scenario, and the worker counts of dp_mix's dynamic plan (the
 # path's N, the column route's last on an H100 and the large-N route's
@@ -454,6 +482,47 @@ PREDICTIONS = {
                  "the clip's norms no longer round by the row count "
                  "(privacy.row_sum_squares), so a rank's 5 workers get "
                  "the bits the logical mode's 10 get",
+    "zoo_deepseek": "deepseek-moe-16b at full width and depth in float32 "
+                    "(61.0 GiB of parameters): no kernel launched; the CLI "
+                    "(4 x 64, gen 32) and the driver (4 x 1024) finite. "
+                    "The driver's prefill 0.5-1.0 s (the data-sheet floor: "
+                    "~27 TFLOP at 67 TFLOP/s, >= 0.40 s; cuBLAS's float32 "
+                    "GEMMs reach 60-80% of it, and the experts' products "
+                    "are 64 batched [480, 2048] x [2048, 1408] a layer), so "
+                    "4-8k prefill tokens/s; a decode step 22-40 ms (the HBM "
+                    "floor 19.6 ms: at T = 4 the capacity is 4 and the "
+                    "einsum dispatch reads all 64 experts of all 27 MoE "
+                    "layers, 65.5 GB; its M = 4 batched products stream "
+                    "below the peak rate, and ~3,500 launches a step take "
+                    "about as long on the host), so 100-180 decode tokens/s; "
+                    "peak 66-70 GiB; under the profiler the decode step "
+                    "80-100% busy, aten::bmm of the experts most of it",
+    "zoo_qwen3": "qwen3-moe-235b-a22b at full width on 2 of its 94 layers "
+                 "(6.22 G parameters, 23.2 GiB): no kernel launched, "
+                 "finite, the cache's dense part None; the driver's prefill "
+                 "(4 x 64, 20 slots an expert) 15-60 ms, a decode step "
+                 "3-8 ms (7.5 GB of experts, attention and unembedding: "
+                 "2.2 ms at the HBM rate, ~400 launches), peak 25-28 GiB",
+    "zoo_xlstm": "xlstm-1.3b at full width and depth (2.88 G parameters): "
+                 "no kernel launched, finite; the driver's prefill (4 x "
+                 "1024: 8 mLSTM chunks a layer, the sLSTM loop 1024 steps "
+                 "in each of 6 layers, ~20 launches a step) 1.5-4 s, the "
+                 "sLSTM layers 60-85% of it and the 42 mLSTM layers "
+                 "0.3-0.8 s (~20 TFLOP of projections); a decode step "
+                 "8-20 ms (~1,000 launches; the 11.5 GB of weights take "
+                 "3.4 ms at the HBM rate), so 200-500 decode tokens/s; "
+                 "peak 14-20 GiB",
+    "zoo_whisper": "whisper-medium at full width and depth: no kernel "
+                   "launched, prefill logits [4, 64, 51865] finite; the "
+                   "CLI's prefill (the encoder over 4 x 1500 frames, ~5 "
+                   "TFLOP) 0.1-0.3 s; a decode step 12-25 ms, the "
+                   "cross-attention's k/v projected from the encoder's "
+                   "output again in every layer at every step (~0.6 TFLOP "
+                   "a step, as in the reference)",
+    "zoo_cpu_vs_cuda": "each of the four archs at reduced() served on the "
+                       "card within 1e-4 of the largest logit of the same "
+                       "run on the CPU (prefill and the last decode "
+                       "step): no router choice flips at these sizes",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -2441,41 +2510,90 @@ def ssd_phase() -> dict:
     return rec
 
 
-def full_model(arch: str, n_params: int):
-    """An arch at its published width, random parameters from seed 0 on
-    the card, and a batch of 4 prompts of 1024 tokens."""
+def full_model(arch: str, n_params: int, prompt: int = SERVE_PROMPT,
+               num_layers: Optional[int] = None):
+    """An arch at its published width (and depth, unless ``num_layers``
+    cuts it), random parameters from seed 0 on the card, and a batch of 4
+    prompts of ``prompt`` tokens."""
     import torch
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch import serve
     from repro_torch.models import model as M
     cfg = get_arch(arch)
+    if num_layers is not None:
+        cfg = cfg.replace(num_layers=num_layers)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = M.init_params(gen, cfg, "cuda")
     n = M.count_params(params)
     if n != n_params:
         fail(f"{arch} has {n} parameters, expected {n_params}")
-    print(f"[serve] {arch}: {n} parameters", flush=True)
-    batch = serve.build_prompt_batch(cfg, SERVE_BATCH, SERVE_PROMPT, gen, "cuda")
+    print(f"[serve] {arch}: {n} parameters, {cfg.num_layers} layers", flush=True)
+    batch = serve.build_prompt_batch(cfg, SERVE_BATCH, prompt, gen, "cuda")
     return cfg, params, batch
 
 
-def serve_cli(arch: str, kernel) -> None:
-    """The reference's serve run at full width: --arch ARCH --full with its
-    defaults (batch 4, prompt 64, gen 32); the CLI leaves use_pallas off,
-    so ``kernel`` (the arch's kernel wrapper) launches no time."""
+def kernel_wrappers() -> tuple:
+    """Every kernel wrapper of the port; each counts its launches."""
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_perturb import ops as dp_perturb_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    return (ops.dp_mix_round, ops.dp_mix_round_sparse, ops.dp_mix_prep_rows,
+            ops.dp_mix_gather_rows, dp_perturb_ops.sgd_update,
+            dp_perturb_ops.sgd_update_leaves, dp_perturb_ops.dp_perturb,
+            fa_ops.flash_attention, ssd_ops.ssd_intra_chunk)
+
+
+def zero_counts(wrappers) -> None:
+    for k in wrappers:
+        k.launches = 0
+
+
+def no_launches(what: str, wrappers) -> None:
+    """Fails if any wrapper launched: the serve CLI leaves use_pallas off,
+    and the MoE, xLSTM and encoder-decoder families hand it to nothing
+    (as the reference's do)."""
+    got = {k.__name__: k.launches for k in wrappers if k.launches}
+    if got:
+        fail(f"{what}: kernel launches {got}, expected none")
+
+
+def serve_record(cfg, res, B: int, S: int, G: int) -> dict:
+    """serve()'s times as tokens/s, and its logits checked finite."""
+    import torch
+    if not (torch.isfinite(res["prefill_logits"]).all()
+            and torch.isfinite(res["logits"]).all()):
+        fail(f"serve {cfg.name}: non-finite logits")
+    return {"arch": cfg.name, "layers": cfg.num_layers, "vocab": cfg.vocab_size,
+            "batch": B,
+            "prompt": S, "gen": G, "prefill_ms": 1e3 * res["prefill_s"],
+            "prefill_tok_s": B * S / res["prefill_s"],
+            "decode_ms": 1e3 * res["decode_s"],
+            "decode_step_ms": 1e3 * res["decode_s"] / (G - 1),
+            "decode_tok_s": B * (G - 1) / res["decode_s"],
+            "prefill_logits_shape": list(res["prefill_logits"].shape),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def serve_cli(arch: str) -> dict:
+    """The reference's serve run at full width, ``--arch ARCH --full`` with
+    its defaults (batch 4, prompt 64, gen 32), counted: the CLI leaves
+    use_pallas off, so no kernel wrapper launches; finite logits, prefill
+    logits [4, 64, V], tokens/s and peak device memory."""
     import torch
     from repro_torch.launch import serve
-    kernel.launches = 0
+    wrappers = kernel_wrappers()
+    zero_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
     res = serve.run(["--arch", arch, "--full", "--device", "cuda"])
-    launches = kernel.launches
-    print(f"[serve] cli {arch} --full: prefill {res['prefill_s'] * 1e3:.1f} ms, "
-          f"decode 31 steps {res['decode_s'] * 1e3:.1f} ms; {kernel.__name__} "
-          f"launches {launches}", flush=True)
-    if launches or not torch.isfinite(res["logits"]).all():
-        fail(f"serve cli {arch}: {launches} {kernel.__name__} launches, finite "
-             f"logits {bool(torch.isfinite(res['logits']).all())}")
+    rec = dict(serve_record(res["cfg"], res, 4, 64, 32), path="cli --full")
     del res
     torch.cuda.empty_cache()
+    print(f"[serve] cli {json.dumps(rec)}", flush=True)
+    no_launches(f"serve cli {arch}", wrappers)
+    if rec["prefill_logits_shape"] != [4, 64, rec["vocab"]]:
+        fail(f"serve cli {arch}: prefill logits {rec['prefill_logits_shape']}")
+    return rec
 
 
 def serve_kernel_path(cfg, params, batch, kernel, others=(),
@@ -2588,7 +2706,7 @@ def profile_serve(cfg, params, batch) -> list:
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import serve
     from repro_torch.models import model as M
-    B, S = SERVE_BATCH, SERVE_PROMPT
+    B, S = batch["tokens"].shape
     tok = {"tokens": batch["tokens"][:, :1]}
     _, pf = M.prefill(params, batch, cfg, use_pallas=True)
     cache = serve.splice_cache(M.init_cache(cfg, B, S + 2, "cuda"), pf)
@@ -2622,6 +2740,145 @@ def profile_serve(cfg, params, batch) -> list:
                                       reverse=True)[:8]]}
         print(f"[profile] {json.dumps(rec)}", flush=True)
         recs.append(rec)
+    return recs
+
+# ---- the zoo: the MoE, xLSTM and encoder-decoder families (ROADMAP A15) ---
+
+
+def zoo_driver(cfg, params, batch, wrappers) -> dict:
+    """The serve driver with use_pallas=True (which these families ignore)
+    at the batch's size, gen 32, counted: no kernel launched, finite
+    logits, tokens/s and peak device memory; then a second, warm prefill,
+    timed."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    B, S = batch["tokens"].shape
+    zero_counts(wrappers)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = serve.serve(cfg, params, batch, SERVE_GEN, use_pallas=True,
+                      device="cuda")
+    rec = dict(serve_record(cfg, res, B, S, SERVE_GEN), path="driver",
+               held_gib=held / 2 ** 30)
+    del res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = M.prefill(params, batch, cfg, use_pallas=True)
+    torch.cuda.synchronize()
+    rec["warm_prefill_ms"] = 1e3 * (time.perf_counter() - t0)
+    rec["warm_prefill_tok_s"] = B * S / (rec["warm_prefill_ms"] / 1e3)
+    del out
+    torch.cuda.empty_cache()
+    print(f"[zoo] {json.dumps(rec)}", flush=True)
+    no_launches(f"serve {cfg.name}", wrappers)
+    return rec
+
+
+def xlstm_layer_times(cfg, params, batch) -> dict:
+    """One prefill with each mLSTM and sLSTM block timed on the host's
+    clock between device synchronizes: the prefill's time in each kind."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models import xlstm as X
+    spent = {"mlstm": 0.0, "slstm": 0.0}
+    blocks = {"mlstm": X.mlstm_block_apply, "slstm": X.slstm_block_apply}
+
+    def timed(kind):
+        def apply(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = blocks[kind](*args, **kw)
+            torch.cuda.synchronize()
+            spent[kind] += time.perf_counter() - t0
+            return out
+        return apply
+
+    X.mlstm_block_apply, X.slstm_block_apply = timed("mlstm"), timed("slstm")
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = M.prefill(params, batch, cfg, use_pallas=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        X.mlstm_block_apply, X.slstm_block_apply = blocks["mlstm"], blocks["slstm"]
+    del out
+    B, S = batch["tokens"].shape
+    n_slstm = cfg.num_layers // cfg.slstm_every
+    rec = {"arch": cfg.name, "batch": B, "prompt": S,
+           "prefill_ms": 1e3 * total, "mlstm_ms": 1e3 * spent["mlstm"],
+           "slstm_ms": 1e3 * spent["slstm"],
+           "slstm_share": spent["slstm"] / total,
+           "mlstm_layers": cfg.num_layers - n_slstm, "slstm_layers": n_slstm,
+           "slstm_step_us": 1e6 * spent["slstm"] / (n_slstm * S)}
+    print(f"[zoo] xlstm layers {json.dumps(rec)}", flush=True)
+    return rec
+
+
+def zoo_phase() -> dict:
+    """Phase 9: deepseek-moe-16b at full width and depth in float32 (the
+    CLI, the driver at 4 x 1024, the profile), qwen3-moe-235b-a22b at full
+    width on 2 layers (the driver at 4 x 64), xlstm-1.3b at full width and
+    depth (the CLI, the driver at 4 x 1024, the prefill's time by block
+    kind) and whisper-medium at full width and depth (the CLI, the driver
+    at 4 x 64), each freed before the next; then each at reduced() on the
+    card against the CPU."""
+    import torch
+    from repro_torch.models import model as M
+    wrappers = kernel_wrappers()
+    recs = {}
+    print(f"[zoo] held before: {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+          f"GiB", flush=True)
+
+    arch = "deepseek-moe-16b"
+    predict("zoo_deepseek")
+    recs["deepseek cli"] = serve_cli(arch)
+    n_params, layers, prompt = ZOO[arch]
+    cfg, params, batch = full_model(arch, n_params, prompt, layers)
+    recs["deepseek driver"] = zoo_driver(cfg, params, batch, wrappers)
+    zero_counts(wrappers)
+    recs["deepseek profile"] = profile_serve(cfg, params, batch)
+    no_launches(f"profile {arch}", wrappers)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    arch = "qwen3-moe-235b-a22b"
+    predict("zoo_qwen3")
+    n_params, layers, prompt = ZOO[arch]
+    cfg, params, batch = full_model(arch, n_params, prompt, layers)
+    recs["qwen3 driver"] = zoo_driver(cfg, params, batch, wrappers)
+    _, pf = M.prefill(params, {"tokens": batch["tokens"][:, :8]}, cfg)
+    if pf["dense"] is not None or pf["moe"]["k"].shape[0] != layers:
+        fail(f"{arch}: prefill cache dense {pf['dense'] is not None}, moe "
+             f"{tuple(pf['moe']['k'].shape)}")
+    del params, batch, pf
+    torch.cuda.empty_cache()
+
+    arch = "xlstm-1.3b"
+    predict("zoo_xlstm")
+    recs["xlstm cli"] = serve_cli(arch)
+    n_params, layers, prompt = ZOO[arch]
+    cfg, params, batch = full_model(arch, n_params, prompt, layers)
+    recs["xlstm driver"] = zoo_driver(cfg, params, batch, wrappers)
+    recs["xlstm layers"] = xlstm_layer_times(cfg, params, batch)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    arch = "whisper-medium"
+    predict("zoo_whisper")
+    cli = recs["whisper cli"] = serve_cli(arch)
+    if cli["prefill_logits_shape"] != [4, 64, 51865]:
+        fail(f"{arch}: prefill logits {cli['prefill_logits_shape']}, expected "
+             f"[4, 64, 51865]")
+    n_params, layers, prompt = ZOO[arch]
+    cfg, params, batch = full_model(arch, n_params, prompt, layers)
+    recs["whisper driver"] = zoo_driver(cfg, params, batch, wrappers)
+    del params, batch
+    torch.cuda.empty_cache()
+
+    predict("zoo_cpu_vs_cuda")
+    recs["cpu vs cuda"] = {a: serve_cpu_vs_cuda(a) for a in ZOO}
     return recs
 
 # ---- the fleet (ROADMAP A12) and telemetry (A11) ----------------------------
@@ -3721,7 +3978,7 @@ def main() -> int:
     cli_turns()
 
     # 6. serve: gemma-2b at full width, the CLI and the kernel path, counted
-    serve_cli("gemma-2b", fa_ops.flash_attention)
+    serve_cli("gemma-2b")
     cfg, params, batch = full_model("gemma-2b", GEMMA_PARAMS)
     flash_launches = serve_kernel_path(cfg, params, batch,
                                        fa_ops.flash_attention)
@@ -3751,7 +4008,7 @@ def main() -> int:
     # 8. serve: zamba2-7b at full width and depth, the CLI and the kernel
     # path (ssd_scan once per Mamba2 layer; the shared attention block is
     # called without use_pallas, so flash_attention never), counted
-    serve_cli("zamba2-7b", ssd_ops.ssd_intra_chunk)
+    serve_cli("zamba2-7b")
     cfg, params, batch = full_model("zamba2-7b", ZAMBA_PARAMS)
     ssd_launches = serve_kernel_path(cfg, params, batch,
                                      ssd_ops.ssd_intra_chunk,
@@ -3760,6 +4017,11 @@ def main() -> int:
     profile_serve(cfg, params, batch)
     del params, batch
     torch.cuda.empty_cache()
+
+    # 9. the zoo: the MoE, xLSTM and encoder-decoder families at full width
+    # (no kernel on their paths: each run counted at zero launches), and
+    # each at reduced() on the card against the CPU
+    zoo_phase()
 
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",

@@ -1,11 +1,11 @@
 """Model configuration, a copy of the reference's ``repro/configs/base.py``
 (data only: the port never imports the reference). ``ModelConfig``
-carries the fields of the reference's that the ported families (mlp,
-dense, vlm, hybrid) read, with the reference's defaults,
-``resolved_head_dim``, ``is_subquadratic`` and ``reduced()``, so a
-configuration means the same model in both packages. The MoE, xLSTM and
-encoder-decoder fields come with the slices that port those families
-(ROADMAP A15)."""
+carries the fields of the reference's that the port reads, with the
+reference's defaults, ``resolved_head_dim``, ``is_subquadratic`` and
+``reduced()``, so a configuration means the same model in both packages.
+The reference's ``remat``, ``tp_hints`` and ``remat_policy`` are JAX
+knobs (activation checkpointing over ``lax.scan``, sharding hints) that
+nothing in the port reads, and stay out."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,7 +17,7 @@ from typing import Optional, Tuple
 class ModelConfig:
     # -- identity ----------------------------------------------------------
     name: str
-    family: str  # mlp | dense | vlm | hybrid are ported
+    family: str  # mlp | dense | moe | ssm | hybrid | vlm | audio
     source: str = ""
 
     # -- trunk dimensions ---------------------------------------------------
@@ -41,16 +41,32 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = (16, 24, 24)  # (t, h, w) per-half-dim split
     qkv_bias: bool = False  # qwen2 / glm4
     sliding_window: Optional[int] = None
+    learned_pos_emb: bool = False  # whisper decoder/encoder
 
-    # -- SSM (mamba2) ---------------------------------------------------------
+    # -- MoE ----------------------------------------------------------------
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0  # per-expert hidden dim (fine-grained experts)
+    first_dense_layers: int = 0  # deepseek-moe: layer 0 is a dense FFN
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+    # -- SSM (mamba2 / xlstm) ---------------------------------------------------------
     ssm_state: int = 0  # N, state dim per head
     ssm_heads: int = 0  # number of SSM heads (defaults derived)
     ssm_expand: int = 2
     ssm_conv_width: int = 4
     ssm_chunk: int = 128  # chunk length for the SSD scan
+    slstm_every: int = 0  # xlstm: every k-th block is sLSTM (0 = none)
 
     # -- hybrid (zamba2) ------------------------------------------------------
     shared_attn_every: int = 0  # apply the shared attention block every k SSM layers
+
+    # -- encoder-decoder (whisper) -------------------------------------------
+    is_encoder_decoder: bool = False
+    num_encoder_layers: int = 0
+    encoder_seq_len: int = 1500  # whisper: 30 s of audio -> 1500 frames
 
     # -- modality stub (vlm / audio): inputs are precomputed embeddings -------
     embedding_inputs: bool = False
@@ -86,10 +102,19 @@ class ModelConfig:
         group = max(1, self.num_heads // max(1, self.num_kv_heads))
         small["num_kv_heads"] = max(1, min(self.num_kv_heads, small["num_heads"],
                                            max(1, small["num_heads"] // group)))
+        if self.num_experts:
+            small.update(num_experts=4,
+                         num_experts_per_tok=min(2, self.num_experts_per_tok),
+                         num_shared_experts=min(1, self.num_shared_experts),
+                         moe_d_ff=min(self.moe_d_ff, 128))
         if self.ssm_state:
             small.update(ssm_state=16, ssm_heads=0, ssm_chunk=32)
+        if self.slstm_every:
+            small.update(slstm_every=2)
         if self.shared_attn_every:
             small.update(shared_attn_every=2)
+        if self.is_encoder_decoder:
+            small.update(num_encoder_layers=2, encoder_seq_len=64)
         if self.sliding_window:
             small.update(sliding_window=32)
         small.update(kw)

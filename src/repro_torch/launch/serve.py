@@ -3,14 +3,16 @@ greedily (the reference's ``repro.launch.serve``).
 
     python -m repro_torch.launch.serve --arch gemma-2b --full
     python -m repro_torch.launch.serve --device cpu --arch zamba2-7b
+    python -m repro_torch.launch.serve --device cpu --arch whisper-medium
 
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch versions. As in the reference, the CLI leaves
 ``use_pallas`` off: the kernels' path (flash_attention in the dense
 transformer, ssd_scan in zamba2's Mamba2 blocks) is the library call
 ``model.prefill(params, batch, cfg, use_pallas=True)``, which
-``serve(..., use_pallas=True)`` takes. The weights are random, drawn from
-``--seed``.
+``serve(..., use_pallas=True)`` takes. The MoE, xLSTM and
+encoder-decoder families take ``use_pallas`` and launch no kernel, as in
+the reference. The weights are random, drawn from ``--seed``.
 """
 from __future__ import annotations
 
@@ -19,16 +21,23 @@ import time
 
 import torch
 
-from repro_torch.configs.registry import ARCHS, NOT_PORTED, get_arch
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.models import model as M
 from repro_torch.runtime import resolve_device
 
 
 def build_prompt_batch(cfg, B: int, S: int, generator: torch.Generator,
                        device="cuda"):
-    """Random prompts: token ids, or embeddings for the embedding-input
-    (vlm) families."""
+    """Random prompts: token ids, embeddings for the embedding-input (vlm)
+    families, or for the encoder-decoder both: encoder frames [B,
+    encoder_seq_len, d] and decoder tokens [B, S]."""
     dev = resolve_device(device)
+    if cfg.is_encoder_decoder:
+        embeds = torch.randn((B, cfg.encoder_seq_len, cfg.d_model),
+                             generator=generator, device=dev) * 0.02
+        return {"embeds": embeds,
+                "tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                        generator=generator, device=dev)}
     if cfg.embedding_inputs:
         return {"embeds": torch.randn((B, S, cfg.d_model), generator=generator,
                                       device=dev) * 0.02}
@@ -70,7 +79,9 @@ def serve(cfg, params, batch, gen: int, *, use_pallas: bool = False,
     "logits" (the last decode step's)}. Times are host clock around work
     that ends in a device synchronize."""
     dev = resolve_device(device)
-    x = batch["embeds"] if "embeds" in batch else batch["tokens"]
+    # the prompt's length: the decoder tokens' where there are tokens (the
+    # encoder-decoder's embeds are its encoder frames)
+    x = batch["tokens"] if "tokens" in batch else batch["embeds"]
     B, S = x.shape[0], x.shape[1]
 
     _sync(dev)
@@ -98,8 +109,7 @@ def serve(cfg, params, batch, gen: int, *, use_pallas: bool = False,
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="gemma-2b",
-                    choices=sorted(ARCHS) + sorted(NOT_PORTED))
+    ap.add_argument("--arch", default="gemma-2b", choices=sorted(ARCHS))
     ap.add_argument("--reduced", action="store_true", default=True)
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--batch", type=int, default=4)
@@ -114,10 +124,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def run(argv=None) -> dict:
     """The CLI's run; returns serve()'s result with the config."""
     args = parse_args(argv)
-    try:
-        cfg = get_arch(args.arch)
-    except NotImplementedError as e:
-        raise SystemExit(str(e))
+    cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if cfg.family == "mlp":

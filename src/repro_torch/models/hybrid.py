@@ -43,11 +43,6 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
     return p
 
 
-def _stack(caches):
-    """Per-layer cache dicts -> one dict of stacked tensors."""
-    return {key: torch.stack([c[key] for c in caches]) for key in caches[0]}
-
-
 def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
             cache=None, cache_index=None, use_pallas: bool = False):
     """Returns (logits, cache). Prefill returns {"mamba": [n_super, k, ...],
@@ -83,9 +78,9 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     if mode == "prefill":
         new_cache = {
             "mamba": {key: t.unflatten(0, (n_super, k))
-                      for key, t in _stack(m_caches).items()},
-            "attn": _stack(a_caches),
-            "mamba_rem": _stack(r_caches) if n_rem else None,
+                      for key, t in T.stack(m_caches).items()},
+            "attn": T.stack(a_caches),
+            "mamba_rem": T.stack(r_caches) if n_rem else None,
         }
     elif decode:
         new_cache = cache

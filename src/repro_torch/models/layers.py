@@ -173,7 +173,7 @@ def _rotate(q, k, cfg: ModelConfig, positions):
     if cfg.use_mrope:  # positions: [3, B, S]
         q = apply_mrope(q, positions, cfg.rope_theta, cfg.mrope_sections)
         k = apply_mrope(k, positions, cfg.rope_theta, cfg.mrope_sections)
-    else:
+    elif not cfg.learned_pos_emb:  # whisper: positions are embedded
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k
@@ -353,6 +353,10 @@ def embed_init(generator, cfg: ModelConfig, dtype, device):
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(generator, cfg.d_model, cfg.vocab_size,
                                   dtype, device)
+    if cfg.learned_pos_emb:
+        max_pos = 65536 if cfg.is_encoder_decoder else 32768
+        p["pos"] = (torch.randn((max_pos, cfg.d_model), generator=generator,
+                                device=device) * 0.02).to(dtype)
     return p
 
 

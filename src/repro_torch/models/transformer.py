@@ -49,6 +49,12 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def stack(caches):
+    """Per-layer cache dicts -> one dict of tensors stacked on a leading
+    layer axis."""
+    return {key: torch.stack([c[key] for c in caches]) for key in caches[0]}
+
+
 def _embed_inputs(params, batch, cfg: ModelConfig):
     if "embeds" in batch:
         x = batch["embeds"]
@@ -83,7 +89,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
                            cache_index=cache_index, use_pallas=use_pallas)
         caches.append(c)
     if mode == "prefill":
-        new_cache = {k: torch.stack([c[k] for c in caches]) for k in caches[0]}
+        new_cache = stack(caches)
     elif mode == "decode":
         new_cache = cache
     else:

@@ -31,7 +31,6 @@ import torch
 from repro.configs.registry import get_arch as ref_get_arch
 from repro.models import model as RM
 from repro.models import ssm as RS
-from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import get_arch
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.launch import serve
@@ -298,10 +297,3 @@ def test_serve_driver_zamba2_returns_its_tokens():
     assert res["prefill_logits"].shape == (2, 32, res["cfg"].vocab_size)
     assert res["cfg"].family == "hybrid"
 
-
-def test_xlstm_family_still_raises_naming_its_item():
-    """Family "ssm" is xlstm-1.3b's, not ported: the model dispatch raises
-    naming ROADMAP A15 (the hybrid no longer does)."""
-    cfg = ModelConfig(name="xlstm-1.3b", family="ssm")
-    with pytest.raises(NotImplementedError, match="A15"):
-        M.init_params(torch.Generator(), cfg, "cpu")

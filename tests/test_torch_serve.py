@@ -212,12 +212,21 @@ def test_serve_driver_returns_its_tokens_and_times():
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
 
 
-@pytest.mark.parametrize("arch,item", [("xlstm-1.3b", "A15"), ("whisper-medium", "A15")])
-def test_unported_arch_exits_naming_its_item(arch, item):
-    with pytest.raises(SystemExit, match=item):
-        serve.run(["--device", "cpu", "--arch", arch])
-    with pytest.raises(NotImplementedError, match=item):
-        get_arch(arch)
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "qwen3-moe-235b-a22b",
+                                  "xlstm-1.3b", "whisper-medium"])
+def test_arch_serves_on_cpu(arch):
+    """The serve CLI's run of the MoE, xLSTM and encoder-decoder archs at
+    reduced() size: B tokens of gen, prefill logits [B, prompt, V], every
+    logit finite."""
+    res = serve.run(["--device", "cpu", "--arch", arch, "--batch", "2",
+                     "--prompt-len", "16", "--gen", "3"])
+    V = res["cfg"].vocab_size
+    assert res["cfg"] == get_arch(arch).reduced()
+    assert tuple(res["tokens"].shape) == (2, 3)
+    assert tuple(res["prefill_logits"].shape) == (2, 16, V)
+    assert tuple(res["logits"].shape) == (2, 1, V)
+    assert bool(torch.isfinite(res["prefill_logits"]).all())
+    assert bool(torch.isfinite(res["logits"]).all())
 
 
 def test_serve_defaults_to_the_card():
@@ -230,6 +239,7 @@ def test_serve_defaults_to_the_card():
 def test_registry_copies_the_reference_configs():
     from repro.configs.registry import ARCHS as REF_ARCHS
     from repro.configs.registry import get_arch as ref_get
+    assert set(ARCHS) == set(REF_ARCHS)
     for name, cfg in ARCHS.items():
         ref = REF_ARCHS[name]
         for f in ("num_layers", "d_model", "num_heads", "num_kv_heads", "d_ff",
@@ -238,7 +248,12 @@ def test_registry_copies_the_reference_configs():
                   "mrope_sections", "qkv_bias", "sliding_window", "family",
                   "embedding_inputs", "param_dtype", "compute_dtype",
                   "ssm_state", "ssm_heads", "ssm_expand", "ssm_conv_width",
-                  "ssm_chunk", "shared_attn_every", "is_subquadratic"):
+                  "ssm_chunk", "shared_attn_every", "is_subquadratic",
+                  "learned_pos_emb", "num_experts", "num_experts_per_tok",
+                  "num_shared_experts", "moe_d_ff", "first_dense_layers",
+                  "capacity_factor", "router_aux_weight", "slstm_every",
+                  "is_encoder_decoder", "num_encoder_layers",
+                  "encoder_seq_len"):
             assert getattr(cfg, f) == getattr(ref, f), (name, f)
             assert getattr(cfg.reduced(), f) == getattr(ref.reduced(), f), (name, f)
         assert cfg.reduced().resolved_head_dim == ref.reduced().resolved_head_dim
