@@ -174,9 +174,32 @@ Phases, each fatal on failure (exit code 1, no result line):
              prefill logits [4, 64, 51865]) and the driver; each model
              freed before the next, each with finite logits, prefill and
              decode tokens/s and peak device memory; then each of the four
-             at reduced() on the card against the CPU.
+             at reduced() on the card against the CPU;
+10. lm      — LM training through the DWFL round (the reference's
+             ``loss_fn`` passes no ``use_pallas``, so B1 and B2 are its
+             kernels): olmo-1b at full width (d_model 2048, 16 heads, d_ff
+             8192, vocab 50,304), float32, batch 4 x 128 a worker, random
+             from a seed. The worker-tree round at full depth
+             (1,176,764,416 parameters a worker) on N = 2,
+             ``make_train_step(ProtocolConfig(scheme="dwfl",
+             use_pallas=True))`` through the trajectory body, 4 rounds:
+             losses finite, one sgd_update_leaves launch a round over the
+             8 leaves, the peak, then 2 rounds under torch.profiler (busy
+             share, top operators); the flat round on N = 4 with the depth
+             cut to 4 of 16 layers (d = 371,458,048: C2, N roundup(d, 128)
+             <= 2^31, lets the full depth have N = 1 alone), 4 rounds: one
+             dp_mix launch a round, then 2 profiled; dp_mix at that shape against its plain
+             twin on three column windows and timed beside its bound and
+             the twin over the whole round in 2^22-column windows;
+             sgd_update_leaves at olmo-1b's leaves (N = 2) against the
+             per-leaf kernel and the plain version, timed beside its bound
+             and ``torch._foreach_add``; the CLI (``--arch olmo-1b
+             --workers 2 --batch-size 4 --seq-len 128 --steps 3``, the
+             tree path, no kernel) and its ``--flat-buffer`` run refused
+             by C2; a reduced olmo-1b round, flat and tree, on the card
+             against the CPU.
 
-Each phase of the dynamic network, of the fleet and of the zoo is preceded by a
+Each phase of the dynamic network, of the fleet, of the zoo and of LM training is preceded by a
 ``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
 output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 "device": {...}}.
@@ -296,6 +319,14 @@ ZOO = {"deepseek-moe-16b": (16_375_728_128, None, SERVE_PROMPT),
        "qwen3-moe-235b-a22b": (6_220_173_312, 2, 64),
        "xlstm-1.3b": (2_875_433_296, None, SERVE_PROMPT),
        "whisper-medium": (826_647_552, None, 64)}
+# phase 10, LM training (ROADMAP A15): olmo-1b at full width, batch 4 x 128
+# a worker, float32: the worker-tree round at full depth on N = 2 workers
+# (use_pallas: one sgd_update_leaves launch a round), the flat round on N = 4
+# workers with the depth cut to 4 of 16 layers (C2: N roundup(d, 128) <=
+# 2^31 takes N = 1 at full depth), LM_ROUNDS rounds each
+LM_ARCH, LM_PARAMS = "olmo-1b", 1_176_764_416
+LM_TREE_N, LM_FLAT_N, LM_FLAT_LAYERS, LM_FLAT_D = 2, 4, 4, 371_458_048
+LM_BATCH, LM_SEQ, LM_ROUNDS = 4, 128, 4
 # the dynamic network's paths: the flat CLI's scenario and rounds, the tree
 # round's scenario, and the worker counts of dp_mix's dynamic plan (the
 # path's N, the column route's last on an H100 and the large-N route's
@@ -523,6 +554,61 @@ PREDICTIONS = {
                        "card within 1e-4 of the largest logit of the same "
                        "run on the CPU (prefill and the last decode "
                        "step): no router choice flips at these sizes",
+    "lm_tree": "olmo-1b at full width and depth (1,176,764,416 parameters "
+               "a worker, 8 leaves), N = 2, batch 4 x 128 a worker, "
+               "make_train_step(dwfl, use_pallas) through the trajectory "
+               "body: 4 rounds, one sgd_update_leaves launch a round and "
+               "no other kernel, every loss finite (the first near ln "
+               "50,304 = 10.8 at a random init; at eps = 1 a round the "
+               "DP noise then lifts it); a warm round 0.22-0.32 s (~7.2 "
+               "TFLOP of float32 GEMMs, ~0.17 s, and the elementwise "
+               "passes over the [2, d] trees: clip, local step, two "
+               "normal fields, the mix; 0.55-0.60 s were read while "
+               "each layer was taken by a select, before unbind); peak "
+               "64-68 GiB (66.13 read before; the parameters, the local "
+               "step's output, the two noise fields and the exchange's "
+               "output, 8.77 GiB each, and a leaf's temporaries)",
+    "lm_flat": "olmo-1b at full width on 4 of 16 layers (d = 371,458,048), "
+               "N = 4: N roundup(d, 128) = 1,485,832,192 <= 2^31 (full "
+               "depth at N = 2: 2,353,528,832, refused), the flat round "
+               "through the trajectory body: 4 rounds, one dp_mix launch "
+               "a round (the column route) and no other kernel, every "
+               "loss finite; a warm round 0.1-0.2 s; peak 20-32 GiB "
+               "(the buffer, the per-leaf gradients, their ravel, the "
+               "clipped gradient and dp_mix's output, 5.53 GiB each)",
+    "lm_kernels": "dp_mix at (4, 371,458,048) f32 noisy within "
+                  "dp_mix_tolerance of its twin on three column windows; "
+                  "10-13 ms (at dwfl-paper's shape it runs 2.2x its "
+                  "bound; here the bound is ~5.3-5.5 ms, bytes 17.8 GB "
+                  "and ~180 G lane-instructions about even); its twin "
+                  "over the round in 2^22-column windows 2-8 s. "
+                  "sgd_update_leaves over olmo-1b's 8 leaves at N = 2 "
+                  "(2.35 G elements, 28.2 GB): 8.8-10.5 ms against its "
+                  "8.43 ms bound (bytes), within 10% of "
+                  "torch._foreach_add, the plain version 2-4x slower",
+    "lm_profile_tree": "2 warm tree rounds under torch.profiler: 0.22-0.32 "
+                       "s a round, the device busy 90-100%; float32 GEMMs "
+                       "(the forward and backward, ~7.2 TFLOP) ~0.17 s, "
+                       "add, add_ and fill_ under 60 ms together (each "
+                       "family's layers taken by unbind once; taken by a "
+                       "select each, they cost 0.34 s a round in the "
+                       "zero-filled gradients), the rest the exchange's "
+                       "elementwise passes",
+    "lm_profile_flat": "2 warm flat rounds under torch.profiler: 0.17-0.19 "
+                       "s a round, busy 90-100%; GEMMs ~0.09 s, dp_mix "
+                       "11.2 ms, the gradients' ravel and the clip most of "
+                       "the rest",
+    "lm_cli": "python -m repro_torch.launch.train --arch olmo-1b "
+              "--workers 2 --batch-size 4 --seq-len 128 --steps 3: 4 "
+              "rounds, no kernel launched (the CLI never sets use_pallas), "
+              "every loss finite, 2.5-4 rounds/s over the loop with its "
+              "first round and eval, peak 45-67 GiB; with --flat-buffer it exits naming C2 before a "
+              "round",
+    "lm_cpu_vs_cuda": "one reduced olmo-1b round (N = 3, batch 2 x 32) on "
+                      "the card against the CPU's from the same "
+                      "parameters, batch and seed or normals, flat and "
+                      "tree: within 1e-4 (1 + max|out|), as the earlier "
+                      "slices' small rounds (measured there ~1e-7)",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -831,12 +917,15 @@ def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool,
 
 
 def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
-                         width: int = 4096) -> dict:
+                         width: int = 4096,
+                         plain_window: Optional[int] = None) -> dict:
     """A round too large for the plain version at full width (N = 2048 at
-    the path's d: p, g and out 21 GB, the workspace 14 GB): the kernel
-    once, held against the plain version over three column windows (the
-    first, one in the middle, the ragged last), each with its col0 and the
-    full counter_width, so the window draws the same noise; then timed."""
+    the path's d: p, g and out 21 GB, the workspace 14 GB; olmo-1b's flat
+    LM round, 1.49 G elements): the kernel once, held against the plain
+    version over three column windows (the first, one in the middle, the
+    ragged last), each with its col0 and the full counter_width, so the
+    window draws the same noise; then timed, and with ``plain_window``
+    the plain version too, over the whole round in windows that wide."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
@@ -860,11 +949,30 @@ def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
         bad += int((err > allowed).sum())
         if not torch.isfinite(k32).all():
             fail(f"dp_mix N={N}: non-finite output in columns [{a}, {b})")
-    del out
+    del out, ref, k32, err, allowed
     rec = {"N": N, "d": d, "dtype": "float32", "noisy": True,
            "route": dp_mix_route(N, d), "windows": 3, "window": width,
            "max_abs_err": max_err, "tol_f32": tol, "violations": bad,
            "ms": cuda_ms(kernel, iters=2, warmup=1)}
+    if plain_window:
+        torch.cuda.empty_cache()
+
+        def plain(a):
+            b = min(a + plain_window, d)
+            col0 = torch.tensor([a], dtype=torch.int32, device="cuda")
+            return dp_mix_plain(p[:, a:b].contiguous(),
+                                g[:, a:b].contiguous(), seed, col0, *rest,
+                                **kw)
+        plain(0)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for a in range(0, d, plain_window):
+            plain(a)
+        end.record()
+        torch.cuda.synchronize()
+        rec["plain_ms"] = start.elapsed_time(end)
+        rec["plain_window"] = plain_window
     branches = noise_branches(N, d, kw["counter_width"], 1234567)
     rec.update(dp_mix_work(N, d, 4, True, counts, rates, branches))
     rec["branches"] = branches
@@ -1895,32 +2003,38 @@ def check_dp_perturb(shape, dtype, noisy: bool, timed: bool) -> dict:
     return rec
 
 
-def check_leaves(dtype, timed: bool) -> dict:
-    """sgd_update_leaves, the tree path's local step, over its six leaves
-    in one launch: each leaf bitwise the per-leaf kernel (a table of one
-    entry) and within 1 ULP of the plain version (a bfloat16 output one
-    bfloat16 step further). Timed, per round: the one launch, beside the
-    per-leaf kernel's six launches, the plain version, six ``torch.add``
-    calls and one ``torch._foreach_add`` over the six leaves (library_ms;
-    the port calls neither); the bound: p and g read and x written once
-    over 3.35 TB/s, one FMA per element over 67 TFLOP/s. The one launch
-    and ``_foreach_add`` are also timed inside a CUDA graph (device_ms,
-    library_device_ms): the device's time without the host's."""
+def check_leaves(dtype, timed: bool, shapes=MLP_LEAVES,
+                 graphs: bool = True) -> dict:
+    """sgd_update_leaves, the tree path's local step, over its leaves
+    (``shapes``: dwfl-paper's six, or olmo-1b's eight) in one launch: each
+    leaf bitwise the per-leaf kernel (a table of one entry) and within 1
+    ULP of the plain version (a bfloat16 output one bfloat16 step
+    further), compared a leaf at a time. Timed, per round: the one launch,
+    beside the per-leaf kernel's launches, the plain version, a
+    ``torch.add`` a leaf and one ``torch._foreach_add`` over the leaves
+    (library_ms; the port calls neither); the bound: p and g read and x
+    written once over 3.35 TB/s, one FMA per element over 67 TFLOP/s.
+    With ``graphs`` the one launch and ``_foreach_add`` are also timed
+    inside a CUDA graph (device_ms, library_device_ms): the device's time
+    without the host's (at olmo-1b's leaves the graph's ten outputs would
+    not fit, and the host's time is no part of a 9 ms launch)."""
     import torch
     from repro_torch.kernels.dp_perturb import ops
     gen = torch.Generator(device="cuda").manual_seed(11)
     ps = [torch.randn(s, generator=gen, device="cuda").to(dtype)
-          for s in MLP_LEAVES]
+          for s in shapes]
     gs = [(0.1 * torch.randn(s, generator=gen, device="cuda")).to(dtype)
-          for s in MLP_LEAVES]
+          for s in shapes]
     gamma = 0.01
     kernel = lambda: ops.sgd_update_leaves(ps, gs, gamma)
     per_leaf = lambda: [ops.sgd_update(p, g, gamma) for p, g in zip(ps, gs)]
     plain = lambda: ops.sgd_update_leaves_plain(ps, gs, gamma)
-    xs, ones, refs = kernel(), per_leaf(), plain()
+    xs = kernel()
     torch.cuda.synchronize()
     bad, err = 0, 0.0
-    for x, one, r in zip(xs, ones, refs):
+    for x, p, g in zip(xs, ps, gs):
+        one = ops.sgd_update(p, g, gamma)
+        r = ops.sgd_update_plain(p, g, gamma)
         bad += int((x != one).sum())
         k32, r32 = x.float(), r.float()
         if not torch.isfinite(k32).all():
@@ -1930,7 +2044,10 @@ def check_leaves(dtype, timed: bool) -> dict:
         ok = (ulp_dist(k32, r32) <= 1) | ((k32 - r32).abs() <= step)
         bad += int((~ok).sum())
         err = max(err, float((k32 - r32).abs().max()))
-    rec = {"leaves": len(MLP_LEAVES), "dtype": str(dtype).split(".")[-1],
+        del one, r, k32, r32, ok
+    del xs
+    rec = {"leaves": len(shapes), "dtype": str(dtype).split(".")[-1],
+           "elements": sum(math.prod(s) for s in shapes),
            "max_abs_err": err, "violations": bad}
     if timed:
         numel = sum(p.numel() for p in ps)
@@ -1944,9 +2061,10 @@ def check_leaves(dtype, timed: bool) -> dict:
             torch.add(p, g, alpha=-gamma) for p, g in zip(ps, gs)], iters=50)
         rec["library_ms"] = cuda_ms(
             lambda: torch._foreach_add(ps, gs, alpha=-gamma), iters=50)
-        rec["device_ms"] = graph_ms(kernel)
-        rec["library_device_ms"] = graph_ms(
-            lambda: torch._foreach_add(ps, gs, alpha=-gamma))
+        if graphs:
+            rec["device_ms"] = graph_ms(kernel)
+            rec["library_device_ms"] = graph_ms(
+                lambda: torch._foreach_add(ps, gs, alpha=-gamma))
         rec["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         rec["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         rec["bytes"], rec["flops"] = nbytes, flops
@@ -2879,6 +2997,265 @@ def zoo_phase() -> dict:
 
     predict("zoo_cpu_vs_cuda")
     recs["cpu vs cuda"] = {a: serve_cpu_vs_cuda(a) for a in ZOO}
+    return recs
+
+
+# ---- phase 10: LM training (ROADMAP A15) ------------------------------------
+
+
+def lm_store(N: int, cfg):
+    """The CLI's token data on the card: lm_dataset(N 200,000) in N slices,
+    windows of LM_SEQ, LM_BATCH a worker."""
+    from repro_torch.data import LMStore, lm_dataset
+    return LMStore.build(lm_dataset(N * 200_000, cfg.vocab_size, seed=0), N,
+                         LM_BATCH, LM_SEQ, "cuda")
+
+
+def lm_rounds(what: str, body, carry, wrappers, want: str) -> tuple:
+    """LM_ROUNDS rounds of ``body``, every kernel count set to 0 just
+    before and read just after: ``want`` launched once a round and nothing
+    else, every loss finite. Returns (carry, record)."""
+    import torch
+    zero_counts(wrappers)
+    ms, losses = [], []
+    for _ in range(LM_ROUNDS):
+        t0 = time.perf_counter()
+        carry, out = body(carry)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(out["metrics"]["loss"]))
+    launches = {k.__name__: k.launches for k in wrappers if k.launches}
+    rec = {"rounds": LM_ROUNDS, "launches": launches, "round_ms": ms,
+           "losses": losses,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[lm] {what}: {json.dumps(rec)}", flush=True)
+    if launches != {want: LM_ROUNDS}:
+        fail(f"{what}: launches {launches}, expected {want} once in each "
+             f"of {LM_ROUNDS} rounds")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{what}: non-finite losses {losses}")
+    return carry, rec
+
+
+def profile_lm(what: str, body, carry, n_rounds: int = 2) -> tuple:
+    """Where a warm LM round's time goes: ``n_rounds`` rounds of ``body``
+    under torch.profiler, the device's busy share and the top operators
+    by device time. Returns (carry, record)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import trajectory as TJ
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        carry, _ = TJ.run_chunk(body, carry, n_rounds)
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    stats = prof.key_averages()
+    dev, busy_us = self_device_us, device_us(stats)
+    rec = {"path": what, "rounds": n_rounds,
+           "profiled_round_ms": wall_us / 1e3 / n_rounds,
+           "device_busy_share": (busy_us / wall_us if busy_us > 0
+                                 else "not measured"),
+           "top_device_ms_per_round": [
+               (e.key, dev(e) / 1e3 / n_rounds) for e in
+               sorted(stats, key=dev, reverse=True)[:10] if dev(e) > 0]}
+    print(f"[profile] {json.dumps(rec)}", flush=True)
+    return carry, rec
+
+
+def lm_tree_phase(wrappers) -> dict:
+    """olmo-1b at full width and depth, N = LM_TREE_N, the worker-tree
+    round with use_pallas through the trajectory body."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    predict("lm_tree")
+    cfg, N = get_arch(LM_ARCH), LM_TREE_N
+    proto = P.ProtocolConfig(scheme="dwfl", n_workers=N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, use_pallas=True)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, N, "cuda")
+    leaves = X.tree_flatten(wp)[0]
+    n = sum(l[0].numel() for l in leaves)
+    shapes = [tuple(l.shape) for l in leaves]
+    print(f"[lm] {LM_ARCH}: {n} parameters a worker, {cfg.num_layers} layers, "
+          f"{len(leaves)} leaves (sgd_update_leaves takes up to 16 a "
+          f"launch), N = {N}", flush=True)
+    if n != LM_PARAMS:
+        fail(f"{LM_ARCH} has {n} parameters, expected {LM_PARAMS}")
+    del leaves
+    body = TJ.make_round_body(cfg, proto, lm_store(N, cfg), device="cuda")
+    carry = TJ.TrajCarry(gen, wp)
+    del wp
+    carry, rec = lm_rounds(f"tree round, full depth, N = {N}", body, carry,
+                           wrappers, "sgd_update_leaves")
+    predict("lm_profile_tree")
+    carry, rec["profile"] = profile_lm(f"lm tree, full depth, N = {N}", body,
+                                       carry)
+    if not tree_leaves_finite(carry.params):
+        fail("lm tree round: non-finite parameters")
+    rec["shapes"] = shapes
+    del carry, body
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_flat_phase(wrappers) -> dict:
+    """olmo-1b at full width on LM_FLAT_LAYERS layers, N = LM_FLAT_N, the
+    flat round through the trajectory body. C2 cuts the depth: the full
+    depth takes N = 1 alone."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_mix import ops
+    predict("lm_flat")
+    full, N = get_arch(LM_ARCH), LM_FLAT_N
+    cw_full = ops._roundup(LM_PARAMS, ops.LANES)
+    print(f"[lm] C2 (N roundup(d, 128) <= 2^31 = {ops.COUNTER_LIMIT}): "
+          f"{LM_ARCH} at full depth {full.num_layers} layers, d = "
+          f"{LM_PARAMS}: N = 2 needs {2 * cw_full} counters (refused), "
+          f"the flat round fits N = {ops.COUNTER_LIMIT // cw_full}; cut to "
+          f"{LM_FLAT_LAYERS} layers at full width for N = {N}", flush=True)
+    cfg = dataclasses.replace(full, num_layers=LM_FLAT_LAYERS)
+    proto = P.ProtocolConfig(scheme="dwfl", n_workers=N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, N, "cuda")
+    spec = X.make_flat_spec(wp)
+    cw = ops.check_counter_limit(N, spec.d)
+    print(f"[lm] flat buffer [{N}, {spec.d}]: {N * cw} counters", flush=True)
+    if spec.d != LM_FLAT_D:
+        fail(f"{LM_ARCH} on {LM_FLAT_LAYERS} layers has d = {spec.d}, "
+             f"expected {LM_FLAT_D}")
+    flat = spec.flatten(wp)
+    del wp
+    body = TJ.make_round_body(cfg, proto, lm_store(N, cfg), spec, "cuda")
+    carry = TJ.TrajCarry(gen, flat)
+    del flat
+    carry, rec = lm_rounds(f"flat round, {LM_FLAT_LAYERS} of "
+                           f"{full.num_layers} layers, N = {N}", body, carry,
+                           wrappers, "dp_mix_round")
+    predict("lm_profile_flat")
+    carry, rec["profile"] = profile_lm(f"lm flat, {LM_FLAT_LAYERS} layers, "
+                                       f"N = {N}", body, carry)
+    if not torch.isfinite(carry.params).all():
+        fail("lm flat round: non-finite buffer")
+    del carry, body
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_cli() -> dict:
+    """The LM CLI on the card, counted (no kernel: the CLI never sets
+    use_pallas), then its --flat-buffer run refused by C2."""
+    import torch
+    from repro_torch.launch import train
+    predict("lm_cli")
+    wrappers = kernel_wrappers()
+    argv = ["--arch", LM_ARCH, "--workers", str(LM_TREE_N), "--batch-size",
+            str(LM_BATCH), "--seq-len", str(LM_SEQ), "--steps", "3"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(wrappers)
+    res = train.run(argv)
+    no_launches("the LM CLI", wrappers)
+    losses = res["losses"]
+    rec = {"rounds": res["rounds"], "seconds": res["seconds"],
+           "rounds_per_s": res["rounds"] / res["seconds"],
+           "losses": losses.tolist(), "evals": res["evals"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"[lm] CLI {' '.join(argv)}: {json.dumps(rec)}", flush=True)
+    if losses.numel() != 4 or not torch.isfinite(losses).all():
+        fail(f"the LM CLI: expected 4 finite losses, got {losses.tolist()}")
+    del res
+    torch.cuda.empty_cache()
+    try:
+        train.run(argv + ["--flat-buffer"])
+    except SystemExit as e:
+        msg = str(e)
+    else:
+        fail("the LM CLI with --flat-buffer at full depth, N = 2, ran: C2 "
+             "should refuse it")
+    print(f"[lm] CLI --flat-buffer refused: {msg}", flush=True)
+    if "C2" not in msg or "exceeds 2^31" not in msg:
+        fail(f"the --flat-buffer refusal does not name C2: {msg}")
+    no_launches("the refused flat LM CLI", wrappers)
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_round_cpu_vs_cuda(flat: bool) -> float:
+    """One reduced olmo-1b round (N = 3, batch 2 x 32) on the card against
+    the CPU's from the same parameters, batch and seed (flat) or normals
+    (tree, use_pallas)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.data import LMStore, lm_dataset
+    cfg, N = get_arch(LM_ARCH).reduced(), 3
+    proto = P.ProtocolConfig(n_workers=N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, use_pallas=not flat)
+    gen = torch.Generator().manual_seed(7)
+    wp = P.init_worker_params(gen, cfg, N, "cpu")
+    store = LMStore.build(lm_dataset(N * 2000, cfg.vocab_size, seed=7), N, 2,
+                          32, "cpu")
+    batch = store.draw(gen)
+    normals = None if flat else X.draw_normals(wp, gen)
+    spec = X.FlatSpec(wp)
+    to = lambda tree, dev: X.tree_map(lambda t: t.to(dev), tree)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        if flat:
+            step = P.make_flat_train_step(cfg, proto, spec, dev)
+            out, _ = step(spec.flatten(wp).to(dev), to(batch, dev),
+                          torch.tensor([77], dtype=torch.int32, device=dev))
+            outs[dev] = out.cpu()
+        else:
+            step = P.make_train_step(cfg, proto, dev)
+            out, _ = step(to(wp, dev), to(batch, dev), None,
+                          normals=to(normals, dev))
+            outs[dev] = X.flatten_worker_tree(to(out, "cpu"))
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    tol = 1e-4 * (1.0 + float(outs["cpu"].abs().max()))
+    what = "flat" if flat else "tree"
+    print(f"[lm] reduced {LM_ARCH} {what} round cuda vs cpu: "
+          f"max_abs_err={err:.3g} (tol {tol:.3g})", flush=True)
+    if not math.isfinite(err) or err > tol:
+        fail(f"reduced {LM_ARCH} {what} round: cuda and cpu differ by "
+             f"{err:.3g} > {tol:.3g}")
+    return err
+
+
+def lm_train_phase(counts: dict, rates: dict) -> dict:
+    """Phase 10: olmo-1b's tree round at full depth (N = 2, one
+    sgd_update_leaves launch a round) and flat round on 4 of 16 layers (N
+    = 4, one dp_mix launch a round); both kernels at these shapes against
+    their plain twins, timed beside their bounds; the LM CLI on the card
+    and its --flat-buffer refused by C2; a reduced round on the card
+    against the CPU, flat and tree."""
+    import torch
+    wrappers = kernel_wrappers()
+    print(f"[lm] held before: {torch.cuda.memory_allocated() / 2 ** 30:.3f} "
+          f"GiB", flush=True)
+    recs = {"tree": lm_tree_phase(wrappers), "flat": lm_flat_phase(wrappers)}
+    predict("lm_kernels")
+    recs["dp_mix"] = check_dp_mix_windows(LM_FLAT_N, LM_FLAT_D, counts, rates,
+                                          plain_window=1 << 22)
+    torch.cuda.empty_cache()
+    recs["sgd_update_leaves"] = check_leaves(
+        torch.float32, timed=True, shapes=recs["tree"]["shapes"],
+        graphs=False)
+    torch.cuda.empty_cache()
+    recs["cli"] = lm_cli()
+    predict("lm_cpu_vs_cuda")
+    recs["cpu vs cuda"] = {"flat": lm_round_cpu_vs_cuda(True),
+                           "tree": lm_round_cpu_vs_cuda(False)}
     return recs
 
 # ---- the fleet (ROADMAP A12) and telemetry (A11) ----------------------------
@@ -4023,6 +4400,13 @@ def main() -> int:
     # each at reduced() on the card against the CPU
     zoo_phase()
 
+    # 10. LM training: olmo-1b's tree round at full depth (one dp_perturb
+    # launch a round) and flat round on 4 of 16 layers (one dp_mix launch a
+    # round), both kernels at these shapes, the LM CLI and C2's refusal
+    lm = lm_train_phase(counts, rates)
+    lm_shape = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "max_abs_err")}
+
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
@@ -4032,7 +4416,10 @@ def main() -> int:
                              "flat dynamic " + DYN_SCENARIO:
                                  dyn_launches[DYN_SCENARIO],
                              "flat dynamic vehicular, total budget":
-                                 dyn_launches["vehicular"]},
+                                 dyn_launches["vehicular"],
+                             "flat olmo-1b, 4 of 16 layers, N = 4":
+                                 lm["flat"]["launches"]["dp_mix_round"]},
+        "lm_shape": dict(lm_shape(lm["dp_mix"]), N=LM_FLAT_N, d=LM_FLAT_D),
         "max_abs_err": path_rec["max_abs_err"],
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
         "bound_ms": path_rec["bound_ms"], "bound_by": path_rec["bound_by"],
@@ -4082,7 +4469,13 @@ def main() -> int:
         "launches": dyn_perturb_launches,
         "launches_by_path": {"tree, four schemes": perturb_launches,
                              "tree dynamic " + DYN_TREE_SCENARIO:
-                                 dyn_perturb_launches},
+                                 dyn_perturb_launches,
+                             "tree olmo-1b, full depth, N = 2":
+                                 lm["tree"]["launches"]["sgd_update_leaves"]},
+        "lm_shape": dict(lm_shape(lm["sgd_update_leaves"]),
+                         leaves=lm["sgd_update_leaves"]["leaves"],
+                         elements=lm["sgd_update_leaves"]["elements"],
+                         library_ms=lm["sgd_update_leaves"]["library_ms"]),
         "max_abs_err": perturb_rec["max_abs_err"],
         "ms": perturb_rec["ms"], "plain_ms": perturb_rec["plain_ms"],
         "bound_ms": perturb_rec["bound_ms"],

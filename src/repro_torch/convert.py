@@ -8,7 +8,9 @@ worker-stacked tree, so both packages compute on the same numbers. The
 tree's leaves are materialized copies, each worker its own memory: a
 stride-0 view handed to a kernel by its pointer would make every worker
 read worker 0's parameters. ``fleet_params_from_jax`` does the same for
-the fleet's [R, N, ...] parameters: the [R, N, d] buffer and its tree.
+the fleet's [R, N, ...] parameters: the [R, N, d] buffer and its tree,
+and ``lm_worker_params_from_jax`` for an LM's worker-stacked parameters
+(the reference's ``init_worker_params`` tree: [N, ...] leaves).
 """
 from __future__ import annotations
 
@@ -26,6 +28,10 @@ def params_from_jax(tree, n_workers: Optional[int] = None, device="cuda"
     """Returns (flat [N, d], worker-stacked tree of contiguous [N, ...]
     leaves, FlatSpec). An unstacked tree is repeated over ``n_workers``
     rows (default 1)."""
+    if not (isinstance(tree, dict) and set(tree) == {"layers"}):
+        raise ValueError("params_from_jax takes the MLP's {'layers': [...]} "
+                         "tree; an LM's worker-stacked tree goes through "
+                         "lm_worker_params_from_jax")
     dev = resolve_device(device)
     leaves, structure = tree_flatten(tree)
     arrs = [np.asarray(l) for l in leaves]
@@ -48,11 +54,25 @@ def fleet_params_from_jax(tree, device="cuda"
     ``FleetEngine.init_worker_params`` makes them) -> (flat [R, N, d]
     float32 in the reference's ravel order, the tree of contiguous [R, N,
     ...] leaves, FlatSpec with lead axes 2)."""
+    return _stacked(tree, 2, device)
+
+
+def lm_worker_params_from_jax(tree, device="cuda"
+                              ) -> Tuple[torch.Tensor, dict, FlatSpec]:
+    """The reference's worker-stacked LM parameters (``init_worker_params``
+    of an LM: nested dicts of [N, ...] leaves, as numpy arrays) -> (flat
+    [N, d] float32 in the reference's ravel order, the port's tree of
+    contiguous [N, ...] leaves, dtypes kept, one copy a worker, and its
+    FlatSpec)."""
+    return _stacked(tree, 1, device)
+
+
+def _stacked(tree, lead_axes: int, device):
     dev = resolve_device(device)
     leaves, structure = tree_flatten(tree)
     tensors = tree_unflatten(structure, [
         torch.as_tensor(np.array(l), device=dev) for l in leaves])
-    spec = FlatSpec(tensors, lead_axes=2)
+    spec = FlatSpec(tensors, lead_axes=lead_axes)
     return spec.flatten(tensors), tensors, spec
 
 

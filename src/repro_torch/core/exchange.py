@@ -611,14 +611,19 @@ def run_centralized(X, noise_n, G_m, plan: MixPlan):
 
 
 def _run_noisy(X, G, plan: MixPlan, proto, axis=None):
-    n = dp_noise(G["n"], X, plan.amp)
-    m = channel_noise(G["m"], X, plan.sigma_m)
-    return run_mix(X, n, m, proto.eta, plan)
+    """The noisy exchange a leaf at a time: a leaf's scaled noise lives only
+    while that leaf mixes, not a whole tree of it beside the normals (two
+    trees the model's size on an LM)."""
+    return tree_map(lambda x, gn, gm: run_mix(
+        x, dp_noise(gn, x, plan.amp), channel_noise(gm, x, plan.sigma_m),
+        proto.eta, plan), X, G["n"], G["m"])
 
 
 def _run_gossip(X, G, plan: MixPlan, proto, axis=None):
-    zero = tree_map(torch.zeros_like, X)
-    return run_mix(X, zero, zero, proto.eta, plan)
+    def leaf(x):
+        zero = torch.zeros_like(x)
+        return run_mix(x, zero, zero, proto.eta, plan)
+    return tree_map(leaf, X)
 
 
 def _run_orthogonal_spec(X, G, plan: MixPlan, proto, axis=None):

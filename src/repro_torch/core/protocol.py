@@ -21,9 +21,11 @@ one dp_mix launch for all R, the tree round's local step one
 ``sgd_update_leaves`` launch. All route the scheme through
 ``exchange.resolve_spec``.
 
-Per-worker gradients need no vmap: every worker's forward runs at once
-through batched matrix products over the worker-stacked leaves, and the
-gradient of the SUM of the per-worker losses has, in worker i's slice of
+Per-worker gradients need no vmap: the per-worker losses
+(``models.model.worker_losses``: the classifier's workers at once through
+batched matrix products over the worker-stacked leaves, an LM's one
+worker at a time on its rows of the leaves) are summed before one
+``autograd.grad``, and the gradient of the SUM has, in worker i's slice of
 each leaf, worker i's own gradient (that slice enters only loss i).
 """
 from __future__ import annotations
@@ -314,8 +316,8 @@ def _make_local_pass(cfg: ModelConfig, proto: ProtocolConfig):
         leaves, structure = exchange_lib.tree_flatten(worker_params)
         with torch.enable_grad():
             ps = [l.detach().requires_grad_(True) for l in leaves]
-            losses = M.loss_fn(exchange_lib.tree_unflatten(structure, ps),
-                               batch, cfg)
+            losses = M.worker_losses(
+                exchange_lib.tree_unflatten(structure, ps), batch, cfg)
             gs = torch.autograd.grad(losses.sum(), ps)
         g, gnorms = privacy.clip_gradient_tree(
             exchange_lib.tree_unflatten(structure, list(gs)), proto.clip)
@@ -415,6 +417,7 @@ def make_train_step(cfg: ModelConfig, proto: ProtocolConfig,
     def step(worker_params, batch, generator, normals=None, mask=None):
         losses, grads, gnorms = local_grads(worker_params, batch)
         X = local_step(worker_params, grads)
+        del grads  # one tree the model's size less through the exchange
         if proto.n_workers < 2:
             # no peers to exchange with: a plain local SGD round
             return X, _metrics(losses, gnorms, X)
@@ -445,6 +448,7 @@ def make_dynamic_train_step(cfg: ModelConfig, proto: ProtocolConfig,
     def step(worker_params, batch, generator, chan, W, normals=None):
         losses, grads, gnorms = local_grads(worker_params, batch)
         X = local_step(worker_params, grads)
+        del grads  # one tree the model's size less through the exchange
         if proto.n_workers < 2:
             return X, _metrics(losses, gnorms, X)
         X = _exchange(X, spec, spec.plan(proto, chan, dev, W), proto,
@@ -472,7 +476,7 @@ def make_flat_local_pass(cfg: ModelConfig, proto: ProtocolConfig,
             leaves, structure = exchange_lib.tree_flatten(
                 spec.unravel(flat.detach()))
             ps = [l.detach().requires_grad_(True) for l in leaves]
-            forward = lambda *xs: M.loss_fn(
+            forward = lambda *xs: M.worker_losses(
                 exchange_lib.tree_unflatten(structure, list(xs)), batch, cfg)
             if remat:
                 from torch.utils.checkpoint import checkpoint
@@ -645,6 +649,7 @@ def make_fleet_train_step(cfg: ModelConfig, proto: ProtocolConfig,
         losses, grads, gnorms = local_grads(_fold(worker_params, R, N),
                                             _fold(batch, R, N))
         X = local_step(worker_params, _unfold(grads, R, N))
+        del grads  # one tree the model's size less through the exchange
         if proto.n_workers >= 2:
             X = _exchange(X, spec, spec.plan(proto, chans, dev, Ws), proto,
                           generator, normals, lead_axes=2)
@@ -656,16 +661,38 @@ def make_fleet_train_step(cfg: ModelConfig, proto: ProtocolConfig,
 
 def make_eval_fn(cfg: ModelConfig) -> Callable:
     """Per-worker eval over worker-stacked parameters: (mean loss, mean
-    accuracy). Both are NaN for a batch without labels, where the
-    classifier's loss and accuracy are undefined — not a 0.0 that reads
+    accuracy) over the workers, the reference's. The classifier's loss and
+    accuracy against "y"; an LM's training loss (with the MoE's aux term)
+    and its accuracy against the batch's "labels", else its next-token
+    accuracy on "tokens". Both are NaN for a batch with neither "y",
+    "labels" nor "tokens", where they are undefined — not a 0.0 that reads
     as a broken model."""
     @torch.no_grad()
     def evaluate(worker_params, batch):
-        logits, _ = M.forward(worker_params, batch, cfg)
-        labels = batch.get("y", batch.get("labels"))
-        if labels is None:
-            nan = torch.tensor(float("nan"), device=logits.device)
-            return nan, nan
-        loss = M.cross_entropy(logits, labels).mean()
-        return loss, (logits.argmax(-1) == labels).float().mean()
+        if cfg.family == "mlp":
+            logits, _ = M.forward(worker_params, batch, cfg)
+            labels = batch.get("y", batch.get("labels"))
+            if labels is None:
+                return _nan(logits.device)
+            loss = M.cross_entropy(logits, labels).mean()
+            return loss, (logits.argmax(-1) == labels).float().mean()
+        if "labels" not in batch and "tokens" not in batch:
+            return _nan(next(iter(batch.values())).device)
+        n = next(iter(batch.values())).shape[0]
+        losses, accs = [], []
+        for i, p in enumerate(M.transformer.unstack(worker_params, n)):
+            b = {k: v[i] for k, v in batch.items()}
+            loss, logits = M.lm_loss_and_logits(p, b, cfg)
+            if "labels" in b:
+                hit = logits.argmax(-1) == b["labels"]
+            else:
+                hit = logits[:, :-1].argmax(-1) == b["tokens"][:, 1:]
+            losses.append(loss)
+            accs.append(hit.float().mean())
+        return torch.stack(losses).mean(), torch.stack(accs).mean()
     return evaluate
+
+
+def _nan(device):
+    nan = torch.tensor(float("nan"), device=device)
+    return nan, nan

@@ -68,8 +68,8 @@ class TrajCarry(NamedTuple):
 
 class HostBatches:
     """The ``--no-scan`` data source: each round uploads the host
-    batcher's next batch (``data.pipeline.FederatedBatcher.next``) and
-    draws nothing from the generator. On the card the upload goes through
+    batcher's next batch (``data.pipeline.FederatedBatcher.next`` or
+    ``LMBatcher.next``) and draws nothing from the generator. On the card the upload goes through
     pinned memory without blocking, so a round under
     ``obs.no_implicit_transfers`` does not wait for the device."""
 
@@ -106,8 +106,8 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
                     sim=None, fleet=None, telemetry=None, shard_mesh=None,
                     worker_mesh=None, remat: bool = False) -> Callable:
     """``body(carry) -> (carry', out)``: one full DWFL round, its batch
-    from ``store`` (data.device.ClassificationStore, sampled on the
-    device, or ``HostBatches``). The path follows ``spec``: given (an
+    from ``store`` (data.device.ClassificationStore or LMStore, sampled on
+    the device, or ``HostBatches``). The path follows ``spec``: given (an
     exchange.FlatSpec), the fused flat-buffer round over the carry's
     [N, d] buffer laid out by it; ``None``, the worker-tree round over
     the carry's worker tree. With ``sim`` (net.NetworkSimulator) the

@@ -1,5 +1,6 @@
-"""Device-resident classification data with on-device batch sampling
-(the reference's ``repro.data.device.ClassificationStore``).
+"""Device-resident data with on-device batch sampling (the reference's
+``repro.data.device``): ``ClassificationStore``, ``LMStore`` and
+``store_from_batcher``.
 
 The whole dataset and the per-worker index pools live on the device; a
 round's [W, B] batch is a gather (the fleet's [R, W, B]: ``sample_fleet``).
@@ -8,6 +9,12 @@ partitions), so the pool is a padded [W, m] matrix and the draw for
 worker w is j = min(floor(u * size_w), size_w - 1) for a uniform u in
 [0, 1). The uniforms are an argument of ``sample`` — drawn by the caller
 from its generator (``uniforms``) or replayed from the reference.
+
+``LMStore`` holds the token stream and each worker's slice offset; a
+round's [W, B, S] batch is the windows at the window starts drawn by
+``starts`` (uniform in [0, span - S - 1), the reference's
+``jax.random.randint`` range) and gathered by ``sample``, so a test can
+replay the reference's starts.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.data.pipeline import FederatedBatcher, LMBatcher
 from repro_torch.runtime import resolve_device
 
 
@@ -88,3 +96,67 @@ class ClassificationStore:
                    pool=torch.as_tensor(pool, device=dev),
                    pool_size=torch.as_tensor(size, device=dev),
                    batch=int(batch_size))
+
+
+@dataclass(frozen=True)
+class LMStore:
+    tokens: torch.Tensor     # [n] int64 token stream
+    offsets: torch.Tensor    # [W] int64 slice start of each worker
+    span: int                # per-worker slice length
+    batch: int               # per-worker batch size
+    seq_len: int             # window length
+
+    @property
+    def n_workers(self) -> int:
+        return int(self.offsets.shape[0])
+
+    def starts(self, generator: torch.Generator, lead=()) -> torch.Tensor:
+        """Window starts [*lead, W, B] from ``generator``, uniform in [0,
+        span - seq_len - 1)."""
+        return torch.randint(0, self.span - self.seq_len - 1,
+                             tuple(lead) + (self.n_workers, self.batch),
+                             generator=generator, device=self.tokens.device)
+
+    def sample(self, s: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """{"tokens": [..., W, B, S]}: the windows at starts ``s`` [..., W,
+        B] within each worker's slice, one gather (the fleet's [R, W, B]
+        starts give its [R, W, B, S] batch)."""
+        pos = (self.offsets[:, None, None] + s.long()[..., None]
+               + torch.arange(self.seq_len, device=self.tokens.device))
+        return {"tokens": self.tokens[pos]}
+
+    def draw(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """One round's batch: ``sample(starts(generator))``."""
+        return self.sample(self.starts(generator))
+
+    def draw_fleet(self, generator: torch.Generator,
+                   replicates: int) -> Dict[str, torch.Tensor]:
+        """One fleet round's batch: [R, W, B] starts in one draw (at R =
+        1 the values ``draw`` takes), then one gather."""
+        return self.sample(self.starts(generator, (int(replicates),)))
+
+    @classmethod
+    def build(cls, tokens, n_workers: int, batch_size: int, seq_len: int,
+              device="cuda") -> "LMStore":
+        dev = resolve_device(device)
+        per = len(tokens) // n_workers
+        if per <= seq_len + 1:
+            raise ValueError(f"per-worker slice {per} too short for "
+                             f"seq_len={seq_len}")
+        return cls(tokens=torch.as_tensor(np.asarray(tokens), device=dev
+                                          ).long(),
+                   offsets=torch.arange(n_workers, device=dev) * per,
+                   span=int(per), batch=int(batch_size), seq_len=int(seq_len))
+
+
+def store_from_batcher(batcher, device="cuda"):
+    """The device store of a host batcher's data, partition and batch
+    shape (the sample streams differ: numpy's generator against the
+    store's torch.Generator)."""
+    if isinstance(batcher, FederatedBatcher):
+        return ClassificationStore.build(batcher.x, batcher.y, batcher.parts,
+                                         batcher.b, device)
+    if isinstance(batcher, LMBatcher):
+        return LMStore.build(batcher.tokens, batcher.W, batcher.b, batcher.S,
+                             device)
+    raise TypeError(f"no device store for {type(batcher).__name__}")

@@ -322,6 +322,13 @@ def _counter_width(N: int, d: int, counter_width, row0: int = 0) -> int:
     return cw
 
 
+def check_counter_limit(N: int, d: int) -> int:
+    """The counter width of an [N, d] buffer's rounds, roundup(d, 128);
+    raises the ValueError of C2 where N of it pass 2^31 (a caller can
+    refuse a run before it allocates anything)."""
+    return _counter_width(N, d, None)
+
+
 def _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale, m_scale,
                    listen, lead=()):
     """(seed, col0, scal = [c, sigma_m], amp, self, m_scale, listen) as the

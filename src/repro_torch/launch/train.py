@@ -1,10 +1,13 @@
 """End-to-end DWFL training CLI of the port — the reference's
-``repro.launch.train`` for the paper's MLP: the static Rayleigh channel
-with one of the four schemes of the paper's comparison (dwfl, orthogonal,
-centralized, gossip), or the dynamic wireless network (``--channel-model
-dynamic --scenario ...``: fading, geometry, mobility and churn, a new
-channel and W every round, dwfl only), K-round chunks with on-device
-batch sampling. Without ``--flat-buffer`` it runs the worker-tree round
+``repro.launch.train``: the paper's MLP (``--arch dwfl-paper``, the
+default) or any LM of the registry (``--arch olmo-1b``, ``--reduced`` for
+its smoke-scale variant, ``--seq-len`` its windows) on the synthetic
+token stream, one window batch a worker, next-token loss; the static
+Rayleigh channel with one of the four schemes of the paper's comparison
+(dwfl, orthogonal, centralized, gossip), or the dynamic wireless network
+(``--channel-model dynamic --scenario ...``: fading, geometry, mobility
+and churn, a new channel and W every round, dwfl only), K-round chunks
+with on-device batch sampling. Without ``--flat-buffer`` it runs the worker-tree round
 (per-leaf noise, the mixing engine); with it the fused dp_mix round on
 the flat [N, d] buffer (dwfl and gossip only), as the reference does.
 ``--no-scan`` takes each round's batch from the host batcher instead, one
@@ -40,6 +43,8 @@ The chunks run under ``torch.cuda.set_sync_debug_mode("error")`` unless
 ``--no-transfer-guard``.
 
     python -m repro_torch.launch.train --arch dwfl-paper --flat-buffer
+    python -m repro_torch.launch.train --arch olmo-1b --workers 2 --batch-size 4 --steps 3
+    python -m repro_torch.launch.train --arch gemma-2b --reduced --workers 4 --seq-len 128 --device cpu
     python -m repro_torch.launch.train --scheme orthogonal --steps 300
     python -m repro_torch.launch.train --flat-buffer --channel-model dynamic --scenario iot_dense
     python -m repro_torch.launch.train --flat-buffer --channel-model dynamic \
@@ -56,7 +61,9 @@ The chunks run under ``torch.cuda.set_sync_debug_mode("error")`` unless
 Runs on the card by default and raises without one; ``--device cpu``
 runs the plain PyTorch versions of the kernels. Flags of the reference
 that this port does not carry yet exit with the ROADMAP item that will
-port them.
+port them. whisper-medium exits: its forward needs the audio frames
+(``batch["embeds"]``), which the token stream does not carry, and the
+reference's CLI cannot train it either.
 """
 from __future__ import annotations
 
@@ -72,23 +79,25 @@ import numpy as np
 import torch
 
 from repro_torch import obs
-from repro_torch.configs import DWFL_PAPER
+from repro_torch.configs.registry import ARCHS, get_arch
 from repro_torch.core import exchange as X
 from repro_torch.core import privacy
 from repro_torch.core import protocol as P
 from repro_torch.core import trajectory as TJ
-from repro_torch.data import (ClassificationStore, FederatedBatcher,
-                              classification_dataset, dirichlet_partition)
+from repro_torch.data import (FederatedBatcher, LMBatcher,
+                              classification_dataset, dirichlet_partition,
+                              lm_dataset, store_from_batcher)
+from repro_torch.kernels.dp_mix import ops as mix_ops
+from repro_torch.models import model as M
 from repro_torch.net.sparse import SparseW, isolated_count
 from repro_torch.runtime import resolve_device
 
-# reference flags not ported yet -> the ROADMAP item that ports them
-NOT_PORTED = {"--reduced": "A15", "--seq-len": "A15"}
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
-    ap.add_argument("--arch", default="dwfl-paper")
+    ap.add_argument("--arch", default="dwfl-paper", choices=list(ARCHS))
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-scale variant of the arch "
+                         "(ignored for dwfl-paper)")
     ap.add_argument("--scheme", default="dwfl",
                     choices=["dwfl", "orthogonal", "centralized", "gossip"])
     ap.add_argument("--workers", type=int, default=10)
@@ -96,8 +105,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch-size", type=int, default=32,
                     help="per-worker batch size")
     ap.add_argument("--hidden", type=int, default=0,
-                    help="override the arch's hidden width (0 = default)")
-    ap.add_argument("--dataset-size", type=int, default=20000)
+                    help="override the arch's d_model (0 = default)")
+    ap.add_argument("--dataset-size", type=int, default=20000,
+                    help="classification dataset size (dwfl-paper)")
+    ap.add_argument("--seq-len", type=int, default=128,
+                    help="tokens a window (the LMs)")
     ap.add_argument("--gamma", type=float, default=0.01)
     ap.add_argument("--eta", type=float, default=0.4)
     ap.add_argument("--clip", type=float, default=1.0)
@@ -200,17 +212,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "(0 = no watchdog; needs telemetry)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
-    args, rest = ap.parse_known_args(argv)
-    for tok in rest:
-        flag = tok.split("=", 1)[0]
-        if flag in NOT_PORTED:
-            raise SystemExit(f"{flag} is not ported to repro_torch yet "
-                             f"(ROADMAP {NOT_PORTED[flag]})")
-    if rest:
-        ap.error(f"unrecognized arguments: {' '.join(rest)}")
-    if args.arch != "dwfl-paper":
-        raise SystemExit(f"--arch {args.arch} is not ported to repro_torch "
-                         f"yet (ROADMAP A15); only dwfl-paper is")
+    args = ap.parse_args(argv)
+    if get_arch(args.arch).is_encoder_decoder:
+        raise SystemExit(f"--arch {args.arch} cannot train from the token "
+                         f"stream: its forward needs the audio frames "
+                         f"(batch['embeds']), which the LM batcher does not "
+                         f"make; the reference's CLI cannot train it either "
+                         f"(ROADMAP A16)")
     if args.sparse_neighbors > 0 and args.channel_model != "dynamic":
         raise SystemExit("--sparse-neighbors requires --channel-model "
                          "dynamic (the sparse neighbor list is the "
@@ -399,6 +407,31 @@ def _quote_eps(args, proto, carry, out, tele, t, do_eval, eps_dog, runlog):
                        **extra)
 
 
+def refuse_past_counter_limit(cfg, n_workers: int) -> None:
+    """C2, before anything is allocated: a flat buffer whose N
+    roundup(d, 128) noise counters pass 2^31 exits (the uint32 counters
+    would wrap; the reference's would, silently). d comes from the
+    parameters' shapes alone (an init on the meta device)."""
+    d = M.count_params(M.init_params(torch.Generator(), cfg, "meta"))
+    try:
+        mix_ops.check_counter_limit(n_workers, d)
+    except ValueError as e:
+        raise SystemExit(f"--flat-buffer at N = {n_workers}, d = {d}: {e} "
+                         f"(ROADMAP C2)") from None
+
+
+def model_config(args):
+    """The run's ModelConfig: the arch, its reduced() variant with
+    --reduced (dwfl-paper ignores the flag, as the reference does), its
+    d_model replaced by --hidden."""
+    cfg = get_arch(args.arch)
+    if args.reduced and args.arch != "dwfl-paper":
+        cfg = cfg.reduced()
+    if args.hidden > 0:
+        cfg = dataclasses.replace(cfg, d_model=args.hidden)
+    return cfg
+
+
 def protocol_config(args) -> P.ProtocolConfig:
     """The run's ProtocolConfig, from its parsed arguments."""
     total = args.total_epsilon > 0
@@ -426,9 +459,7 @@ def run(argv=None) -> dict:
     directory of a run log."""
     args = parse_args(argv)
     dev = _rank_device(args.device)
-    cfg = DWFL_PAPER
-    if args.hidden > 0:
-        cfg = dataclasses.replace(cfg, d_model=args.hidden)
+    cfg = model_config(args)
     W = args.workers
     total = args.total_epsilon > 0
     proto = protocol_config(args)
@@ -525,11 +556,19 @@ def run(argv=None) -> dict:
               f"sigma={rep['sigma']:.3g} (orthogonal would be "
               f"eps={rep['epsilon_orthogonal_worst']:.3g})")
 
-    x, y = classification_dataset(args.dataset_size, seed=args.seed)
-    parts = dirichlet_partition(y, W, alpha=args.dirichlet_alpha,
-                                seed=args.seed)
-    batcher = FederatedBatcher(x, y, parts, args.batch_size, seed=args.seed)
+    if cfg.family == "mlp":
+        x, y = classification_dataset(args.dataset_size, seed=args.seed)
+        parts = dirichlet_partition(y, W, alpha=args.dirichlet_alpha,
+                                    seed=args.seed)
+        batcher = FederatedBatcher(x, y, parts, args.batch_size,
+                                   seed=args.seed)
+    else:
+        toks = lm_dataset(W * 200_000, cfg.vocab_size, seed=args.seed)
+        batcher = LMBatcher(toks, W, args.batch_size, args.seq_len,
+                            seed=args.seed)
 
+    if proto.flat_buffer:
+        refuse_past_counter_limit(cfg, W)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     if fleet is not None:
@@ -574,16 +613,28 @@ def run(argv=None) -> dict:
                                 graph_fallback=args.graph_fallback)
                 print(f"[train] WARNING: {msg}")
 
+    # the eval batch, pinned once before the loop: the classifier's fixed
+    # per-worker slice; an LM's one draw of the batcher (the fleet's R
+    # draws), taken before any training batch, as the reference takes it
     evaluate = P.make_eval_fn(cfg)
     eval_batch = None
     if args.eval_every > 0:
-        eval_batch = {k: torch.as_tensor(v, device=dev)
-                      for k, v in batcher.full(256).items()}
+        R = 1 if fleet is None else fleet.replicates
+        if cfg.family == "mlp":
+            eval_batch = {k: torch.as_tensor(v, device=dev)
+                          for k, v in batcher.full(256).items()}
+            if fleet is not None:
+                eval_batch = {k: v.expand((R,) + v.shape)
+                              for k, v in eval_batch.items()}
+        else:
+            draws = [batcher.next() for _ in range(R)]
+            eval_batch = {k: torch.as_tensor(
+                draws[0][k] if fleet is None
+                else np.stack([d[k] for d in draws]), device=dev)
+                for k in draws[0]}
         if fleet is not None:
             from repro_torch.fleet import fleet_eval
             one = evaluate
-            eval_batch = {k: v.expand((fleet.replicates,) + v.shape)
-                          for k, v in eval_batch.items()}
             evaluate = lambda params, batch: tuple(
                 v.mean() for v in fleet_eval(one, params, batch))
     if args.no_scan:
@@ -591,7 +642,7 @@ def run(argv=None) -> dict:
         chunk = 1
         print("[train] per-round loop: host batches")
     else:
-        source = ClassificationStore.build(x, y, parts, args.batch_size, dev)
+        source = store_from_batcher(batcher, dev)
         coher = (sim.scenario.fading.coherence_rounds
                  if sim is not None else None)
         chunk = (args.chunk_rounds if args.chunk_rounds > 0

@@ -89,8 +89,8 @@ def init(generator: torch.Generator, cfg: ModelConfig, device="cuda"):
 def encode(params, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """frames: [B, encoder_seq_len, d] -> the encoder's output, same shape."""
     x = frames.to(L._dtype(cfg.compute_dtype)) + params["enc_pos"][None]
-    for i in range(cfg.num_encoder_layers):
-        x = enc_block_apply(T.layer(params["enc_blocks"], i), x, cfg)
+    for p in T.unstack(params["enc_blocks"], cfg.num_encoder_layers):
+        x = enc_block_apply(p, x, cfg)
     return L.norm_apply(params["enc_norm"], x, cfg)
 
 
@@ -113,8 +113,8 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     x = x + pe[None].to(x.dtype)
 
     caches = []
-    for i in range(cfg.num_layers):
-        x, c = dec_block_apply(T.layer(params["dec_blocks"], i), x, enc_out, cfg,
+    for i, p in enumerate(T.unstack(params["dec_blocks"], cfg.num_layers)):
+        x, c = dec_block_apply(p, x, enc_out, cfg,
                                positions, mode,
                                cache=T.layer(cache["self"], i) if decode else None,
                                cache_index=cache_index)

@@ -57,11 +57,11 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     decode = mode == "decode"
 
     m_caches, a_caches = [], []
-    for s in range(n_super):
-        mamba_p = T.layer(params["mamba"], s)
-        for i in range(k):
+    supers = T.unstack(params["mamba"], n_super) if n_super else []
+    for s, mamba_p in enumerate(supers):
+        for i, p in enumerate(T.unstack(mamba_p, k)):
             mc = T.layer(T.layer(cache["mamba"], s), i) if decode else None
-            x, c = S.ssm_block_apply(T.layer(mamba_p, i), x, cfg, mode,
+            x, c = S.ssm_block_apply(p, x, cfg, mode,
                                      cache=mc, use_pallas=use_pallas)
             m_caches.append(c)
         ac = T.layer(cache["attn"], s) if decode else None
@@ -69,9 +69,10 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
                              cache_index=cache_index)
         a_caches.append(c)
     r_caches = []
-    for i in range(n_rem):
+    rem = T.unstack(params["mamba_rem"], n_rem) if n_rem else []
+    for i, p in enumerate(rem):
         rc = T.layer(cache["mamba_rem"], i) if decode else None
-        x, c = S.ssm_block_apply(T.layer(params["mamba_rem"], i), x, cfg, mode,
+        x, c = S.ssm_block_apply(p, x, cfg, mode,
                                  cache=rc, use_pallas=use_pallas)
         r_caches.append(c)
 

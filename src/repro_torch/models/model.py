@@ -3,6 +3,7 @@ the ported families.
 
     params          = init_params(generator, cfg, device)
     loss            = loss_fn(params, batch, cfg)
+    losses          = worker_losses(worker_params, batch, cfg)   # [N]
     logits, cache   = prefill(params, batch, cfg, use_pallas=False)
     logits, cache   = decode_step(params, batch, cache, idx, cfg)
     cache           = init_cache(cfg, batch_size, max_len, device)
@@ -16,7 +17,8 @@ classifier, "tokens" [B, S] or "embeds" [B, S, d] for the LMs, both for
 the encoder-decoder (frames and decoder tokens). The MoE family's loss
 adds the router's load-balance aux loss.
 The classifier's losses reduce over the batch axis only, so
-worker-stacked parameters give one loss per worker.
+worker-stacked parameters give one loss per worker; ``worker_losses``
+gives the [N] losses of worker-stacked parameters for every family.
 """
 from __future__ import annotations
 
@@ -104,6 +106,13 @@ def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
     if cfg.family == "mlp":
         logits, _ = mlp.forward(params, batch, cfg)
         return cross_entropy(logits, batch["y"])
+    return lm_loss_and_logits(params, batch, cfg, use_pallas)[0]
+
+
+def lm_loss_and_logits(params, batch, cfg: ModelConfig,
+                       use_pallas: bool = False):
+    """(``loss_fn``'s loss, the train forward's logits) of one LM, from one
+    forward."""
     logits, _, aux = _forward(params, batch, cfg, "train", None, None,
                               use_pallas)
     if "labels" in batch:
@@ -112,7 +121,26 @@ def loss_fn(params, batch, cfg: ModelConfig, use_pallas: bool = False):
         loss = lm_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
     if aux is not None:
         loss = loss + cfg.router_aux_weight * aux
-    return loss
+    return loss, logits
+
+
+def worker_losses(worker_params, batch, cfg: ModelConfig) -> torch.Tensor:
+    """[N] training losses of worker-stacked parameters ([N, ...] leaves)
+    on a worker-stacked batch ([N, B, ...] leaves): worker i's loss is
+    ``loss_fn`` of its own parameters on its own batch, as the reference's
+    vmap over workers gives it. The classifier takes every worker at once
+    through batched products. An LM is run one worker at a time, each on
+    its rows of the leaves (``transformer.unstack``: autograd stacks the
+    workers' gradients into one [N, ...] gradient a leaf, with no
+    zero-filled copy): folding the workers into the batch axis would pool the MoE's
+    expert capacity and its load-balance loss over every worker's
+    tokens."""
+    if cfg.family == "mlp":
+        return loss_fn(worker_params, batch, cfg)
+    n = next(iter(batch.values())).shape[0]
+    return torch.stack([
+        loss_fn(p, {k: v[i] for k, v in batch.items()}, cfg)
+        for i, p in enumerate(transformer.unstack(worker_params, n))])
 
 
 def prefill(params, batch, cfg: ModelConfig, use_pallas: bool = False):

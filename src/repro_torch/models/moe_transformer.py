@@ -72,8 +72,9 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
 
     n_dense = cfg.first_dense_layers
     d_caches = []
-    for i in range(n_dense):
-        x, c = T.block_apply(T.layer(params["dense_blocks"], i), x, cfg,
+    dense = T.unstack(params["dense_blocks"], n_dense) if n_dense else []
+    for i, p in enumerate(dense):
+        x, c = T.block_apply(p, x, cfg,
                              positions, mode,
                              cache=T.layer(cache["dense"], i) if decode else None,
                              cache_index=cache_index)
@@ -81,9 +82,10 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     m_caches = []
-    for i in range(cfg.num_layers - n_dense):
+    for i, p in enumerate(T.unstack(params["moe_blocks"],
+                                    cfg.num_layers - n_dense)):
         x, c, a = moe_block_apply(
-            T.layer(params["moe_blocks"], i), x, cfg, positions, mode,
+            p, x, cfg, positions, mode,
             cache=T.layer(cache["moe"], i) if decode else None,
             cache_index=cache_index)
         aux = aux + a

@@ -49,6 +49,22 @@ def layer(tree, i: int):
     return tree[i]
 
 
+def unstack(tree, n: int) -> list:
+    """A stacked tree (nested dicts and lists of [n, ...] tensors) -> its n
+    slices along the leading axis, each leaf split once by ``unbind``
+    (views). Through autograd the slices' gradients come back stacked
+    into one gradient a leaf; taking the slices one by one (``layer``)
+    would make, for each slice, a zero-filled gradient of the whole leaf
+    and add the n of them up."""
+    if isinstance(tree, dict):
+        parts = {k: unstack(v, n) for k, v in tree.items()}
+        return [{k: rows[i] for k, rows in parts.items()} for i in range(n)]
+    if isinstance(tree, (list, tuple)):
+        parts = [unstack(v, n) for v in tree]
+        return [type(tree)(rows[i] for rows in parts) for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def stack(caches):
     """Per-layer cache dicts -> one dict of tensors stacked on a leading
     layer axis."""
@@ -81,10 +97,9 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     offset = int(cache_index) if mode == "decode" else 0
     positions = _positions_for(batch, cfg, S, B, x.device, offset=offset)
 
-    blocks = params["blocks"]
     caches = []
-    for i in range(cfg.num_layers):
-        x, c = block_apply(layer(blocks, i), x, cfg, positions, mode,
+    for i, p in enumerate(unstack(params["blocks"], cfg.num_layers)):
+        x, c = block_apply(p, x, cfg, positions, mode,
                            cache=None if cache is None else layer(cache, i),
                            cache_index=cache_index, use_pallas=use_pallas)
         caches.append(c)

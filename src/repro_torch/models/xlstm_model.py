@@ -62,19 +62,22 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
         return tree
 
     m_caches, s_caches, r_caches = [], [], []
+    mlstm = T.unstack(params["mlstm"], n_super) if n_super else []
+    slstm = T.unstack(params["slstm"], n_super) if n_super else []
     for s in range(n_super):
-        for i in range(r - 1):
+        for i, p in enumerate(T.unstack(mlstm[s], r - 1)):
             x, c = X.mlstm_block_apply(
-                at(params["mlstm"], s, i), x, cfg, mode,
+                p, x, cfg, mode,
                 cache=at(cache["mlstm"], s, i) if decode else None)
             m_caches.append(c)
         x, c = X.slstm_block_apply(
-            at(params["slstm"], s), x, cfg, mode,
+            slstm[s], x, cfg, mode,
             cache=at(cache["slstm"], s) if decode else None)
         s_caches.append(c)
-    for i in range(n_rem):
+    rem = T.unstack(params["mlstm_rem"], n_rem) if n_rem else []
+    for i, p in enumerate(rem):
         x, c = X.mlstm_block_apply(
-            at(params["mlstm_rem"], i), x, cfg, mode,
+            p, x, cfg, mode,
             cache=at(cache["mlstm_rem"], i) if decode else None)
         r_caches.append(c)
 

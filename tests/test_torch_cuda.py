@@ -24,7 +24,10 @@ dp_mix_gather): the same tolerance with the mix's k + 1 terms in place of
 N; with zero weights bitwise the dense kernel's round. dp_mix's replicate
 axis (a stack of R rounds in one launch): each replicate bitwise the
 launch of its own operands, on both routes, and the whole within the
-plain twin's tolerance above, replicate by replicate."""
+plain twin's tolerance above, replicate by replicate. A reduced olmo-1b
+round, flat and tree, on the card against the CPU within 1e-4 (1 +
+max|out|), and C2's refusal of olmo-1b's full-depth flat buffer at N =
+2."""
 import pytest
 import torch
 
@@ -928,3 +931,62 @@ def test_row_sum_squares_does_not_depend_on_the_row_count(n):
     ref = torch.sum(x.double() ** 2, dim=1)
     torch.testing.assert_close(whole.double(), ref, rtol=n * 2 ** -24,
                                atol=0)
+
+
+def _lm_round(flat: bool, dev: str, wp, batch, normals, cfg, proto):
+    """One reduced LM round on ``dev``: the flat round at seed 77 or the
+    worker-tree round with the given normals."""
+    from repro_torch.core import protocol as P
+    to = lambda tree: X.tree_map(lambda t: t.to(dev), tree)
+    if flat:
+        spec = X.FlatSpec(wp)
+        step = P.make_flat_train_step(cfg, proto, spec, dev)
+        out, m = step(spec.flatten(wp).to(dev), to(batch),
+                      torch.tensor([77], dtype=torch.int32, device=dev))
+        return out.cpu(), m
+    step = P.make_train_step(cfg, proto, dev)
+    out, m = step(to(wp), to(batch), None, normals=to(normals))
+    return X.flatten_worker_tree(X.tree_map(lambda t: t.cpu(), out)), m
+
+
+@pytest.mark.parametrize("flat", [True, False], ids=["flat", "tree"])
+def test_reduced_lm_round_on_the_card_matches_cpu(flat):
+    """One reduced olmo-1b round (N = 3) on the card against the CPU's
+    from the same parameters, token batch and seed (flat: one dp_mix
+    launch) or normals (tree, use_pallas: one sgd_update_leaves launch),
+    within 1e-4 (1 + max|out|) as the earlier slices' small rounds."""
+    _need_card()
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import protocol as P
+    from repro_torch.data import LMStore, lm_dataset
+    cfg, N = get_arch("olmo-1b").reduced(), 3
+    proto = P.ProtocolConfig(n_workers=N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, use_pallas=not flat)
+    gen = torch.Generator().manual_seed(7)
+    wp = P.init_worker_params(gen, cfg, N, "cpu")
+    store = LMStore.build(lm_dataset(N * 2000, cfg.vocab_size, seed=7), N, 2,
+                          32, "cpu")
+    batch = store.draw(gen)
+    normals = None if flat else X.draw_normals(wp, gen)
+    want, wm = _lm_round(flat, "cpu", wp, batch, normals, cfg, proto)
+    counter = ops.dp_mix_round if flat else dp_ops.sgd_update_leaves
+    before = counter.launches
+    got, gm = _lm_round(flat, "cuda", wp, batch, normals, cfg, proto)
+    assert counter.launches == before + 1
+    tol = 1e-4 * (1.0 + float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    assert float(gm["loss"]) == pytest.approx(float(wm["loss"]), rel=1e-5)
+
+
+def test_flat_cli_refuses_olmo_full_depth_at_two_workers():
+    """C2: olmo-1b's full-depth buffer at N = 2 needs 2 * 1,176,764,416
+    noise counters, past 2^31; the flat CLI exits naming C2 before a
+    round, and no dp_mix launch is made."""
+    _need_card()
+    from repro_torch.launch import train
+    before = ops.dp_mix_round.launches
+    with pytest.raises(SystemExit, match="2 \\* 1176764416 exceeds 2\\^31.*C2"):
+        train.run(["--arch", "olmo-1b", "--workers", "2", "--flat-buffer",
+                   "--batch-size", "4", "--steps", "0"])
+    assert ops.dp_mix_round.launches == before
+    torch.cuda.empty_cache()

@@ -466,9 +466,21 @@ def test_cli_replicates_on_cpu(extra):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--replicates", "2", "--seq-len", "256"], "A15"),
     (["--replicates", "2", "--channel-model", "dynamic", "--scenario",
       "mesh_sparse", "--sparse-neighbors", "4"], "A20")])
 def test_cli_replicates_refusals(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train.parse_args(argv)
+
+
+def test_cli_replicates_take_seq_len():
+    """--replicates with --seq-len, once refused: the fleet trains an LM,
+    its windows --seq-len long ([R, N, B, S] batches)."""
+    args = train.parse_args(["--replicates", "2", "--seq-len", "256",
+                             "--channel-model", "dynamic", "--arch",
+                             "olmo-1b"])
+    assert (args.replicates, args.seq_len) == (2, 256)
+    from repro_torch.data import LMStore
+    store = LMStore.build(np.arange(4 * 600), 4, 3, 256, "cpu")
+    batch = store.draw_fleet(torch.Generator().manual_seed(0), 2)
+    assert batch["tokens"].shape == (2, 4, 3, 256)

@@ -2,7 +2,7 @@
 bitwise equal to ``make_flat_spec(...).flatten``, ``params_from_jax``
 round trips, and the per-worker loss and clipped gradients equal to
 ``protocol._make_flat_local_pass`` at float32 tolerance, non-finite guard
-included."""
+included, and the eval of the classifier and of an LM."""
 import dataclasses
 
 import jax
@@ -125,6 +125,9 @@ def test_loss_and_clipped_grads_match_reference(poison):
 
 
 def test_eval_fn_matches_reference_and_nan_without_labels():
+    """The classifier's eval and an LM's (C6: its loss and next-token
+    accuracy, not NaN) against the reference's; NaN only for a batch with
+    no labels at all (neither "y", "labels" nor "tokens")."""
     cfg, wp = _ref_params(4)
     x, y = _batch(5)
     rl, ra = RP.make_eval_fn(cfg)(wp, {"x": jnp.asarray(x),
@@ -137,4 +140,22 @@ def test_eval_fn_matches_reference_and_nan_without_labels():
     np.testing.assert_allclose(float(el), float(rl), rtol=1e-5)
     assert float(ea) == pytest.approx(float(ra))
     nan_loss, nan_acc = ev(layers, {"x": torch.from_numpy(x)})
+    assert np.isnan(float(nan_acc)) and np.isnan(float(nan_loss))
+
+    from repro.configs.registry import get_arch as ref_arch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.convert import lm_worker_params_from_jax
+    rcfg, lcfg = ref_arch("olmo-1b").reduced(), get_arch("olmo-1b").reduced()
+    lwp = RP.init_worker_params(jax.random.PRNGKey(6), rcfg, N)
+    toks = jax.random.randint(jax.random.PRNGKey(7), (N, 2, 16), 0,
+                              rcfg.vocab_size)
+    rl, ra = jax.jit(RP.make_eval_fn(rcfg))(lwp, {"tokens": toks})
+    _, tree, _ = lm_worker_params_from_jax(_np_tree(lwp), "cpu")
+    lev = P.make_eval_fn(lcfg)
+    el, ea = lev(tree, {"tokens": torch.from_numpy(np.array(toks))})
+    np.testing.assert_allclose(float(el), float(rl), rtol=1e-5)
+    assert float(ea) == pytest.approx(float(ra))
+    assert np.isfinite(float(el)) and np.isfinite(float(ea))
+    embeds = torch.zeros((N, 2, 16, lcfg.d_model))
+    nan_loss, nan_acc = lev(tree, {"embeds": embeds})
     assert np.isnan(float(nan_acc)) and np.isnan(float(nan_loss))

@@ -169,14 +169,32 @@ def test_cli_runs_on_cpu_flat_buffer():
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--reduced"], "A15"),
-    (["--seq-len", "256"], "A15"),
-    (["--arch", "gemma-2b"], "A15"),
     (["--replicates", "2", "--sparse-neighbors", "4", "--channel-model",
       "dynamic"], "A20")])
 def test_cli_names_the_roadmap_item_of_unported_flags(argv, item):
     with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
         train.parse_args(argv)
+
+
+@pytest.mark.parametrize("argv,want", [
+    (["--arch", "olmo-1b", "--reduced"],
+     dict(name="olmo-1b", num_layers=2, d_model=256)),
+    (["--arch", "gemma-2b", "--seq-len", "256"],
+     dict(name="gemma-2b", num_layers=18, d_model=2048)),
+    (["--arch", "gemma-2b"], dict(name="gemma-2b", vocab_size=256000))],
+    ids=["reduced", "seq-len", "arch"])
+def test_cli_takes_the_lm_flags(argv, want):
+    """--reduced, --seq-len and every registry --arch, which the CLI once
+    refused: the model configuration the run trains (the reference's
+    get_arch, reduced() under --reduced)."""
+    from repro.configs.registry import get_arch as ref_arch
+    args = train.parse_args(argv)
+    cfg = train.model_config(args)
+    ref = ref_arch(args.arch)
+    ref = ref.reduced() if args.reduced else ref
+    for k, v in want.items():
+        assert getattr(cfg, k) == v == getattr(ref, k)
+    assert args.seq_len == (256 if "--seq-len" in argv else 128)
 
 
 def test_cuda_is_the_default_and_never_falls_back():
