@@ -95,7 +95,17 @@ Phases, each fatal on failure (exit code 1, no result line):
              a run log (telemetry on) read back by ``obs.report``, and
              its rounds/s with telemetry on and off in turns; the sweep
              (``python -m repro_torch.fleet.sweep``, 8 cells, 5 steps),
-             its rows with the reference's keys; then sharding and
+             its rows with the reference's keys; the fleet's sparse round
+             (R = 4 networks of N = 512 on mesh_sparse, k = 12): the
+             sparse kernels' replicate axis (one dp_mix_prep and one
+             dp_mix_gather over [4, 512, 855,050]) bitwise 4 separate
+             launches, within tolerance of the plain twin, timed in turns
+             with them beside its bound; the fleet sparse CLI
+             (``--replicates 4 --workers 512 --sparse-neighbors 12``, 6
+             rounds) under its sync guard, one sparse call a round and no
+             dense one, and one prep and one gather kernel a round under
+             torch.profiler; a reduced fleet sparse round card against
+             CPU; then sharding and
              checkpoints: dp_mix over the model axis's S = 2 and
              4 column windows (logical, one card: one launch over the
              padded buffer) bitwise the one launch over the unpadded
@@ -113,10 +123,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              one-rank NCCL group the model-axis mesh step, the (1, 1)
              fleet mesh round and the worker-axis trajectory at N = 2048
              (its row-window launches counted), each bitwise its logical
-             or unsharded twin; with two cards (and alone with
-             ``--two-cards``), the CLI at --model-shards 2 and
+             or unsharded twin; the model-axis and worker-axis
+             trajectories with telemetry on, on their one-rank groups,
+             rows and carry.eps bitwise the logical mode's, and
+             telemetry's cost on them in turns; with two cards (and alone
+             with ``--two-cards``), the CLI at --model-shards 2 and
              --worker-shards 2 on two torchrun-style ranks against the
-             logical and unsharded runs;
+             logical and unsharded runs, each with a run log that rank 0
+             alone writes;
              the static and the dynamic flat round and the simulator's
              round timed in turns, and the flat CLI, static and dynamic,
              warm and without evals, in turns;
@@ -209,6 +223,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -343,6 +358,10 @@ SPARSE_TREE_N = 64
 # also on the large-N route at (R 4, N 64); the tree round's rounds
 FLEET_SCENARIO, FLEET_R, FLEET_STEPS, FLEET_TREE_ROUNDS = "vehicular", 8, 100, 5
 RAXIS_CASES = ((FLEET_R, PATH_N, PATH_D), (4, 64, PATH_D))
+# the fleet's sparse round (ROADMAP A20): R = 4 networks of N = 512 on
+# mesh_sparse at k = SPARSE_K, the worker-scale path's 2048 rows (R = 2 at N
+# = 2048 would not fit one card); the CLI's steps (it runs --steps + 1)
+FLEET_SPARSE_R, FLEET_SPARSE_N, FLEET_SPARSE_STEPS = 4, 512, 5
 # the keys of a sweep row: the reference's run_point returns these and the
 # grid point's four (tests/test_torch_fleet.py holds them against it)
 SWEEP_KEYS = frozenset((
@@ -354,6 +373,9 @@ SWEEP_KEYS = frozenset((
     "accountant_gap"))
 # the reference's telemetry overhead ceiling (BENCH_obs.json)
 TELEMETRY_CEILING = 0.05
+# the telemetry columns in their order (obs.telemetry's catalogue)
+TELEMETRY_FIELDS = ("loss", "grad_norm", "consensus", "snr_db", "deep_fade",
+                    "participation", "epsilon")
 # sharding and checkpoints (ROADMAP A13, A14): the model axis's shard
 # counts (logical, one card), the worker axis's (its row windows stitched
 # on one card, at the worker-scale path's shape), and the sharded flat
@@ -512,7 +534,52 @@ PREDICTIONS = {
                  "each start 12-25 s (as first measured: 13.6 and 20.3); "
                  "the clip's norms no longer round by the row count "
                  "(privacy.row_sum_squares), so a rank's 5 workers get "
-                 "the bits the logical mode's 10 get",
+                 "the bits the logical mode's 10 get; with --runlog-dir "
+                 "on both runs one run log, rank 0's, its rows the "
+                 "one-card run's telemetry (model: bitwise but consensus, "
+                 "within rtol 1e-6; worker: within rtol 1e-5)",
+    "fleet_sparse_kernel": "the sparse round's replicate axis at (R 4, N "
+                           "512, 855,050, k 12, float32, noisy): one wrapper "
+                           "count, bitwise the 4 separate launches (0 "
+                           "elements differ), within the sparse round's "
+                           "tolerance of the plain twin on three column "
+                           "windows of each replicate; 28-38 ms against "
+                           "the separate launches' 29-39 (the same 2048 "
+                           "rows as the N = 2048 round's 34.8 ms; a "
+                           "replicate's column slab of z is 2 MB of L2, not "
+                           "8), within 5% of each other; a bound of 6.3-6.9 "
+                           "ms (operations: the normals' lane-instructions, "
+                           "as at N = 2048, with fewer realized slots at "
+                           "mesh_sparse's lower density); the twin 3.5-5 s "
+                           "in 2^16-column windows",
+    "fleet_sparse_cli": "the fleet sparse CLI (mesh_sparse, R 4 x N 512, k "
+                        "12, 6 rounds) under the sync guard: 6 "
+                        "dp_mix_round_sparse calls in 6 rounds and no "
+                        "dense one, every loss finite, the epsilon report "
+                        "over 4 replicates and 6 rounds; 5-9 rounds/s, so "
+                        "20-36 replicate-rounds/s with the first round and "
+                        "eval (the N = 2048 sparse CLI ran 7.51 rounds/s on "
+                        "the same 2048 rows); peak 38-44 GiB (as the N = "
+                        "2048 CLI's 40.6: the same buffer, gradient, output "
+                        "and workspace sizes); under torch.profiler 2 "
+                        "dp_mix_prep and 2 dp_mix_gather kernels in 2 "
+                        "rounds and no dense kernel",
+    "fleet_sparse_cpu_vs_cuda": "a reduced fleet sparse round (R 2 x N 16, "
+                                "hidden 16, k 4, with the fallback) on the "
+                                "card within 1e-4 (1 + max|x|) of the "
+                                "CPU's (the earlier small rounds measured "
+                                "~1e-7)",
+    "mesh_telemetry": "on one-rank NCCL groups under the sync guard, "
+                      "telemetry on: the model-axis trajectory at (10, "
+                      "855,050), 10 rounds, and the worker-axis one at N = "
+                      "2048, 2 rounds, their rows and carry.eps bitwise "
+                      "the logical mode's (0 elements differ); telemetry's "
+                      "cost in turns 3-20% of the model-axis round (a "
+                      "host-bound 3-6 ms round; PR 22 read 3.8-14.3% on "
+                      "the CLI, plus one scalar all_reduce) and 8-25% of "
+                      "the worker-axis round (~100 ms; consensus reads the "
+                      "7 GB buffer about six times, ~13-15 ms at the HBM "
+                      "rate)",
     "zoo_deepseek": "deepseek-moe-16b at full width and depth in float32 "
                     "(61.0 GiB of parameters): no kernel launched; the CLI "
                     "(4 x 64, gen 32) and the driver (4 x 1024) finite. "
@@ -3723,13 +3790,114 @@ def worker_axis_phase(counts: dict, rates: dict, width: int = 4096) -> dict:
     return rec
 
 
+def mesh_telemetry_run(kind: str, mesh, on: bool, store, rounds: int
+                       ) -> dict:
+    """A warm round, then ``rounds`` rounds in one chunk, of the dynamic
+    flat trajectory under the CLI's sync guard: kind "model" (iot_dense at
+    (10, 855,050), the one-window layout, its window on ``mesh``'s "model"
+    axis) or "workers" (mesh_sparse at N = 2048, k 12, its rows on
+    ``mesh``'s "workers" axis); ``mesh`` None: the logical mode (the
+    unsharded buffer for the worker axis). ``on``: every telemetry column
+    and epsilon (``TelemetrySpec()``). Returns the chunk's telemetry rows,
+    carry.eps and its seconds on the host's clock."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.obs import (TelemetrySpec, init_eps_moments,
+                                 no_implicit_transfers)
+    from repro_torch.shard import ShardLayout, local_rows, local_window
+    if kind == "model":
+        N, proto = PATH_N, dynamic_proto(PATH_N, flat_buffer=True)
+    else:
+        N, proto = SPARSE_N, sparse_proto(SPARSE_N, flat_buffer=True)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sim = proto.simulator("cuda")
+    wp = P.init_worker_params(gen, DWFL_PAPER, N, "cuda")
+    spec = (X.make_flat_spec(wp, layout=ShardLayout(X.FlatSpec(wp).d, 1))
+            if kind == "model" else X.FlatSpec(wp))
+    flat = spec.flatten(wp)
+    del wp
+    if mesh is not None:
+        flat = (local_window(flat, spec, mesh) if kind == "model"
+                else local_rows(flat, mesh))
+    axes = ({"shard_mesh": mesh} if kind == "model"
+            else {"worker_mesh": mesh})
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda",
+                              sim=sim, telemetry=TelemetrySpec() if on
+                              else None, **axes)
+    carry = TJ.TrajCarry(gen, flat, sim.init(gen),
+                         init_eps_moments(device="cuda") if on else None)
+    del flat
+    with no_implicit_transfers(True, "cuda"):          # as the CLI runs it
+        carry, _ = TJ.run_chunk(body, carry, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, out = TJ.run_chunk(body, carry, rounds)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    rec = {"rows": out.get("telemetry"), "eps": carry.eps,
+           "seconds": seconds}
+    del body, carry, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_telemetry(stores: dict) -> dict:
+    """Telemetry over a one-rank process-group mesh (ROADMAP A21): the
+    model-axis trajectory at (10, 855,050) and the worker-axis trajectory
+    at N = 2048, with every column and epsilon, each on its one-rank
+    group against the logical mode (rows and carry.eps bitwise: one rank,
+    the same sums); and on the mesh, telemetry on against off in turns
+    (on, off, off, on): its cost."""
+    import torch
+    from repro_torch.launch.mesh import make_shard_mesh, make_worker_mesh
+    predict("mesh_telemetry")
+    bits = lambda t: t.contiguous().view(torch.int32)
+    meshes = {"model": make_shard_mesh(1, device="cuda"),
+              "workers": make_worker_mesh(1, device="cuda")}
+    rounds = {"model": 10, "workers": 2}
+    rec = {}
+    for kind, mesh in meshes.items():
+        logical = mesh_telemetry_run(kind, None, True, stores[kind],
+                                     rounds[kind])
+        runs = {"on": [], "off": []}
+        for on in (True, False, False, True):
+            runs["on" if on else "off"].append(mesh_telemetry_run(
+                kind, mesh, on, stores[kind], rounds[kind]))
+        got = runs["on"][0]
+        on_s = min(r["seconds"] for r in runs["on"]) / rounds[kind]
+        off_s = min(r["seconds"] for r in runs["off"]) / rounds[kind]
+        rec[kind] = {
+            "rounds": rounds[kind],
+            "rows_differ": int((bits(got["rows"])
+                                != bits(logical["rows"])).sum()),
+            "eps_differ": int((bits(got["eps"])
+                               != bits(logical["eps"])).sum()),
+            "rows_finite_but_snr": bool(torch.isfinite(
+                got["rows"][:, [0, 1, 2, 4, 5, 6]]).all()),
+            "ms_on_in_turns": [1e3 * r["seconds"] / rounds[kind]
+                               for r in runs["on"]],
+            "ms_off_in_turns": [1e3 * r["seconds"] / rounds[kind]
+                                for r in runs["off"]],
+            "telemetry_cost": on_s / off_s - 1.0}
+    print(f"[shard] telemetry on one-rank meshes {json.dumps(rec)}",
+          flush=True)
+    for kind, r in rec.items():
+        if r["rows_differ"] or r["eps_differ"] or not r["rows_finite_but_snr"]:
+            fail(f"telemetry on the one-rank {kind} mesh: {r}")
+    return rec
+
+
 def mesh_one_rank_phase(store) -> dict:
     """The process-group paths on a one-rank NCCL group (NCCL puts one rank
     on a card): the model-axis mesh step against the logical one at S =
     1, the (1, 1) fleet mesh round against the logical fleet round, and
     the worker-axis trajectory at the worker-scale shape (3 rounds; the
     row windows' counts set to 0 just before and read just after) against
-    the unsharded trajectory. Returns the worker-axis run's counts."""
+    the unsharded trajectory; then both trajectories with telemetry on
+    (``mesh_telemetry``). Returns the worker-axis run's counts."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import DWFL_PAPER
@@ -3828,6 +3996,8 @@ def mesh_one_rank_phase(store) -> dict:
         rec["worker_axis_differ"] = int((bits(finals[0])
                                          != bits(finals[1])).sum())
         del finals
+        rec["telemetry"] = mesh_telemetry({"model": store,
+                                           "workers": wstore})
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -3859,7 +4029,10 @@ def _cli_rank(rank: int, port: int, argv: list, out_dir: str) -> None:
     import torch
     from repro_torch.launch import train
     res = train.run(list(argv))
-    torch.save({"params": res["params"].cpu(), "losses": res["losses"]},
+    run_dir = res["runlog_dir"]
+    torch.save({"params": res["params"].cpu(), "losses": res["losses"],
+                "telemetry": res["telemetry"],
+                "runlog_dir": None if run_dir is None else str(run_dir)},
                f"{out_dir}/rank{rank}.pt")
 
 
@@ -3868,7 +4041,13 @@ def two_card_cli() -> dict:
     it: ``--model-shards 2`` (a column window a card) bitwise the logical
     run on this card, buffer and losses; ``--worker-shards 2`` on
     mesh_sparse at N = 2048 (k 12; the rows a card) within rtol 1e-5, atol
-    3e-5 of the unsharded sparse CLI, the losses bitwise."""
+    3e-5 of the unsharded sparse CLI, the losses bitwise. Both with
+    ``--runlog-dir`` (telemetry on): rank 0 alone writes a run log, and its
+    round rows agree with the one-card run's telemetry (``--telemetry
+    on``): the model axis bitwise but consensus (rtol 1e-6, a sum of the
+    ranks' partial sums), the worker axis's channel columns bitwise, its
+    loss bitwise, grad_norm and consensus within rtol 1e-5 (the buffer's
+    tolerance)."""
     import torch
     import torch.multiprocessing as mp
     from repro_torch.launch import train
@@ -3881,18 +4060,57 @@ def two_card_cli() -> dict:
                      "--sparse-neighbors", str(SPARSE_K)]
     rec = {"cards": torch.cuda.device_count(), "steps": TWO_CARD_STEPS}
     ranks = {}
+    logs = {}
     for name, argv in (("model", model),
                        ("worker", sparse + ["--worker-shards", "2"])):
         out_dir = ROOT / "build" / f"chip_smoke_two_cards_{name}"
-        out_dir.mkdir(parents=True, exist_ok=True)
+        if out_dir.exists():
+            shutil.rmtree(out_dir)
+        out_dir.mkdir(parents=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mp.spawn(_cli_rank, args=(_free_port(), argv, str(out_dir)),
+        mp.spawn(_cli_rank, args=(_free_port(), argv + [
+            "--runlog-dir", str(out_dir / "runs")], str(out_dir)),
                  nprocs=2, join=True)
         rec[f"{name}_seconds"] = time.perf_counter() - t0
-        ranks[name] = [torch.load(out_dir / f"rank{r}.pt") for r in range(2)]
+        ranks[name] = [torch.load(out_dir / f"rank{r}.pt",
+                                  weights_only=False) for r in range(2)]
+        dirs = sorted(str(d) for d in (out_dir / "runs").iterdir())
+        rec[f"{name}_run_logs"] = len(dirs)
+        if (dirs != [ranks[name][0]["runlog_dir"]]
+                or ranks[name][1]["runlog_dir"] is not None):
+            fail(f"the CLI on two cards, {name}: run logs {dirs}, ranks' "
+                 f"{[r['runlog_dir'] for r in ranks[name]]}")
+        events = [json.loads(line) for line in
+                  (Path(dirs[0]) / "events.jsonl").read_text().splitlines()]
+        logs[name] = [e for e in events if e["type"] == "round"]
     bits = lambda t: t.contiguous().view(torch.int32)
-    want = train.run(model)
+    fields = list(TELEMETRY_FIELDS)
+
+    def log_rows(name, want_rows):
+        """rank 0's run-log rows against the one-card run's telemetry:
+        (columns bitwise, the largest relative difference of the rest)."""
+        got = torch.tensor([[e[f] for f in fields] for e in logs[name]],
+                           dtype=torch.float32)
+        want_rows = want_rows.float()
+        if got.shape != want_rows.shape:
+            fail(f"the CLI on two cards, {name}: {tuple(got.shape)} run-log "
+                 f"rows for {tuple(want_rows.shape)} telemetry rows")
+        # NaN (a round with no listener's SNR) matches NaN
+        got = torch.where(got.isnan(), float("nan"), got)
+        want_rows = torch.where(want_rows.isnan(), float("nan"), want_rows)
+        same = [f for i, f in enumerate(fields)
+                if torch.equal(bits(got[:, i]), bits(want_rows[:, i]))]
+        rel = {f: float(((got[:, i] - want_rows[:, i]).abs()
+                         / want_rows[:, i].abs().clamp_min(1e-30)).max())
+               for i, f in enumerate(fields) if f not in same}
+        return same, rel
+
+    want = train.run(model + ["--telemetry", "on"])
+    same, rel = log_rows("model", want["telemetry"])
+    rec["model_log_bitwise"], rec["model_log_rel"] = same, rel
+    if set(rel) - {"consensus"} or rel.get("consensus", 0.0) > 1e-6:
+        fail(f"the CLI on two cards, model: run-log rows {rel}")
     got = torch.cat([r["params"] for r in ranks["model"]], dim=1)
     rec["model_differ"] = int((bits(got) != bits(want["params"].cpu()))
                               .sum())
@@ -3900,7 +4118,12 @@ def two_card_cli() -> dict:
                                     for r in ranks["model"])
     del want, got
     torch.cuda.empty_cache()
-    want = train.run(sparse)
+    want = train.run(sparse + ["--telemetry", "on"])
+    same, rel = log_rows("worker", want["telemetry"])
+    rec["worker_log_bitwise"], rec["worker_log_rel"] = same, rel
+    if (set(rel) - {"consensus", "grad_norm"}
+            or max(rel.values(), default=0.0) > 1e-5):
+        fail(f"the CLI on two cards, worker: run-log rows {rel}")
     got = torch.cat([r["params"] for r in ranks["worker"]])
     ref = want["params"].cpu()
     del want["params"]
@@ -4131,6 +4354,291 @@ def fleet_turns(store, n_rounds: int = 20) -> dict:
     return rec
 
 
+def fleet_sparse_operands(R: int, N: int, d: int, seed: int = 5):
+    """R sparse rounds' operands at [R, N, d] from a fleet round of the
+    port's simulator on the card (mesh_sparse, k = SPARSE_K): (proto, the
+    stacked plan_dynamic_sparse plan, random p and g, R int32 seeds)."""
+    import torch
+    from repro_torch.fleet import FleetEngine
+    proto = sparse_proto(N)
+    fleet = FleetEngine(proto, R, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    st = fleet.init(gen)
+    for _ in range(2):
+        st, chans, _, Ws = fleet.round(gen, st)
+    plan = proto.plan(chans, "cuda", Ws)
+    p = torch.randn((R, N, d), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((R, N, d), generator=gen, device="cuda")
+    seeds = torch.randint(-2 ** 31, 2 ** 31, (R,), dtype=torch.int32,
+                          generator=gen, device="cuda")
+    return proto, plan, p, g, seeds
+
+
+def check_sparse_raxis(R: int, N: int, d: int, counts: dict, rates: dict,
+                       width: int = 4096) -> dict:
+    """The sparse round's replicate axis (one dp_mix_prep and one
+    dp_mix_gather launch over [R, N, d], float32, noisy) on a fleet round's
+    stacked neighbor lists: bitwise R separate launches of the wrapper on
+    each replicate's operands; each replicate within the sparse round's
+    tolerance of its plain twin over three column windows (check_sparse's);
+    timed in turns with the R separate launches, the plain twin over the
+    whole stack in 2^16-column windows, and the bound (sparse_work of each
+    replicate at its realized slots, summed)."""
+    import torch
+    from types import SimpleNamespace
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_sparse_plain
+    from repro_torch.net.sparse import isolated_count
+    predict("fleet_sparse_kernel")
+    proto, plan, p, g, seeds = fleet_sparse_operands(R, N, d)
+    sw = plan.W
+    k = sw.k
+    kw = dict(gamma=proto.gamma, eta=proto.eta)
+    batched = lambda: ops.dp_mix_round_sparse(
+        p, g, seeds, sw, plan.amp, plan.c, plan.sigma_m,
+        m_scale=plan.m_scale, listen=plan.listen, **kw)
+    one = lambda r: ops.dp_mix_round_sparse(
+        p[r], g[r], seeds[r], sw[r], plan.amp[r], plan.c[r],
+        plan.sigma_m[r], m_scale=plan.m_scale[r], listen=plan.listen[r],
+        **kw)
+    separate = lambda: [one(r) for r in range(R)]
+    before = ops.dp_mix_round_sparse.launches
+    out = batched()
+    calls = ops.dp_mix_round_sparse.launches - before
+    differ = 0
+    for r in range(R):
+        differ += int((out[r].view(torch.int32)
+                       != one(r).view(torch.int32)).sum())
+    torch.cuda.synchronize()
+    cw = ops._roundup(d, ops.LANES)
+
+    def window(r, a, b):
+        vecs = ops._round_vectors(N, p.device, seeds[r], a, plan.amp[r],
+                                  plan.c[r], plan.sigma_m[r], None,
+                                  plan.m_scale[r], plan.listen[r])
+        return dp_mix_sparse_plain(
+            p[r, :, a:b].contiguous(), g[r, :, a:b].contiguous(), *vecs,
+            sw.idx[r], sw.w[r], sw.self_w[r], noisy=True, counter_width=cw,
+            **kw)
+
+    max_err, bad, tol = 0.0, 0, 0.0
+    for r in range(R):
+        plan_r = SimpleNamespace(amp=plan.amp[r], c=plan.c[r],
+                                 m_scale=plan.m_scale[r],
+                                 sigma_m=plan.sigma_m[r])
+        for a in (0, (d // 2) // width * width, d - (d % width or width)):
+            b = min(a + width, d)
+            ref = window(r, a, b).float()
+            k32 = out[r, :, a:b].float()
+            if not torch.isfinite(k32).all():
+                fail(f"sparse replicate axis: non-finite output, replicate "
+                     f"{r}, columns [{a}, {b})")
+            allowed, tol_r = dp_mix_tolerance(k + 1, p[r, :, a:b],
+                                              g[r, :, a:b], proto.gamma,
+                                              plan_r, True, k32, ref, False)
+            err = (k32 - ref).abs()
+            max_err = max(max_err, float(err.max()))
+            bad += int((err > allowed).sum())
+            tol = max(tol, tol_r)
+    del out
+    torch.cuda.empty_cache()
+    nnz = [int(sw[r].valid().sum()) for r in range(R)]
+    rec = {"R": R, "N": N, "d": d, "k": k, "calls": calls,
+           "realized_slots": nnz,
+           "isolated": [int(isolated_count(sw[r])) for r in range(R)],
+           "differ_vs_separate": differ, "max_abs_err": max_err,
+           "tol_f32": tol, "violations": bad}
+    ms = {"batched": [], "separate": []}
+    for name in ("batched", "separate", "separate", "batched"):
+        fn = batched if name == "batched" else separate
+        ms[name].append(cuda_ms(fn, iters=3, warmup=1))
+        torch.cuda.empty_cache()
+    rec["ms_in_turns"] = ms
+    rec["ms"] = min(ms["batched"])
+    rec["separate_ms"] = min(ms["separate"])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    window(0, 0, min(d, 1 << 16))
+    torch.cuda.synchronize()
+    start.record()
+    for r in range(R):
+        for a in range(0, d, 1 << 16):
+            window(r, a, min(a + (1 << 16), d))
+    end.record()
+    torch.cuda.synchronize()
+    rec["plain_ms"] = start.elapsed_time(end)
+    works = [sparse_work(N, d, k, 4, True, nnz[r], counts, rates,
+                         noise_branches(N, d, cw, int(seeds[r])))
+             for r in range(R)]
+    t = {"bytes": sum(w["bytes"] for w in works) / HBM_BYTES_PER_S,
+         "instructions": sum(w["lane_instructions"] for w in works)
+         / (rates["sms"] * 128 * rates["sm_clock_hz"]),
+         "fma": 2 * sum(w["fmas"] for w in works) / F32_FLOP_PER_S}
+    bound = max(t.values())
+    rec.update({"bytes_ms": 1e3 * t["bytes"],
+                "instructions_ms": 1e3 * t["instructions"],
+                "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
+                "bound_by": "bytes" if t["bytes"] == bound else "operations",
+                "workspace_floor_ms": sum(w["workspace_floor_ms"]
+                                          for w in works)})
+    print(f"[fleet] sparse replicate axis {json.dumps(rec)}", flush=True)
+    if differ or bad or calls != 1:
+        fail(f"sparse replicate axis R={R} N={N}: {calls} wrapper counts, "
+             f"{differ} elements differ from the separate launches, {bad} "
+             f"beyond the plain twin's tolerance (max err {max_err:.3g})")
+    return rec
+
+
+def fleet_sparse_body(store, R: int, N: int):
+    """A fleet sparse flat round body at full width (mesh_sparse, k =
+    SPARSE_K) and its carry."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.fleet import FleetEngine
+    proto = sparse_proto(N, flat_buffer=True)
+    fleet = FleetEngine(proto, R, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(R + N)
+    wp = fleet.init_worker_params(gen, DWFL_PAPER)
+    spec = X.FlatSpec(wp, lead_axes=2)
+    flat = spec.flatten(wp)
+    del wp
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, "cuda",
+                              fleet=fleet)
+    return body, TJ.TrajCarry(gen, flat, fleet.init(gen))
+
+
+def fleet_sparse_cli(store) -> dict:
+    """The fleet's sparse CLI at full width (mesh_sparse, --replicates
+    FLEET_SPARSE_R, --workers FLEET_SPARSE_N, --sparse-neighbors SPARSE_K,
+    FLEET_SPARSE_STEPS steps) under its sync guard, the dp_mix counts set
+    to 0 just before and read just after: one dp_mix_round_sparse call a
+    round for all R and no dense dp_mix_round; every loss finite, the
+    fleet's epsilon report over every round; its replicate-rounds/s and
+    peak memory. Then two warm rounds of its round body under
+    torch.profiler: one dp_mix_prep and one dp_mix_gather kernel a round,
+    no dense route's kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.launch import train
+    predict("fleet_sparse_cli")
+    R, N = FLEET_SPARSE_R, FLEET_SPARSE_N
+    torch.cuda.reset_peak_memory_stats()
+    ops.dp_mix_round_sparse.launches = ops.dp_mix_round.launches = 0
+    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                     "--channel-model", "dynamic", "--scenario",
+                     SPARSE_SCENARIO, "--replicates", str(R), "--workers",
+                     str(N), "--sparse-neighbors", str(SPARSE_K), "--steps",
+                     str(FLEET_SPARSE_STEPS), "--device", "cuda"])
+    sparse, dense = ops.dp_mix_round_sparse.launches, ops.dp_mix_round.launches
+    rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
+    rec = {"scenario": SPARSE_SCENARIO, "replicates": R, "N": N,
+           "k": SPARSE_K, "rounds": rounds, "seconds": res["seconds"],
+           "rounds_per_s": rounds / res["seconds"],
+           "replicate_rounds_per_s": R * rounds / res["seconds"],
+           "sparse_launches": sparse, "dense_launches": dense,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "first_loss": losses[0].tolist(), "last_loss": losses[-1].tolist(),
+           "eps_replicates": rep["replicates"], "eps_rounds": rep["rounds"],
+           "eps_worst": rep["epsilon_worst"],
+           "eps_total_mean": rep["epsilon_total_mean"]}
+    finite = bool(torch.isfinite(losses).all()
+                  and torch.isfinite(res["params"]).all()
+                  and np_finite(rep["epsilon_per_round"]))
+    del res
+    torch.cuda.empty_cache()
+    body, carry = fleet_sparse_body(store, R, N)
+    carry, _ = TJ.run_chunk(body, carry, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        carry, _ = TJ.run_chunk(body, carry, 2)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for name in ("dp_mix_prep", "dp_mix_gather", "dp_mix_tiled",
+                     "dp_mix_columns"):
+            if name in e.key:
+                kernels[name] = kernels.get(name, 0) + e.count
+    rec["kernels_in_2_rounds"] = kernels
+    del body, carry
+    torch.cuda.empty_cache()
+    print(f"[fleet] sparse cli {json.dumps(rec)}", flush=True)
+    if (sparse != rounds or dense or rep["rounds"] != rounds
+            or rep["replicates"] != R
+            or tuple(losses.shape) != (rounds, R)):
+        fail(f"fleet sparse cli: {sparse} sparse and {dense} dense dp_mix "
+             f"calls, epsilon over {rep['rounds']} rounds of "
+             f"{rep['replicates']} replicates, for {rounds} rounds of {R}")
+    if kernels != {"dp_mix_prep": 2, "dp_mix_gather": 2}:
+        fail(f"fleet sparse round: kernels in 2 rounds {kernels}")
+    if not finite:
+        fail("fleet sparse cli: non-finite losses, parameters or epsilons")
+    return rec
+
+
+def fleet_sparse_cpu_vs_cuda() -> float:
+    """One reduced fleet sparse flat round (hidden 16, R = 2 networks of N
+    = 16, mesh_sparse, k = 4) on the card against the same round on the
+    CPU from the same replayed channels, lists, buffer, batch and seeds,
+    within 1e-4 (1 + max|x|) (the gradients' products differ)."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.fleet import FleetEngine
+    predict("fleet_sparse_cpu_vs_cuda")
+    cfg = dataclasses.replace(DWFL_PAPER, d_model=16)
+    R, N = 2, 16
+    proto = dynamic_proto(N, SPARSE_SCENARIO, sparse_neighbors=4,
+                          graph_fallback=True)
+    fleet = FleetEngine(proto, R, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    st = fleet.init(gen)
+    for _ in range(3):
+        st, chans, _, Ws = fleet.round(gen, st)
+    wp = fleet.init_worker_params(gen, cfg)
+    spec = X.FlatSpec(wp, lead_axes=2)
+    flat = spec.flatten(wp)
+    batch = {"x": torch.randn((R, N, 8, 3072), generator=gen),
+             "y": torch.randint(0, 10, (R, N, 8), generator=gen)}
+    seeds = torch.tensor([99, -5], dtype=torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        step = P.make_fleet_flat_train_step(cfg, proto, spec, dev)
+        out, _ = step(flat.to(dev), {k: v.to(dev) for k, v in batch.items()},
+                      seeds.to(dev), chans.to(dev), Ws.to(dev))
+        outs[dev] = out.cpu()
+    err = float((outs["cuda"] - outs["cpu"]).abs().max())
+    tol = 1e-4 * (1.0 + float(outs["cpu"].abs().max()))
+    listening = int((Ws.off_degree() > 0).sum())
+    print(f"[fleet] small sparse round cuda vs cpu: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g}; {listening} of {R * N} workers listening)",
+          flush=True)
+    if not math.isfinite(err) or err > tol or not listening:
+        fail(f"fleet sparse round: cuda and cpu differ by {err:.3g} (tol "
+             f"{tol:.3g}), {listening} workers listening")
+    return err
+
+
+def fleet_sparse_phase(counts: dict, rates: dict) -> dict:
+    """The fleet's sparse round (ROADMAP A20): the sparse kernels'
+    replicate axis at (R 4, N 512, 855,050), the fleet sparse CLI
+    (counted), and a reduced round on the card against the CPU."""
+    import torch
+    kernel = check_sparse_raxis(FLEET_SPARSE_R, FLEET_SPARSE_N, PATH_D,
+                                counts, rates)
+    torch.cuda.empty_cache()
+    cli = fleet_sparse_cli(paper_store(FLEET_SPARSE_N))
+    fleet_sparse_cpu_vs_cuda()
+    torch.cuda.empty_cache()
+    return {"kernel": kernel, "cli": cli}
+
+
 def telemetry_cli() -> dict:
     """The static and the iot_dense flat CLI at full width (51 rounds) with
     a run log (telemetry auto on) and an epsilon budget: a round event a
@@ -4334,6 +4842,9 @@ def main() -> int:
     telemetry_cli()
     sweep_phase()
     torch.cuda.empty_cache()
+    # the fleet's sparse round: the sparse kernels' replicate axis, the
+    # fleet sparse CLI (counted), a reduced round card against CPU
+    fleet_sparse = fleet_sparse_phase(counts, rates)
 
     # sharding and checkpoints: the model axis's windows (logical) and the
     # sharded steps; the sharded CLI (counted) with its checkpoint and the
@@ -4429,10 +4940,24 @@ def main() -> int:
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:153",
         "launches": sparse_launches,
+        "launches_by_path": {"worker scale, N 2048": sparse_launches,
+                             "fleet sparse, R 4 x N 512":
+                                 fleet_sparse["cli"]["sparse_launches"]},
         "max_abs_err": sparse_rec["max_abs_err"],
         "ms": sparse_rec["ms"], "plain_ms": sparse_rec["plain_ms"],
         "bound_ms": sparse_rec["bound_ms"],
         "bound_by": sparse_rec["bound_by"], "library_ms": None}, {
+        "name": "dp_mix sparse round, replicate axis", "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:153",
+        "launches": fleet_sparse["cli"]["sparse_launches"],
+        "max_abs_err": fleet_sparse["kernel"]["max_abs_err"],
+        "ms": fleet_sparse["kernel"]["ms"],
+        "separate_ms": fleet_sparse["kernel"]["separate_ms"],
+        "plain_ms": fleet_sparse["kernel"]["plain_ms"],
+        "bound_ms": fleet_sparse["kernel"]["bound_ms"],
+        "bound_by": fleet_sparse["kernel"]["bound_by"],
+        "library_ms": None}, {
         "name": "dp_mix replicate axis", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",

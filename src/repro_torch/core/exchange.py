@@ -193,7 +193,9 @@ def plan_dynamic_sparse(proto, chan, device="cuda", W=None) -> MixPlan:
     """``plan_dynamic`` for a round's neighbor list (``net.sparse.SparseW``):
     the plan carries the SparseW as its W, and its listen and m_scale are
     the dense plan's (the off-degree counts the same integers as
-    sum((W > 0) & ~eye, 1))."""
+    sum((W > 0) & ~eye, 1)). A stack of R networks (the SparseW's leaves
+    [R, N, k], the channel's [R, ...]) gives the stack of their plans: c
+    and sigma_m [R], the vectors [R, N], as ``plan_dynamic``'s."""
     dev = resolve_device(device)
     if W is None:
         raise ValueError("the dynamic plan needs the round's mixing matrix")
@@ -202,7 +204,8 @@ def plan_dynamic_sparse(proto, chan, device="cuda", W=None) -> MixPlan:
     c = _scalar(chan.c, dev)
     return MixPlan(W=sw, c=c, amp=mix_noise_amp(chan, dev),
                    sigma_m=_scalar(chan.awgn_sigma, dev),
-                   m_scale=1.0 / (c * torch.clamp_min(off_deg, 1.0)),
+                   m_scale=1.0 / (c.unsqueeze(-1)
+                                  * torch.clamp_min(off_deg, 1.0)),
                    listen=(off_deg > 0).to(torch.float32))
 
 
@@ -555,17 +558,24 @@ def mix_exchange_sparse(X, noise_n, noise_m, c, eta: float, sw, *,
 
         mix_i = self_w_i z_i + sum_s w_is z_{idx_is}      (slot order)
 
-    O(N k) a leaf entry; the same update otherwise."""
-    N = sw.n_workers
+    O(N k) a leaf entry; the same update otherwise. A stack of R networks
+    (the fleet) takes the SparseW's leaves [R, N, k], leaves [R, N, ...],
+    c [R] and the vectors [R, N]: each network gathers its own rows."""
+    lead = tuple(sw.idx.shape[:-2])
 
     def one(x, n, m):
         xf = x.float()
-        nf = n.float() / c
+        nf = n.float() / _vec(c, x.ndim)
         z = xf + nf
-        col = lambda v: v.reshape((N,) + (1,) * (x.ndim - 1))
+        col = lambda v: _vec(v, x.ndim)
+        flat = z.reshape(lead + (sw.n_workers, -1))
+        # each network's rows z[idx[..., s]]
+        row = lambda s: torch.gather(flat, len(lead), sw.idx[..., s, None]
+                                     .long().expand(flat.shape)
+                                     ).reshape(z.shape)
         mixed = col(sw.self_w.float()) * z
         for s in range(sw.k):
-            mixed = mixed + col(sw.w[:, s]) * z[sw.idx[:, s].long()]
+            mixed = mixed + col(sw.w[..., s]) * row(s)
         selfs = _vec(self_scale, x.ndim)
         upd = mixed - xf - (nf if selfs is None else selfs * nf)
         if m is not None:

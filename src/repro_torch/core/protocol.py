@@ -578,15 +578,6 @@ def _fleet_metrics(losses, gnorms, leaves, R: int, N: int) -> dict:
             "param_norm": torch.sqrt(sq)}
 
 
-def _fleet_spec(proto: ProtocolConfig) -> exchange_lib.ExchangeSpec:
-    spec = exchange_lib.resolve_spec(proto, dynamic=True)
-    if spec.name == "dynamic_sparse":
-        raise NotImplementedError(
-            "the fleet's round with a neighbor-list W (sparse_neighbors > "
-            "0) is not ported yet (ROADMAP A20)")
-    return spec
-
-
 def make_fleet_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
                                spec: exchange_lib.FlatSpec, device="cuda"
                                ) -> Callable:
@@ -596,16 +587,17 @@ def make_fleet_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
 
     flat [R, N, d] float32; batch leaves [R, N, B, ...]; seeds int32 [R],
     one a replicate (each replicate's noise counters from 0); chans the
-    networks' stacked channel ([R, ...] leaves) and Ws [R, N, N], from one
+    networks' stacked channel ([R, ...] leaves) and Ws [R, N, N] (with
+    ``sparse_neighbors``, a SparseW of [R, N, k] leaves), from one
     ``NetworkSimulator.round`` of a stacked state; metrics [R] each.
     Replicate r is ``make_dynamic_flat_train_step``'s round on replicate
     r's operands (up to the order of the gradient pass's products). The
     gradients of the R N workers come from one pass, the stacked plan
-    (``exchange.plan_dynamic``) from one call, and the mix is one dp_mix
-    call and one launch for all R."""
+    (``exchange.plan_dynamic`` or ``plan_dynamic_sparse``) from one call,
+    and the mix is one dp_mix call for all R (one launch dense; one
+    dp_mix_prep and one dp_mix_gather through neighbor lists)."""
     dev = resolve_device(device)
     mix = _flat_spec(proto, dynamic=True)
-    _fleet_spec(proto)
     local_grads = make_flat_local_pass(cfg, proto, spec)
     gamma, eta = proto.gamma, proto.eta
 
@@ -637,10 +629,11 @@ def make_fleet_train_step(cfg: ModelConfig, proto: ProtocolConfig,
     come from one pass; the local step takes the [R, N, ...] leaves as
     they are (with ``use_pallas`` one ``sgd_update_leaves`` launch a
     round); the exchange mixes each replicate by its own W in batched
-    products, its normals drawn from ``generator`` over the [R, N, ...]
-    leaves unless given."""
+    products (through a stacked neighbor list, by its own row gathers),
+    its normals drawn from ``generator`` over the [R, N, ...] leaves
+    unless given."""
     dev = resolve_device(device)
-    spec = _fleet_spec(proto)
+    spec = exchange_lib.resolve_spec(proto, dynamic=True)
     local_grads, local_step = _make_local_pass(cfg, proto)
 
     def step(worker_params, batch, generator, chans, Ws, normals=None):

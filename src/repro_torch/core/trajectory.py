@@ -35,7 +35,8 @@ norm, consensus on the parameters entering the round) go into each
 round's output, and a chunk epilogue that ``run_chunk`` runs after the
 chunk's last round adds the channel columns, vectorized over the chunk's
 rounds (constants on the static channel), and folds the chunk's epsilon
-and RDP moments into ``carry.eps``.
+and RDP moments into ``carry.eps``. On a mesh the consensus is a
+collective over the mesh's axis (``_consensus``); nothing else is.
 """
 from __future__ import annotations
 
@@ -46,7 +47,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import protocol as protocol_lib
-from repro_torch.net.sparse import cat_w, stack_w
+from repro_torch.net.sparse import SparseW, cat_w, stack_w
 from repro_torch.net.state import (FIELDS, TracedChannelState, concat_states,
                                    stack_states)
 from repro_torch.runtime import resolve_device
@@ -126,14 +127,10 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
     (the dynamic flat path with an unsharded spec and a neighbor-list W)
     runs the worker-sharded step (``shard.worker``) on this rank's rows.
     ``remat`` recomputes the forward in the sharded gradient pass's
-    backward. Telemetry reads the whole buffer, so it is refused with a
-    mesh (ROADMAP A21)."""
+    backward. Telemetry on a mesh takes the consensus as a sum of the
+    ranks' partial sums (``_consensus``); its other columns need no
+    collective."""
     sharded = spec is not None and spec.layout is not None
-    if (shard_mesh is not None or worker_mesh is not None) and (
-            telemetry is not None
-            and (telemetry.n_fields or telemetry.epsilon)):
-        raise NotImplementedError("telemetry over a process-group mesh is "
-                                  "not ported yet (ROADMAP A21)")
     if shard_mesh is not None and not sharded:
         raise ValueError("shard_mesh requires a FlatSpec with a ShardLayout")
     if worker_mesh is not None and (sim is None or fleet is not None
@@ -153,7 +150,8 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
             return (TrajCarry(gen, params, net, carry.eps),
                     {"metrics": metrics, "chan": chans, "W": Ws})
 
-        return _maybe_instrument(body, telemetry, proto, device, fleet=fleet)
+        return _maybe_instrument(body, telemetry, proto, device, fleet=fleet,
+                                 consensus=_consensus(fleet, shard_mesh))
     if sim is not None:
         if spec is not None:
             if worker_mesh is not None:
@@ -216,14 +214,37 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
             return (TrajCarry(carry.generator, params, None, carry.eps),
                     {"metrics": metrics})
 
-    return _maybe_instrument(body, telemetry, proto, device)
+    return _maybe_instrument(body, telemetry, proto, device,
+                             consensus=_consensus(None, shard_mesh,
+                                                  worker_mesh))
 
 
 _IN_ROUND = ("loss", "grad_norm", "consensus")
 
 
+def _consensus(fleet, shard_mesh=None, worker_mesh=None) -> Callable:
+    """The round's consensus distance of the parameters a rank holds: the
+    whole buffer or tree (no mesh); on a mesh a sum of the ranks' partial
+    sums over its "model" or "workers" group
+    (``obs.telemetry.consensus_distance``), the fleet's [R_loc] then
+    gathered over "replicas" into [R], as its metrics are."""
+    from repro_torch.obs import telemetry as tele_lib
+    if worker_mesh is not None:
+        group = worker_mesh.get_group("workers")
+        return lambda p: tele_lib.consensus_distance(p, worker_group=group)
+    axis = 0 if fleet is None else 1
+    if shard_mesh is None:
+        return lambda p: tele_lib.consensus_distance(p, worker_axis=axis)
+    group = shard_mesh.get_group("model")
+    if fleet is None:
+        return lambda p: tele_lib.consensus_distance(p, model_group=group)
+    from repro_torch.fleet.engine import _gather_replicas
+    return lambda p: _gather_replicas(
+        tele_lib.consensus_distance(p, axis, model_group=group), shard_mesh)
+
+
 def _maybe_instrument(body: Callable, tele, proto, device, *,
-                      fleet=None) -> Callable:
+                      consensus: Callable, fleet=None) -> Callable:
     """Wrap a round body with read-only telemetry (obs.telemetry).
 
     Per round, in the body's output: the scalars that read the round's
@@ -236,7 +257,9 @@ def _maybe_instrument(body: Callable, tele, proto, device, *,
     evaluated once over the chunk's stacked channels and Ws, or, on the
     static channel, constants computed here once and broadcast; and the
     chunk's epsilon moments folded into ``carry.eps``. The wrapper draws
-    nothing and writes no parameter."""
+    nothing and writes no parameter. ``consensus(params)``: the consensus
+    of the parameters the carry holds (``_consensus``; a mesh's
+    collective)."""
     if tele is None or (tele.n_fields == 0 and not tele.epsilon):
         return body
     from repro_torch.obs import telemetry as tele_lib
@@ -245,7 +268,6 @@ def _maybe_instrument(body: Callable, tele, proto, device, *,
     needs_chan = (tele.snr_db or tele.deep_fade or tele.participation
                   or tele.epsilon)
     R = None if fleet is None else fleet.replicates
-    worker_axis = 0 if R is None else 1
     # the catalogue puts the in-round fields first, so the per-round
     # prefix and the epilogue's channel columns concatenate in field order
     in_fields = tuple(f for f in _IN_ROUND if getattr(tele, f))
@@ -277,12 +299,15 @@ def _maybe_instrument(body: Callable, tele, proto, device, *,
         if tele.grad_norm:
             vals["grad_norm"] = out["metrics"]["grad_norm"]
         if tele.consensus:
-            vals["consensus"] = tele_lib.consensus_distance(
-                carry.params, worker_axis=worker_axis)
+            vals["consensus"] = consensus(carry.params)
         cols = [vals[f].float() for f in in_fields]
         return new_carry, dict(out, telemetry=torch.stack(cols, dim=-1))
 
     def chunk_epilogue(carry: TrajCarry, ys: dict):
+        # no collective here, on a mesh too: every rank draws the same
+        # network (channel and W), so each evaluates the same channel
+        # columns, epsilon, RDP ledger and carry.eps; loss and grad_norm
+        # came whole out of the step's metrics
         k = ys["metrics"]["loss"].shape[0]
         lead = (k,) if R is None else (k, R)
         parts = [ys["telemetry"]] if in_fields else []
@@ -379,16 +404,20 @@ def replicate_major(stacked):
     """A fleet log is round-major ([T, R, ...] after ``concat_chunks``);
     the batched accounting (``privacy.epsilon_trajectory_batched``,
     ``fleet.fleet_epsilon_report``) takes replicate-major [R, T, ...]. A
-    tensor, a TracedChannelState or a dict of them."""
+    tensor, a SparseW, a TracedChannelState or a dict of them."""
     if torch.is_tensor(stacked):
         return stacked.transpose(0, 1)
+    if isinstance(stacked, SparseW):
+        return SparseW(*(getattr(stacked, f).transpose(0, 1)
+                         for f in ("idx", "w", "self_w")))
     if isinstance(stacked, TracedChannelState):
         return dataclasses.replace(stacked, **{
             f: getattr(stacked, f).transpose(0, 1) for f in FIELDS})
     if isinstance(stacked, dict):
         return {k: replicate_major(v) for k, v in stacked.items()}
-    raise TypeError(f"replicate_major takes a tensor, a TracedChannelState "
-                    f"or a dict of them, got {type(stacked).__name__}")
+    raise TypeError(f"replicate_major takes a tensor, a SparseW, a "
+                    f"TracedChannelState or a dict of them, got "
+                    f"{type(stacked).__name__}")
 
 
 def plan_chunks(total: int, k: int, eval_every: int

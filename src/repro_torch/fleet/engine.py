@@ -15,8 +15,11 @@ the protocol are shared — except the transmit power, which may be an [R]
 vector (``power_dbm``: the paper's Fig. 2 power sweep in one round).
 ``n_shards > 1`` shards each replicate's buffer columns
 (``shard.round``): logically on one device, or over a 2-D ("replicas",
-"model") mesh (``launch.mesh.make_shard_mesh``). A neighbor-list W is
-ROADMAP A20.
+"model") mesh (``launch.mesh.make_shard_mesh``). With
+``sparse_neighbors`` > 0 each round's Ws are one stacked
+``net.sparse.SparseW`` ([R, N, k] leaves, built in one simulator call),
+and the flat round's mix is one ``dp_mix_prep`` and one ``dp_mix_gather``
+launch for all R.
 """
 from __future__ import annotations
 
@@ -31,27 +34,32 @@ from repro_torch.core import protocol as protocol_lib
 from repro_torch.core.channel import dbm_to_watts
 from repro_torch.models import model as M
 from repro_torch.net.simulator import NetState
+from repro_torch.net.sparse import SparseW
 from repro_torch.net.state import FIELDS, TracedChannelState
 from repro_torch.runtime import resolve_device
 
 
 def stack_rounds(rounds):
-    """A list of rounds' [R, ...] tensors, TracedChannelStates or dicts of
-    them, stacked along a NEW axis 1: the [R, T, ...] layout of
+    """A list of rounds' [R, ...] tensors, SparseWs, TracedChannelStates or
+    dicts of them, stacked along a NEW axis 1: the [R, T, ...] layout of
     ``privacy.epsilon_trajectory_batched`` (axis 0 stays the replicate
     axis, as ``FleetEngine.trajectory`` returns it)."""
     rounds = list(rounds)
     first = rounds[0]
     if torch.is_tensor(first):
         return torch.stack(rounds, dim=1)
+    if isinstance(first, SparseW):
+        return SparseW(*(torch.stack([getattr(r, f) for r in rounds], dim=1)
+                         for f in ("idx", "w", "self_w")))
     if isinstance(first, TracedChannelState):
         return dataclasses.replace(first, **{
             f: torch.stack([getattr(r, f) for r in rounds], dim=1)
             for f in FIELDS})
     if isinstance(first, dict):
         return {k: stack_rounds([r[k] for r in rounds]) for k in first}
-    raise TypeError(f"stack_rounds takes tensors, TracedChannelStates or "
-                    f"dicts of them, got {type(first).__name__}")
+    raise TypeError(f"stack_rounds takes tensors, SparseWs, "
+                    f"TracedChannelStates or dicts of them, got "
+                    f"{type(first).__name__}")
 
 
 def mean_ci(values, confidence_z: float = 1.96):
@@ -78,10 +86,6 @@ class FleetEngine:
             raise ValueError("FleetEngine requires channel_model='dynamic' "
                              "(the static channel is fixed for the whole "
                              "run — there is nothing to batch)")
-        if proto.sparse_neighbors > 0:
-            raise NotImplementedError(
-                "the fleet with a neighbor-list W (sparse_neighbors > 0) "
-                "is not ported yet (ROADMAP A20)")
         self.proto = proto
         self.replicates = int(replicates if replicates is not None
                               else proto.replicates)
@@ -110,14 +114,17 @@ class FleetEngine:
               ) -> Tuple[NetState, TracedChannelState, torch.Tensor,
                          torch.Tensor]:
         """All R networks one round: (states', chans, masks, Ws) with
-        leaves [R, ...], masks [R, N], Ws [R, N, N]; one simulator call."""
+        leaves [R, ...], masks [R, N], Ws [R, N, N] (with
+        ``sparse_neighbors``, a SparseW of [R, N, k] leaves); one simulator
+        call."""
         return self.sim.round(generator, states, P=self._P)
 
     def trajectory(self, generator: torch.Generator, T: int,
                    states: Optional[NetState] = None
                    ) -> Tuple[TracedChannelState, torch.Tensor, torch.Tensor]:
         """R stacked T-round channel trajectories, replicate-major: ([R,
-        T, ...] chans, [R, T, N] masks, [R, T, N, N] Ws), the input of
+        T, ...] chans, [R, T, N] masks, [R, T, N, N] Ws or a SparseW of
+        [R, T, N, k] leaves), the input of
         ``privacy.epsilon_trajectory_batched``."""
         if states is None:
             states = self.init(generator)
@@ -252,7 +259,8 @@ def fleet_eval(evaluate, worker_params, batch):
 
 def fleet_round_telemetry(proto, chans, Ws=None, spec=None) -> dict:
     """The channel telemetry columns over a stacked fleet log (``chans``/
-    ``Ws`` leaves [R, T, ...]): {name: [R, T]} for every enabled channel
+    ``Ws`` leaves [R, T, ...]; Ws dense or a SparseW of [R, T, N, k]
+    leaves): {name: [R, T]} for every enabled channel
     scalar, and the per-round epsilon when the spec keeps it — the same
     formulas the trajectory's telemetry evaluates, from the logged
     channels."""
@@ -270,7 +278,8 @@ def fleet_epsilon_report(proto, chans, Ws=None) -> dict:
     heterogeneous composition per replicate, both accountants per
     replicate at the same total delta, and across-replicate means and
     CIs. ``chans`` leaves are [R, T, ...] (``FleetEngine.trajectory``,
-    ``stack_rounds`` or ``trajectory.replicate_major`` of a fleet log)."""
+    ``stack_rounds`` or ``trajectory.replicate_major`` of a fleet log);
+    ``Ws`` [R, T, N, N] or a SparseW of [R, T, N, k] leaves."""
     from repro_torch.core import accounting, privacy
     eps_rtn = privacy.epsilon_trajectory_batched(
         proto.gamma, proto.clip, chans, proto.delta, Ws).cpu().numpy()

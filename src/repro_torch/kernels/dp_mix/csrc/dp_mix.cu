@@ -75,6 +75,12 @@
 // n = 2048) and the gathered rows come from L2. Element offsets are 64-bit:
 // the workspace's second half starts past 2^31 elements at n = 2048.
 //
+// A stack of reps sparse rounds (the fleet's) is the same two launches
+// with the replicate as their grid's z: each block moves its Args with
+// replicate() and its neighbor list with replicate(Neighbors) (idx and w
+// r n k on, self_w r n, z_src to replicate r's z in the workspace, 2 r n d
+// on), so replicate r is bitwise the launch of its operands alone.
+//
 // Worker-axis shards (repro_torch/shard/worker.py, the reference's
 // shard/worker.py::worker_window_round): a shard holds rows [row0, row0 +
 // n) of an n_src-row population. dp_mix_prep_launch draws its rows' noise
@@ -166,7 +172,7 @@ __device__ __forceinline__ Args replicate(const Args& a, unsigned r) {
   b.p = static_cast<const T*>(a.p) + r * nd;
   b.g = static_cast<const T*>(a.g) + r * nd;
   b.out = static_cast<T*>(a.out) + r * nd;
-  b.W = a.W + r * n * n;
+  if (a.W != nullptr) b.W = a.W + r * n * n;   // the sparse round has no W
   b.amp = a.amp + r * n;
   b.selfs = a.selfs + r * n;
   b.mscale = a.mscale + r * n;
@@ -456,11 +462,28 @@ struct Neighbors {
   int n_src;
 };
 
+// Replicate r's neighbor list of a stack of sparse rounds: idx and w r n k
+// on, self_w r n, and z_src, the workspace's z there, to replicate r's z
+// (2 r n d on). Only the whole round (z_src = the workspace) is stacked.
+__device__ __forceinline__ Neighbors replicate(const Neighbors& nb, unsigned r, int n, int d) {
+  if (r == 0) return nb;
+  Neighbors b = nb;
+  const size_t nk = (size_t)n * nb.k;
+  b.idx = nb.idx + r * nk;
+  b.w = nb.w + r * nk;
+  b.self_w = nb.self_w + r * (size_t)n;
+  b.z_src = nb.z_src + 2 * r * ((size_t)n * d);
+  return b;
+}
+
 // out of one receiver (blockIdx.x, global row row0 + blockIdx.x) over
 // kGatherTile columns: the mix from its own z in the workspace and its
 // neighbors' in z_src, v from p, g, nf and Gm, out = v + (eta listen) mix.
 template <typename T>
-__global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, const Neighbors nb) {
+__global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args args,
+                                                                const Neighbors nbs) {
+  const Args a = replicate<T>(args, blockIdx.z);
+  const Neighbors nb = replicate(nbs, blockIdx.z, args.n, args.d);
   extern __shared__ float slots[];
   float* sW = slots;                                         // [k]
   int* sIdx = reinterpret_cast<int*>(slots + nb.k);          // [k]
@@ -510,15 +533,17 @@ __global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args a, co
 }
 
 template <typename T>
-int launch_prep(const Args& a, cudaStream_t stream) {
-  if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
-  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n), kPrepThreads, 0, stream>>>(a);
+int launch_prep(const Args& a, int reps, cudaStream_t stream) {
+  if (a.ws == nullptr || a.n > 65535 || reps < 1 || reps > 65535) return (int)cudaErrorInvalidValue;
+  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n, reps), kPrepThreads, 0,
+                   stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_gather(const Args& a, const Neighbors& nb, cudaStream_t stream) {
-  if (a.ws == nullptr || nb.z_src == nullptr || a.n > 65535 || nb.k < 0 || nb.n_src < 1)
+int launch_gather(const Args& a, const Neighbors& nb, int reps, cudaStream_t stream) {
+  if (a.ws == nullptr || nb.z_src == nullptr || a.n > 65535 || nb.k < 0 || nb.n_src < 1 ||
+      reps < 1 || reps > 65535 || (reps > 1 && nb.z_src != a.ws))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = (sizeof(float) + sizeof(int)) * (size_t)nb.k;
   static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
@@ -528,15 +553,15 @@ int launch_gather(const Args& a, const Neighbors& nb, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
     opted_in = bytes;
   }
-  dp_mix_gather<T><<<dim3(a.n, (a.d + kGatherTile - 1) / kGatherTile), kGatherThreads, bytes,
-                     stream>>>(a, nb);
+  dp_mix_gather<T><<<dim3(a.n, (a.d + kGatherTile - 1) / kGatherTile, reps), kGatherThreads,
+                     bytes, stream>>>(a, nb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_sparse(const Args& a, const Neighbors& nb, cudaStream_t stream) {
-  const int err = launch_prep<T>(a, stream);
-  return err != 0 ? err : launch_gather<T>(a, nb, stream);
+int launch_sparse(const Args& a, const Neighbors& nb, int reps, cudaStream_t stream) {
+  const int err = launch_prep<T>(a, reps, stream);
+  return err != 0 ? err : launch_gather<T>(a, nb, reps, stream);
 }
 
 // ---- routes and launch -------------------------------------------------------
@@ -626,14 +651,17 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
 
 // The sparse round: idx int32 [n, k], w float32 [n, k], self_w float32 [n]
 // take W's place; ws is a float32 workspace of 2 n d floats (z, then nf);
-// row0 offsets the noise counters' rows (0: the whole population). The
-// rest as dp_mix_launch. Returns the cudaError_t of the launches.
+// row0 offsets the noise counters' rows (0: the whole population). reps
+// rounds stacked: idx, w [reps, n, k], self_w [reps, n], ws 2 reps n d
+// floats (replicate r's z and nf 2 r n d on), the rest as dp_mix_launch's
+// stack; one prep and one gather launch for all reps, the replicate their
+// grid's z. Returns the cudaError_t of the launches.
 int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
                          const void* w, const void* self_w, const void* amp, const void* selfs,
                          const void* mscale, const void* listen, const void* scal,
-                         const void* seed, const void* col0, void* ws, int n, int d, int k,
-                         int row0, unsigned int counter_width, float gamma, float eta, int noisy,
-                         void* stream) {
+                         const void* seed, const void* col0, void* ws, int reps, int n, int d,
+                         int k, int row0, unsigned int counter_width, float gamma, float eta,
+                         int noisy, void* stream) {
   if (n < 1 || d < 1 || row0 < 0) return (int)cudaErrorInvalidValue;
   const Args a{p, g, out, nullptr, static_cast<const float*>(amp),
                static_cast<const float*>(selfs), static_cast<const float*>(mscale),
@@ -643,8 +671,8 @@ int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, con
   const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
                      static_cast<const float*>(self_w), k, static_cast<const float*>(ws), n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_sparse<float>(a, nb, s);
-  if (dtype == 1) return launch_sparse<__nv_bfloat16>(a, nb, s);
+  if (dtype == 0) return launch_sparse<float>(a, nb, reps, s);
+  if (dtype == 1) return launch_sparse<__nv_bfloat16>(a, nb, reps, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -660,8 +688,8 @@ int dp_mix_prep_launch(int dtype, const void* p, const void* g, const void* amp,
                static_cast<const int32_t*>(col0), static_cast<float*>(ws), n, d, counter_width,
                gamma, 0.0f, noisy, (uint32_t)row0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_prep<float>(a, s);
-  if (dtype == 1) return launch_prep<__nv_bfloat16>(a, s);
+  if (dtype == 0) return launch_prep<float>(a, 1, s);
+  if (dtype == 1) return launch_prep<__nv_bfloat16>(a, 1, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -684,8 +712,8 @@ int dp_mix_gather_launch(int dtype, const void* p, const void* g, void* out, con
                      static_cast<const float*>(self_w), k, static_cast<const float*>(z_src),
                      n_src};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_gather<float>(a, nb, s);
-  if (dtype == 1) return launch_gather<__nv_bfloat16>(a, nb, s);
+  if (dtype == 0) return launch_gather<float>(a, nb, 1, s);
+  if (dtype == 1) return launch_gather<__nv_bfloat16>(a, nb, 1, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -4,7 +4,8 @@ the ``_round_math`` arithmetic (``dp_mix_plain_stack`` for a stack of
 rounds, the twin of the kernel's replicate axis), and
 ``dp_mix_sparse_plain``, the twin of its ``dp_mix_sparse_jnp``
 (``_sparse_round_math``: the mix through a padded neighbor list), in its
-two halves ``dp_mix_prep_plain`` and ``dp_mix_gather_plain``, which a
+two halves ``dp_mix_prep_plain`` and ``dp_mix_gather_plain`` (and
+``dp_mix_sparse_plain_stack`` for a stack of rounds), which a
 worker shard runs on its rows (the reference's
 ``shard.worker.worker_window_round``).
 
@@ -130,3 +131,16 @@ def dp_mix_sparse_plain(p, g, seed, col0, scal, amp, selfs, mscale, listen,
                                mscale, listen, idx, w, self_w, gamma=gamma,
                                eta=eta, noisy=noisy,
                                counter_width=counter_width, row0=row0)
+
+
+def dp_mix_sparse_plain_stack(p, g, seed, col0, scal, amp, selfs, mscale,
+                              listen, idx, w, self_w, **kw) -> torch.Tensor:
+    """The plain version of a stack of R sparse rounds (the fleet's):
+    ``dp_mix_sparse_plain`` on each replicate's operands (p, g [R, N, D],
+    seed [R], scal [R, 2], the vectors and self_w [R, N], idx, w [R, N, k];
+    col0 shared)."""
+    return torch.stack([
+        dp_mix_sparse_plain(p[r], g[r], seed[r:r + 1], col0, scal[r],
+                            amp[r], selfs[r], mscale[r], listen[r], idx[r],
+                            w[r], self_w[r], **kw)
+        for r in range(p.shape[0])])

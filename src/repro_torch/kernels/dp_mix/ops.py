@@ -31,6 +31,11 @@ Checked here before any launch, on every device: N * counter_width <=
 two elements would draw the same noise (at dwfl-paper's width, N <= 2,511).
 A row window checks the global rows, (row0 + n) * counter_width.
 
+The sparse round takes a stack the same way (p, g [R, N, d], a SparseW
+of [R, N, k] leaves): one ``dp_mix_prep`` and one ``dp_mix_gather``
+launch for all R, replicate r bitwise its own round; its plain version
+is ``dp_mix.dp_mix_sparse_plain_stack``.
+
 A worker shard (``repro_torch.shard.worker``) holds rows [row0, row0 +
 Nb) of an N-row population and splits the sparse round in two:
 ``dp_mix_prep_rows`` draws its rows' noise with global counters into a
@@ -55,7 +60,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_gather_plain,
                                               dp_mix_plain, dp_mix_plain_stack,
                                               dp_mix_prep_plain,
-                                              dp_mix_sparse_plain)
+                                              dp_mix_sparse_plain,
+                                              dp_mix_sparse_plain_stack)
 
 LANES = 128            # noise-counter row stride multiple (the reference's)
 SUBLANES = 8           # the sparse round's worker-axis pad (the reference's)
@@ -71,7 +77,7 @@ ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                _PTR])
 # dp_mix_sparse_launch's parameters, in order
-SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 4
+SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, _PTR])
 # dp_mix_prep_launch's parameters, in order
@@ -186,23 +192,26 @@ def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
                    ) -> torch.Tensor:
     """dp_mix_prep then dp_mix_gather over the float32 workspace [2, N, d]
     (z, then the DP noise n/c); ``row0`` offsets the noise counters'
-    rows."""
-    N, d = p.shape
-    k = idx.shape[1] if idx.ndim == 2 else -1
+    rows. A stack [R, N, d] of R rounds is the same two launches over a
+    workspace [R, 2, N, d], the replicate a grid axis of both."""
+    *lead, N, d = p.shape
+    lead = tuple(lead)
+    R = lead[0] if lead else 1
+    k = idx.shape[-1] if idx.ndim == len(lead) + 2 else -1
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
-           + (("idx", idx, (N, k), torch.int32),
-              ("w", w, (N, k), torch.float32),
-              ("self_w", self_w, (N,), torch.float32)))
+           + (("idx", idx, lead + (N, k), torch.int32),
+              ("w", w, lead + (N, k), torch.float32),
+              ("self_w", self_w, lead + (N,), torch.float32)))
     p, g = p.contiguous(), g.contiguous()
     out = torch.empty_like(p)
-    ws = torch.empty(2 * N * d, dtype=torch.float32, device=p.device)
+    ws = torch.empty(R * 2 * N * d, dtype=torch.float32, device=p.device)
     lib = _library()
     rc = lib.dp_mix_sparse_launch(
         _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
         idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), amp.data_ptr(),
         selfs.data_ptr(), mscale.data_ptr(), listen.data_ptr(),
         scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
-        N, d, k, int(row0), counter_width, gamma, eta, int(noisy),
+        R, N, d, k, int(row0), counter_width, gamma, eta, int(noisy),
         torch.cuda.current_stream(p.device).cuda_stream)
     _raise_on(lib, rc)
     dp_mix_round_sparse.launches += 1
@@ -370,22 +379,30 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     ``row0`` offsets the noise counters' rows (the reference's
     ``dp_mix_sparse_jnp(row0=)``): the rows draw the noise of global rows
     [row0, row0 + N); the neighbor list indexes this buffer's rows.
+
+    A stack of R rounds (the fleet's) takes p, g [R, N, d], ``sw`` with
+    [R, N, k] leaves, amp and the vectors [R, N], c, sigma_m and seed [R]:
+    one prep and one gather launch for all R (one count), each
+    replicate's counters from 0 under its own seed, padded to Np rows on
+    its own, and replicate r bitwise the round of replicate r's operands
+    (on the CPU ``dp_mix.dp_mix_sparse_plain_stack``).
     """
-    if p.ndim != 2:
-        raise NotImplementedError(
-            "a stack of rounds mixed through neighbor lists is not ported "
-            "yet (ROADMAP A20)")
-    N, d = p.shape
+    if p.ndim not in (2, 3):
+        raise ValueError(f"p must be [N, d] or [R, N, d], got "
+                         f"{tuple(p.shape)}")
+    *lead, N, d = p.shape
+    lead = tuple(lead)
     cw = _counter_width(N, d, counter_width, int(row0))
     dev = p.device
-    if tuple(sw.idx.shape[:-1]) != (N,):
-        raise ValueError(f"the neighbor list must be [{N}, k], got idx "
-                         f"{tuple(sw.idx.shape)}")
+    if tuple(sw.idx.shape[:-1]) != lead + (N,):
+        raise ValueError(f"the neighbor list must be {list(lead + (N,))} + "
+                         f"[k], got idx {tuple(sw.idx.shape)}")
     vecs = _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale,
-                          m_scale, listen)
+                          m_scale, listen, lead)
     Np = _roundup(N, SUBLANES)
+    # the worker axis, len(lead), padded to Np
     pad_rows = lambda a: (a if Np == N else torch.nn.functional.pad(
-        a, (0, 0) * (a.ndim - 1) + (0, Np - N)))
+        a, (0, 0) * (a.ndim - 1 - len(lead)) + (0, Np - N)))
     seed, col0, scal, *rows = vecs             # rows: amp, self, m_scale, listen
     rows += [sw.idx.to(device=dev, dtype=torch.int32),
              sw.w.to(device=dev, dtype=torch.float32),
@@ -397,10 +414,11 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     if dev.type == "cuda":
         out = _launch_sparse(*args, **kw)
     elif dev.type == "cpu":
-        out = dp_mix_sparse_plain(*args, **kw)
+        out = (dp_mix_sparse_plain_stack if lead else dp_mix_sparse_plain)(
+            *args, **kw)
     else:
         raise ValueError(f"dp_mix_round_sparse has no path for device {dev}")
-    return out if Np == N else out[:N]
+    return out if Np == N else out[..., :N, :]
 
 
 dp_mix_round_sparse.launches = 0

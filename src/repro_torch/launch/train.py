@@ -232,9 +232,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("--replicates requires --channel-model dynamic "
                          "(the static channel is fixed for the whole run; "
                          "there is nothing to batch)")
-    if args.replicates > 1 and args.sparse_neighbors > 0:
-        raise SystemExit("--replicates with --sparse-neighbors is not "
-                         "ported to repro_torch yet (ROADMAP A20)")
     if args.telemetry == "on" and args.no_scan:
         raise SystemExit("--telemetry on requires the chunked trajectory "
                          "(telemetry is computed per chunk; drop "
@@ -521,10 +518,9 @@ def run(argv=None) -> dict:
             n_shards, n_replicas=1 if args.replicates > 1 else None,
             device=dev)
     mesh = worker_mesh if worker_mesh is not None else shard_mesh
-    if mesh is not None and tele is not None:
-        raise SystemExit("telemetry over a process-group mesh is not ported "
-                         "to repro_torch yet (ROADMAP A21); run with "
-                         "--telemetry off")
+    # on a mesh, rank 0 alone writes the run log; every rank computes the
+    # telemetry (its consensus is a collective) and composes the same
+    # epsilon, so an --eps-budget warning fires on the same round on all
     lead_rank = mesh is None or dist.get_rank() == 0
     runlog = None
     if args.runlog_dir is not None and lead_rank:

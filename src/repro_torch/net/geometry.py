@@ -13,7 +13,8 @@ the device over [N] and [N, 2] state.
 
   * Neighbor-list graph (``sparse_metropolis``): the mutual-kNN ∩
     unit-disk graph at a degree cap k, built in row blocks
-    (``_block_topk``) so no [N, N] tensor is made, as a ``sparse.SparseW``.
+    (``_block_topk``) so no [N, N] tensor is made, as a ``sparse.SparseW``;
+    a stack of networks in one call.
 
 The draws come from the caller's ``torch.Generator`` (the port's own,
 checked in distribution).
@@ -169,14 +170,28 @@ def metropolis_weights(adj: torch.Tensor) -> torch.Tensor:
     return W + torch.diag_embed(1.0 - W.sum(-1))
 
 
+def _take(t: torch.Tensor, li: torch.Tensor) -> torch.Tensor:
+    """Rows of ``t`` [..., N, *rest] at ``li`` [..., N, k] (each network's
+    own rows): [..., N, k, *rest], the batched ``t[li]``. A gather: exact."""
+    lead = li.shape[:-2]
+    rest = t.shape[len(lead) + 1:]
+    flat = li.reshape(lead + (-1,) + (1,) * len(rest))
+    out = torch.gather(t, len(lead), flat.expand(flat.shape[:len(lead) + 1]
+                                                 + rest))
+    return out.reshape(li.shape + rest)
+
+
 def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,
                 block: int = 0):
     """Each worker's k nearest neighbors (active, and within ``radius``
     when it is > 0), over row blocks so the largest transient is
-    [block, N], never [N, N]. Returns (idx [N, k] int32, valid [N, k]
-    bool); an invalid slot's index is arbitrary. Ties go to the lower
-    index, as ``lax.top_k`` breaks them (``sparse.top_k_stable``)."""
-    n = pos.shape[0]
+    [..., block, N], never [..., N, N]. Returns (idx [..., N, k] int32,
+    valid [..., N, k] bool); an invalid slot's index is arbitrary. Ties go
+    to the lower index, as ``lax.top_k`` breaks them
+    (``sparse.top_k_stable``). Leading axes of ``pos`` [..., N, 2] and
+    ``mask`` [..., N] are a stack of networks, each bitwise its own
+    build."""
+    n = pos.shape[-2]
     if not 0 < k <= n:
         raise ValueError(f"degree cap k={k} must be in [1, N={n}]")
     r2 = radius ** 2 if radius > 0.0 else None
@@ -184,12 +199,13 @@ def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,
     cols = torch.arange(n, dtype=torch.int32, device=pos.device)
 
     def rows_topk(rows):                       # rows: [B] int32
-        d2 = ((pos[rows][:, None, :] - pos[None, :, :]) ** 2).sum(-1)
+        li = rows.long()
+        d2 = ((pos[..., li, None, :] - pos[..., None, :, :]) ** 2).sum(-1)
         bad = rows[:, None] == cols[None, :]
         if r2 is not None:
             bad = bad | (d2 > r2)
         if active is not None:
-            bad = bad | ~active[None, :] | ~active[rows][:, None]
+            bad = bad | ~active[..., None, :] | ~active[..., li, None]
         vals, idx = top_k_stable(torch.where(bad, -torch.inf, -d2), k)
         return idx.to(torch.int32), torch.isfinite(vals)
 
@@ -200,8 +216,8 @@ def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,
     step = torch.arange(block, dtype=torch.int32, device=pos.device)
     parts = [rows_topk(torch.clamp(s + step, 0, n - 1))
              for s in range(0, n, block)]
-    return (torch.cat([p[0] for p in parts])[:n],
-            torch.cat([p[1] for p in parts])[:n])
+    return (torch.cat([p[0] for p in parts], dim=-2)[..., :n, :],
+            torch.cat([p[1] for p in parts], dim=-2)[..., :n, :])
 
 
 def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
@@ -217,33 +233,38 @@ def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
     ``fallback`` gives each active worker whose row came out empty one
     listen-only edge to its nearest active neighbor (ignoring the radius);
     the partner's list is not reopened, so that edge is one-way. ``block``
-    bounds the distance transient to [block, N] rows. Tensor math on the
-    device, no host round trip."""
-    n = pos.shape[0]
+    bounds the distance transient to [block, N] rows. A stack of networks
+    (``pos`` [R, N, 2], ``mask`` [R, N]: the fleet's) gives [R, N, k]
+    leaves in one call, each network bitwise its own build, the transient
+    [R, block, N]. Tensor math on the device, no host round trip."""
+    n = pos.shape[-2]
     rows = torch.arange(n, dtype=torch.int32, device=pos.device)[:, None]
     idx, valid = _block_topk(pos, k, radius=cfg.comm_radius, mask=mask,
                              block=block)
     idx = torch.where(valid, idx, rows)
     li = idx.long()
-    cand, vc = idx[li], valid[li]                       # [N, k, k]
+    cand, vc = _take(idx, li), _take(valid, li)         # [..., N, k, k]
     adj = valid & ((cand == rows[:, :, None]) & vc).any(-1)
     if fallback:
         nn_idx, nn_ok = _block_topk(pos, 1, radius=0.0, mask=mask,
                                     block=block)
-        active = (torch.ones((n,), dtype=torch.bool, device=pos.device)
+        active = (torch.ones(pos.shape[:-1], dtype=torch.bool,
+                             device=pos.device)
                   if mask is None else torch.as_tensor(mask) > 0)
-        need = active & ~adj.any(-1) & nn_ok[:, 0]
-        idx = torch.cat([torch.where(need, nn_idx[:, 0], idx[:, 0])[:, None],
-                         idx[:, 1:]], dim=1)
-        adj = torch.cat([(adj[:, 0] | need)[:, None], adj[:, 1:]], dim=1)
+        need = active & ~adj.any(-1) & nn_ok[..., 0]
+        idx = torch.cat([torch.where(need, nn_idx[..., 0],
+                                     idx[..., 0])[..., None],
+                         idx[..., 1:]], dim=-1)
+        adj = torch.cat([(adj[..., 0] | need)[..., None], adj[..., 1:]],
+                        dim=-1)
         li = idx.long()
     deg = adj.sum(-1).to(torch.float32)
-    pair = 1.0 + torch.maximum(deg[:, None], deg[li])
+    pair = 1.0 + torch.maximum(deg[..., :, None], _take(deg, li))
     w = torch.where(adj, 1.0 / pair, 0.0).to(torch.float32)
     # 1 - sum w, slot by slot in slot order
-    total = w[:, 0]
+    total = w[..., 0]
     for s in range(1, k):
-        total = total + w[:, s]
+        total = total + w[..., s]
     return SparseW(idx=torch.where(adj, idx, rows), w=w, self_w=1.0 - total)
 
 

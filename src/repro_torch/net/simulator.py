@@ -18,8 +18,8 @@ never asks the host, so a training loop around it keeps the card busy:
                           [N, N] tensor, its build in [graph_block, N] rows)
 
 A stack of R networks (``init(generator, replicates=R)``: [R, ...]
-leaves) advances in one ``round`` call with no loop over replicates: each
-draw takes all R at once, so at R = 1 the round draws what the single
+leaves) advances in one ``round`` call with no loop over replicates (the
+neighbor lists too: one stacked build): each draw takes all R at once, so at R = 1 the round draws what the single
 network's round draws, in the same order, and gives its values.
 
 Randomness: one ``torch.Generator`` drawn in that fixed order (the port's
@@ -166,16 +166,13 @@ class NetworkSimulator:
         """One round: (state', chan, mask [N] bool, W), all on the device;
         W is [N, N], or a SparseW when ``sparse_k`` > 0. ``state`` is left
         as it was. A stacked state ([R, ...] leaves) advances all R
-        networks: chan's leaves [R, ...], mask [R, N], W [R, N, N].
+        networks: chan's leaves [R, ...], mask [R, N], W [R, N, N] (a
+        SparseW of [R, N, k] leaves, all R lists built in one call).
 
         ``P``: this call's transmit power in watts in place of the
         constructor's ``p_dbm`` — a number, a tensor [N], or for a stack
         [R, 1] (each network its own power)."""
         scn = self.scenario
-        if self.sparse_k > 0 and state.churn.up.ndim > 1:
-            raise NotImplementedError(
-                "a stack of networks with a neighbor-list W (sparse_k > 0) "
-                "is not ported yet (ROADMAP A20)")
         state = NetState(
             fading=fading_lib.advance(scn.fading, generator, state.fading),
             geometry=geometry_lib.advance(scn.geometry, generator,

@@ -25,7 +25,10 @@ under either accountant.
 Telemetry draws nothing from the generator and writes no parameter: a
 trajectory with it on is bitwise the trajectory with it off. Every
 function takes leaves with leading axes (a chunk's rounds, the fleet's
-replicates) and reduces over the trailing worker axis only.
+replicates) and reduces over the trailing worker axis only. On a
+process-group mesh (``shard``) only the consensus needs the other ranks:
+``consensus_distance`` sums their partial sums; every rank draws the same
+network, so the channel columns and epsilon are its own.
 """
 from __future__ import annotations
 
@@ -90,7 +93,8 @@ class TelemetrySpec:
         return torch.stack(cols, dim=-1)
 
 
-def consensus_distance(params, worker_axis: int = 0) -> torch.Tensor:
+def consensus_distance(params, worker_axis: int = 0, *, model_group=None,
+                       worker_group=None) -> torch.Tensor:
     """RMS consensus distance sqrt(mean_n ||x_n - xbar||^2) over the worker
     axis of every leaf (worker_axis=0: [W, ...] leaves, a scalar;
     worker_axis=1: the fleet's [R, W, ...] leaves, [R]). A tree of leaves
@@ -102,7 +106,24 @@ def consensus_distance(params, worker_axis: int = 0) -> torch.Tensor:
 
     one subtracting pass. The shift lies inside the worker cloud, so near
     consensus the two terms do not cancel catastrophically, as the r = 0
-    sum-of-squares form would."""
+    sum-of-squares form would.
+
+    On a process-group mesh each rank holds part of the buffer, and the
+    result is a sum of the ranks' partial sums, as ``param_norm`` is:
+
+    * ``model_group`` (the "model" axis): this rank's column window of
+      every worker. Its partial n ||.||^2 by the identity above, then one
+      ``all_reduce`` (sum) over the group, then the root. A layout's zero
+      padding columns add 0.
+    * ``worker_group`` (the "workers" axis): this rank's rows, the group's
+      ranks in row order. r is worker 0's row, on the group's rank 0: one
+      ``broadcast`` of r, then one ``all_reduce`` of [sum_n (x_n - r),
+      sum_n ||x_n - r||^2], d + 1 floats (2 x 3.4 MB a round at d =
+      855,050).
+
+    On one rank the collectives leave every value as it is, so the result
+    is bitwise the unsharded call's. None of them waits for the host."""
+    import torch.distributed as dist
     from repro_torch.core.exchange import tree_flatten
     leaves, _ = tree_flatten(params)
     sq = None
@@ -110,12 +131,27 @@ def consensus_distance(params, worker_axis: int = 0) -> torch.Tensor:
     for x in leaves:
         x = x.float()
         n_workers = x.shape[worker_axis]
-        y = x - x.narrow(worker_axis, 0, 1)
+        shift = x.narrow(worker_axis, 0, 1)
+        if worker_group is not None:
+            n_workers *= dist.get_world_size(worker_group)
+            shift = shift.clone()          # a view of the rank's rows
+            dist.broadcast(shift, src=dist.get_global_rank(worker_group, 0),
+                           group=worker_group)
+        y = x - shift
         red = tuple(range(worker_axis, x.ndim))
-        s1 = torch.sum(y * y, dim=red) * (1.0 / n_workers)
-        v = torch.mean(y, dim=worker_axis)
-        d2 = (s1 - torch.sum(v * v, dim=red[:-1])) * n_workers
+        s1 = torch.sum(y * y, dim=red)
+        col = torch.sum(y, dim=worker_axis)
+        if worker_group is not None:
+            both = torch.cat([col.reshape(-1), s1.reshape(-1)])
+            dist.all_reduce(both, group=worker_group)
+            col = both[:col.numel()].reshape(col.shape)
+            s1 = both[col.numel():].reshape(s1.shape)
+        v = col / n_workers
+        d2 = (s1 * (1.0 / n_workers) - torch.sum(v * v, dim=red[:-1])) \
+            * n_workers
         sq = d2 if sq is None else sq + d2
+    if model_group is not None:
+        dist.all_reduce(sq, group=model_group)
     return torch.sqrt(torch.clamp_min(sq, 0.0) * (1.0 / n_workers))
 
 

@@ -215,7 +215,119 @@ def four_ranks(rank: int):
 
 
 def cli_ranks(rank: int, argv):
-    """``launch.train.run(argv)`` on this rank (the group already up)."""
+    """``launch.train.run(argv)`` on this rank (the group already up):
+    what it returned, its run-log directory as a string."""
     from repro_torch.launch import train
     res = train.run(list(argv))
-    return {"params": res["params"], "losses": res["losses"]}
+    run_dir = res["runlog_dir"]
+    return {"params": res["params"], "losses": res["losses"],
+            "telemetry": res["telemetry"], "eps": res["eps_moments"],
+            "runlog_dir": None if run_dir is None else str(run_dir)}
+
+
+# ---------------------------------------------------------------------------
+# telemetry over a mesh (ROADMAP A21)
+# ---------------------------------------------------------------------------
+
+TELE_ROUNDS = 3
+
+
+def _tele_store(n_workers: int):
+    """A device store of the tests' 12-feature data, ``n_workers`` parts."""
+    from repro_torch.data import ClassificationStore, dirichlet_partition
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(400, DIM)).astype(np.float32)
+    y = rng.integers(0, 10, 400).astype(np.int32)
+    return ClassificationStore.build(
+        x, y, dirichlet_partition(y, n_workers, seed=3), B, device="cpu")
+
+
+def telemetry_trajectory(kind: str, mesh=None, shards: int = 2) -> dict:
+    """A TELE_ROUNDS-round dynamic trajectory with every telemetry column
+    on, in one chunk: its rows ([K, M], the fleet's [K, R, M]) and
+    carry.eps. ``kind``: "model" (iot_dense, N = 5, the buffer in
+    ``shards`` column windows), "workers" (mesh_sparse, N = 16, k = 4) or
+    "fleet" (iot_dense, R = 2 networks of N = 5 each mixing through its
+    neighbor list, k = 3, ``shards`` column windows). ``mesh`` None: the logical mode (the padded buffer on one
+    process; the worker axis's: the unsharded buffer); else this rank's
+    part on ``mesh``."""
+    from repro_torch.core import exchange as X
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.obs import telemetry as tele
+    from repro_torch.shard import ShardLayout, local_rows, local_window
+    n = 16 if kind == "workers" else N
+    kw = (dict(scenario="mesh_sparse", sparse_neighbors=4)
+          if kind == "workers" else dict(scenario="iot_dense"))
+    if kind == "fleet":
+        kw.update(replicates=2, sparse_neighbors=3)
+    cfg, proto, wp, _ = setup(n, channel_model="dynamic", flat_buffer=True,
+                              **kw)
+    gen = torch.Generator().manual_seed(7)
+    body_kw = dict(telemetry=tele.TelemetrySpec())
+    reps = None
+    if kind == "fleet":
+        fleet = FleetEngine(proto, device="cpu")
+        reps = fleet.replicates
+        wp = X.tree_map(lambda t: torch.stack([t] * reps), wp)
+        net = fleet.init(gen)
+        body_kw.update(fleet=fleet, shard_mesh=mesh)
+    else:
+        sim = proto.simulator("cpu")
+        net = sim.init(gen)
+        body_kw.update(sim=sim)
+    lead = 2 if kind == "fleet" else 1
+    layout = (None if kind == "workers"
+              else ShardLayout(X.FlatSpec(wp, lead).d, shards))
+    spec = X.make_flat_spec(wp, lead_axes=lead, layout=layout)
+    params = spec.flatten(wp)
+    if mesh is not None and kind == "workers":
+        body_kw["worker_mesh"] = mesh
+        params = local_rows(params, mesh)
+    elif mesh is not None:
+        body_kw["shard_mesh"] = mesh
+        params = local_window(params, spec, mesh)
+        if kind == "fleet":
+            params = params[fleet.replicate_slice(mesh)]
+    body = TJ.make_round_body(cfg, proto, _tele_store(n), spec, "cpu",
+                              **body_kw)
+    carry = TJ.TrajCarry(gen, params, net,
+                         tele.init_eps_moments(reps, device="cpu"))
+    carry, out = TJ.run_chunk(body, carry, TELE_ROUNDS)
+    return {"rows": out["telemetry"], "eps": carry.eps}
+
+
+def telemetry_model(rank: int):
+    from repro_torch.launch.mesh import make_shard_mesh
+    return telemetry_trajectory("model", make_shard_mesh(2, device="cpu"))
+
+
+def telemetry_workers(rank: int):
+    from repro_torch.launch.mesh import make_worker_mesh
+    return telemetry_trajectory("workers", make_worker_mesh(2, device="cpu"))
+
+
+def telemetry_fleet(rank: int):
+    """The fleet on the two 2-D meshes of 2 ranks: (replicas 1, model 2),
+    the CLI's, and (replicas 2, model 1)."""
+    from repro_torch.launch.mesh import make_shard_mesh
+    return {
+        "1x2": telemetry_trajectory(
+            "fleet", make_shard_mesh(2, n_replicas=1, device="cpu")),
+        "2x1": telemetry_trajectory(
+            "fleet", make_shard_mesh(1, n_replicas=2, device="cpu"),
+            shards=1)}
+
+
+def telemetry_one_rank(rank: int):
+    """Every mesh kind on a one-rank group."""
+    from repro_torch.launch.mesh import make_shard_mesh, make_worker_mesh
+    return {
+        "model": telemetry_trajectory(
+            "model", make_shard_mesh(1, device="cpu"), shards=1),
+        "workers": telemetry_trajectory(
+            "workers", make_worker_mesh(1, device="cpu")),
+        "fleet": telemetry_trajectory(
+            "fleet", make_shard_mesh(1, n_replicas=1, device="cpu"),
+            shards=1)}
+

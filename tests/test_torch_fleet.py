@@ -44,6 +44,7 @@ from repro_torch.fleet import sweep
 from repro_torch.kernels.dp_mix import ops
 from repro_torch.kernels.dp_perturb import ops as dp_ops
 from repro_torch.launch import train
+from repro_torch.net.sparse import SparseW
 from repro_torch.obs import telemetry as tele
 from test_torch_dynamic import _dynamic_normals
 from test_torch_net import port_chan, port_state, t
@@ -75,10 +76,13 @@ def _store(seed=1):
 def test_fleet_refuses_what_it_does_not_run():
     with pytest.raises(ValueError, match="channel_model='dynamic'"):
         FleetEngine(P.ProtocolConfig(n_workers=N), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="A20"):
-        FleetEngine(P.ProtocolConfig(**dict(KW, scenario="mesh_sparse",
-                                            sparse_neighbors=2)), 2,
-                    device="cpu")
+    # a neighbor-list W, once refused (ROADMAP A20), is a stacked SparseW
+    sparse = FleetEngine(P.ProtocolConfig(**dict(KW, scenario="mesh_sparse",
+                                                 sparse_neighbors=2)), 2,
+                         device="cpu")
+    g = torch.Generator().manual_seed(0)
+    _, _, _, sw = sparse.round(g, sparse.init(g))
+    assert isinstance(sw, SparseW) and sw.idx.shape == (2, N, 2)
     fleet = FleetEngine(P.ProtocolConfig(**KW), 2, device="cpu")
     flat, spec = fleet.init_flat_spec(torch.Generator(), _cfg(), n_shards=2)
     assert spec.n_shards == 2 and flat.shape == (2, N, spec.width)
@@ -467,10 +471,18 @@ def test_cli_replicates_on_cpu(extra):
 
 @pytest.mark.parametrize("argv,item", [
     (["--replicates", "2", "--channel-model", "dynamic", "--scenario",
-      "mesh_sparse", "--sparse-neighbors", "4"], "A20")])
+      "mesh_sparse", "--sparse-neighbors", "4"], "A20"),
+    (["--replicates", "2"], None)])
 def test_cli_replicates_refusals(argv, item):
-    with pytest.raises(SystemExit, match=f"ROADMAP {item}"):
-        train.parse_args(argv)
+    """The fleet's CLI refuses the static channel; ``item``: a ROADMAP item
+    this argv was once refused for, now run (the sparse fleet, A20)."""
+    if item is None:
+        with pytest.raises(SystemExit, match="requires --channel-model "
+                                             "dynamic"):
+            train.parse_args(argv)
+        return
+    args = train.parse_args(argv)
+    assert (args.replicates, args.sparse_neighbors) == (2, 4)
 
 
 def test_cli_replicates_take_seq_len():
