@@ -213,8 +213,26 @@ Phases, each fatal on failure (exit code 1, no result line):
              by C2; a reduced olmo-1b round, flat and tree, on the card
              against the CPU.
 
-Each phase of the dynamic network, of the fleet, of the zoo and of LM training is preceded by a
-``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
+11. tooling — the launch tooling and the static checks (ROADMAP A16, A17):
+             repro_torch.analysis on the card over the 8 programs one
+             card builds at dwfl-paper's width (0 ERROR findings; dp_mix
+             or its sparse round launched once a round; the counter
+             ranges of the key check), op_cost of dwfl-paper's static flat
+             round (N = 10, batch 32) and olmo-1b's tree round (full
+             depth, N = 2, batch 4 x 128) on the meta device equal to the
+             card's, each round's roofline bound (utils.roofline) beside
+             its ms in turns, olmo-1b's argument bytes on meta against the
+             card's allocation and the recorders' peaks against
+             torch.cuda.max_memory_allocated, the batched serving
+             example's loop at gemma-2b's full width for two waves, and
+             last the dry run (``python -m repro_torch.launch.dryrun
+             --both-meshes``, 33 pairs on each mesh, one process a core
+             but one) with the card idle: every pair OK.
+
+The H100's peaks and the kernels' work formulas are the package's
+(``repro_torch.utils.roofline``, ``repro_torch.kernels.work``).
+Each phase of the dynamic network, of the fleet, of the zoo, of LM training and of the tooling is preceded
+by a ``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
 output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 "device": {...}}.
 """
@@ -228,16 +246,27 @@ import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import Optional
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+if (SRC / "repro_torch").is_dir() and str(SRC) not in sys.path:
+    sys.path.insert(0, str(SRC))
 
-# H100 SXM peaks (NVIDIA data sheet; at the 700 W power limit)
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12                # float32 on the CUDA cores
-TF32_TC_FLOP_PER_S = 495e12           # dense TF32 on the tensor cores
-BF16_TC_FLOP_PER_S = 989e12           # dense bfloat16 on the tensor cores
+# the H100's peaks (utils.roofline) and the kernels' work formulas
+# (kernels.work) are the package's; without the checkout main() fails first
+try:
+    from repro_torch.kernels.work import (PERTURB_FLOPS,  # noqa: F401
+                                          PERTURB_NOISY_FLOPS, Work,
+                                          dp_mix_bytes, dp_mix_fmas,
+                                          flash_work, kept_pairs,
+                                          perturb_work, sparse_bytes,
+                                          sparse_fmas, ssd_work)
+    from repro_torch.utils.roofline import (BF16_TC_FLOP_PER_S,  # noqa: F401
+                                            F32_FLOP_PER_S, HBM_BYTES_PER_S,
+                                            TF32_TC_FLOP_PER_S)
+except ImportError:
+    pass
 # dp_mix's instructions besides its normals, per element, counted from
 # csrc/dp_mix.cu's arithmetic: the local step (2), nf, z and v (7; gossip:
 # v alone, 1), the output's fused multiply-add and the mix's N of them.
@@ -286,12 +315,6 @@ extern "C" __global__ void k_tail(const unsigned* b, float* y, unsigned s) {{
 }}
 """
 
-
-# float operations per element of csrc/dp_perturb.cu: the local step's FMA
-# (2); noisy, also the two uniforms (4), -2 log, sqrt, 2 pi u2, r cos, the
-# noise scale and the final FMA (7), and libdevice's logf and cosf at
-# about 20 and 25 operations (hash excluded)
-PERTURB_FLOPS, PERTURB_NOISY_FLOPS = 2, 58
 
 PATH_N, PATH_D = 10, 855_050          # dwfl-paper, hidden 256
 # dwfl-paper's leaves at N = 10, in tree order (each layer's b, then w)
@@ -676,6 +699,47 @@ PREDICTIONS = {
                       "parameters, batch and seed or normals, flat and "
                       "tree: within 1e-4 (1 + max|out|), as the earlier "
                       "slices' small rounds (measured there ~1e-7)",
+    "tooling_analysis": "the 8 single-card programs at dwfl-paper's width "
+                        "(N = 6, batch 4, 2 chunks of 3 rounds under the "
+                        "sync guard): 0 ERROR findings; dp_mix_round 6 "
+                        "launches in 6 rounds on static-flat, "
+                        "dynamic-flat-tele, fleet-flat (one for both "
+                        "replicates) and shard-flat-s2, dp_mix_round_sparse "
+                        "6 in 6 on dynamic-sparse-flat, none on the tree "
+                        "programs, whose noise the key check reads as "
+                        "generator draws (78 on static-tree, 96 on "
+                        "dynamic-tree and fleet-tree, each from a state of "
+                        "its own, as on the CPU); every draw's counters "
+                        "from 0 to "
+                        "10,261,779 (2 (5 x 855,168 + 855,049) + 1; "
+                        "shard-flat-s2's padded window clipped at the "
+                        "stride, 10,262,015); 2-10 s a program",
+    "tooling_rounds": "op_cost on meta equal to the card's, FLOPs, bytes "
+                      "and ops exactly, for both rounds (the clip's row "
+                      "sums run the card's three reductions on meta too); "
+                      "dwfl-paper's flat round: 161 ops, 1,060,034,864 "
+                      "bytes, bound 0.316 ms (memory; compute 0.020) "
+                      "against 3-5 ms measured, 6-10% of the roofline "
+                      "(host-bound); olmo-1b's tree round: bound 169-170 ms "
+                      "(memory, ~568 GB; compute 109.0 ms of 7.30 TFLOP at "
+                      "67 TFLOP/s) against 376-400 ms, 42-45%; olmo-1b's "
+                      "arguments 9,414,115,328 bytes on "
+                      "meta equal to the card's allocation; the recorder's "
+                      "peak 57.07 GiB on meta and on the card against "
+                      "max_memory_allocated's 60-67 GiB (PR 25: 66.13; the "
+                      "kernel's workspace and the allocator's blocks are "
+                      "not in the recorder's count)",
+    "tooling_serve": "the batched serving loop at gemma-2b's full width "
+                     "(2,506,172,416 float32 parameters), 2 waves of 4 "
+                     "requests, prompt 48, 24 generated: finite logits, 0 "
+                     "kernel launches, 1-4 s a wave (its 23 decode steps "
+                     "host-bound, ~540 launches a step)",
+    "tooling_dryrun": "66 OK records (33 pairs x 2 meshes), 0 failures, in "
+                      "150-350 s with 7 processes (the sandbox's CPU: 329 s "
+                      "with 4 processes beside a test run); the longest "
+                      "pair xlstm-1.3b train_4k (its 5 fit steps, ~300 s "
+                      "of one core a mesh), then zamba2-7b train_4k (~100 "
+                      "s) and qwen3-moe-235b-a22b train_4k (~70 s)",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -878,7 +942,7 @@ def dp_mix_work(N: int, d: int, elem: int, noisy: bool, counts: dict,
     from the SASS, and dp_mix_element_ops an element) over SMs x 128
     lanes x the SM clock; the mix's N^2 d fused multiply-adds at 67
     TFLOP/s."""
-    nbytes = 3 * N * d * elem + (N * N + 4 * N + 4) * 4
+    nbytes = dp_mix_bytes(N, d, elem)
     instr = N * d * dp_mix_element_ops(N, noisy)
     if noisy:
         instr += (branches["small"] * counts["small"]
@@ -886,9 +950,10 @@ def dp_mix_work(N: int, d: int, elem: int, noisy: bool, counts: dict,
                   + branches["tail"] * counts["tail_extra"])
     t = {"bytes": nbytes / HBM_BYTES_PER_S,
          "instructions": instr / (rates["sms"] * 128 * rates["sm_clock_hz"]),
-         "fma": 2 * N * N * d / F32_FLOP_PER_S}
+         "fma": 2 * dp_mix_fmas(N, d) / F32_FLOP_PER_S}
     bound = max(t.values())
-    return {"bytes": nbytes, "lane_instructions": instr, "fmas": N * N * d,
+    return {"bytes": nbytes, "lane_instructions": instr,
+            "fmas": dp_mix_fmas(N, d),
             "bytes_ms": 1e3 * t["bytes"],
             "instructions_ms": 1e3 * t["instructions"],
             "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
@@ -1610,7 +1675,7 @@ def sparse_work(N: int, d: int, k: int, elem: int, noisy: bool, nnz: int,
     the prep writes z and nf (float32) and the gather reads p, g, nf and z
     once, so 2 (elem + 8) + elem bytes an element (gathered_from_hbm_ms:
     each of the k gathered rows of z from HBM as well)."""
-    nbytes = 3 * N * d * elem + N * k * 8 + 6 * N * 4 + 16
+    nbytes = sparse_bytes(N, d, k, elem)
     instr = N * d * sparse_element_ops(nnz / N, noisy)
     if noisy:
         instr += (branches["small"] * counts["small"]
@@ -1618,12 +1683,12 @@ def sparse_work(N: int, d: int, k: int, elem: int, noisy: bool, nnz: int,
                   + branches["tail"] * counts["tail_extra"])
     t = {"bytes": nbytes / HBM_BYTES_PER_S,
          "instructions": instr / (rates["sms"] * 128 * rates["sm_clock_hz"]),
-         "fma": 2 * (nnz + N) * d / F32_FLOP_PER_S}
+         "fma": 2 * sparse_fmas(N, d, nnz) / F32_FLOP_PER_S}
     bound = max(t.values())
     ws = (2 * elem + (8 if noisy else 4)) + (2 * elem + (8 if noisy else 4)
                                              + elem)
     return {"bytes": nbytes, "lane_instructions": instr,
-            "fmas": (nnz + N) * d, "bytes_ms": 1e3 * t["bytes"],
+            "fmas": sparse_fmas(N, d, nnz), "bytes_ms": 1e3 * t["bytes"],
             "instructions_ms": 1e3 * t["instructions"],
             "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
             "bound_by": "bytes" if t["bytes"] == bound else "operations",
@@ -2052,9 +2117,9 @@ def check_dp_perturb(shape, dtype, noisy: bool, timed: bool) -> dict:
     rec = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
            "noisy": noisy, "max_abs_err": err, "violations": bad}
     if timed:
-        numel = p.numel()
-        nbytes = (4 if noisy else 3) * numel * p.element_size()
-        flops = numel * (PERTURB_NOISY_FLOPS if noisy else PERTURB_FLOPS)
+        w = perturb_work(p.numel(), p.element_size(), noisy,
+                         outputs=2 if noisy else 1)
+        nbytes, flops = w.nbytes, w.flops
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
         rec["ms"] = cuda_ms(kernel, iters=50)
         rec["plain_ms"] = cuda_ms(plain, iters=5, warmup=1)
@@ -2117,9 +2182,9 @@ def check_leaves(dtype, timed: bool, shapes=MLP_LEAVES,
            "elements": sum(math.prod(s) for s in shapes),
            "max_abs_err": err, "violations": bad}
     if timed:
-        numel = sum(p.numel() for p in ps)
-        nbytes = 3 * numel * ps[0].element_size()
-        flops = numel * PERTURB_FLOPS
+        w = perturb_work(sum(p.numel() for p in ps), ps[0].element_size(),
+                         False, outputs=1)
+        nbytes, flops = w.nbytes, w.flops
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
         rec["ms"] = cuda_ms(kernel, iters=50)
         rec["per_leaf_ms"] = cuda_ms(per_leaf, iters=50)
@@ -2387,49 +2452,6 @@ def profile_rounds(store, flat: bool, n_rounds: int = 20,
     return rec
 
 
-class Work(NamedTuple):
-    """What one call of a tensor-core kernel needs and does: ``flops``, the
-    function's operations; ``nbytes``, its inputs read once and its outputs
-    written once; ``rate``, the peak of the kernel's route; ``kernel_flops``,
-    the route's own products (3 TF32 products for each float32 one; in
-    bfloat16 flash's P v twice, for P_hi and P_lo)."""
-    flops: int
-    nbytes: int
-    rate: float
-    kernel_flops: int
-
-    @property
-    def bound_s(self) -> float:
-        """The least time the card could take: the longer of the bytes
-        over HBM's rate and the operations over the route's peak."""
-        return max(self.nbytes / HBM_BYTES_PER_S, self.flops / self.rate)
-
-    @property
-    def bound_by(self) -> str:
-        return ("bytes" if self.nbytes / HBM_BYTES_PER_S >= self.flops / self.rate
-                else "operations")
-
-
-def kept_pairs(S: int, window: Optional[int] = None) -> int:
-    """(query, key) pairs of one causal [S, S] score tile that the mask
-    keeps: key <= query, and query - key < window where there is one."""
-    w = S if window is None else min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
-
-
-def flash_work(B: int, S: int, H: int, Hkv: int, hd: int, elem: int,
-               window: Optional[int] = None) -> Work:
-    """Work of one causal flash_attention call at (B, S, H, Hkv, hd) with
-    elements of ``elem`` bytes (4: float32 on split TF32; 2: bfloat16 on
-    wgmma): 2 products of 2 hd operations per (query, key) pair the mask
-    keeps; q, k, v read once and o written once."""
-    flops = 4 * hd * kept_pairs(S, window) * B * H
-    nbytes = (2 * B * S * H * hd + 2 * B * S * Hkv * hd) * elem
-    if elem == 2:
-        return Work(flops, nbytes, BF16_TC_FLOP_PER_S, flops * 3 // 2)
-    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * flops)
-
-
 def check_flash(shape, dtype, window, timed: bool) -> dict:
     """flash_attention's kernel vs its plain version on the card at one
     shape. Tolerance: both compute the scores, the softmax and the
@@ -2546,29 +2568,6 @@ def ssd_inputs(shape, dtype):
     A = -torch.exp(0.3 * rnd(H))
     Bm, Cm = ((0.3 * rnd(B, S, N)).to(dtype) for _ in range(2))
     return x, dt, dt * A, Bm, Cm
-
-
-def ssd_work(shape, elem: int) -> Work:
-    """Work of the SSD intra-chunk step at ``shape`` with x, Bm, Cm of
-    ``elem`` bytes, as the scan launches it (with cs). Bytes: x, Bm, Cm,
-    dt, dA read once; y, states, cdecay and cs written once. Operations,
-    over the q (q + 1) / 2 causal pairs (i, j <= i) of each chunk: the
-    scores C_i . B_j once per chunk, as Bm and Cm are one group shared by
-    all heads (2N); per head the decay (subtract, exp, multiply: 3) and G @
-    (x dt) (2P); per row and head x dt (P), B exp(cs_last - cs) dt (N + 3)
-    and the states' product (2PN); per chunk and head exp(cs_last). The
-    route is split TF32 on the tensor cores: its own work is three TF32
-    products for each of the products (the scores, G @ (x dt), the
-    states)."""
-    B, S, H, P, N, q = shape
-    nc = S // q
-    pairs = q * (q + 1) // 2
-    products = B * nc * (pairs * 2 * N + H * (pairs * 2 * P + q * 2 * P * N))
-    flops = B * nc * (pairs * 2 * N
-                      + H * (pairs * (3 + 2 * P) + q * (P + N + 3 + 2 * P * N) + 1))
-    nbytes = (elem * (2 * B * S * H * P + 2 * B * S * N)
-              + 4 * (3 * B * S * H + B * nc * H * P * N + B * nc * H))
-    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * products)
 
 
 def check_ssd(shape, dtype, timed: bool) -> dict:
@@ -4725,6 +4724,300 @@ def sweep_phase() -> dict:
     return rec
 
 
+
+# ---- phase 11: the launch tooling and the static checks (A16, A17) ---------
+
+TOOLING_HIDDEN = 256       # dwfl-paper's width for the analysis programs
+SERVE_WAVES, SERVE_B, SERVE_S, SERVE_G = 2, 4, 48, 24   # the example's CLI
+DRYRUN_PAIRS = 33
+
+
+def tooling_analysis() -> dict:
+    """(a) repro_torch.analysis on the card: every program one card can
+    build (the two-rank mesh program needs two ranks), at dwfl-paper's
+    width, two chunks of three rounds each under the sync guard; 0 ERROR
+    findings, dp_mix (B1) or its sparse round (B1-sparse) launched once a
+    round (the wrappers' counts, zeroed before each program), and the
+    counter ranges the key check saw. Then the source lint."""
+    import torch
+    from repro_torch import analysis as A
+    from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.analysis.keys import (collect_draws,
+                                          collect_stream_draws,
+                                          counter_ranges)
+    from repro_torch.kernels.dp_mix import ops
+    predict("tooling_analysis")
+    recs, errors = {}, []
+    for name in A.available_programs():
+        ops.dp_mix_round.launches = ops.dp_mix_round_sparse.launches = 0
+        t0 = time.perf_counter()
+        prog, = A.build_programs([name], hidden=TOOLING_HIDDEN, device="cuda")
+        run = A.run_program(prog)
+        torch.cuda.synchronize()
+        findings = A.analyze_run(run)
+        rounds = sum(len(c.round_index) for c in run.chunks)
+        kernel = ("dp_mix_round_sparse" if prog.sparse else "dp_mix_round")
+        want = {kernel: rounds} if prog.flat else {}
+        got = {k: v for k, v in (
+            ("dp_mix_round", ops.dp_mix_round.launches),
+            ("dp_mix_round_sparse", ops.dp_mix_round_sparse.launches)) if v}
+        ranges = counter_ranges(collect_draws(run))
+        errs = [str(f) for f in findings if f.severity == A.Severity.ERROR]
+        rec = {"seconds": time.perf_counter() - t0, "rounds": rounds,
+               "launches": got, "expected": want,
+               "errors": len(errs), "findings": len(findings),
+               "generator_draws": len(collect_stream_draws(run)),
+               "counter_ranges": [(r["seed"], r["first"], r["last"])
+                                  for r in ranges]}
+        print(f"[tooling] analysis {name}: {json.dumps(rec)}", flush=True)
+        if got != want:
+            fail(f"analysis {name}: launches {got}, expected {want}")
+        errors += errs
+        recs[name] = rec
+        del run, prog
+        torch.cuda.empty_cache()
+    if errors:
+        fail(f"analysis on the card: {len(errors)} ERROR findings: "
+             f"{errors[:4]}")
+    if analysis_main(["--source-only", "-q"]) != 0:
+        fail("analysis: the source lint found an ERROR")
+    return recs
+
+
+def tooling_dryrun() -> dict:
+    """(b) python -m repro_torch.launch.dryrun over every pair the skip
+    table leaves, on both meshes, in one process a core but one (at most
+    7); every pair OK and its time."""
+    import os
+    import signal
+    predict("tooling_dryrun")
+    jobs = max(1, min(7, (os.cpu_count() or 2) - 1))
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--both-meshes",
+         "--jobs", str(jobs), "--out", str(out_dir)], cwd=str(ROOT), env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail("dry run: over 900 s")
+    seconds = time.perf_counter() - t0
+    lines = out.splitlines()
+    for line in lines:
+        if line.startswith(("OK", "FAIL", "SKIP")) or " ok, " in line:
+            print(f"[tooling] dryrun {line}", flush=True)
+    ok = [l for l in lines if l.startswith("OK")]
+    bad = [l for l in lines if l.startswith("FAIL")]
+    rec = {"jobs": jobs, "seconds": seconds, "ok": len(ok),
+           "failures": len(bad), "rc": proc.returncode}
+    print(f"[tooling] dryrun: {json.dumps(rec)}", flush=True)
+    if proc.returncode != 0 or bad or len(ok) != 2 * DRYRUN_PAIRS:
+        fail(f"dry run: rc {proc.returncode}, {len(ok)} OK, {len(bad)} "
+             f"failures; {err[-2000:]}")
+    return rec
+
+
+def _paper_flat_round(device: str):
+    """dwfl-paper's static flat round at N = 10, batch 32 (the main
+    path's), on ``device``: (body, carry, None)."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import (ClassificationStore, classification_dataset,
+                                  dirichlet_partition)
+    x, y = classification_dataset(20000, seed=0)
+    store = ClassificationStore.build(
+        x, y, dirichlet_partition(y, PATH_N, alpha=0.5, seed=0), 32, device)
+    proto = P.ProtocolConfig(n_workers=PATH_N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0)
+    gen = torch.Generator(device="cpu" if device == "meta" else device)
+    gen.manual_seed(0)
+    wp = P.init_worker_params(gen, DWFL_PAPER, PATH_N, device)
+    spec = X.FlatSpec(wp)
+    body = TJ.make_round_body(DWFL_PAPER, proto, store, spec, device)
+    return body, TJ.TrajCarry(gen, spec.flatten(wp)), None
+
+
+def _olmo_tree_round(device: str):
+    """olmo-1b's tree round at full depth, N = 2, batch 4 x 128 a worker,
+    with use_pallas (phase 10's), on ``device``: (body, carry, the bytes
+    the card allocated for the worker parameters, or None)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import LMStore, lm_dataset
+    cfg = get_arch(LM_ARCH)
+    proto = P.ProtocolConfig(scheme="dwfl", n_workers=LM_TREE_N, gamma=0.01,
+                             eta=0.4, target_epsilon=1.0, use_pallas=True)
+    store = LMStore.build(lm_dataset(LM_TREE_N * 200_000, cfg.vocab_size,
+                                     seed=0), LM_TREE_N, LM_BATCH, LM_SEQ,
+                          device)
+    gen = torch.Generator(device="cpu" if device == "meta" else device)
+    gen.manual_seed(0)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+    wp = P.init_worker_params(gen, cfg, LM_TREE_N, device)
+    if cuda:
+        torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base if cuda else None
+    body = TJ.make_round_body(cfg, proto, store, device=device)
+    return body, TJ.TrajCarry(gen, wp), allocated
+
+
+def _counted_round(body, carry):
+    """One round under a recorder: (carry', Cost, recorder's peak)."""
+    from repro_torch.utils.trace import Recorder
+    with Recorder(keep_ops=False) as rec:
+        rec.track(carry.params)
+        carry, _ = body(carry)
+    return carry, rec.cost, rec.peak_bytes
+
+
+def _turns_ms(body, carry, rounds: int, turns: int = 3):
+    """ms a round in ``turns`` turns of ``rounds`` rounds each (host clock
+    around rounds ending in a synchronize)."""
+    import torch
+    ms = []
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            carry, _ = body(carry)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0) / rounds)
+    return carry, ms
+
+
+def _round_bytes(tree) -> tuple:
+    """(bytes, bytes with each tensor rounded up to the caching
+    allocator's 512-byte blocks) of a tree's tensors."""
+    from repro_torch.core.exchange import tree_flatten
+    ts = [t for t in tree_flatten(tree)[0] if hasattr(t, "untyped_storage")]
+    raw = sum(t.untyped_storage().nbytes() for t in ts)
+    return raw, sum(-(-t.untyped_storage().nbytes() // 512) * 512 for t in ts)
+
+
+def tooling_rounds() -> dict:
+    """(c) and (d): dwfl-paper's static flat round and olmo-1b's tree round
+    counted on the meta device and on the card, one warm round each:
+    their op_cost equal, FLOPs and bytes exactly; each round's roofline
+    bound beside its ms in turns (the first whole-round share of the
+    roofline: a reading, not a limit). olmo-1b's argument bytes on meta
+    against the card's allocated bytes for them, and the recorders' peaks
+    beside torch.cuda.max_memory_allocated."""
+    import torch
+    from repro_torch.utils import roofline as rl
+    predict("tooling_rounds")
+    recs = {}
+    for name, build, rounds in (("dwfl-paper flat, N = 10", _paper_flat_round,
+                                 20),
+                                (f"olmo-1b tree, full depth, N = {LM_TREE_N}",
+                                 _olmo_tree_round, 2)):
+        torch.cuda.empty_cache()
+        body, carry, _ = build("meta")
+        args_meta = _round_bytes(carry.params)
+        carry, _ = body(carry)
+        carry, meta_cost, meta_peak = _counted_round(body, carry)
+        del body, carry
+        body, carry, args_card = build("cuda")
+        carry, _ = body(carry)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        carry, card_cost, card_peak = _counted_round(body, carry)
+        torch.cuda.synchronize()
+        max_alloc = torch.cuda.max_memory_allocated()
+        carry, ms = _turns_ms(body, carry, rounds)
+        roof = rl.from_cost(name, card_cost, peak="f32")
+        same = meta_cost.as_dict() == card_cost.as_dict()
+        rec = {"op_cost_meta": meta_cost.as_dict(),
+               "op_cost_card": card_cost.as_dict(), "equal": same,
+               "bound_ms": 1e3 * roof.step_time_s, "dominant": roof.dominant,
+               "compute_ms": 1e3 * roof.compute_s,
+               "memory_ms": 1e3 * roof.memory_s, "round_ms_turns": ms,
+               "roofline_share": [1e3 * roof.step_time_s / m for m in ms],
+               "argument_bytes_meta": args_meta[0],
+               "argument_bytes_meta_blocks": args_meta[1],
+               "argument_bytes_card_allocated": args_card,
+               "peak_recorder_meta": meta_peak,
+               "peak_recorder_card": card_peak,
+               "max_memory_allocated": max_alloc,
+               "max_memory_allocated_gib": max_alloc / 2 ** 30}
+        print(f"[tooling] round {name}: {json.dumps(rec)}", flush=True)
+        if not same:
+            diff = {k: (v, card_cost.as_dict()[k]) for k, v in
+                    meta_cost.as_dict().items()
+                    if card_cost.as_dict()[k] != v}
+            fail(f"{name}: op_cost on meta differs from the card's: {diff}")
+        if name.startswith("olmo") and args_meta[1] != args_card:
+            fail(f"{name}: argument bytes {args_meta} on meta, "
+                 f"{args_card} allocated on the card")
+        recs[name] = rec
+        del body, carry
+        torch.cuda.empty_cache()
+    return recs
+
+
+def tooling_serve_batched(wrappers) -> dict:
+    """(e) examples/port_serve_batched.py's loop at gemma-2b's full width:
+    two waves of the example CLI's traffic, finite logits, no kernel
+    launched (the loop leaves use_pallas off, as the reference's)."""
+    import importlib.util
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import model as M
+    predict("tooling_serve")
+    path = ROOT / "examples" / "port_serve_batched.py"
+    spec = importlib.util.spec_from_file_location("port_serve_batched", path)
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    cfg = get_arch("gemma-2b")
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                           "cuda")
+    n = M.count_params(params)
+    if n != GEMMA_PARAMS:
+        fail(f"gemma-2b has {n} parameters, expected {GEMMA_PARAMS}")
+    zero_counts(wrappers)
+    waves = []
+    t0 = time.perf_counter()
+    for res in ex.serve_waves(cfg, params, ex.random_prompts(
+            cfg, SERVE_WAVES, SERVE_B, SERVE_S, 1, "cuda"), SERVE_G, "cuda"):
+        torch.cuda.synchronize()
+        finite = bool(torch.isfinite(res["logits"]).all())
+        waves.append({"wave": res["wave"], "seconds":
+                      time.perf_counter() - t0, "finite": finite,
+                      "tokens": list(res["tokens"].shape),
+                      "stops": res["stops"].tolist()})
+        if not finite or tuple(res["tokens"].shape) != (SERVE_B, SERVE_G):
+            fail(f"serve_batched wave {res['wave']}: finite {finite}, "
+                 f"tokens {tuple(res['tokens'].shape)}")
+        t0 = time.perf_counter()
+    no_launches("serve_batched", wrappers)
+    rec = {"params": n, "waves": waves}
+    print(f"[tooling] serve_batched gemma-2b: {json.dumps(rec)}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def tooling_phase(wrappers) -> dict:
+    """Phase 11: (a) the analysis on the card, (c, d) meta against the card
+    and memory, (e) the batched serving example, then (b) the dry run,
+    alone on the host with the card idle."""
+    return {"analysis": tooling_analysis(), "rounds": tooling_rounds(),
+            "serve_batched": tooling_serve_batched(wrappers),
+            "dryrun": tooling_dryrun()}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -4917,6 +5210,12 @@ def main() -> int:
     lm = lm_train_phase(counts, rates)
     lm_shape = lambda r: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "max_abs_err")}
+    torch.cuda.empty_cache()
+
+    # 11. the launch tooling and the static checks: the analysis on the
+    # card, op_cost on meta against the card, memory, the batched serving
+    # example, the dry run
+    tooling_phase(kernel_wrappers())
 
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",

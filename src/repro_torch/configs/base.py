@@ -2,7 +2,9 @@
 (data only: the port never imports the reference). ``ModelConfig``
 carries the fields of the reference's that the port reads, with the
 reference's defaults, ``resolved_head_dim``, ``is_subquadratic`` and
-``reduced()``, so a configuration means the same model in both packages.
+``reduced()``, so a configuration means the same model in both packages,
+and the reference's four input shapes (``ShapeConfig``, ``SHAPES``), which
+the dry run (``launch.specs``, ``launch.dryrun``) reads.
 The reference's ``remat``, ``tp_hints`` and ``remat_policy`` are JAX
 knobs (activation checkpointing over ``lax.scan``, sharding hints) that
 nothing in the port reads, and stay out."""
@@ -120,3 +122,20 @@ class ModelConfig:
         small.update(kw)
         return self.replace(**small)
 
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One of the four assigned input workloads."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1, kind="decode"),
+}

@@ -1,8 +1,8 @@
 """Registry of the architectures (the reference's
 ``repro/configs/registry.py``): every arch the reference has, and the
-long-context variants that ``get_arch`` picks for the long_500k shape.
-The reference's shape-skip table is not carried: nothing in the port
-reads it.
+long-context variants that ``get_arch`` picks for the long_500k shape,
+``ASSIGNED`` and the reference's designed skips of the (arch x shape) grid
+(``SHAPE_SKIPS``), which the dry run (``launch.dryrun``) reads.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ from repro_torch.configs import (deepseek_moe_16b, dwfl_paper, gemma_2b,
                                  glm4_9b, olmo_1b, qwen2_72b, qwen2_vl_2b,
                                  qwen3_moe_235b_a22b, whisper_medium,
                                  xlstm_1_3b, zamba2_7b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 ARCHS: Dict[str, ModelConfig] = {
     "zamba2-7b": zamba2_7b.CONFIG,
@@ -28,6 +28,20 @@ ARCHS: Dict[str, ModelConfig] = {
     "dwfl-paper": dwfl_paper.DWFL_PAPER,
 }
 
+ASSIGNED = [a for a in ARCHS if a != "dwfl-paper"]
+
+# (arch, shape) pairs skipped by design: long_500k needs sub-quadratic
+# attention or a recurrent state
+SHAPE_SKIPS = {
+    ("qwen2-72b", "long_500k"): "pure full attention; 524k dense KV out of scope",
+    ("olmo-1b", "long_500k"): "pure full attention",
+    ("glm4-9b", "long_500k"): "pure full attention",
+    ("qwen2-vl-2b", "long_500k"): "pure full attention",
+    ("qwen3-moe-235b-a22b", "long_500k"): "full attention MoE",
+    ("deepseek-moe-16b", "long_500k"): "full attention MoE",
+    ("whisper-medium", "long_500k"): "enc-dec; decoder context architecturally <=448",
+}
+
 
 def get_arch(name: str, shape: str | None = None) -> ModelConfig:
     if name not in ARCHS:
@@ -38,3 +52,8 @@ def get_arch(name: str, shape: str | None = None) -> ModelConfig:
     if name == "zamba2-7b" and shape == "long_500k":
         return zamba2_7b.LONG_CONTEXT_VARIANT
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+

@@ -467,13 +467,14 @@ def worker_unravelers(template):
 def draw_normals(X, generator: torch.Generator, *, shared_m: bool = False
                  ) -> dict:
     """The standard normals of one noisy exchange over the worker tree X:
-    {"n": tree, "m": tree}, float32 on the generator's device, drawn in a
-    fixed order — every leaf's n field in tree order, then every leaf's
-    m field. With ``shared_m`` an m field is [1, ...], one draw that every
-    receiver shares (the centralized server's AWGN)."""
+    {"n": tree, "m": tree}, float32 on the leaves' device (the generator's,
+    or the meta device, where a CPU generator's draws only carry shapes),
+    drawn in a fixed order — every leaf's n field in tree order, then every
+    leaf's m field. With ``shared_m`` an m field is [1, ...], one draw that
+    every receiver shares (the centralized server's AWGN)."""
     leaves, structure = tree_flatten(X)
-    draw = lambda shape: torch.randn(shape, generator=generator,
-                                     device=generator.device)
+    dev = leaves[0].device
+    draw = lambda shape: torch.randn(shape, generator=generator, device=dev)
     n = [draw(tuple(x.shape)) for x in leaves]
     m = [draw((1,) + tuple(x.shape[1:]) if shared_m else tuple(x.shape))
          for x in leaves]

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import accounting
 from repro_torch.core.channel import ChannelState
 from repro_torch.core.exchange import tree_flatten, tree_unflatten
+from repro_torch.utils import trace
 
 
 # Composition saturates here: per-round budgets past ~700 overflow
@@ -351,16 +352,31 @@ def row_sum_squares(x: torch.Tensor) -> torch.Tensor:
     columns, then M1 blocks, with at least 32 R outputs) or short enough
     (the last, M2 = 32 partial sums) that PyTorch's block shape does not
     follow R; the squares of the tail past n are zeros. On the CPU a
-    row's order does not depend on R: one reduction."""
+    row's order does not depend on R: one reduction.
+
+    The meta device takes the card's ops. On the CPU an open recorder
+    (``utils.trace``) counts the card's ops too, replayed on a meta copy
+    of x, and not the CPU's own: a round then counts what the card
+    issues on every device."""
     R = x.shape[0]
     x = x.reshape(R, -1)
-    if x.device.type != "cuda":
+    if x.device.type != "cpu":
+        return _staged_row_sum_squares(x)
+    if trace.active() is not None:
+        with trace.uncounted():
+            xm = torch.empty(x.shape, dtype=x.dtype, device="meta")
+        _staged_row_sum_squares(xm)
+    with trace.uncounted():
         return torch.sum(x.float() ** 2, dim=1)
-    n = x.shape[1]
+
+
+def _staged_row_sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """row_sum_squares's three reductions of the card, over [R, n] x."""
+    R, n = x.shape
     m1 = max(1, -(-n // (_SUMSQ_K * _SUMSQ_M2)))
     sq = torch.empty((R, _SUMSQ_M2 * m1 * _SUMSQ_K), device=x.device)
     torch.square(x.float(), out=sq[:, :n])
-    sq[:, n:] = 0
+    sq[:, n:].fill_(0)      # one op on every device (``= 0`` is not)
     s = sq.view(R, _SUMSQ_M2 * m1, _SUMSQ_K).sum(-1)
     return s.view(R, _SUMSQ_M2, m1).sum(-1).sum(-1)
 

@@ -6,8 +6,11 @@ W), the two halves of a worker shard's sparse round (``dp_mix_prep_rows``,
 
 Dispatch is by the device of the buffer: a CUDA tensor launches the
 hand-written kernel (``csrc/dp_mix.cu``) or raises; a CPU tensor runs the
-plain version (``dp_mix.dp_mix_plain``). There is no fallback between the
-two. ``dp_mix_round.launches`` counts the kernel launches.
+plain version (``dp_mix.dp_mix_plain``), and so does a tensor on the meta
+device, where it only carries shapes (nothing is computed there). There is
+no fallback between the two. ``dp_mix_round.launches`` counts the kernel
+launches. Every call declares its work (``kernels.work``) and its noise
+draws (``utils.trace.Draw``) to an open recorder (``utils.trace``).
 
 A stack of R rounds (the fleet: p, g [R, N, d], W [R, N, N], the
 per-receiver vectors [R, N], c, sigma_m and seed [R]) is one call and one
@@ -57,11 +60,15 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import work as work_lib
 from repro_torch.kernels.dp_mix.dp_mix import (dp_mix_gather_plain,
                                               dp_mix_plain, dp_mix_plain_stack,
                                               dp_mix_prep_plain,
                                               dp_mix_sparse_plain,
                                               dp_mix_sparse_plain_stack)
+from repro_torch.utils import trace
+
+_PLAIN = ("cpu", "meta")     # devices whose tensors take the plain version
 
 LANES = 128            # noise-counter row stride multiple (the reference's)
 SUBLANES = 8           # the sparse round's worker-axis pad (the reference's)
@@ -297,24 +304,46 @@ def dp_mix_round(p, g, seed, W, amp, c, sigma_m, *, gamma: float, eta: float,
     lead = tuple(lead)
     cw = _counter_width(N, d, counter_width)
     dev = p.device
-    vecs = _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale,
-                          m_scale, listen, lead)
-    W = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
-    if W.shape != lead + (N, N):
-        raise ValueError(f"W must be {list(lead + (N, N))}, got "
-                         f"{tuple(W.shape)}")
-    args = (p, g, *vecs, W)
-    kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
-              counter_width=cw)
-    if dev.type == "cuda":
-        return _launch(*args, **kw)
-    if dev.type == "cpu":
-        return dp_mix_plain_stack(*args, **kw) if lead else dp_mix_plain(
-            *args, **kw)
-    raise ValueError(f"dp_mix_round has no path for device {dev}")
+    if dev.type != "cuda" and dev.type not in _PLAIN:
+        raise ValueError(f"dp_mix_round has no path for device {dev}")
+    with trace.kernel_call("dp_mix_round") as call:
+        vecs = _round_vectors(N, dev, seed, col0, amp, c, sigma_m,
+                              self_scale, m_scale, listen, lead)
+        W = torch.as_tensor(W, dtype=torch.float32, device=dev).contiguous()
+        if W.shape != lead + (N, N):
+            raise ValueError(f"W must be {list(lead + (N, N))}, got "
+                             f"{tuple(W.shape)}")
+        args = (p, g, *vecs, W)
+        kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
+                  counter_width=cw)
+        if dev.type == "cuda":
+            out = _launch(*args, **kw)
+        else:
+            out = (dp_mix_plain_stack(*args, **kw) if lead
+                   else dp_mix_plain(*args, **kw))
+        if call:
+            R = lead[0] if lead else 1
+            call.report(work_lib.dp_mix_work(N, d, p.element_size(), R),
+                        args=dict(N=N, d=d, R=R, noisy=bool(noisy),
+                                  counter_width=cw, dtype=p.dtype,
+                                  operands=(W, vecs[3])),
+                        draws=_mix_draws(vecs[0], N, d, cw, col0, 0, lead,
+                                         (0, 1) if noisy else ()),
+                        outputs=[out])
+    return out
 
 
 dp_mix_round.launches = 0
+
+
+def _mix_draws(seed, N, d, cw, col0, row0, lead, fields):
+    """The noise draws of one call (one a replicate of a stack)."""
+    if not fields:
+        return []
+    reps = [None] if not lead else range(lead[0])
+    return [trace.Draw("mix", seed, rows=N, cols=d, counter_width=cw,
+                       row0=int(row0), col0=col0, fields=tuple(fields),
+                       replicate=r) for r in reps]
 
 
 def _counter_width(N: int, d: int, counter_width, row0: int = 0) -> int:
@@ -397,6 +426,32 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     if tuple(sw.idx.shape[:-1]) != lead + (N,):
         raise ValueError(f"the neighbor list must be {list(lead + (N,))} + "
                          f"[k], got idx {tuple(sw.idx.shape)}")
+    if dev.type != "cuda" and dev.type not in _PLAIN:
+        raise ValueError(f"dp_mix_round_sparse has no path for device {dev}")
+    with trace.kernel_call("dp_mix_round_sparse") as call:
+        out = _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta,
+                            self_scale, m_scale, listen, noisy, col0, cw,
+                            row0)
+        if call:
+            k, R = sw.idx.shape[-1], lead[0] if lead else 1
+            call.report(work_lib.sparse_work(N, d, k, p.element_size(), R=R),
+                        args=dict(N=N, d=d, k=k, R=R, noisy=bool(noisy),
+                                  counter_width=cw, row0=int(row0),
+                                  dtype=p.dtype,
+                                  operands=(sw.w, torch.as_tensor(amp))),
+                        draws=_mix_draws(seed, N, d, cw, col0, row0, lead,
+                                         (0, 1) if noisy else ()),
+                        outputs=[out])
+    return out
+
+
+def _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta, self_scale,
+                  m_scale, listen, noisy, col0, cw, row0):
+    """dp_mix_round_sparse's launch (or plain version) on its checked
+    operands."""
+    *lead, N, d = p.shape
+    lead = tuple(lead)
+    dev = p.device
     vecs = _round_vectors(N, dev, seed, col0, amp, c, sigma_m, self_scale,
                           m_scale, listen, lead)
     Np = _roundup(N, SUBLANES)
@@ -413,11 +468,9 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
               counter_width=cw, row0=int(row0))
     if dev.type == "cuda":
         out = _launch_sparse(*args, **kw)
-    elif dev.type == "cpu":
+    else:
         out = (dp_mix_sparse_plain_stack if lead else dp_mix_sparse_plain)(
             *args, **kw)
-    else:
-        raise ValueError(f"dp_mix_round_sparse has no path for device {dev}")
     return out if Np == N else out[..., :N, :]
 
 
@@ -439,16 +492,24 @@ def dp_mix_prep_rows(p, g, seed, amp, c, *, gamma: float, row0: int,
                          f"{n_workers}")
     cw = _counter_width(n_workers, d, counter_width)
     dev = p.device
-    seed_t, col0_t, scal, amp_t, *_ = _round_vectors(
-        Nb, dev, seed, col0, amp, c, 0.0, None, 0.0, None)
-    args = (p.contiguous(), g.contiguous(), seed_t, col0_t, scal, amp_t)
-    kw = dict(gamma=float(gamma), noisy=bool(noisy), counter_width=cw,
-              row0=int(row0))
-    if dev.type == "cuda":
-        return _launch_prep(*args, **kw)
-    if dev.type == "cpu":
-        return dp_mix_prep_plain(*args, **kw)
-    raise ValueError(f"dp_mix_prep_rows has no path for device {dev}")
+    if dev.type != "cuda" and dev.type not in _PLAIN:
+        raise ValueError(f"dp_mix_prep_rows has no path for device {dev}")
+    with trace.kernel_call("dp_mix_prep_rows") as call:
+        seed_t, col0_t, scal, amp_t, *_ = _round_vectors(
+            Nb, dev, seed, col0, amp, c, 0.0, None, 0.0, None)
+        args = (p.contiguous(), g.contiguous(), seed_t, col0_t, scal, amp_t)
+        kw = dict(gamma=float(gamma), noisy=bool(noisy), counter_width=cw,
+                  row0=int(row0))
+        ws = (_launch_prep(*args, **kw) if dev.type == "cuda"
+              else dp_mix_prep_plain(*args, **kw))
+        if call:
+            call.report(work_lib.prep_rows_work(Nb, d, p.element_size()),
+                        args=dict(N=Nb, d=d, row0=int(row0), noisy=bool(noisy),
+                                  counter_width=cw, dtype=p.dtype),
+                        draws=_mix_draws(seed_t, Nb, d, cw, col0, row0, (),
+                                         (0,) if noisy else ()),
+                        outputs=[ws])
+    return ws
 
 
 dp_mix_prep_rows.launches = 0
@@ -473,19 +534,29 @@ def dp_mix_gather_rows(p, g, ws, z_src, seed, sw, amp, c, sigma_m, *,
         raise ValueError("dp_mix_gather_rows needs m_scale (the shard's rows)")
     cw = _counter_width(N, d, counter_width)
     dev = p.device
-    vecs = _round_vectors(Nb, dev, seed, col0, amp, c, sigma_m, self_scale,
-                          m_scale, listen)
-    args = (p.contiguous(), g.contiguous(), ws, z_src.contiguous(), *vecs,
-            sw.idx.to(device=dev, dtype=torch.int32).contiguous(),
-            sw.w.to(device=dev, dtype=torch.float32).contiguous(),
-            sw.self_w.to(device=dev, dtype=torch.float32).contiguous())
-    kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
-              counter_width=cw, row0=int(row0))
-    if dev.type == "cuda":
-        return _launch_gather(*args, **kw)
-    if dev.type == "cpu":
-        return dp_mix_gather_plain(*args, **kw)
-    raise ValueError(f"dp_mix_gather_rows has no path for device {dev}")
+    if dev.type != "cuda" and dev.type not in _PLAIN:
+        raise ValueError(f"dp_mix_gather_rows has no path for device {dev}")
+    with trace.kernel_call("dp_mix_gather_rows") as call:
+        vecs = _round_vectors(Nb, dev, seed, col0, amp, c, sigma_m,
+                              self_scale, m_scale, listen)
+        args = (p.contiguous(), g.contiguous(), ws, z_src.contiguous(), *vecs,
+                sw.idx.to(device=dev, dtype=torch.int32).contiguous(),
+                sw.w.to(device=dev, dtype=torch.float32).contiguous(),
+                sw.self_w.to(device=dev, dtype=torch.float32).contiguous())
+        kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
+                  counter_width=cw, row0=int(row0))
+        out = (_launch_gather(*args, **kw) if dev.type == "cuda"
+               else dp_mix_gather_plain(*args, **kw))
+        if call:
+            k = sw.idx.shape[-1]
+            call.report(work_lib.gather_rows_work(Nb, d, k, p.element_size()),
+                        args=dict(N=Nb, d=d, k=k, row0=int(row0),
+                                  noisy=bool(noisy), counter_width=cw,
+                                  dtype=p.dtype),
+                        draws=_mix_draws(vecs[0], Nb, d, cw, col0, row0, (),
+                                         (1,) if noisy else ()),
+                        outputs=[out])
+    return out
 
 
 dp_mix_gather_rows.launches = 0

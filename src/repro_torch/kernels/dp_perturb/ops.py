@@ -6,10 +6,13 @@ model in one launch.
 
 Dispatch is by the device of ``p``: a CUDA tensor launches the
 hand-written kernel (``csrc/dp_perturb.cu``) or raises; a CPU tensor runs
-the plain version (``dp_perturb.dp_perturb_plain``). There is no fallback
-between the two. The kernel takes a table of up to 16 leaves by value:
-``sgd_update`` and ``dp_perturb`` launch it with one entry,
-``sgd_update_leaves`` with all the leaves (16 at a time).
+the plain version (``dp_perturb.dp_perturb_plain``), and so does a tensor
+on the meta device, where it only carries shapes. There is no fallback
+between the two. Every call declares its work (``kernels.work``) and its
+noise draw to an open recorder (``utils.trace``). The kernel takes a
+table of up to 16 leaves by value: ``sgd_update`` and ``dp_perturb``
+launch it with one entry, ``sgd_update_leaves`` with all the leaves (16
+at a time).
 ``sgd_update.launches``, ``dp_perturb.launches`` and
 ``sgd_update_leaves.launches`` count the kernel launches of each wrapper.
 
@@ -33,7 +36,11 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import work as work_lib
 from repro_torch.kernels.dp_perturb.dp_perturb import dp_perturb_plain
+from repro_torch.utils import trace
+
+_PLAIN = ("cpu", "meta")     # devices whose tensors take the plain version
 
 COUNTER_LIMIT = 1 << 31
 MAX_LEAVES = 16                          # entries of the kernel's leaf table
@@ -137,13 +144,19 @@ def sgd_update_plain(p, g, gamma: float):
 
 def sgd_update(p, g, gamma: float):
     """Fused SGD step (the sigma = 0 path): p - gamma g in p's dtype."""
-    if p.device.type == "cuda":
-        (x,), _ = _launch([p], [g], None, _X_ONLY, gamma=float(gamma))
-        sgd_update.launches += 1
-        return x
-    if p.device.type == "cpu":
-        return sgd_update_plain(p, g, gamma)
-    raise ValueError(f"sgd_update has no path for device {p.device}")
+    if p.device.type != "cuda" and p.device.type not in _PLAIN:
+        raise ValueError(f"sgd_update has no path for device {p.device}")
+    with trace.kernel_call("sgd_update") as call:
+        if p.device.type == "cuda":
+            (x,), _ = _launch([p], [g], None, _X_ONLY, gamma=float(gamma))
+            sgd_update.launches += 1
+        else:
+            x = sgd_update_plain(p, g, gamma)
+        if call:
+            call.report(work_lib.perturb_work(p.numel(), p.element_size(),
+                                              False, outputs=1),
+                        args=dict(numel=p.numel(), dtype=p.dtype), outputs=[x])
+    return x
 
 
 sgd_update.launches = 0
@@ -165,18 +178,27 @@ def sgd_update_leaves(ps, gs, gamma: float):
                          f"{len(gs)} gradient leaves")
     if not ps:
         return []
-    if ps[0].device.type == "cuda":
-        xs = []
-        for i in range(0, len(ps), MAX_LEAVES):
-            chunk, _ = _launch(ps[i:i + MAX_LEAVES], gs[i:i + MAX_LEAVES],
-                               None, _X_ONLY, gamma=float(gamma))
-            sgd_update_leaves.launches += 1
-            xs += chunk
-        return xs
-    if ps[0].device.type == "cpu":
-        return sgd_update_leaves_plain(ps, gs, gamma)
-    raise ValueError(f"sgd_update_leaves has no path for device "
-                     f"{ps[0].device}")
+    dev = ps[0].device
+    if dev.type != "cuda" and dev.type not in _PLAIN:
+        raise ValueError(f"sgd_update_leaves has no path for device {dev}")
+    with trace.kernel_call("sgd_update_leaves") as call:
+        if dev.type == "cuda":
+            xs = []
+            for i in range(0, len(ps), MAX_LEAVES):
+                chunk, _ = _launch(ps[i:i + MAX_LEAVES], gs[i:i + MAX_LEAVES],
+                                   None, _X_ONLY, gamma=float(gamma))
+                sgd_update_leaves.launches += 1
+                xs += chunk
+        else:
+            xs = sgd_update_leaves_plain(ps, gs, gamma)
+        if call:
+            numel = sum(p.numel() for p in ps)
+            call.report(work_lib.perturb_work(numel, ps[0].element_size(),
+                                              False, outputs=1),
+                        args=dict(leaves=len(ps), numel=numel,
+                                  dtype=ps[0].dtype),
+                        outputs=xs)
+    return xs
 
 
 sgd_update_leaves.launches = 0
@@ -192,21 +214,31 @@ def dp_perturb(p, g, seed, *, gamma: float, sigma: float, s_sig: float,
         raise ValueError(f"a noisy leaf of {p.numel()} elements exceeds 2^31: "
                          f"the uint32 noise counters would wrap and reuse "
                          f"noise")
-    if p.device.type == "cuda":
-        if isinstance(seed, int):      # a fill on the device, not a copy
-            seed = torch.full((1,), seed, dtype=torch.int32, device=p.device)
-        seed = torch.as_tensor(seed, dtype=torch.int32,
-                               device=p.device).reshape(1)
-        scale = float(np.float32(sigma) * np.float32(s_noise))
-        (x,), (xt,) = _launch([p], [g], seed, _NOISY if noisy else _SCALED,
-                              gamma=float(gamma), s_sig=float(s_sig),
-                              noise_scale=scale)
-        dp_perturb.launches += 1
-        return x, xt
-    if p.device.type == "cpu":
-        return dp_perturb_plain(p, g, seed, gamma=gamma, sigma=sigma,
-                                s_sig=s_sig, s_noise=s_noise)
-    raise ValueError(f"dp_perturb has no path for device {p.device}")
+    if p.device.type != "cuda" and p.device.type not in _PLAIN:
+        raise ValueError(f"dp_perturb has no path for device {p.device}")
+    with trace.kernel_call("dp_perturb") as call:
+        if p.device.type == "cuda":
+            if isinstance(seed, int):      # a fill on the device, not a copy
+                seed = torch.full((1,), seed, dtype=torch.int32,
+                                  device=p.device)
+            seed = torch.as_tensor(seed, dtype=torch.int32,
+                                   device=p.device).reshape(1)
+            scale = float(np.float32(sigma) * np.float32(s_noise))
+            (x,), (xt,) = _launch([p], [g], seed,
+                                  _NOISY if noisy else _SCALED,
+                                  gamma=float(gamma), s_sig=float(s_sig),
+                                  noise_scale=scale)
+            dp_perturb.launches += 1
+        else:
+            x, xt = dp_perturb_plain(p, g, seed, gamma=gamma, sigma=sigma,
+                                     s_sig=s_sig, s_noise=s_noise)
+        if call:
+            call.report(work_lib.perturb_work(p.numel(), p.element_size(),
+                                              noisy),
+                        args=dict(numel=p.numel(), noisy=noisy, dtype=p.dtype),
+                        draws=[trace.Draw("perturb", seed, numel=p.numel())]
+                        if noisy else [], outputs=[x, xt])
+    return x, xt
 
 
 dp_perturb.launches = 0

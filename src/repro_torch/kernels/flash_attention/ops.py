@@ -7,9 +7,11 @@ device of q: a CUDA tensor launches the hand-written kernel
 (``csrc/flash_attention.cu``, both instantiations on the tensor cores:
 float32 as split TF32 mma.sync, ``csrc/flash_f32_sm90.cuh``; bfloat16 as
 wgmma, ``csrc/flash_bf16_sm90.cuh``) or raises; a CPU tensor runs
-the plain version (``flash_attention.flash_attention_plain``). There is no
-fallback between the two. ``flash_attention.launches`` counts the
-kernel's launches.
+the plain version (``flash_attention.flash_attention_plain``), and so does
+a tensor on the meta device, where it only carries shapes. There is no
+fallback between the two. Every call declares its work
+(``kernels.work.flash_work``) to an open recorder (``utils.trace``).
+``flash_attention.launches`` counts the kernel's launches.
 
 Contract, on either device: float32 or bfloat16, q, k, v of one dtype and
 device; hd in {32, 64, 128, 256}; H a multiple of Hkv (query head h reads
@@ -31,7 +33,9 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import work as work_lib
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
+from repro_torch.utils import trace
 
 HEAD_DIMS = (32, 64, 128, 256)
 
@@ -114,14 +118,24 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     sliding_window: Optional[int] = None):
     """q: [B,S,H,hd]; k, v: [B,S,Hkv,hd] -> [B,S,H,hd] in q's dtype."""
     _check(q, k, v, sliding_window)
-    if q.device.type == "cuda":
-        o = _launch(q, k, v, causal=causal, sliding_window=sliding_window)
-        flash_attention.launches += 1
-        return o
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     sliding_window=sliding_window)
-    raise ValueError(f"flash_attention has no path for device {q.device}")
+    if q.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"flash_attention has no path for device {q.device}")
+    with trace.kernel_call("flash_attention") as call:
+        if q.device.type == "cuda":
+            o = _launch(q, k, v, causal=causal, sliding_window=sliding_window)
+            flash_attention.launches += 1
+        else:
+            o = flash_attention_plain(q, k, v, causal=causal,
+                                      sliding_window=sliding_window)
+        if call:
+            B, S, H, hd = q.shape
+            call.report(work_lib.flash_work(B, S, H, k.shape[2], hd,
+                                            q.element_size(), sliding_window,
+                                            causal),
+                        args=dict(B=B, S=S, H=H, Hkv=k.shape[2], hd=hd,
+                                  dtype=q.dtype, causal=causal,
+                                  sliding_window=sliding_window), outputs=[o])
+    return o
 
 
 flash_attention.launches = 0

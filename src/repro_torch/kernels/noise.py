@@ -51,6 +51,8 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.utils import trace
+
 MASK32 = 0xFFFFFFFF
 _M1, _M2, _M3 = 2654435761, 2246822519, 3266489917
 GOLDEN = 0x9E3779B9
@@ -185,6 +187,9 @@ def normal_field(shape: Tuple[int, int], counter_width: int, col0: IntLike,
                  device=None) -> torch.Tensor:
     """One of the two float32 standard-normal fields over an [R, C]
     window: field 0 from counters 2*idx, field 1 from 2*idx + 1."""
+    trace.note_draw(trace.Draw("mix", seed, rows=shape[0], cols=shape[1],
+                               counter_width=counter_width, row0=row0,
+                               col0=col0, fields=(field,)))
     idx2 = (counters(shape, counter_width, col0, row0, device) * 2) & MASK32
     return normal_from_bits(hash_bits(idx2 + field, seed))
 
@@ -219,6 +224,7 @@ def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
 
 def perturb_normals(n_elems: int, seed: IntLike, device=None) -> torch.Tensor:
     """dp_perturb's [n_elems] float32 standard normals at ``seed``."""
+    trace.note_draw(trace.Draw("perturb", seed, numel=n_elems))
     ctr1, ctr2 = perturb_counters(n_elems, seed, device)
     return box_muller(uniform_from_bits(hash_bits(ctr1, seed)),
                       uniform_from_bits(hash_bits(ctr2, seed)))

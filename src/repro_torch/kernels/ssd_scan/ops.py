@@ -6,8 +6,12 @@ reference's signature and arithmetic (repro/kernels/ssd_scan/ops.py).
 [B, nc, H, P, N] float32, cdecay [B, nc, H] float32). Dispatch is by the
 device of x: a CUDA tensor launches the hand-written kernel
 (``csrc/ssd_scan.cu``) or raises; a CPU tensor runs the plain version
-(``ssd_scan.ssd_intra_chunk_plain``). There is no fallback between the
-two. ``ssd_intra_chunk.launches`` counts the kernel's launches.
+(``ssd_scan.ssd_intra_chunk_plain``), and so does a tensor on the meta
+device, where it only carries shapes. There is no fallback between the
+two. ``ssd_intra_chunk.launches`` counts the kernel's launches. Each call
+declares its work (``kernels.work.ssd_work``) to an open recorder
+(``utils.trace``): the scan's, with the within-chunk cumsum it writes, on
+every device.
 
 ``ssd_scan(xh, dt, A, Bm, Cm, *, chunk, initial_state=None)``: the
 reference's full scan, (y [B, S, H, P], final_state [B, H, P, N] float32):
@@ -31,8 +35,10 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels import work as work_lib
 from repro_torch.kernels.ssd_scan.ssd_scan import (cumsum_f32, inter_chunk,
                                                    ssd_intra_chunk_plain)
+from repro_torch.utils import trace
 
 MAX_CHUNK = 256
 MAX_DIM = 128   # N and P
@@ -124,11 +130,21 @@ def _launch(x, dt, dA, Bm, Cm, *, chunk: int, with_cs: bool = False):
 def ssd_intra_chunk(x, dt, dA, Bm, Cm, *, chunk: int):
     """The intra-chunk step: (y_diag, states, cdecay), see the module."""
     _check(x, dt, dA, Bm, Cm, chunk)
-    if x.device.type == "cuda":
-        return _launch(x, dt, dA, Bm, Cm, chunk=chunk)
-    if x.device.type == "cpu":
-        return ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk)
-    raise ValueError(f"ssd_scan has no path for device {x.device}")
+    if x.device.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"ssd_scan has no path for device {x.device}")
+    with trace.kernel_call("ssd_intra_chunk") as call:
+        out = (_launch(x, dt, dA, Bm, Cm, chunk=chunk)
+               if x.device.type == "cuda"
+               else ssd_intra_chunk_plain(x, dt, dA, Bm, Cm, chunk=chunk))
+        if call:
+            B, S, H, P = x.shape
+            shape = (B, S, H, P, Bm.shape[-1], chunk)
+            w = work_lib.ssd_work(shape, x.element_size())
+            # without cs: [B, nc, q, H] float32 is not written
+            call.report(w._replace(nbytes=w.nbytes - 4 * B * S * H),
+                        args=dict(shape=shape, dtype=x.dtype),
+                        outputs=list(out))
+    return out
 
 
 ssd_intra_chunk.launches = 0
@@ -143,15 +159,22 @@ def ssd_scan(xh, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     chunk = min(chunk, S)
     dA = dt.float() * A.float()[None, None, :]
     nc = S // chunk
-    if xh.device.type == "cuda":
-        # the kernel's cs: the within-chunk cumsum in the reference's order,
-        # which cumsum_f32 would take again in ~35 small launches
-        _check(xh, dt, dA, Bm, Cm, chunk)
-        y_diag, states, cdecay, dA_cs = _launch(xh, dt, dA, Bm, Cm, chunk=chunk,
-                                                with_cs=True)
-    else:
-        y_diag, states, cdecay = ssd_intra_chunk(xh, dt, dA, Bm, Cm, chunk=chunk)
-        dA_cs = cumsum_f32(dA.reshape(B, nc, chunk, H), dim=2)
+    with trace.kernel_call("ssd_intra_chunk") as call:
+        if xh.device.type == "cuda":
+            # the kernel's cs: the within-chunk cumsum in the reference's
+            # order, which cumsum_f32 would take again in ~35 small launches
+            _check(xh, dt, dA, Bm, Cm, chunk)
+            y_diag, states, cdecay, dA_cs = _launch(xh, dt, dA, Bm, Cm,
+                                                    chunk=chunk, with_cs=True)
+        else:
+            y_diag, states, cdecay = ssd_intra_chunk(xh, dt, dA, Bm, Cm,
+                                                     chunk=chunk)
+            dA_cs = cumsum_f32(dA.reshape(B, nc, chunk, H), dim=2)
+        if call:
+            shape = (B, S, H, P, N, chunk)
+            call.report(work_lib.ssd_work(shape, xh.element_size()),
+                        args=dict(shape=shape, dtype=xh.dtype),
+                        outputs=[y_diag, states, cdecay, dA_cs])
     Cc = Cm.float().reshape(B, nc, chunk, N)
     y_off, h = inter_chunk(states, cdecay, dA_cs, Cc, initial_state)
     y = y_diag + y_off.reshape(B, S, H, P).to(y_diag.dtype)

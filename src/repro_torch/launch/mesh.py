@@ -9,13 +9,69 @@ tensors, gloo on the CPU. A mesh axis is a process group
 (``shard.round``), "workers" for its rows (``shard.worker``), "replicas"
 for the fleet's networks. NCCL takes one rank a card.
 
+The production mesh of the dry run (``launch.specs``, ``launch.dryrun``)
+is an abstract ``MeshShape``, axis names and sizes with no devices and no
+process group: (data 16, model 16), or (pod 2, data 16, model 16) for two
+pods. The DWFL worker axis is "data" (16 workers), or ("pod", "data")
+(32); each worker is one model-parallel group of 16 chips.
+
 Functions only: importing this module touches no process group.
 """
 from __future__ import annotations
 
-from typing import Optional
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 from repro_torch.runtime import resolve_device
+
+
+@dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no devices behind it."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def axis_sizes(mesh) -> Dict[str, int]:
+    """{axis name: size} of a ``MeshShape``, or of any mesh with
+    ``axis_names`` and ``devices.shape`` (a jax mesh) or ``mesh.shape``
+    (a torch DeviceMesh with ``mesh_dim_names``)."""
+    names = getattr(mesh, "axis_names", None) or mesh.mesh_dim_names
+    if isinstance(mesh, MeshShape):
+        sizes = mesh.sizes
+    elif hasattr(mesh, "devices"):
+        sizes = mesh.devices.shape
+    else:
+        sizes = mesh.mesh.shape
+    return dict(zip(names, (int(s) for s in sizes)))
+
+
+def production_mesh_shape(multi_pod: bool = False) -> MeshShape:
+    if multi_pod:
+        return MeshShape(("pod", "data", "model"), (2, 16, 16))
+    return MeshShape(("data", "model"), (16, 16))
+
+
+def worker_axes(multi_pod: bool = False) -> Tuple[str, ...]:
+    return ("pod", "data") if multi_pod else ("data",)
+
+
+def n_workers(mesh) -> int:
+    sizes = axis_sizes(mesh)
+    return sizes.get("pod", 1) * sizes["data"]
+
+
+def model_size(mesh) -> int:
+    return axis_sizes(mesh)["model"]
+
+
+def n_chips(mesh) -> int:
+    return math.prod(axis_sizes(mesh).values())
 
 
 def gather_into(out, inp, group=None) -> None:

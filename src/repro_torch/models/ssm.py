@@ -131,11 +131,16 @@ def ssd_chunked(xh, dt, A, Bm, Cm, chunk: int, initial_state=None):
 
 def ssd_decode_step(x1, dt1, A, B1, C1, state):
     """One recurrent step. x1: [B,H,P]; dt1: [B,H]; B1, C1: [B,N]; state
-    [B,H,P,N]. Returns (y [B,H,P], new state)."""
+    [B,H,P,N]. Returns (y [B,H,P], new state). Each product takes its
+    operands in their promoted dtype, as jnp.einsum does (bfloat16 B1, C1
+    against the float32 state)."""
     dec = torch.exp(dt1 * A[None, :])                                  # [B,H]
-    upd = torch.einsum("bhp,bn->bhpn", x1 * dt1[..., None], B1)
+    xdt = x1 * dt1[..., None]
+    upd = torch.einsum("bhp,bn->bhpn", xdt,
+                       B1.to(torch.promote_types(xdt.dtype, B1.dtype)))
     state = state * dec[..., None, None] + upd
-    y = torch.einsum("bhpn,bn->bhp", state, C1)
+    y = torch.einsum("bhpn,bn->bhp", state,
+                     C1.to(torch.promote_types(state.dtype, C1.dtype)))
     return y, state
 
 

@@ -331,3 +331,31 @@ def telemetry_one_rank(rank: int):
             "fleet", make_shard_mesh(1, n_replicas=1, device="cpu"),
             shards=1)}
 
+
+
+def analysis_mesh(rank: int, hidden: int, full_width_gather: bool):
+    """One rank of ``repro_torch.analysis``'s two-rank program,
+    shard-flat-s2-mesh, at ``hidden``: its findings as (checker,
+    severity) pairs. ``full_width_gather`` seeds the gather check's
+    defect: each round also all-gathers the rank's column window over the
+    "model" group, the whole padded width stacked on the leading axis."""
+    from repro_torch.analysis import (analyze_run, build_programs,
+                                      run_program)
+    from repro_torch.launch.mesh import gather_into
+    prog, = build_programs(["shard-flat-s2-mesh"], hidden=hidden,
+                           device="cpu")
+    if full_width_gather:
+        import torch.distributed as dist
+        body = prog.body
+
+        def widened(carry):
+            new, out = body(carry)
+            win = new.params
+            full = win.new_empty((dist.get_world_size() * win.shape[0],)
+                                 + tuple(win.shape[1:]))
+            gather_into(full, win)
+            return new, out
+
+        prog.body = widened
+    return [(f.checker, str(f.severity)) for f in
+            analyze_run(run_program(prog))]

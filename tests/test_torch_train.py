@@ -230,9 +230,14 @@ def test_import_leaves_jax_out():
 def test_no_source_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("port_*.py"))
+    files += examples
     assert len(files) > 15
     assert {"simulator.py", "fading.py", "geometry.py"} <= {
         f.name for f in files if f.parent.name == "net"}
+    assert {"keys.py", "registry.py"} <= {
+        f.name for f in files if f.parent.name == "analysis"}
+    assert "port_serve_batched.py" in {f.name for f in examples}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
