@@ -228,10 +228,31 @@ Phases, each fatal on failure (exit code 1, no result line):
              last the dry run (``python -m repro_torch.launch.dryrun
              --both-meshes``, 33 pairs on each mesh, one process a core
              but one) with the card idle: every pair OK.
+12. examples — the user-facing entry points (``examples/port_*.py``,
+             ``scripts/port_dev_smoke.py``), each through its ``main``:
+             the quickstart at its defaults (N = 10, d = 21,258, 301
+             rounds): dp_mix launched once a round and no other kernel,
+             the last round's output within dp_mix_tolerance of the plain
+             twin on the same inputs, the eval accuracy at round 300 at
+             least 0.20 and above round 0's, and the whole run again on
+             the CPU from the card's draws (its init, noise seeds and
+             batches): the buffer within the rounds' dp_mix tolerances
+             added up and the accuracies within two eval samples; the
+             dynamic quickstart (iot_dense, 151 rounds)
+             and the fleet quickstart (R 8 x N 8, 30 rounds), every round
+             under the round guards (no host read, no kernel build after
+             round 0, the same device operations every round); the scheme
+             comparison at its defaults (4 schemes x 250 steps, eps 0.5 a
+             round), its us/step and the Figs. 5 and 6 lines; the LM
+             driver at ``--size 100m --steps 20`` (128,994,048 parameters
+             a worker, 4 workers): every loss finite, rounds/s, tokens/s
+             and peak memory, its checkpoint restored bitwise; the dev
+             smoke over every reduced arch: finite losses, gradients and
+             decode logits. The tree paths launch no kernel (counted).
 
 The H100's peaks and the kernels' work formulas are the package's
 (``repro_torch.utils.roofline``, ``repro_torch.kernels.work``).
-Each phase of the dynamic network, of the fleet, of the zoo, of LM training and of the tooling is preceded
+Each phase of the dynamic network, of the fleet, of the zoo, of LM training, of the tooling and of the examples is preceded
 by a ``[predict]`` line, what it was expected to show (PREDICTIONS). The last three lines of standard
 output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 "device": {...}}.
@@ -740,6 +761,58 @@ PREDICTIONS = {
                       "pair xlstm-1.3b train_4k (its 5 fit steps, ~300 s "
                       "of one core a mesh), then zamba2-7b train_4k (~100 "
                       "s) and qwen3-moe-235b-a22b train_4k (~70 s)",
+    "examples_quickstart": "examples/port_quickstart.py at its defaults "
+                           "(N 10, input 256, hidden 64: d = 21,258, 301 "
+                           "rounds): dp_mix launched 301 times and no other "
+                           "kernel; the last round's output within "
+                           "dp_mix_tolerance of the plain twin on the same "
+                           "buffer, gradient and seed (max err ~6e-8); eval "
+                           "accuracy 0.075, 0.139, 0.211, 0.243 at rounds 0, "
+                           "100, 200, 300 (the card's first run; the port's "
+                           "own draws, >= 0.20 and rising required); the "
+                           "same run on the CPU from the card's draws within "
+                           "301 x tol_f32 = 8.6e-4 of the buffer (the "
+                           "second run: 7.4e-5) and the same accuracies "
+                           "within two samples (equal there), 15-40 s; 1-3 s "
+                           "for the card's 301 rounds with its libraries "
+                           "built (host-bound)",
+    "examples_dynamic": "examples/port_dynamic_quickstart.py (iot_dense, N "
+                        "10, hidden 64, the tree round, 151 rounds): every "
+                        "round guarded (sync-debug mode, no host read, no "
+                        "build after round 0) and each dispatching the same "
+                        "360-380 device operations (367 on the CPU; the "
+                        "autograd engine's device thread keeps the dispatch "
+                        "mode), no kernel launched; eps 1.000 every round, "
+                        "composed ~300-350 over 151 (the reference's CPU "
+                        "run: 324.05); 2-6 s",
+    "examples_fleet": "examples/port_fleet_quickstart.py (R 8 x N 8, "
+                      "hidden 32, the tree round, 30 rounds): every round "
+                      "guarded, the same 370-380 operations each (376 on "
+                      "the CPU), no kernel launched; composed eps 80.3 "
+                      "with a CI of ~4e-6 (the reference's: 80.3 +- "
+                      "3.9e-6); 1-3 s",
+    "examples_compare": "examples/port_compare_schemes.py at its defaults "
+                        "(N 10, 250 steps a scheme, eps 0.5 a round): eps/"
+                        "round 0.5 for each scheme (the same host math as "
+                        "on the CPU); us/step 2,000-6,000 (host-bound tree "
+                        "rounds, gossip the least); both claims lines "
+                        "REPRODUCED (the CPU with other draws: dwfl 0.280 "
+                        "against orthogonal 0.108 and centralized 0.162); "
+                        "5-15 s",
+    "examples_e2e": "examples/port_train_dwfl_e2e.py --size 100m --steps 20 "
+                    "(128,994,048 parameters a worker, 4 workers, batch 8 "
+                    "x 128, dwfl at eps 2 a round): 21 finite losses near "
+                    "ln 32,768 = 10.4, at the DP noise floor; 0.08-0.2 s a "
+                    "round (~3.2 TFLOP of float32 GEMMs on the CUDA cores "
+                    "at ~30-50 TFLOP/s), 5-12 rounds/s and 20,000-50,000 "
+                    "tokens/s over the run with its first round; peak 10-20 "
+                    "GiB (the [4, d] tree 2.06 GB, its gradients, the "
+                    "local step's output, two noise fields, the mix); the "
+                    "checkpoint (2.06 GB) restored bitwise",
+    "examples_dev_smoke": "scripts/port_dev_smoke.py over the 11 archs at "
+                          "reduced(): every loss and gradient norm finite, "
+                          "every LM's decode logits [2, 1, vocab] finite, no "
+                          "kernel launched; under 20 s",
     "turns_late": "the same in turns after serving gemma-2b and the "
                   "profiles: the static round within 10% of its early "
                   "reading, the dynamic one and the simulator's 1.0-2.0 ms "
@@ -5018,6 +5091,229 @@ def tooling_phase(wrappers) -> dict:
             "dryrun": tooling_dryrun()}
 
 
+# ---- phase 12: the user-facing entry points (examples, dev scripts) ------
+
+# the quickstart's accuracy at round 300 with the port's own draws: 0.2430 on
+# the card, 0.218-0.302 over four seed pairs on the CPU (chance is 0.1);
+# tests/test_torch_quickstart.py's 0.25 holds for the reference's draws
+QUICKSTART_ACC = 0.20
+E2E_SIZE, E2E_STEPS, E2E_PARAMS = "100m", 20, 128_994_048
+
+
+def load_entry(rel: str):
+    """A module of the checkout's ``examples/`` or ``scripts/``."""
+    import importlib.util
+    path = ROOT / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_quickstart(wrappers) -> dict:
+    """port_quickstart.main at its defaults: dp_mix once a round (counted
+    from zero over the run), the last round's output against the plain
+    twin on the same buffer, gradient and seed, the final accuracy."""
+    import torch
+    from repro_torch.core import protocol as P
+    from repro_torch.kernels.dp_mix import ops
+    predict("examples_quickstart")
+    ex = load_entry("examples/port_quickstart.py")
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ex.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in wrappers if k.launches}
+    if launches != {"dp_mix_round": res["rounds"]} or (
+            res["launches"] != res["rounds"]):
+        fail(f"quickstart: launches {launches} ({res['launches']} counted "
+             f"by the example) in {res['rounds']} rounds, expected "
+             f"dp_mix_round once a round")
+    st = res["state"]
+    proto, cfg, spec, last = st["proto"], st["cfg"], st["spec"], st["last"]
+    g = P.make_flat_local_pass(cfg, proto, spec)(last["flat"],
+                                                 last["batch"])[1]
+    plan = proto.plan(proto.channel(), "cuda")
+    plain = ops.dp_mix_round_plan(
+        last["flat"].cpu(), g.cpu(), last["seed"].cpu(),
+        proto.plan(proto.channel(), "cpu"), gamma=proto.gamma,
+        eta=proto.eta).cuda()
+    k32 = st["flat"].float()
+    allowed, tol = dp_mix_tolerance(ex.N, last["flat"], g, proto.gamma, plan,
+                                    True, k32, plain, False)
+    err = (k32 - plain).abs()
+    bad = int((err > allowed).sum())
+    acc = res["evals"][-1]["eval_acc"]
+    cpu = quickstart_on_cpu(ex, res["rounds"])
+    drift = float((st["flat"].cpu() - cpu["flat"]).abs().max())
+    flips = max(abs(a["eval_acc"] - b) for a, b in zip(res["evals"],
+                                                       cpu["accs"]))
+    rec = {"rounds": res["rounds"], "launches": res["launches"],
+           "d": spec.width, "seconds": seconds,
+           "rounds_per_s": res["rounds"] / seconds,
+           "max_abs_err": float(err.max()), "tol_f32": tol,
+           "violations": bad,
+           "evals": res["evals"], "epsilon": res["epsilon"],
+           "cpu_accs": cpu["accs"], "cpu_seconds": cpu["seconds"],
+           "card_vs_cpu_drift": drift, "card_vs_cpu_acc": flips}
+    print(f"[examples] quickstart: {json.dumps(rec)}", flush=True)
+    if bad or not torch.isfinite(k32).all():
+        fail(f"quickstart: the last round's dp_mix output differs from the "
+             f"plain twin at {bad} elements (max err {rec['max_abs_err']:.3g},"
+             f" tol {tol:.3g})")
+    if acc < QUICKSTART_ACC or acc <= res["evals"][0]["eval_acc"]:
+        fail(f"quickstart: eval accuracy {acc:.4f} at round "
+             f"{res['evals'][-1]['round']} (round 0: "
+             f"{res['evals'][0]['eval_acc']:.4f}), below {QUICKSTART_ACC}")
+    # each round within dp_mix's tolerance, added up over the rounds
+    if drift > res["rounds"] * tol or flips > 2 / (ex.N * 128):
+        fail(f"quickstart: the card's run against the CPU's on the same "
+             f"draws: buffer drift {drift:.3g}, accuracies {res['evals']} "
+             f"against {cpu['accs']}")
+    return rec
+
+
+def quickstart_on_cpu(ex, rounds: int) -> dict:
+    """The quickstart's run again on the CPU from the card run's draws:
+    its init (drawn on the card) and noise seeds (the card generator's
+    stream, seed 1, replayed) and the host batcher's batches (the same
+    numpy stream), dp_mix's plain version every round."""
+    import itertools
+    import torch
+    from repro_torch.core import protocol as P
+    from repro_torch.core.trajectory import HostBatches, round_seed
+    flat = ex.setup("cuda")[-1].cpu()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    seeds = [round_seed(gen).cpu() for _ in range(rounds)]
+    proto, cfg, batcher, spec, _ = ex.setup("cpu")
+    source = HostBatches(batcher, "cpu")
+    ev = {k: torch.as_tensor(v) for k, v in batcher.full(128).items()}
+    t0 = time.perf_counter()
+    flat, evals, _ = ex.train(
+        P.make_flat_train_step(cfg, proto, spec, "cpu"), P.make_eval_fn(cfg),
+        spec, flat, (source.draw(None) for _ in itertools.count()),
+        iter(seeds), ev, rounds)
+    return {"flat": flat, "accs": [float(a) for _, _, a in evals],
+            "seconds": time.perf_counter() - t0}
+
+
+def examples_guarded(rel: str, label: str, rounds: int, wrappers) -> dict:
+    """A network example's main with its round guards on: every round
+    guarded, the same operations each, no kernel launched."""
+    import torch
+    predict(label)
+    ex = load_entry(rel)
+    zero_counts(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ex.main([])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    no_launches(label, wrappers)
+    rec = {k: v for k, v in res.items() if k != "state"}
+    rec["seconds"] = seconds
+    print(f"[examples] {label}: {json.dumps(rec, default=float)}",
+          flush=True)
+    if res["guarded_rounds"] != rounds or not res["ops_per_round"]:
+        fail(f"{label}: {res['guarded_rounds']} guarded rounds of {rounds}")
+    eps = res.get("epsilon_composed", res.get("epsilon_composed_mean"))
+    if not math.isfinite(eps):
+        fail(f"{label}: composed epsilon {eps}")
+    return rec
+
+
+def examples_compare() -> dict:
+    """port_compare_schemes.main at its defaults: eps 0.5 a round for
+    every scheme, finite accuracies, us/step on the card's clock."""
+    predict("examples_compare")
+    ex = load_entry("examples/port_compare_schemes.py")
+    res = ex.main([])
+    rec = {s: {k: r[k] for k in ("final_acc", "final_loss", "epsilon",
+                                 "sigma", "us_per_call")}
+           for s, r in res["schemes"].items()}
+    rec.update(fig5=res["fig5_reproduced"], fig6=res["fig6_reproduced"])
+    print(f"[examples] compare_schemes: {json.dumps(rec)}", flush=True)
+    for s, r in res["schemes"].items():
+        if abs(r["epsilon"] - 0.5) > 1e-6 or not (
+                math.isfinite(r["final_acc"]) and r["us_per_call"] > 0):
+            fail(f"compare_schemes {s}: {r}")
+    return rec
+
+
+def examples_e2e(wrappers) -> dict:
+    """The LM driver at the production size: finite losses, its rates and
+    peak, and its checkpoint restored bitwise."""
+    import torch
+    from repro_torch.checkpoint import restore
+    from repro_torch.core import exchange as X
+    predict("examples_e2e")
+    ex = load_entry("examples/port_train_dwfl_e2e.py")
+    ckpt = ROOT / "build" / "examples_e2e" / "ckpt"
+    zero_counts(wrappers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = ex.main(["--size", E2E_SIZE, "--steps", str(E2E_STEPS),
+                   "--checkpoint", str(ckpt)])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    no_launches("e2e", wrappers)
+    wp = res["state"]["wp"]
+    back, manifest = restore(str(ckpt), wp)
+    a, b = X.tree_flatten(wp)[0], X.tree_flatten(back)[0]
+    bitwise = len(a) == len(b) and all(torch.equal(x, y)
+                                       for x, y in zip(a, b))
+    del back, b
+    shutil.rmtree(ckpt.parent, ignore_errors=True)
+    rec = {"size": E2E_SIZE, "params": res["params"],
+           "workers": res["workers"], "rounds": res["rounds"],
+           "seconds": res["seconds"],
+           "rounds_per_s": res["rounds"] / res["seconds"],
+           "tokens_per_s": res["rounds"] * res["tokens_per_round"]
+           / res["seconds"], "peak_gib": peak / 2 ** 30,
+           "losses": res["losses"], "first": res["first"],
+           "last": res["last"], "verdict": res["verdict"],
+           "checkpoint_bitwise": bitwise, "checkpoint_step":
+           manifest["step"]}
+    print(f"[examples] e2e: {json.dumps(rec)}", flush=True)
+    if res["params"] != E2E_PARAMS:
+        fail(f"e2e: {res['params']} parameters a worker, expected "
+             f"{E2E_PARAMS}")
+    if not all(math.isfinite(v) for v in res["losses"]):
+        fail(f"e2e: non-finite losses {res['losses']}")
+    if not bitwise:
+        fail("e2e: the restored checkpoint differs from the saved tree")
+    del wp, res, a
+    torch.cuda.empty_cache()
+    return rec
+
+
+def examples_dev_smoke(wrappers) -> list:
+    predict("examples_dev_smoke")
+    mod = load_entry("scripts/port_dev_smoke.py")
+    zero_counts(wrappers)
+    recs = mod.main([])
+    no_launches("dev_smoke", wrappers)
+    bad = [r["arch"] for r in recs
+           if not (r["finite"] and r.get("decode_finite", True))]
+    if bad:
+        fail(f"dev_smoke: non-finite results for {bad}")
+    return recs
+
+
+def examples_phase(wrappers) -> dict:
+    """Phase 12: the examples and the dev smoke through their mains."""
+    return {"quickstart": examples_quickstart(wrappers),
+            "dynamic": examples_guarded("examples/port_dynamic_quickstart.py",
+                                        "examples_dynamic", 151, wrappers),
+            "fleet": examples_guarded("examples/port_fleet_quickstart.py",
+                                      "examples_fleet", 30, wrappers),
+            "compare": examples_compare(),
+            "e2e": examples_e2e(wrappers),
+            "dev_smoke": examples_dev_smoke(wrappers)}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
@@ -5217,6 +5513,11 @@ def main() -> int:
     # example, the dry run
     tooling_phase(kernel_wrappers())
 
+    # 12. the user-facing entry points: the quickstart (dp_mix counted),
+    # the guarded network examples, the scheme comparison, the LM driver
+    # at 100M with its checkpoint, the dev smoke
+    examples = examples_phase(kernel_wrappers())
+
     print(json.dumps({"kernels": [{
         "name": "dp_mix", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
@@ -5228,7 +5529,9 @@ def main() -> int:
                              "flat dynamic vehicular, total budget":
                                  dyn_launches["vehicular"],
                              "flat olmo-1b, 4 of 16 layers, N = 4":
-                                 lm["flat"]["launches"]["dp_mix_round"]},
+                                 lm["flat"]["launches"]["dp_mix_round"],
+                             "examples/port_quickstart":
+                                 examples["quickstart"]["launches"]},
         "lm_shape": dict(lm_shape(lm["dp_mix"]), N=LM_FLAT_N, d=LM_FLAT_D),
         "max_abs_err": path_rec["max_abs_err"],
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],

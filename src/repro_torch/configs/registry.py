@@ -2,7 +2,8 @@
 ``repro/configs/registry.py``): every arch the reference has, and the
 long-context variants that ``get_arch`` picks for the long_500k shape,
 ``ASSIGNED`` and the reference's designed skips of the (arch x shape) grid
-(``SHAPE_SKIPS``), which the dry run (``launch.dryrun``) reads.
+(``SHAPE_SKIPS``), which the dry run (``launch.dryrun``) reads, with its
+two readers ``applicable`` and ``all_pairs``.
 """
 from __future__ import annotations
 
@@ -57,3 +58,15 @@ def get_arch(name: str, shape: str | None = None) -> ModelConfig:
 def get_shape(name: str) -> ShapeConfig:
     return SHAPES[name]
 
+
+def applicable(arch: str, shape: str) -> bool:
+    """False for a pair the grid skips by design (``SHAPE_SKIPS``)."""
+    return (arch, shape) not in SHAPE_SKIPS
+
+
+def all_pairs():
+    """The assigned archs x shapes grid, each pair with its skip reason
+    (None where it runs), in the reference's order."""
+    for a in ASSIGNED:
+        for s in SHAPES:
+            yield a, s, SHAPE_SKIPS.get((a, s))

@@ -1,5 +1,6 @@
-"""Dirichlet label partitioning — a numpy copy of the reference's
-``repro.data.partition.dirichlet_partition``, bitwise equal to it."""
+"""Federated partitioning — numpy copies of the reference's
+``repro.data.partition``, bitwise equal to it: ``dirichlet_partition``
+(non-IID by Dirichlet class proportions) and ``iid_partition``."""
 from __future__ import annotations
 
 from typing import List
@@ -35,3 +36,12 @@ def dirichlet_partition(y: np.ndarray, n_workers: int, alpha: float = 0.5,
             idx_by_class[c] = [i for i in idx_by_class[c] if i not in taken]
         out.append(np.array(take[:per_worker], np.int64))
     return out
+
+
+def iid_partition(n: int, n_workers: int, seed: int = 0) -> List[np.ndarray]:
+    """Per-worker index arrays of n // n_workers samples each: consecutive
+    slices of one random permutation of range(n) (the remainder unused)."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    per = n // n_workers
+    return [perm[w * per:(w + 1) * per] for w in range(n_workers)]

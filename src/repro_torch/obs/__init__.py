@@ -15,9 +15,12 @@ Two halves:
   repro_torch.obs.report``.
 
 ``obs.guard`` holds the hot loop's guards: ``no_implicit_transfers``
-(sync-debug mode "error" on the card) and ``retrace_guard``.
+(sync-debug mode "error" on the card), ``retrace_guard``, ``RoundOps``
+(the operations a block dispatches, host reads refused) and
+``RoundGuards``, the three over each round of a loop.
 """
-from repro_torch.obs.guard import (RetraceError, no_implicit_transfers,
+from repro_torch.obs.guard import (HostReadError, RetraceError, RoundGuards,
+                                   RoundOps, no_implicit_transfers,
                                    retrace_guard)
 from repro_torch.obs.runlog import (EpsilonBudgetWatchdog, RetraceWatchdog,
                                     RunLog, config_hash, console, git_sha)
@@ -26,7 +29,8 @@ from repro_torch.obs.telemetry import (TelemetrySpec, accumulate_eps,
                                        epsilon_round, init_eps_moments)
 
 __all__ = [
-    "EpsilonBudgetWatchdog", "RetraceError", "RetraceWatchdog", "RunLog",
+    "EpsilonBudgetWatchdog", "HostReadError", "RetraceError",
+    "RetraceWatchdog", "RoundGuards", "RoundOps", "RunLog",
     "TelemetrySpec", "accumulate_eps", "channel_scalars",
     "config_hash", "console", "consensus_distance", "epsilon_round",
     "git_sha", "init_eps_moments", "no_implicit_transfers",

@@ -13,11 +13,20 @@ and what it can rebuild mid-run is a kernel library
 (``build.BUILDS``), and a chunk after the first must add none. A CUDA
 graph capture (ROADMAP A7b) is counted the same way, by any object with a
 ``trace_counts()`` method.
+
+``RoundOps`` counts the device operations a block dispatches and refuses
+a host read inside it, on any device (the CPU too, where the sync-debug
+mode does nothing); ``RoundGuards`` puts each round of a loop under
+all three. Together they stand for the reference's "compiled exactly once"
+asserts: an eager round cannot retrace, but it can read the host, build
+a library, or change its work from one round to the next.
 """
 from __future__ import annotations
 
 import contextlib
 from typing import Callable, Optional
+
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 @contextlib.contextmanager
@@ -103,3 +112,79 @@ class retrace_guard:
             if self.strict:
                 raise RetraceError(msg)
         return False
+
+
+class HostReadError(RuntimeError):
+    """A guarded round read a device value on the host."""
+
+
+class RoundOps(TorchDispatchMode):
+    """Context manager counting the aten operations a block dispatches
+    (views excluded: they launch nothing; each other op is one or more
+    kernel launches on the card, the autograd engine's backward ops
+    included) in ``n``, and raising ``HostReadError`` at a host read
+    inside it: ``aten._local_scalar_dense`` (``.item()``, ``float()``,
+    ``int()``, ``bool()`` of a tensor) and a copy from a CUDA tensor to
+    the host. The hand kernels' launches go through ctypes and are not
+    seen; their wrappers' allocations are."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        _refuse_host_read(func, args, kwargs)
+        if not func.is_view:
+            self.n += 1
+        return func(*args, **kwargs)
+
+
+def _refuse_host_read(func, args, kwargs) -> None:
+    import torch
+    aten = torch.ops.aten
+    if func is aten._local_scalar_dense.default:
+        raise HostReadError("a host read (.item(), float(), int() or bool() "
+                            "of a tensor) inside a guarded round")
+    if func in (aten._to_copy.default, aten.copy_.default):
+        src = args[1] if func is aten.copy_.default else args[0]
+        dst = (args[0].device if func is aten.copy_.default
+               else kwargs.get("device"))
+        if (isinstance(src, torch.Tensor) and src.device.type == "cuda"
+                and dst is not None and torch.device(dst).type == "cpu"):
+            raise HostReadError("a copy from the card to the host inside a "
+                                "guarded round")
+
+
+class RoundGuards:
+    """The guards of a hot loop's rounds: ``round(t)`` is a context
+    manager putting round t under ``no_implicit_transfers``, a
+    ``RoundOps`` count that refuses host reads, and from round 1 on a
+    ``retrace_guard`` over ``LibraryBuilds`` (a kernel library may be
+    built in round 0 only). On leaving a round it checks that the round
+    dispatched as many operations as round 0 (``ops``), and raises
+    ``RetraceError`` otherwise: a round's work is a function of its
+    shapes alone."""
+
+    def __init__(self, device=None, label: str = ""):
+        self.device = device
+        self.label = label
+        self.ops: Optional[int] = None
+        self.rounds = 0
+
+    @contextlib.contextmanager
+    def round(self, t: int):
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(no_implicit_transfers(True, self.device))
+            if t > 0:
+                stack.enter_context(retrace_guard(
+                    LibraryBuilds(), label=f"{self.label} round {t}"))
+            ops = stack.enter_context(RoundOps())
+            yield
+        if self.ops is None:
+            self.ops = ops.n
+        elif ops.n != self.ops:
+            raise RetraceError(
+                f"{self.label} round {t} dispatched {ops.n} operations, "
+                f"round 0 {self.ops}: the round's work changed")
+        self.rounds += 1

@@ -231,13 +231,19 @@ def test_no_source_imports_jax_or_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     examples = sorted((ROOT / "examples").glob("port_*.py"))
-    files += examples
+    scripts = sorted((ROOT / "scripts").glob("port_*.py"))
+    files += examples + scripts
     assert len(files) > 15
     assert {"simulator.py", "fading.py", "geometry.py"} <= {
         f.name for f in files if f.parent.name == "net"}
     assert {"keys.py", "registry.py"} <= {
         f.name for f in files if f.parent.name == "analysis"}
-    assert "port_serve_batched.py" in {f.name for f in examples}
+    assert {"port_serve_batched.py", "port_quickstart.py",
+            "port_dynamic_quickstart.py", "port_fleet_quickstart.py",
+            "port_compare_schemes.py", "port_train_dwfl_e2e.py"} <= {
+        f.name for f in examples}
+    assert {"port_dev_smoke.py", "port_dev_dwfl.py", "port_perf_iter.py",
+            "port_roofline_report.py"} <= {f.name for f in scripts}
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
             if isinstance(node, ast.Import):
@@ -248,4 +254,5 @@ def test_no_source_imports_jax_or_the_reference():
                 continue
             for name in names:
                 top = name.split(".")[0]
-                assert top not in ("jax", "jaxlib", "repro"), (f, name)
+                assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (
+                    f, name)
