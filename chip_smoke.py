@@ -11,7 +11,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              with nvcc for sm_90a, all nvcc processes at once; ptxas's
              registers and spills, and the SASS holding each tensor-core
              route (flash_attention: HGMMA for bfloat16, HMMA .TF32 for
-             float32; ssd_scan: HMMA .TF32); the instructions of one
+             float32; ssd_scan: HMMA .TF32; dp_mix's large-N mix:
+             HGMMA .TF32); the instructions of one
              dp_mix normal on each of its branches, from the SASS of a
              small library built from the checkout's noise.cuh;
 3. kernels — each kernel held against its plain PyTorch version on the
@@ -25,10 +26,20 @@ Phases, each fatal on failure (exit code 1, no result line):
              64, 65, 128 and 256 (all but 65 timed), at the largest N of
              its column route and the next (the largest timed; 50 and 51
              on an H100), and at N = 2048 over three column windows
-             (timed), all at the path's d, its two noise fields bitwise the
-             plain version's at N = 10 and 128, and its bound the longest
-             of its bytes, its instructions and its mix's fused
-             multiply-adds; dp_mix under the dynamic network's plans: a
+             (timed, beside the plain version over the whole round in
+             2^16-column windows and torch.matmul(W, z) in float32, a
+             yardstick of the mix alone that the port never calls), all
+             at the path's d, its two noise fields bitwise the plain
+             version's at N = 10 and 128, and its bound the longest of
+             its bytes, its instructions and its mix's operations on the
+             route N takes (the column route's FMAs at the CUDA cores'
+             peak, the large-N route's at the TF32 tensor cores'), the
+             large-N route's also beside the CUDA-core bound; the
+             large-N route's split-TF32 precision at N = 2048 (ring and
+             complete graph) against the exact round in float64, within
+             sqrt(N) 2^-23 scale (dp_mix_split_tolerance), a bound that
+             one TF32 pass in place of three breaks on the ring;
+             dp_mix under the dynamic network's plans: a
              churned iot_dense round's (identity rows of W with listen =
              0 beside a Metropolis W), sampled participation's (half of
              self_scale 0) and a ring's (a sparse W), at the path's shape
@@ -283,6 +294,9 @@ try:
                                           flash_work, kept_pairs,
                                           perturb_work, sparse_bytes,
                                           sparse_fmas, ssd_work)
+    from repro_torch.kernels.work import dp_mix_work as declared_dp_mix_work
+    from repro_torch.kernels.work import (
+        dp_mix_columns_route as work_columns_route)
     from repro_torch.utils.roofline import (BF16_TC_FLOP_PER_S,  # noqa: F401
                                             F32_FLOP_PER_S, HBM_BYTES_PER_S,
                                             TF32_TC_FLOP_PER_S)
@@ -429,6 +443,27 @@ CKPT_STEPS = 9
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
+    "large_n": "dp_mix's large-N route (dp_mix_prep + dp_mix_tiled, the "
+               "mix in split TF32 on wgmma) within dp_mix_tolerance of the "
+               "plain twin at N = 51, 64, 65, 128, 256 and over three "
+               "windows at 2048, noise fields bitwise at N = 128, HGMMA "
+               ".TF32 in the library's SASS; at the path's d, float32 "
+               "noisy: N = 64 1.0-1.1 ms (the CUDA-core mix: 1.008), 128 "
+               "2.0-2.3 (2.392), 256 4.4-4.9 (6.510), 2048 92-102 (266.6) "
+               "against a bound of 14.49 (operations: 2 "
+               "N^2 d at 495 TFLOP/s TF32), the route's floor 51.8 (its "
+               "split products 43.5 and the prep's workspace traffic 8.4) "
+               "and the CUDA-core bound 113.4; torch.matmul(W, z) in "
+               "float32 without TF32, the yardstick of the mix alone, "
+               "130-145 ms; the plain twin over the whole round in "
+               "2^16-column windows 4,000-4,500 ms",
+    "split_precision": "the large-N route at N = 2048, d = 8192, float32 "
+                       "noisy, within sqrt(N) 2^-23 scale of the exact "
+                       "round in float64: under 0.05 of that bound on the "
+                       "ring and on the complete graph (the CPU emulation "
+                       "of split TF32: 0.005-0.01 and 0.0006-0.02), the "
+                       "plain twin's float32 error under 0.02 of it (the "
+                       "output's own roundings)",
     "plans": "dp_mix within dp_mix_tolerance of its plain twin under the "
              "dynamic, sampled and ring plans at (10, 855,050), float32 and "
              "bfloat16, and the dynamic plan at N = 50 (column route) and "
@@ -481,8 +516,9 @@ PREDICTIONS = {
                    "build, plan_dynamic_sparse and the sparse dp_mix call at "
                    "N = 2048; the whole round body at N = 64 also free of one",
     "sparse_turns": "in turns at N = 2048: the sparse round 30-40 ms, the "
-                    "dense large-N route 250-280 ms (PR 19: 266.6), so "
-                    "7-9x (PR 21's probe: 34.8 against 265.7); the "
+                    "dense large-N route 92-102 ms (split TF32 on wgmma; "
+                    "the CUDA-core mix: 266.6), so 2.6-3.0x (34.8 against "
+                    "265.7 with the CUDA-core mix); the "
                     "simulator's sparse round 1.5-2.5 ms against its dense "
                     "one's 0.9-1.3 (the probe: 1.84 against 1.06: the block "
                     "sort and the gathers are more launches than the [N, N] "
@@ -498,7 +534,9 @@ PREDICTIONS = {
              "within dp_mix_tolerance of the plain twin replicate by "
              "replicate; R 8 float32 0.50-0.56 ms (PR 22's call 1: 0.517) "
              "against R separate launches' 0.56-0.62 (0.577-0.597) and a "
-             "bound of ~0.262 ms (8 x 0.0328, operations)",
+             "bound of ~0.262 ms (8 x 0.0328, operations); R 4 x N 64 "
+             "float32 4.1-4.4 ms (4.650 with the CUDA-core mix) against "
+             "a bound of ~0.78 (bytes)",
     "fleet_cli": "the fleet CLI (vehicular, R 8, N 10, full width, 101 "
                  "rounds) under the sync guard: 101 dp_mix launches in 101 "
                  "rounds, every loss finite, the epsilon report over 8 "
@@ -1013,24 +1051,59 @@ def dp_mix_work(N: int, d: int, elem: int, noisy: bool, counts: dict,
     its bytes (p, g read and out written once, W and the vectors) over
     3.35 TB/s; its instructions (each normal on the branches its t takes,
     from the SASS, and dp_mix_element_ops an element) over SMs x 128
-    lanes x the SM clock; the mix's N^2 d fused multiply-adds at 67
-    TFLOP/s."""
-    nbytes = dp_mix_bytes(N, d, elem)
+    lanes x the SM clock; the mix's operations on the route an H100 takes
+    at N (kernels.work.dp_mix_work): the column route's N^2 d fused
+    multiply-adds at 67 TFLOP/s, the large-N route's 2 N^2 d operations at
+    the TF32 tensor cores' 495 TFLOP/s, where the mix's N FMAs an element
+    leave the instructions. On the large-N route also: split_ms, its own
+    products (three TF32 products a product) at that peak; route_floor_ms,
+    those and the prep's workspace traffic (p, g read, z and nf written);
+    cuda_core_bound_ms, the route's bound with its mix on the CUDA cores.
+    ``terms_ms`` keeps each term, ``cuda_core_terms_ms`` the CUDA cores'."""
+    work = declared_dp_mix_work(N, d, elem)
+    nbytes = work.nbytes
     instr = N * d * dp_mix_element_ops(N, noisy)
     if noisy:
         instr += (branches["small"] * counts["small"]
                   + branches["large"] * counts["large"]
                   + branches["tail"] * counts["tail_extra"])
-    t = {"bytes": nbytes / HBM_BYTES_PER_S,
-         "instructions": instr / (rates["sms"] * 128 * rates["sm_clock_hz"]),
+    lanes = rates["sms"] * 128 * rates["sm_clock_hz"]
+    t = {"bytes": nbytes / HBM_BYTES_PER_S, "instructions": instr / lanes,
          "fma": 2 * dp_mix_fmas(N, d) / F32_FLOP_PER_S}
+    rec = {"bytes": nbytes, "fmas": dp_mix_fmas(N, d),
+           "bytes_ms": 1e3 * t["bytes"], "fma_ms": 1e3 * t["fma"],
+           "compute_class": work.compute_class}
+    if work.compute_class == "tf32":
+        cuda_core = t
+        instr -= N * N * d
+        t = {"bytes": t["bytes"], "instructions": instr / lanes,
+             "tensor": work.flops / work.rate}
+        prep = (2 * elem + (8 if noisy else 4)) * N * d / HBM_BYTES_PER_S
+        rec.update({"tensor_ms": 1e3 * t["tensor"],
+                    "split_ms": 1e3 * work.kernel_flops / work.rate,
+                    "route_floor_ms": 1e3 * (prep + work.kernel_flops
+                                             / work.rate),
+                    "cuda_core_bound_ms": 1e3 * max(cuda_core.values()),
+                    "cuda_core_terms_ms": {k: 1e3 * v
+                                           for k, v in cuda_core.items()}})
     bound = max(t.values())
-    return {"bytes": nbytes, "lane_instructions": instr,
-            "fmas": dp_mix_fmas(N, d),
-            "bytes_ms": 1e3 * t["bytes"],
-            "instructions_ms": 1e3 * t["instructions"],
-            "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
-            "bound_by": "bytes" if t["bytes"] == bound else "operations"}
+    rec.update({"lane_instructions": instr,
+                "instructions_ms": 1e3 * t["instructions"],
+                "terms_ms": {k: 1e3 * v for k, v in t.items()},
+                "bound_ms": 1e3 * bound,
+                "bound_by": "bytes" if t["bytes"] == bound else "operations"})
+    return rec
+
+
+def dp_mix_scale(p, g, gamma, plan, noisy) -> float:
+    """The largest magnitude a round's mix sums: max|x| + max|n/c| +
+    max|m_scale sigma_m Gm| (|G| <= 5.42 on the 24-bit lattice)."""
+    x = p.float() - gamma * g.float()
+    scale = float(x.abs().max())
+    if noisy:
+        scale += 5.42 * float((plan.amp / plan.c.reshape(())).abs().max()
+                              + (plan.m_scale * plan.sigma_m).abs().max())
+    return scale
 
 
 def dp_mix_tolerance(N, p, g, gamma, plan, noisy, k32, r32, bf16):
@@ -1043,12 +1116,7 @@ def dp_mix_tolerance(N, p, g, gamma, plan, noisy, k32, r32, bf16):
     one bfloat16 step apart, 2^-7 of its magnitude. Returns (allowed,
     tol_f32)."""
     import torch
-    x = p.float() - gamma * g.float()
-    scale = float(x.abs().max())
-    if noisy:
-        scale += 5.42 * float((plan.amp / plan.c.reshape(())).abs().max()
-                              + (plan.m_scale * plan.sigma_m).abs().max())
-    tol = (N + 8) * 2.0 ** -23 * scale
+    tol = (N + 8) * 2.0 ** -23 * dp_mix_scale(p, g, gamma, plan, noisy)
     step = 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs()) if bf16 else 0.0
     return tol + step, tol
 
@@ -1123,14 +1191,16 @@ def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool,
 
 def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
                          width: int = 4096,
-                         plain_window: Optional[int] = None) -> dict:
+                         plain_window: Optional[int] = None,
+                         matmul: bool = False) -> dict:
     """A round too large for the plain version at full width (N = 2048 at
     the path's d: p, g and out 21 GB, the workspace 14 GB; olmo-1b's flat
     LM round, 1.49 G elements): the kernel once, held against the plain
     version over three column windows (the first, one in the middle, the
     ragged last), each with its col0 and the full counter_width, so the
     window draws the same noise; then timed, and with ``plain_window``
-    the plain version too, over the whole round in windows that wide."""
+    the plain version too, over the whole round in windows that wide;
+    with ``matmul``, torch.matmul(W, z) alone as a yardstick of the mix."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
@@ -1178,6 +1248,15 @@ def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
         torch.cuda.synchronize()
         rec["plain_ms"] = start.elapsed_time(end)
         rec["plain_window"] = plain_window
+    if matmul:
+        # the mix alone as one float32 GEMM (TF32 off in main): a yardstick,
+        # labelled as such; the port never calls it. p has z's shape.
+        W = rest[-1]
+        rec["matmul_ms"] = cuda_ms(lambda: torch.matmul(W, p), iters=2,
+                                   warmup=1)
+        rec["matmul_note"] = ("torch.matmul(W, z) in float32, highest "
+                              "precision: the mix alone, a yardstick")
+        torch.cuda.empty_cache()
     branches = noise_branches(N, d, kw["counter_width"], 1234567)
     rec.update(dp_mix_work(N, d, 4, True, counts, rates, branches))
     rec["branches"] = branches
@@ -1185,6 +1264,84 @@ def check_dp_mix_windows(N: int, d: int, counts: dict, rates: dict,
     if bad:
         fail(f"dp_mix N={N} windows: {bad} elements beyond tolerance "
              f"(max err {max_err:.3g})")
+    return rec
+
+
+def dp_mix_exact(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
+                 gamma: float, eta: float, noisy: bool,
+                 counter_width: int):
+    """dp_mix_plain's round in float64 from the same float32 x, n/c and
+    noise fields: the exact sums that the kernel's and the plain version's
+    float32 ones approximate."""
+    import torch
+    from repro_torch.kernels import noise
+    N, D = p.shape
+    x = p.float() - gamma * g.float()
+    col = lambda v: v.reshape(N, 1).double()
+    if noisy:
+        g_n, g_m = noise.normal_pair_hash(
+            (N, D), counter_width, col0.reshape(-1)[0], seed.reshape(-1)[0],
+            device=p.device)
+        nf = (amp.reshape(N, 1) / scal[0]) * g_n
+        upd = (W.double() @ (x.double() + nf.double())
+               - col(selfs) * nf.double()
+               + col(mscale) * float(scal[1]) * g_m.double())
+    else:
+        upd = W.double() @ x.double()
+    return x.double() + eta * col(listen) * (upd - x.double())
+
+
+def dp_mix_split_tolerance(N: int, scale: float) -> float:
+    """|kernel - exact| allowed on the large-N route, sqrt(N) 2^-23 scale:
+    the size of N float32 roundings of random sign. Split TF32 keeps each
+    product within 2^-21 of float32's; one TF32 pass (the lo products
+    dropped) errs 2^-11 a product, past this bound wherever a row has few
+    weights (14 of these units on a ring at N = 2048, 5-88 at N = 64-300,
+    in tests/test_torch_dp_mix_split.py's emulation, where the split errs
+    at most 0.04), while dp_mix_tolerance's (N + 8) 2^-23 scale, 45 of
+    these units at N = 2048, would let it pass."""
+    return N ** 0.5 * 2.0 ** -23 * scale
+
+
+def check_dp_mix_precision(N: int, d: int, kind: str) -> dict:
+    """The large-N route in split TF32 held to dp_mix_split_tolerance
+    against the exact round (dp_mix_exact, float64), float32 noisy under
+    the ring's plan (three weights a row) or the complete graph's, beside
+    the plain version's own float32 error."""
+    import torch
+    from repro_torch.core.protocol import ProtocolConfig
+    from repro_torch.kernels.dp_mix import ops
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_plain
+    predict("split_precision")
+    proto = ProtocolConfig(n_workers=N, gamma=0.01, eta=0.4,
+                           target_epsilon=1.0, seed=N,
+                           topology="ring" if kind == "ring" else "complete")
+    plan = proto.plan(proto.channel(), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(N + d)
+    p = torch.randn((N, d), generator=gen, device="cuda")
+    g = 0.1 * torch.randn((N, d), generator=gen, device="cuda")
+    seed, col0 = (torch.tensor([s], dtype=torch.int32, device="cuda")
+                  for s in (1234567, 0))
+    ones = torch.ones(N, device="cuda")
+    args = (p, g, seed, col0,
+            torch.stack([plan.c.reshape(()), plan.sigma_m.reshape(())]),
+            plan.amp, ones, plan.m_scale, ones, plan.W.contiguous())
+    kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
+              counter_width=ops._roundup(d, ops.LANES))
+    exact = dp_mix_exact(*args, **kw)
+    err = lambda out: float((out.double() - exact).abs().max())
+    scale = dp_mix_scale(p, g, proto.gamma, plan, True)
+    tol = dp_mix_split_tolerance(N, scale)
+    rec = {"plan": kind, "N": N, "d": d, "route": dp_mix_route(N, d),
+           "max_abs_err_vs_float64": err(ops._launch(*args, **kw)),
+           "plain_max_abs_err_vs_float64": err(dp_mix_plain(*args, **kw)),
+           "scale": scale, "tol": tol}
+    rec["err_over_tol"] = rec["max_abs_err_vs_float64"] / tol
+    print(f"[kernels] dp_mix split precision {json.dumps(rec)}", flush=True)
+    if rec["route"] != "large-N" or not rec["err_over_tol"] <= 1.0:
+        fail(f"dp_mix's large-N route under the {kind} plan at N={N}: "
+             f"{rec['max_abs_err_vs_float64']:.3g} from the exact round, "
+             f"beyond sqrt(N) 2^-23 scale = {tol:.3g}")
     return rec
 
 
@@ -3441,7 +3598,7 @@ def check_raxis(R: int, N: int, d: int, dtype, timed: bool,
     separate launches on each replicate's operands, and within
     dp_mix_tolerance of the plain twin replicate by replicate; timed: the
     launch and the R separate launches in turns, the plain stack, and the
-    bound (the R rounds' bytes, instructions and FMAs summed)."""
+    bound (the R rounds' terms summed, on N's route)."""
     import torch
     from types import SimpleNamespace
     from repro_torch.kernels.dp_mix import ops
@@ -3492,16 +3649,19 @@ def check_raxis(R: int, N: int, d: int, dtype, timed: bool,
                              rates, noise_branches(N, d, kw["counter_width"],
                                                    int(args[2][r])))
                  for r in range(R)]
-        t = {"bytes": sum(w["bytes"] for w in works) / HBM_BYTES_PER_S,
-             "instructions": sum(w["lane_instructions"] for w in works)
-             / (rates["sms"] * 128 * rates["sm_clock_hz"]),
-             "fma": 2 * sum(w["fmas"] for w in works) / F32_FLOP_PER_S}
+        # the R rounds' terms summed (dp_mix_work's, on N's route)
+        summed = lambda key: {k: sum(w[key][k] for w in works)
+                              for k in works[0][key]}
+        t = summed("terms_ms")
         bound = max(t.values())
-        rec.update({"bytes_ms": 1e3 * t["bytes"],
-                    "instructions_ms": 1e3 * t["instructions"],
-                    "fma_ms": 1e3 * t["fma"], "bound_ms": 1e3 * bound,
+        rec.update({"bytes_ms": t["bytes"],
+                    "instructions_ms": t["instructions"], "terms_ms": t,
+                    "bound_ms": bound,
                     "bound_by": ("bytes" if t["bytes"] == bound
                                  else "operations")})
+        if "cuda_core_terms_ms" in works[0]:
+            rec["cuda_core_bound_ms"] = max(
+                summed("cuda_core_terms_ms").values())
     print(f"[kernels] dp_mix replicate axis {json.dumps(rec)}", flush=True)
     if differ or bad:
         fail(f"dp_mix replicate axis R={R} N={N} {rec['dtype']}: {differ} "
@@ -5360,6 +5520,11 @@ def main() -> int:
         fail("the bfloat16 flash kernel's SASS holds no wgmma (HGMMA)")
     if not (tf32 and ssd_tf32):
         fail("the float32 flash kernel's or ssd_scan's SASS holds no TF32 mma (HMMA .TF32)")
+    mix_tf32 = sass_count(ops.LIBRARY, "HGMMA", "TF32")
+    print(f"[build] dp_mix SASS: {mix_tf32} HGMMA .TF32 (wgmma, the large-N "
+          f"route's split-TF32 mix)", flush=True)
+    if not mix_tf32:
+        fail("the dp_mix library's SASS holds no TF32 wgmma (HGMMA .TF32)")
 
     # 3. kernels: every lattice normal of noise.cuh bitwise; dp_mix at the
     # flat path's shape (the column route), at N = 64, 65, 128, 256 and,
@@ -5369,6 +5534,7 @@ def main() -> int:
     # dp_perturb at the tree path's six leaves, flash_attention and
     # ssd_scan at the serve paths' shapes
     check_lattice_normals(count_lib)
+    predict("large_n")
     path_rec = None
     for N in (PATH_N, 64):
         for dtype in (torch.float32, torch.bfloat16):
@@ -5380,12 +5546,24 @@ def main() -> int:
                     path_rec = rec
                 torch.cuda.empty_cache()
     last = max(N for N in range(1, 257) if dp_mix_route(N, PATH_D) == "columns")
+    # kernels/work.py declares dp_mix's work on the route an H100 takes
+    differ = [N for N in range(1, 257) if work_columns_route(N) != (
+        dp_mix_route(N, PATH_D) == "columns")]
+    print(f"[kernels] dp_mix column route up to N = {last} on this card; "
+          f"kernels/work.py's H100 predicate differs at {differ}", flush=True)
+    if differ:
+        fail(f"kernels/work.py's dp_mix route differs from the C launch's "
+             f"at N = {differ}")
     for N, noisy in ((last, True), (last, False), (last + 1, True), (65, True),
                      (128, True), (256, True)):
         check_dp_mix(N, PATH_D, torch.float32, noisy,
                      noisy and N not in (last + 1, 65), counts, rates)
         torch.cuda.empty_cache()
-    check_dp_mix_windows(2048, PATH_D, counts, rates)
+    large_rec = check_dp_mix_windows(2048, PATH_D, counts, rates,
+                                     plain_window=1 << 16, matmul=True)
+    torch.cuda.empty_cache()
+    for plan in ("ring", "complete"):
+        check_dp_mix_precision(2048, 8192, plan)
     torch.cuda.empty_cache()
     for N in (PATH_N, 128):
         check_noise_fields(N, PATH_D)
@@ -5400,7 +5578,7 @@ def main() -> int:
     # then on the dynamic network (iot_dense, then vehicular under a total
     # budget)
     launches = flat_cli(PATH_N, 50)["launches"]
-    flat_cli(128, 4)
+    large_launches = flat_cli(128, 4)["launches"]
     train_step_cpu_vs_cuda()
     dyn_launches = dynamic_cli()
     dynamic_round_cpu_vs_cuda()
@@ -5536,6 +5714,20 @@ def main() -> int:
         "max_abs_err": path_rec["max_abs_err"],
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
         "bound_ms": path_rec["bound_ms"], "bound_by": path_rec["bound_by"],
+        "library_ms": None}, {
+        "name": "dp_mix large-N route (dp_mix_prep + dp_mix_tiled, split "
+                "TF32), N 2048",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
+        "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
+        "launches": large_launches,
+        "launches_by_path": {"flat, N = 128": large_launches},
+        "max_abs_err": large_rec["max_abs_err"],
+        "ms": large_rec["ms"], "plain_ms": large_rec["plain_ms"],
+        "bound_ms": large_rec["bound_ms"],
+        "bound_by": large_rec["bound_by"],
+        "matmul_ms": large_rec["matmul_ms"],
+        "matmul_note": large_rec["matmul_note"],
         "library_ms": None}, {
         "name": "dp_mix sparse round (dp_mix_prep + dp_mix_gather)",
         "route": "cuda",

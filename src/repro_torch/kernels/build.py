@@ -28,9 +28,11 @@ from typing import Dict, Iterable, Tuple
 _REPO = Path(__file__).resolve().parents[3]
 BUILD_DIR = _REPO / "build" / "repro_torch"
 # headers every kernel shares: float32/bfloat16 access, the counter-hash
-# noise (kernels/noise.py's twin), split TF32 products on the tensor cores
+# noise (kernels/noise.py's twin), split TF32 products on the tensor cores,
+# wgmma's descriptors and fences
 _SHARED = Path(__file__).resolve().parent / "csrc"
-SHARED_HEADERS = (_SHARED / "dtypes.cuh", _SHARED / "noise.cuh", _SHARED / "tf32x3.cuh")
+SHARED_HEADERS = (_SHARED / "dtypes.cuh", _SHARED / "noise.cuh", _SHARED / "tf32x3.cuh",
+                  _SHARED / "wgmma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

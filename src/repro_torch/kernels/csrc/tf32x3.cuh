@@ -1,6 +1,7 @@
 // Split TF32 (3xTF32) products on the tensor cores, for the port's float32
 // kernels that run their products as mma.sync.m16n8k8 (flash_attention's
-// float32 instantiation, ssd_scan).
+// float32 instantiation, ssd_scan) and, through split alone, dp_mix's
+// large-N mix on wgmma.
 //
 // TF32 keeps 10 bits of mantissa; one TF32 product for each float32 one
 // would leave the reference's float32 tolerances. Each operand a is cut

@@ -45,10 +45,35 @@
 //   with no normals to hide them under, its time is the loads' latency.
 // * Large-N route (beyond): two kernels. dp_mix_prep writes z and nf, one
 //   normal an element, to a float32 workspace [2, N, d] that the wrapper
-//   allocates; dp_mix_tiled forms W @ z over 64 x 64 tiles of receivers
-//   and columns from 16-sender slabs in shared memory (FMAs on the CUDA
-//   cores) and draws Gm in its epilogue, once an element. A tensor-core
-//   mix for large N is later work.
+//   allocates; dp_mix_tiled forms W @ z on the tensor cores and draws Gm
+//   in its epilogue, once an element. At N = 2048 the mix is 2 N^2 d =
+//   7.2 TFLOP, so this route is bound by its products, not by the
+//   normals: on the CUDA cores (67 TFLOP/s) no mix goes under 107 ms.
+//   The design answers three limits:
+//   - the products: split TF32 (tf32x3.cuh's split, three TF32 products
+//     a float32 one: z_lo W_hi + z_hi W_lo + z_hi W_hi, the small terms
+//     first) on wgmma, run transposed, out^T = z^T W^T: a block of two
+//     warpgroups owns 128 columns x 128 receivers, each warpgroup's 64
+//     columns wgmma.m64n128k8's M, z^T from registers (cut into hi and lo
+//     as it is loaded), W as B, K-major in shared memory, split into hi
+//     and lo once a slab. With mma.sync.m16n8k8 every 16 x 8 x 8 product
+//     is an instruction of its own beside the splits and loads that feed
+//     it; wgmma issues one for 64 of them. The route's floor is its
+//     products at the TF32 peak (3 x 7.2 TFLOP at 495 TFLOP/s, 43 ms).
+//     The diagonal W_ii stays out of the products
+//     and the epilogue adds it in float32, fmaf(W_ii, z_i, .): two TF32
+//     pieces carry 22 of z's 24 bits, so a row of W that is e_i still
+//     passes z bitwise;
+//   - z's traffic: the tile index runs over the receivers fastest, so
+//     the receiver tiles of one column slab run together and share its
+//     z (n x 128 floats, 1 MB at n = 2048) through L2: z comes from HBM
+//     about once, not once per receiver tile;
+//   - the copies: 32-sender slabs of W and z by cp.async (16, 8 or 4
+//     bytes a copy, as the rows' alignment allows) one slab ahead into a
+//     ring of two, so the next slab's copies run under this slab's
+//     products. The output tile is staged through shared memory so that
+//     the epilogue reads and writes whole rows, four rows a pass with
+//     every load of the pass issued before its normals.
 //
 // A stack of R rounds (the fleet's replicates, reps = R) is one launch on
 // either route: the replicate is a grid axis (the column route's y, the
@@ -100,6 +125,8 @@
 
 #include "../../csrc/dtypes.cuh"
 #include "../../csrc/noise.cuh"
+#include "../../csrc/tf32x3.cuh"
+#include "../../csrc/wgmma.cuh"
 
 namespace {
 
@@ -114,9 +141,21 @@ constexpr int kGossipRows = 8;                 // rows a batch, gossip
 constexpr int kQuads = 3;                      // receiver quads a pass of the mix
 constexpr int kMinWarps = 8;                   // column route: warps an SM at least
 
-constexpr int kTile = 64;                      // large-N route: receivers and columns a tile
-constexpr int kSlab = 16;                      // senders a slab
-constexpr int kTiledThreads = 256;             // each 4 x 4 outputs
+constexpr int kTileM = 128;                    // large-N route: receivers a tile (wgmma's N)
+constexpr int kTileN = 128;                    // columns a tile: two warpgroups of 64 (wgmma's M)
+constexpr int kSlab = 32;                      // senders a slab: four k8 steps
+constexpr int kTiledThreads = 256;             // two warpgroups
+constexpr int kLdZ = kTileN + 8;               // z slab's row stride: an A fragment's loads on distinct banks
+constexpr int kLdW = kSlab + 4;                // W slab's, as copied
+constexpr int kLdOut = kTileN + 4;             // the staged output's: the fragment's stores on distinct banks
+constexpr int kZFloats = kSlab * kLdZ;         // a z slab, as copied; the ring holds 2
+constexpr int kRawFloats = kTileM * kLdW;      // a W slab, as copied; the ring holds 2
+constexpr int kWFloats = kTileM * kSlab;       // W_hi or W_lo of a slab, split
+constexpr int kRingFloats = 2 * kZFloats + 2 * kRawFloats + 2 * kWFloats;
+constexpr int kEpiRows = 4;                    // rows a warp's epilogue pass
+// the ring, then the tile's row constants (row_const and W_ii): 104.5 KiB, 2 blocks an SM
+constexpr size_t kTiledSmem = sizeof(float) * kRingFloats + (sizeof(float4) + sizeof(float)) * kTileM;
+static_assert(kTileM * kLdOut <= kRingFloats, "the output tile reuses the ring");
 constexpr int kPrepThreads = 256;
 constexpr int kGatherThreads = 256;            // sparse round: threads a block
 constexpr int kGatherCols = 4;                 // columns a thread, kGatherThreads apart
@@ -387,66 +426,250 @@ __global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args args) {
   }
 }
 
-// out over a kTile x kTile tile of (receivers, columns): W @ z from
-// kSlab-sender slabs of W (transposed) and z in shared memory, each
-// thread 4 receivers x 4 columns; then v and the store.
-template <typename T>
-__global__ void __launch_bounds__(kTiledThreads) dp_mix_tiled(const Args args) {
-  const Args a = replicate<T>(args, blockIdx.z);
-  constexpr int ld = kTile + 4;   // row stride: float4 reads, few bank conflicts on the stores
-  __shared__ __align__(16) float sW[kSlab][ld];
-  __shared__ __align__(16) float sZ[kSlab][ld];
-  const int n = a.n, d = a.d, tid = threadIdx.x;
-  const int i0 = blockIdx.y * kTile, j0 = blockIdx.x * kTile;
-  const int tx = tid % 16, ty = tid / 16;   // columns j0 + 4 tx .., receivers i0 + 4 ty ..
-  float acc[4][4] = {};
-  for (int k0 = 0; k0 < n; k0 += kSlab) {
+// cp.async of V floats (4 V bytes) from global to shared memory; !valid
+// reads nothing and fills them with zeros.
+template <int V>
+__device__ __forceinline__ void copy_async(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 4 * V : 0;
+  if constexpr (V == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+                 "n"(4 * V), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void copy_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+__device__ __forceinline__ void copy_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// generic-proxy writes of shared memory made visible to wgmma's reads
+__device__ __forceinline__ void fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+using repro_wgmma::fence_regs;
+using repro_wgmma::wg_commit;
+using repro_wgmma::wg_fence;
+using repro_wgmma::wg_wait;
+
+// D[64 x 128] += A[64 x 8] B[8 x 128] in TF32, A in registers (a warp's
+// 16 rows as mma.m16n8k8's A fragment), B K-major in shared memory; D a
+// warp's 16 rows, d[4j .. 4j + 3] = (g, 8j + 2t), (g, 8j + 2t + 1),
+// (g + 8, 8j + 2t), (g + 8, 8j + 2t + 1)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The kSlab senders from k0 into a ring slot by cp.async, V floats a
+// copy, zeros past n and d: W's rows i0 .. i0 + kTileM (senders
+// contiguous) and z's rows k0 .. (columns j0 .. j0 + kTileN contiguous).
+// A thread's copies of a slab lie a fixed stride apart: one pointer each,
+// stepped.
+template <int V>
+__device__ __forceinline__ void load_slab(const Args& a, float* sW, float* sZ, int i0, int j0,
+                                          int k0) {
+  constexpr int wv = kSlab / V, zv = kTileN / V;                        // copies a row
+  constexpr int wrows = kTiledThreads / wv, zrows = kTiledThreads / zv;  // rows a pass
+  const int tid = threadIdx.x, mw = tid / wv, kw = tid % wv * V, kz = tid / zv, jz = tid % zv * V;
+  const bool kok = k0 + kw < a.n, jok = j0 + jz < a.d;
+  const float* w = a.W + (size_t)(i0 + mw) * a.n + k0 + kw;
 #pragma unroll
-    for (int q = 0; q < kTile * kSlab / kTiledThreads; ++q) {
-      const int e = q * kTiledThreads + tid;
-      const int kk = e % kSlab, m = e / kSlab;          // W row-major: senders contiguous
-      const int i = i0 + m, k = k0 + kk;
-      sW[kk][m] = i < n && k < n ? a.W[(size_t)i * n + k] : 0.0f;
-      const int zk = e / kTile, jj = e % kTile;         // z rows: columns contiguous
-      const int kz = k0 + zk, j = j0 + jj;
-      sZ[zk][jj] = kz < n && j < d ? a.ws[(size_t)kz * d + j] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kSlab; ++kk) {
-      const float4 w = *reinterpret_cast<const float4*>(&sW[kk][4 * ty]);
-      const float4 zv = *reinterpret_cast<const float4*>(&sZ[kk][4 * tx]);
-      const float wr[4] = {w.x, w.y, w.z, w.w}, zc[4] = {zv.x, zv.y, zv.z, zv.w};
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(wr[r], zc[c], acc[r][c]);
-    }
-    __syncthreads();
+  for (int q = 0; q < kTileM / wrows; ++q, w += (size_t)wrows * a.n) {
+    const bool ok = kok && i0 + mw + q * wrows < a.n;
+    copy_async<V>(sW + (mw + q * wrows) * kLdW + kw, ok ? w : a.W, ok);
   }
-  // epilogue: every lane draws its 16 Gm (those past n or d too, not kept)
+  const float* z = a.ws + (size_t)(k0 + kz) * a.d + j0 + jz;
+#pragma unroll
+  for (int q = 0; q < kSlab / zrows; ++q, z += (size_t)zrows * a.d) {
+    const bool ok = jok && k0 + kz + q * zrows < a.n;
+    copy_async<V>(sZ + (kz + q * zrows) * kLdZ + jz, ok ? z : a.ws, ok);
+  }
+}
+
+// W (receiver i, sender k) of a slab as wgmma reads a K-major B without
+// swizzle: 8 x 4 core matrices (8 receivers x 4 senders, 128 contiguous
+// bytes), a receiver group's 8 along the senders 128 bytes apart (LBO),
+// the groups 1024 apart (SBO)
+__device__ __forceinline__ int w_at(int i, int k) {
+  return (i >> 3) * 256 + (k >> 2) * 32 + (i & 7) * 4 + (k & 3);
+}
+
+// The copied W slab split into hi (sW) and lo (sW + kWFloats), W_ii as
+// 0 (the diagonal stays out of the products): a thread 4 senders of 4
+// receivers, each element split once.
+__device__ __forceinline__ void split_w(const float* raw, float* sW, int i0, int k0) {
+#pragma unroll
+  for (int q = 0; q < kTileM * kSlab / 4 / kTiledThreads; ++q) {
+    const int e = q * kTiledThreads + threadIdx.x, i = e % kTileM, k = e / kTileM * 4;
+    const float4 v = *reinterpret_cast<const float4*>(raw + i * kLdW + k);
+    const float x[4] = {v.x, v.y, v.z, v.w};
+    float4 hi, lo;
+    float* h = &hi.x;
+    float* l = &lo.x;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      uint32_t bh, bl;
+      repro_tf32::split(i0 + i == k0 + k + c ? 0.0f : x[c], bh, bl);
+      h[c] = __uint_as_float(bh);
+      l[c] = __uint_as_float(bl);
+    }
+    *reinterpret_cast<float4*>(sW + w_at(i, k)) = hi;
+    *reinterpret_cast<float4*>(sW + kWFloats + w_at(i, k)) = lo;
+  }
+}
+
+// out over a kTileM x kTileN tile of (receivers, columns), the tile index
+// blockIdx.x with the receivers fastest. The products run transposed,
+// out^T = z^T W^T: each warpgroup's 64 columns are wgmma's M (z^T from
+// registers, split as loaded), the 128 receivers its N (W split into hi
+// and lo in shared memory), in split TF32, slab by slab, the next slab's
+// copies in flight. Then the tile through shared memory, W_ii z_i, v and
+// the store.
+template <typename T, int V>
+__global__ void __launch_bounds__(kTiledThreads, 2) dp_mix_tiled(const Args args) {
+  const Args a = replicate<T>(args, blockIdx.z);
+  extern __shared__ __align__(128) float ring[];
+  const int n = a.n, d = a.d, tid = threadIdx.x, lane = tid % 32;
+  const int mtiles = (n + kTileM - 1) / kTileM;
+  const int i0 = (int)(blockIdx.x % mtiles) * kTileM, j0 = (int)(blockIdx.x / mtiles) * kTileN;
+  const int slabs = (n + kSlab - 1) / kSlab, rows = min(kTileM, n - i0);
+  float* sZ = ring;                                             // [2][kSlab][kLdZ]
+  float* sRaw = ring + 2 * kZFloats;                            // [2][kTileM][kLdW]
+  float* sW = sRaw + 2 * kRawFloats;                            // [hi, lo][kWFloats]
+  float4* sRow = reinterpret_cast<float4*>(ring + kRingFloats);  // [kTileM]
+  float* sDiag = reinterpret_cast<float*>(sRow + kTileM);        // [kTileM]
+
+  // slab 0 on its way, and the tile's row constants (published by the
+  // first barrier)
+  load_slab<V>(a, sRaw, sZ, i0, j0, 0);
+  copy_commit();
+  if (tid < kTileM) {
+    const int i = i0 + min(tid, rows - 1);
+    sRow[tid] = row_const(a, i);
+    sDiag[tid] = a.W[(size_t)i * n + i];
+  }
+
+  // the warp's A fragment: columns am and am + 8 of the tile
+  const int am = tid / 128 * 64 + tid % 128 / 32 * 16 + lane / 4, tq = lane % 4;
+  const uint32_t whi = static_cast<uint32_t>(__cvta_generic_to_shared(sW));
+  const uint32_t wlo = whi + 4 * kWFloats;
+  float acc[64];
+#pragma unroll
+  for (int r = 0; r < 64; ++r) acc[r] = 0.0f;
+  uint32_t ahi[2][4] = {}, alo[2][4] = {};   // two steps' A registers: one in flight
+  for (int kt = 0; kt < slabs; ++kt) {
+    copy_wait_all();
+    __syncthreads();   // slab kt is in; every warpgroup is done with slab kt - 1
+    if (kt + 1 < slabs) {
+      load_slab<V>(a, sRaw + (kt + 1) % 2 * kRawFloats, sZ + (kt + 1) % 2 * kZFloats, i0, j0,
+                   (kt + 1) * kSlab);
+      copy_commit();
+    }
+    split_w(sRaw + kt % 2 * kRawFloats, sW, i0, kt * kSlab);
+    fence_async();
+    __syncthreads();   // W_hi and W_lo of slab kt are in
+    const float* z = sZ + kt % 2 * kZFloats + tq * kLdZ + am;
+    fence_regs(acc);
+#pragma unroll
+    for (int s = 0; s < kSlab / 8; ++s) {
+      const int b = s & 1;
+      const float* zs = z + 8 * s * kLdZ;
+      repro_tf32::split(zs[0], ahi[b][0], alo[b][0]);
+      repro_tf32::split(zs[8], ahi[b][1], alo[b][1]);
+      repro_tf32::split(zs[4 * kLdZ], ahi[b][2], alo[b][2]);
+      repro_tf32::split(zs[4 * kLdZ + 8], ahi[b][3], alo[b][3]);
+      // K-major, no swizzle: LBO 128 bytes (the next 4 senders), SBO 1024
+      // (the next 8 receivers)
+      const uint64_t dhi = repro_wgmma::desc(whi + 256 * s, 128, 1024, 0);
+      const uint64_t dlo = repro_wgmma::desc(wlo + 256 * s, 128, 1024, 0);
+      wg_fence();
+      wgmma_tf32(acc, alo[b], dhi);   // lo hi + hi lo + hi hi, the small terms first
+      wgmma_tf32(acc, ahi[b], dlo);
+      wgmma_tf32(acc, ahi[b], dhi);
+      wg_commit();
+      wg_wait<1>();   // the step before is done: its A registers are free
+      fence_regs(ahi[b ^ 1]);
+      fence_regs(alo[b ^ 1]);
+    }
+    wg_wait<0>();   // and this slab's: W_hi and W_lo are free
+    fence_regs(ahi[1]);
+    fence_regs(alo[1]);
+    fence_regs(acc);
+  }
+  __syncthreads();   // the ring is free: the output tile takes its place
+  float* sOut = ring;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float* o = sOut + (8 * j + 2 * tq) * kLdOut + am;
+    o[0] = acc[4 * j];
+    o[kLdOut] = acc[4 * j + 1];
+    o[8] = acc[4 * j + 2];
+    o[kLdOut + 8] = acc[4 * j + 3];
+  }
+  __syncthreads();
+
+  // epilogue: a warp kEpiRows rows a pass, kWarps apart, a lane kTileN /
+  // 32 columns 32 apart, every load of the pass issued before its normals;
+  // the mix is W_ii z_i + the products. A row past the tile's last and
+  // lanes past d draw along (the last row, column d - 1), store nothing.
+  constexpr int kWarps = kTiledThreads / 32, kC = kTileN / 32, kE = kEpiRows * kC;
+  const int warp = tid / 32;
   const T* __restrict__ p = static_cast<const T*>(a.p);
   const T* __restrict__ g = static_cast<const T*>(a.g);
   T* __restrict__ out = static_cast<T*>(a.out);
+  const float* __restrict__ zw = a.ws;
+  const float* __restrict__ nf = a.ws + (size_t)n * d;
   const uint32_t seed = (uint32_t)a.seed[0], gcol0 = (uint32_t)a.col0[0];
+  int col[kC];   // the lane's columns, clamped to d - 1
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + 4 * ty + r, ic = min(i, n - 1);
-    const float4 rc = row_const(a, ic);
+  for (int c = 0; c < kC; ++c) col[c] = min(j0 + lane + 32 * c, d - 1);
+  for (int r0 = warp; r0 < rows; r0 += kEpiRows * kWarps) {
+    size_t row[kEpiRows];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = j0 + 4 * tx + c;
-      const size_t off = (size_t)ic * d + min(j, d - 1);
-      const float x = local_step(load_f(p, off), load_f(g, off), a.gamma);
+    for (int h = 0; h < kEpiRows; ++h) row[h] = (size_t)(i0 + min(r0 + h * kWarps, rows - 1)) * d;
+    float x[kE], zi[kE], nfe[kE];
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const size_t off = row[e / kC] + col[e % kC];
+      x[e] = local_step(load_f(p, off), load_f(g, off), a.gamma);
+      zi[e] = zw[off];
+      nfe[e] = a.noisy ? nf[off] : 0.0f;
+    }
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      const int r = r0 + e / kC * kWarps, j = j0 + lane + 32 * (e % kC), rr = min(r, rows - 1);
+      const size_t off = row[e / kC] + col[e % kC];
+      const float4 rc = sRow[rr];
       float vv;
       if (a.noisy) {
-        const uint32_t idx = counter(i, a.counter_width, gcol0 + (uint32_t)j);
+        const uint32_t idx = counter(a.row0 + (uint32_t)(i0 + rr), a.counter_width, gcol0 + (uint32_t)j);
         const float gm = repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
-        vv = partial(x, a.ws[(size_t)n * d + off], gm, rc);
+        vv = partial(x[e], nfe[e], gm, rc);
       } else {
-        vv = partial(x, 0.0f, 0.0f, rc);
+        vv = partial(x[e], 0.0f, 0.0f, rc);
       }
-      if (i < n && j < d) store_f(out, off, fmaf(rc.w, acc[r][c], vv));
+      const float mix = fmaf(sDiag[rr], zi[e], sOut[rr * kLdOut + lane + 32 * (e % kC)]);
+      if (r < rows && j < d) store_f(out, off, fmaf(rc.w, mix, vv));
     }
   }
 }
@@ -564,6 +787,24 @@ int launch_sparse(const Args& a, const Neighbors& nb, int reps, cudaStream_t str
   return err != 0 ? err : launch_gather<T>(a, nb, reps, stream);
 }
 
+template <typename T, int V>
+int launch_tiled(const Args& a, int reps, cudaStream_t stream) {
+  static bool opted_in = false;   // past 48 KiB of shared memory, and the most of it an SM has
+  if (!opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(dp_mix_tiled<T, V>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kTiledSmem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(dp_mix_tiled<T, V>, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = true;
+  }
+  const size_t tiles = (size_t)((a.n + kTileM - 1) / kTileM) * ((a.d + kTileN - 1) / kTileN);
+  if (tiles > 0x7fffffffu) return (int)cudaErrorInvalidValue;
+  dp_mix_tiled<T, V><<<dim3((unsigned)tiles, 1, reps), kTiledThreads, kTiledSmem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // ---- routes and launch -------------------------------------------------------
 
 // The column route while kMinWarps warps of its blocks fit an SM's shared
@@ -605,14 +846,16 @@ int launch(const Args& a, int reps, cudaStream_t stream) {
   if (columns_route(a.n))
     return a.noisy ? launch_columns<T, true>(a, reps, stream)
                    : launch_columns<T, false>(a, reps, stream);
-  if (a.ws == nullptr || a.n > 65535) return (int)cudaErrorInvalidValue;
-  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n, reps), kPrepThreads, 0,
-                   stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  dp_mix_tiled<T><<<dim3((a.d + kTile - 1) / kTile, (a.n + kTile - 1) / kTile, reps),
-                    kTiledThreads, 0, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.W == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = launch_prep<T>(a, reps, stream);
+  if (err != 0) return err;
+  // V floats a copy: the most that every row of W and of z starts on
+  const auto fits = [&](int v) {
+    return a.n % v == 0 && a.d % v == 0 && (uintptr_t)a.W % (4 * v) == 0 &&
+           (uintptr_t)a.ws % (4 * v) == 0;
+  };
+  return fits(4) ? launch_tiled<T, 4>(a, reps, stream)
+                 : fits(2) ? launch_tiled<T, 2>(a, reps, stream) : launch_tiled<T, 1>(a, reps, stream);
 }
 
 }  // namespace

@@ -26,8 +26,8 @@ The kernel takes any N. Its C launch picks one of two routes from N and
 the card's shared memory: one kernel while the column route's blocks fit
 (N up to a few tens); beyond, two (``dp_mix_prep`` writes z and the DP
 noise to a float32 workspace [2, N, d], which ``_launch`` allocates when
-the library asks for one, and ``dp_mix_tiled`` mixes it). Either way a
-round is one call and one count.
+the library asks for one, and ``dp_mix_tiled`` mixes it on the tensor
+cores, wgmma in split TF32). Either way a round is one call and one count.
 
 Checked here before any launch, on every device: N * counter_width <=
 2^31. The noise counters 2 * idx are uint32, and past that they wrap and

@@ -65,6 +65,8 @@
 
 #include <cstdint>
 
+#include "../../csrc/wgmma.cuh"
+
 namespace {  // internal linkage: the kernel's symbols are this library's own
 namespace flash_sm90 {
 
@@ -145,29 +147,11 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// wgmma shared-memory matrix descriptor: start address, leading and
-// stride byte offsets (16-byte units), swizzle mode in bits 62-63
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                         uint64_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-
-// keeps the compiler from moving reads or writes of accumulator registers
-// across the asynchronous wgmma window
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
+using repro_wgmma::desc;
+using repro_wgmma::fence_regs;
+using repro_wgmma::wg_commit;
+using repro_wgmma::wg_fence;
+using repro_wgmma::wg_wait;
 
 // D[64 x 64] += A[64 x 16] B[16 x 64], A and B K-major in shared memory
 __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
@@ -362,7 +346,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16(const __grid_constant_
                          desc(sK(st) + off, 16, 8 * C::SW, C::kLayout));
     }
     wg_commit();
-    wg_wait0();
+    wg_wait<0>();
     fence_regs(s);
 
     // scores in base 2: t = s * scale * log2(e), masked to -1e30 on the
@@ -440,7 +424,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_bf16(const __grid_constant_
         pv<HD>(o[nb], lo[kk], dv);
       }
     wg_commit();
-    wg_wait0();
+    wg_wait<0>();
 #pragma unroll
     for (int nb = 0; nb < C::NB; ++nb) fence_regs(o[nb]);
     mbar_arrive(empty(st));

@@ -11,6 +11,8 @@ multiply-adds.
 """
 from __future__ import annotations
 
+import re
+from pathlib import Path
 from typing import NamedTuple, Optional
 
 from repro_torch.utils.roofline import (BF16_TC_FLOP_PER_S, F32_FLOP_PER_S,
@@ -120,11 +122,53 @@ def dp_mix_fmas(N: int, d: int) -> int:
     return N * N * d
 
 
+# dp_mix's column route on an H100, csrc/dp_mix.cu's columns_route with the
+# card's figures (cudaDevAttrMaxSharedMemoryPerMultiprocessor, ...PerBlockOptin,
+# ReservedSharedMemoryPerBlock) in place of the device query, so a wrapper
+# declares the same work on the CPU, on meta and on the card (chip_smoke.py
+# holds this predicate to the C launch's route at every N up to 256)
+H100_SMEM_PER_SM, H100_SMEM_PER_BLOCK, H100_SMEM_RESERVED = 233_472, 232_448, 1_024
+_DP_MIX_CU = Path(__file__).resolve().parent / "dp_mix" / "csrc" / "dp_mix.cu"
+
+
+def _cu_constant(src: str, name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+# the route's block as dp_mix.cu defines it: kThreads threads of kCols
+# columns, at least kMinWarps warps an SM
+COLUMN_THREADS, COLUMN_COLS, COLUMN_MIN_WARPS = (
+    _cu_constant(_DP_MIX_CU.read_text(), n)
+    for n in ("kThreads", "kCols", "kMinWarps"))
+
+
+def dp_mix_columns_smem(N: int) -> int:
+    """The column route's shared memory at N receivers, noisy (dp_mix.cu's
+    columns_smem_bytes): the receivers' constants, W transposed with rows
+    padded to 4, z and v of the block's columns."""
+    np_ = -(-N // 4) * 4
+    return 16 * N + 4 * (N * np_ + 2 * N * COLUMN_THREADS * COLUMN_COLS)
+
+
+def dp_mix_columns_route(N: int) -> bool:
+    """Whether an H100 runs dp_mix at N on its column route (N <= 50), not
+    the large-N route."""
+    nbytes = dp_mix_columns_smem(N)
+    return (nbytes <= H100_SMEM_PER_BLOCK
+            and H100_SMEM_PER_SM // (nbytes + H100_SMEM_RESERVED)
+            * (COLUMN_THREADS // 32) >= COLUMN_MIN_WARPS)
+
+
 def dp_mix_work(N: int, d: int, elem: int, R: int = 1) -> Work:
     """dp_mix's declared work for R rounds at [N, d]: its bytes and its
-    mix's FMAs (2 operations each) on the CUDA cores."""
+    mix's FMAs (2 operations each), on the route an H100 takes at N: the
+    column route's on the CUDA cores, the large-N route's on the tensor
+    cores in split TF32 (its own work three TF32 products a product)."""
     flops = 2 * R * dp_mix_fmas(N, d)
-    return Work(flops, R * dp_mix_bytes(N, d, elem), F32_FLOP_PER_S, flops)
+    nbytes = R * dp_mix_bytes(N, d, elem)
+    if dp_mix_columns_route(N):
+        return Work(flops, nbytes, F32_FLOP_PER_S, flops)
+    return Work(flops, nbytes, TF32_TC_FLOP_PER_S, 3 * flops)
 
 
 def sparse_bytes(N: int, d: int, k: int, elem: int) -> int:

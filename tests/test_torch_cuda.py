@@ -8,7 +8,9 @@ and skips without one. On a machine with a card and nvcc but no JAX
 Tolerance as in chip_smoke.py: both sum N float32 products in different
 orders, so |kernel - plain| <= (N + 8) * 2^-23 * scale, scale = max|x| +
 5.42 max|n/c| + 5.42 max|m_scale sigma_m|; a bfloat16 output may land one
-bfloat16 step (2^-7 of its magnitude) further. dp_perturb: x within 1
+bfloat16 step (2^-7 of its magnitude) further; the large-N route's
+split-TF32 mix also within sqrt(N) 2^-23 scale of the exact round in
+float64 (float32 output). dp_perturb: x within 1
 ULP (the plain version's fused multiply-add goes through float64 and may
 round twice; sgd_update_leaves bitwise the per-leaf kernel), the noisy xt
 within 4 ULP of its noise term plus 2 ULP of itself, and a bfloat16
@@ -28,6 +30,9 @@ plain twin's tolerance above, replicate by replicate. A reduced olmo-1b
 round, flat and tree, on the card against the CPU within 1e-4 (1 +
 max|out|), and C2's refusal of olmo-1b's full-depth flat buffer at N =
 2."""
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -41,6 +46,11 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_plain
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan.ssd_scan import ssd_intra_chunk_plain
+
+_SMOKE = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_SMOKE)
+_SMOKE.loader.exec_module(chip_smoke)
 
 pytestmark = pytest.mark.gpu
 
@@ -84,13 +94,17 @@ def _plan(kind: str, N: int, chan):
 
 # (50, 1001) and (51, 1001): the largest N of the column route on an H100
 # (its shared memory opted in past 48 KiB) and the first of the large-N
-# route. The ring, sampled and dynamic plans bring what the complete graph
+# route. (129, 1001) and (300, 517): several of the large-N route's
+# 128-receiver tiles, the last one ragged, with odd N and d (its copies 4
+# bytes at a time) and a ragged last column tile. The ring, sampled and
+# dynamic plans bring what the complete graph
 # never gives: a sparse W with a per-receiver m_scale, a self_scale of 0
 # for the workers that did not send, and identity rows of W with listen =
 # 0, whose outputs must be p - gamma g (within 1 ULP of the plain twin's).
 @pytest.mark.parametrize("N,d", [(10, 5000), (3, 130), (64, 1000),
                                  (65, 1001), (128, 777), (256, 333),
-                                 (50, 1001), (51, 1001)])
+                                 (50, 1001), (51, 1001), (129, 1001),
+                                 (300, 517)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["complete", "gossip", "ring", "sampled",
                                   "dynamic"])
@@ -136,6 +150,37 @@ def test_kernel_matches_plain(N, d, dtype, kind):
         assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
 
 
+# The large-N route's split TF32 against the exact round (float64) within
+# sqrt(N) 2^-23 scale (chip_smoke.dp_mix_split_tolerance): the tolerance
+# above leaves room for one TF32 pass in place of three at large N; this
+# bound does not wherever a row has few weights.
+@pytest.mark.parametrize("N,d", [(129, 1001), (300, 517), (2048, 384)])
+@pytest.mark.parametrize("kind", ["complete", "ring", "sampled", "dynamic"])
+def test_large_n_mix_is_split_tf32(N, d, kind):
+    _need_card()
+    chan = ChannelConfig(n_workers=N, p_dbm=30.0, sigma=0.7, sigma_m=0.4,
+                         seed=N).realize()
+    plan = _plan(kind, N, chan)
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    p = torch.randn((N, d), generator=gen, device="cuda")
+    g = 0.2 * torch.randn((N, d), generator=gen, device="cuda")
+    seed, col0 = (torch.tensor([v], dtype=torch.int32, device="cuda")
+                  for v in (77, 256))
+    ones = torch.ones(N, device="cuda")
+    vec = lambda v: ones if v is None else v
+    args = (p, g, seed, col0,
+            torch.stack([plan.c.reshape(()), plan.sigma_m.reshape(())]),
+            plan.amp, vec(plan.self_scale), plan.m_scale, vec(plan.listen),
+            plan.W.contiguous())
+    kw = dict(gamma=0.05, eta=0.4, noisy=plan.noisy, counter_width=8192)
+    out = ops._launch(*args, **kw)
+    exact = chip_smoke.dp_mix_exact(*args, **kw)
+    assert ops._library().dp_mix_workspace_floats(N, d) > 0   # large-N route
+    tol = chip_smoke.dp_mix_split_tolerance(
+        N, chip_smoke.dp_mix_scale(p, g, 0.05, plan, plan.noisy))
+    assert float((out.double() - exact).abs().max()) <= tol
+
+
 def _stack_args(R, N, d, dtype):
     """R rounds' operands on the card: random p, g, a row-stochastic W
     with an identity row (listen 0) in replicate 0, amplitudes, c,
@@ -157,9 +202,12 @@ def _stack_args(R, N, d, dtype):
 
 
 # (50, 1001) and (51, 1001): the column route's last N on an H100 and the
-# large-N route's first
+# large-N route's first; (2, 130, 1002): two of its receiver tiles a
+# replicate, its copies 8 bytes at a time (N and d even, not both
+# multiples of 4)
 @pytest.mark.parametrize("R,N,d", [(3, 10, 5000), (2, 3, 130), (2, 50, 1001),
-                                   (2, 51, 1001), (3, 64, 1000)])
+                                   (2, 51, 1001), (3, 64, 1000),
+                                   (2, 130, 1002)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
 def test_replicate_axis_is_r_separate_launches(R, N, d, dtype, noisy):

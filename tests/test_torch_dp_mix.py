@@ -11,6 +11,7 @@ Tolerance against the reference's noisy round: both draw the same normals
 use atol = 1e-5 * scale at N <= 6."""
 import importlib.util
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -345,6 +346,85 @@ def test_chip_smoke_dp_mix_bound_at_the_path_shape():
     gossip = chip_smoke.dp_mix_work(N, d, 4, False, counts, rates)
     assert gossip["bound_by"] == "bytes"
     assert gossip["lane_instructions"] == N * d * chip_smoke.dp_mix_element_ops(N, False)
+
+
+def test_chip_smoke_dp_mix_bound_on_the_large_n_route():
+    """At (2048, 855,050, float32) the mix runs on the tensor cores: the
+    bound's terms are the bytes, the instructions without the mix's N FMAs
+    an element, and 2 N^2 d operations at 495 TFLOP/s (it bounds); beside
+    it the route's split products (three TF32 products a product), its
+    floor with the prep's workspace traffic, and the CUDA-core bound
+    (the N FMAs as instructions, the FMAs at 67 TFLOP/s)."""
+    N, d = 2048, 855_050
+    counts = {"small": 52, "large": 58, "tail_extra": 14}
+    rates = {"sms": 132, "sm_clock_hz": 1.98e9}
+    branches = {"small": 2_200_000_000, "large": 1_302_000_000,
+                "tail": 12_000_000}
+    lanes = 132 * 128 * 1.98e9
+    normals = 2_200_000_000 * 52 + 1_302_000_000 * 58 + 12_000_000 * 14
+    w = chip_smoke.dp_mix_work(N, d, 4, True, counts, rates, branches)
+    assert w["compute_class"] == "tf32"
+    assert w["lane_instructions"] == normals + N * d * (
+        chip_smoke.dp_mix_element_ops(N, True) - N)
+    assert w["tensor_ms"] == pytest.approx(1e3 * 2 * N * N * d / 495e12)
+    assert w["split_ms"] == pytest.approx(3 * w["tensor_ms"])
+    assert w["route_floor_ms"] == pytest.approx(
+        w["split_ms"] + 1e3 * 16 * N * d / 3.35e12)
+    assert w["bound_ms"] == w["tensor_ms"] == max(w["terms_ms"].values())
+    assert w["bound_by"] == "operations"
+    cc = w["cuda_core_terms_ms"]
+    assert cc["instructions"] == pytest.approx(
+        1e3 * (normals + N * d * chip_smoke.dp_mix_element_ops(N, True))
+        / lanes)
+    assert cc["fma"] == pytest.approx(1e3 * 2 * N * N * d / 67e12)
+    assert w["cuda_core_bound_ms"] == max(cc.values()) > 100
+
+
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
+def test_chip_smoke_dp_mix_exact_is_the_plain_round(noisy):
+    """chip_smoke.dp_mix_exact, the card's split-precision yardstick, is
+    dp_mix_plain's round in float64: the plain float32 round lies within
+    sqrt(N) 2^-23 scale of it (dp_mix_split_tolerance) on the CPU, at an N
+    past the column route with per-receiver vectors, and its gossip round
+    is W x (listen 1, eta 1)."""
+    N, d = 70, 300
+    rng = np.random.default_rng(5)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32)
+    p, g = f32(rng.standard_normal((N, d))), f32(rng.standard_normal((N, d)))
+    W = f32(rng.random((N, N)))
+    W = W / W.sum(1, keepdim=True)
+    vec = lambda lo: f32(rng.uniform(lo, 1.0, N))
+    plan = SimpleNamespace(amp=vec(0.1), c=torch.tensor(1.3),
+                           m_scale=vec(0.2), sigma_m=torch.tensor(0.4))
+    args = (p, g, torch.tensor([9], dtype=torch.int32),
+            torch.tensor([64], dtype=torch.int32),
+            torch.stack([plan.c, plan.sigma_m]), plan.amp, vec(0.0),
+            plan.m_scale, vec(0.5), W)
+    kw = dict(gamma=0.05, eta=0.4 if noisy else 1.0, noisy=noisy,
+              counter_width=512)
+    exact = chip_smoke.dp_mix_exact(*args, **kw)
+    assert exact.dtype == torch.float64 and exact.shape == (N, d)
+    tol = chip_smoke.dp_mix_split_tolerance(
+        N, chip_smoke.dp_mix_scale(p, g, 0.05, plan, noisy))
+    err = float((dp_mix_plain(*args, **kw).double() - exact).abs().max())
+    assert 0 < err <= tol
+    if not noisy:
+        x = (p - 0.05 * g).double()
+        lst = args[8].double()[:, None]
+        assert torch.allclose(exact, x + lst * (W.double() @ x - x),
+                              rtol=0, atol=1e-12)
+
+
+def test_chip_smoke_last_line_names_are_bound_once():
+    """chip_smoke.main binds the last line's ``kind`` and ``count`` (the
+    card's name and count) once: no later loop or assignment in main may
+    take those names over before the line prints them."""
+    import ast
+    import inspect
+    tree = ast.parse(inspect.getsource(chip_smoke.main))
+    bound = [n.id for n in ast.walk(tree)
+             if isinstance(n, ast.Name) and isinstance(n.ctx, ast.Store)]
+    assert bound.count("kind") == bound.count("count") == 1
 
 
 def test_chip_smoke_reads_instructions_up_to_exit():

@@ -227,3 +227,44 @@ def test_moved_formulas_reproduce_perf_bounds():
     assert (fa.compute_class, fb.compute_class, ssd.compute_class,
             W.dp_mix_work(10, 99, 4).compute_class) == (
         "tf32", "bf16", "tf32", "f32")
+    # dp_mix's large-N route at the path's d: bytes up to N = 256, then its
+    # products at the TF32 peak; its own split work three times those
+    large = {N: W.dp_mix_work(N, 855_050, 4) for N in (64, 128, 256, 2048)}
+    assert [round(_ms(large[N].bound_s), 4) for N in (64, 128, 256)] == [
+        0.1960, 0.3921, 0.7842]
+    assert [large[N].bound_by for N in (64, 128, 256, 2048)] == [
+        "bytes", "bytes", "bytes", "operations"]
+    assert round(_ms(large[2048].bound_s), 2) == 14.49
+    assert round(_ms(large[2048].kernel_flops / large[2048].rate), 2) == 43.47
+    assert round(_ms(large[2048].nbytes / rl.HBM_BYTES_PER_S), 2) == 6.28
+
+
+@pytest.mark.parametrize("N,cls", [(3, "f32"), (10, "f32"), (50, "f32"),
+                                   (51, "tf32"), (64, "tf32"),
+                                   (2048, "tf32")])
+def test_dp_mix_declares_the_route_an_h100_takes(N, cls):
+    """The column route (N <= 50 on an H100) declares its mix on the CUDA
+    cores, the large-N route in split TF32: the products at the TF32
+    peak, its own work three TF32 products a product."""
+    w = W.dp_mix_work(N, 1001, 4, R=2)
+    assert w.compute_class == cls
+    assert w.flops == 2 * 2 * N * N * 1001
+    assert w.kernel_flops == (3 if cls == "tf32" else 1) * w.flops
+    assert W.dp_mix_columns_route(N) == (cls == "f32")
+
+
+def test_dp_mix_route_figures_follow_the_kernel_source():
+    """work.py's copy of columns_route reads the column route's block
+    (kThreads, kCols, kMinWarps) from dp_mix.cu, and its shared memory is
+    columns_smem_bytes's formula: at N = 50, 16 N + 4 (N round4(N) + 2 N
+    kThreads kCols); on an H100, N <= 50 (chip_smoke.py holds it to the C
+    launch's route on the card)."""
+    from pathlib import Path
+    src = (Path(W.__file__).parent / "dp_mix" / "csrc" / "dp_mix.cu").read_text()
+    assert [W._cu_constant(src, n) for n in ("kThreads", "kCols",
+                                             "kMinWarps")] == [
+        W.COLUMN_THREADS, W.COLUMN_COLS, W.COLUMN_MIN_WARPS] == [128, 2, 8]
+    assert "sizeof(float4) * n +" in src and \
+        "sizeof(float) * (n * np + staged(noisy) * (size_t)n * kTileCols)" in src
+    assert W.dp_mix_columns_smem(50) == 16 * 50 + 4 * (50 * 52 + 2 * 50 * 256)
+    assert [W.dp_mix_columns_route(N) for N in (50, 51)] == [True, False]

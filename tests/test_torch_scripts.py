@@ -111,3 +111,28 @@ def test_scripts_default_to_the_card_and_never_fall_back(name, argv):
         return
     with pytest.raises(RuntimeError, match="cuda"):
         script(name).main(argv)
+
+
+def test_dp_mix_turns_alternate_the_trees(tmp_path, monkeypatch):
+    """port_dp_mix_turns times the trees in turns, the order reversed
+    every other turn, one record a tree and shape with the least time;
+    a shape a tree's harness lacks is left out; a directory that is not a
+    checkout is refused before anything is built."""
+    mod = script("port_dp_mix_turns")
+    order = []
+
+    def fake(tree, shapes):
+        order.append(tree.name)
+        k = len(order)
+        return {(R, N): {"R": R, "N": N, "d": 7, "ms": float(k * N)}
+                for R, N in shapes if not (tree.name == "a" and R > 1)}
+    monkeypatch.setattr(mod, "time_tree", fake)
+    trees = [Path("a"), Path("b")]
+    recs = mod.turns(trees, [[1, 64], [4, 64]], 3)
+    assert order == ["a", "b", "b", "a", "a", "b"]
+    by = {(r["tree"], r["R"], r["N"]): r for r in recs}
+    assert set(by) == {("a", 1, 64), ("b", 1, 64), ("b", 4, 64)}
+    assert by[("a", 1, 64)]["ms_in_turns"] == [64.0, 256.0, 320.0]
+    assert by[("b", 4, 64)]["ms"] == 128.0 and by[("b", 4, 64)]["d"] == 7
+    with pytest.raises(SystemExit, match="not a checkout"):
+        mod.main([str(tmp_path)])
