@@ -497,14 +497,19 @@ PREDICTIONS = {
                  "phases: the static flat CLI 280-360 rounds/s, the dynamic "
                  "one 220-300 (PR 20's call 3 measured 311.70-316.38 and "
                  "171.32-177.31 after serving)",
-    "sparse_kernel": "the sparse round (dp_mix_prep + dp_mix_gather) within "
-                     "its tolerance of the plain twin at (2048, 855,050, k "
-                     "12) in float32 and bfloat16, noisy and gossip; float32 "
-                     "noisy 30-40 ms (PR 21's probe: 35.2) against a bound "
-                     "of ~7 ms (operations) and a workspace floor of 18.8; "
-                     "with zero weights bitwise the dense kernel's round at "
-                     "N = 64 and 2048; the graph against SparseW.dense() "
-                     "at N = 64 within 1e-5",
+    "sparse_kernel": "the sparse round (dp_mix_prep + dp_mix_gather, the "
+                     "gather's groups of 16 in the list's Morton order, "
+                     "their union of rows staged once a slab by bulk "
+                     "copies) within its tolerance of the plain twin at "
+                     "(2048, 855,050, k 12) in float32 and bfloat16, noisy "
+                     "and gossip; float32 noisy 23.5-26 ms (the design's "
+                     "probe calls: prep 10.1-10.3, gather 14.6-14.9; the "
+                     "one-receiver-a-block design 34.7-36.1) against a "
+                     "bound of ~7 ms (operations) and a workspace floor of "
+                     "18.8; with "
+                     "zero weights bitwise the dense kernel's round at N "
+                     "= 64 and 2048; the graph against SparseW.dense() at "
+                     "N = 64 within 1e-5",
     "sparse_cli": "5 dp_mix_round_sparse calls in 5 rounds and no dense "
                   "dp_mix_round, every loss finite, epsilon over 5 rounds; "
                   "6-9 rounds/s over the 5 rounds, the first eval and "
@@ -515,16 +520,26 @@ PREDICTIONS = {
     "sparse_sync": "no synchronizing call in sim.round's neighbor-list "
                    "build, plan_dynamic_sparse and the sparse dp_mix call at "
                    "N = 2048; the whole round body at N = 64 also free of one",
-    "sparse_turns": "in turns at N = 2048: the sparse round 30-40 ms, the "
-                    "dense large-N route 92-102 ms (split TF32 on wgmma; "
-                    "the CUDA-core mix: 266.6), so 2.6-3.0x (34.8 against "
-                    "265.7 with the CUDA-core mix); the "
-                    "simulator's sparse round 1.5-2.5 ms against its dense "
-                    "one's 0.9-1.3 (the probe: 1.84 against 1.06: the block "
-                    "sort and the gathers are more launches than the [N, N] "
-                    "graph); the whole sparse flat round 60-100 ms (the mix "
-                    "35, the gradient pass, its clip and the metrics over "
-                    "the 7 GB buffer 20-50, the simulator 2)",
+    "sparse_turns": "in turns at N = 2048: the sparse round in the "
+                    "key's order 23.5-26 ms, the same list in index order "
+                    "36-41 (no rows shared, so most of a group's union past "
+                    "the staged rows reads from global memory: the design "
+                    "probe's gather took 26.5 so; the one-receiver-a-block "
+                    "design 35.6), the dense large-N route 92-102 ms "
+                    "(split TF32 on wgmma), so 3.6-4.2x; apart, by CUDA "
+                    "events: the prep 10.0-10.5 against its floor of 8.36 "
+                    "(28 GB at 3.35 TB/s), the gather 14.4-15.2 against "
+                    "10.45 (35 GB), a group of 16 reading 2.8-3.0 distinct "
+                    "rows a receiver in the key's order against 10.3-10.6 "
+                    "in index order (the probe: 2.93 and 10.41), 70 rows "
+                    "staged a group at k 12; "
+                    "torch.sparse.mm of the list as a CSR [N, N] against "
+                    "z [2048, 855,050], the yardstick of the mix alone, "
+                    "10-30 ms; the simulator's sparse round 1.5-2.5 ms "
+                    "against its dense one's 0.9-1.3; the whole sparse "
+                    "flat round 80-92 ms (96.7 with the earlier mix; the "
+                    "mix 10-11 ms faster, the gradient pass, its clip and "
+                    "the metrics unchanged)",
     "sparse_tree": "one dp_perturb launch (sgd_update_leaves) a sparse "
                    "dynamic tree round at N = 64, 11 in 11, W a SparseW, "
                    "every loss finite",
@@ -586,15 +601,20 @@ PREDICTIONS = {
                  "20-round CLI's buffer and its last 10 losses",
     "worker_axis": "the worker axis at (2048, 855,050, k 12) on one card: "
                    "dp_mix_prep_rows and dp_mix_gather_rows on each of S = "
-                   "2 row windows (global counters from row0), their z "
+                   "2 row windows (global counters from row0; each "
+                   "window's gather in its own rows' key order, its "
+                   "receivers' own z from its workspace), their z "
                    "gathered by hand, bitwise the unsharded "
                    "dp_mix_round_sparse (0 elements differ) and within "
                    "the sparse round's tolerance of the plain twins; the "
                    "row-window kernels alone (two preps, two gathers) "
-                   "35-37 ms, within 5% of the unsharded round's 34-36 "
-                   "(the same work); the stitched round with its copies "
-                   "(z's and the outputs', 28 GB) 47-49 (first measured: "
-                   "47.7); peak 38-41 GiB (first measured: 39.4)",
+                   "30-34 ms against the unsharded round's 23.5-26 (a "
+                   "group stages its receivers' own rows from the "
+                   "workspace besides z_src's copies of them, which its "
+                   "padded slots read: the design probe took 32.7 so; the "
+                   "one-receiver-a-block design: 38.3 and 34.8); the "
+                   "stitched round with its copies (z's and the outputs', "
+                   "28 GB) 35-40; peak 38-41 GiB (first measured: 39.4)",
     "mesh_one_rank": "one-rank NCCL groups: the model-axis mesh step (S = "
                      "1: all_to_all and all-gathers over one rank, under the "
                      "CLI's sync guard, its communicators started when the "
@@ -625,15 +645,14 @@ PREDICTIONS = {
                            "count, bitwise the 4 separate launches (0 "
                            "elements differ), within the sparse round's "
                            "tolerance of the plain twin on three column "
-                           "windows of each replicate; 28-38 ms against "
-                           "the separate launches' 29-39 (the same 2048 "
-                           "rows as the N = 2048 round's 34.8 ms; a "
-                           "replicate's column slab of z is 2 MB of L2, not "
-                           "8), within 5% of each other; a bound of 6.3-6.9 "
-                           "ms (operations: the normals' lane-instructions, "
-                           "as at N = 2048, with fewer realized slots at "
-                           "mesh_sparse's lower density); the twin 3.5-5 s "
-                           "in 2^16-column windows",
+                           "windows of each replicate; 22-27 ms against "
+                           "the separate launches' 23-28 (the same 2048 "
+                           "rows as the N = 2048 round, each replicate's "
+                           "list in its own key's order; the "
+                           "one-receiver-a-block design "
+                           "34.7), within 5% of each other; a bound of "
+                           "6.3-6.9 ms (operations); the twin 3.5-5 s in "
+                           "2^16-column windows",
     "fleet_sparse_cli": "the fleet sparse CLI (mesh_sparse, R 4 x N 512, k "
                         "12, 6 rounds) under the sync guard: 6 "
                         "dp_mix_round_sparse calls in 6 rounds and no "
@@ -1935,8 +1954,9 @@ def check_sparse(N: int, d: int, dtype, noisy: bool, counts: dict,
     over three column windows (the first, one in the middle, the ragged
     last), each with its col0 and the full counter_width so it draws the
     same noise; tolerance dp_mix_tolerance with the k + 1 terms of the
-    mix in place of N. Timed: the kernel, the plain twin over the whole
-    round in windows of 2^16 columns, and the bound (sparse_work)."""
+    mix in place of N. The kernel takes the receivers in the list's key
+    order, as the wrapper does. Timed: the kernel, the plain twin over the
+    whole round in windows of 2^16 columns, and the bound (sparse_work)."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.kernels.dp_mix.dp_mix import dp_mix_sparse_plain
@@ -1948,7 +1968,8 @@ def check_sparse(N: int, d: int, dtype, noisy: bool, counts: dict,
     args = sparse_args(plan, p, g)
     kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=noisy,
               counter_width=ops._roundup(d, ops.LANES))
-    kernel = lambda: ops._launch_sparse(*args, **kw)
+    order = ops.locality_order(W, N, "cuda")   # the wrapper's: the list's key
+    kernel = lambda: ops._launch_sparse(*args, **kw, order=order)
     out = kernel()
     torch.cuda.synchronize()
     seed, _, *rest = args[2:]
@@ -2198,15 +2219,39 @@ def sparse_flat_round_ms(proto, n_rounds: int = 3) -> list:
     return out
 
 
+def group_rows(sw, order, G: int) -> dict:
+    """Distinct rows of z (each receiver's own and its slots') that the
+    gather's groups of G receivers read, taken in ``order`` (None: index
+    order): the mean a receiver and the largest group's."""
+    import torch
+    N = sw.n_workers
+    rows = torch.cat([torch.arange(N, device=sw.device)[:, None],
+                      sw.idx.long()], 1)
+    if order is not None:
+        rows = rows[order.long()]
+    pad = -N % G
+    if pad:
+        rows = torch.cat([rows, rows[-1:].expand(pad, -1)])
+    srt = rows.reshape(-1, G * rows.shape[1]).sort(dim=1).values
+    distinct = 1 + (srt[:, 1:] != srt[:, :-1]).sum(1)
+    return {"per_receiver": float(distinct.sum()) / N,
+            "largest_group": int(distinct.max())}
+
+
 def sparse_turns() -> dict:
-    """At N = 2048 and the path's d, in turns (sparse, dense, dense,
-    sparse), each timed by CUDA events: the sparse round's kernels against
-    the dense large-N route given the same round's SparseW.dense(); then
-    the simulator's mesh_sparse round with the neighbor list against the
-    same scenario's dense round (Metropolis weights of the [N, N]
-    unit-disk graph), host clock around 10 rounds ending in a
-    synchronize, in turns; then the whole sparse flat round
-    (sparse_flat_round_ms)."""
+    """At N = 2048 and the path's d, in turns (keyed, index, dense, dense,
+    index, keyed), each timed by CUDA events: the sparse round's kernels
+    with the receivers in the list's key order (the wrapper's), the same
+    list in index order, and the dense large-N route given the same
+    round's SparseW.dense(); the prep and the gather apart beside their
+    floors (the bytes each must move at 3.35 TB/s) and the distinct rows a
+    gather group reads a receiver in either order (group_rows); one
+    torch.sparse.mm of the list as a CSR [N, N] by z [N, d], the yardstick
+    of the mix alone, which the port never calls; then the simulator's
+    mesh_sparse round with the neighbor list against the same scenario's
+    dense round (Metropolis weights of the [N, N] unit-disk graph), host
+    clock around 10 rounds ending in a synchronize, in turns; then the
+    whole sparse flat round (sparse_flat_round_ms)."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     predict("sparse_turns")
@@ -2217,13 +2262,44 @@ def sparse_turns() -> dict:
     args = sparse_args(plan, p, g)
     kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
               counter_width=ops._roundup(PATH_D, ops.LANES))
+    order = ops.locality_order(W, SPARSE_N, "cuda")
     dense_W = W.dense().contiguous()
-    runs = {"sparse": lambda: ops._launch_sparse(*args, **kw),
+    runs = {"keyed": lambda: ops._launch_sparse(*args, **kw, order=order),
+            "index": lambda: ops._launch_sparse(*args, **kw),
             "dense": lambda: ops._launch(*args[:9], dense_W, **kw)}
-    ms = {"sparse": [], "dense": []}
-    for name in ("sparse", "dense", "dense", "sparse"):
+    ms = {name: [] for name in runs}
+    for name in ("keyed", "index", "dense", "dense", "index", "keyed"):
         ms[name].append(cuda_ms(runs[name], iters=2, warmup=1))
         torch.cuda.empty_cache()
+    prep = lambda: ops._launch_prep(p, g, *args[2:6], gamma=proto.gamma,
+                                    noisy=True,
+                                    counter_width=kw["counter_width"],
+                                    row0=0)
+    ws = prep()
+    gather = lambda: ops._launch_gather(p, g, ws, ws[0], *args[2:], row0=0,
+                                        **kw, order=order)
+    halves = {"prep": [], "gather": []}
+    for name in ("prep", "gather", "gather", "prep"):
+        halves[name].append(cuda_ms(prep if name == "prep" else gather,
+                                    iters=3, warmup=1))
+    del ws
+    torch.cuda.empty_cache()
+    floors = {"prep": SPARSE_N * PATH_D * 16 / HBM_BYTES_PER_S * 1e3,
+              "gather": SPARSE_N * PATH_D * 20 / HBM_BYTES_PER_S * 1e3}
+    # the list as a CSR [N, N] (self_w on the diagonal, the slots' w), z
+    rows = torch.arange(SPARSE_N, device="cuda")
+    cols = torch.cat([rows[:, None], W.idx.long()], 1)
+    vals = torch.cat([W.self_w[:, None], W.w], 1)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows[:, None].expand_as(cols).reshape(-1),
+                     cols.reshape(-1)]), vals.reshape(-1),
+        (SPARSE_N, SPARSE_N)).coalesce().to_sparse_csr()
+    z = p - proto.gamma * g
+    del p, g, args, runs
+    torch.cuda.empty_cache()
+    mm_ms = cuda_ms(lambda: torch.sparse.mm(csr, z), iters=3, warmup=1)
+    del z
+    torch.cuda.empty_cache()
     sims = {"sparse": proto.simulator("cuda"),
             "dense": dynamic_proto(SPARSE_N, SPARSE_SCENARIO).simulator(
                 "cuda")}
@@ -2240,9 +2316,17 @@ def sparse_turns() -> dict:
             states[name] = sims[name].round(gens[name], states[name])[0]
         torch.cuda.synchronize()
         sim_ms[name].append(1e3 * (time.perf_counter() - t0) / 10)
-    del p, g, args, runs
-    torch.cuda.empty_cache()
     rec = {"N": SPARSE_N, "d": PATH_D, "k": SPARSE_K, "round_ms": ms,
+           "prep_ms": halves["prep"], "gather_ms": halves["gather"],
+           "prep_floor_ms": floors["prep"],
+           "gather_floor_ms": floors["gather"],
+           "rows_a_receiver": {
+               "key_order_group_16": group_rows(W, order, 16),
+               "index_order_group_16": group_rows(W, None, 16)},
+           "rows_staged_a_group": ops.gather_capacity(SPARSE_K),
+           "sparse_mm_ms": mm_ms,
+           "sparse_mm_note": "torch.sparse.mm(CSR [N, N], z [N, d]): the "
+                             "mix alone, a yardstick the port never calls",
            "simulator_round_ms": sim_ms,
            "flat_round_ms": sparse_flat_round_ms(proto)}
     print(f"[sparse] in turns {json.dumps(rec)}; {nvidia_smi()}", flush=True)
@@ -5595,7 +5679,7 @@ def main() -> int:
     dynamic_round_sync_free(store)
     sparse_round_sync_free()
     sparse_tree(SPARSE_TREE_N)
-    sparse_turns()
+    sparse_turns_rec = sparse_turns()
     torch.cuda.empty_cache()
 
     # the fleet and telemetry: dp_mix's replicate axis, the fleet CLI
@@ -5740,7 +5824,12 @@ def main() -> int:
         "max_abs_err": sparse_rec["max_abs_err"],
         "ms": sparse_rec["ms"], "plain_ms": sparse_rec["plain_ms"],
         "bound_ms": sparse_rec["bound_ms"],
-        "bound_by": sparse_rec["bound_by"], "library_ms": None}, {
+        "bound_by": sparse_rec["bound_by"],
+        "prep_ms": min(sparse_turns_rec["prep_ms"]),
+        "gather_ms": min(sparse_turns_rec["gather_ms"]),
+        "sparse_mm_ms": sparse_turns_rec["sparse_mm_ms"],
+        "sparse_mm_note": sparse_turns_rec["sparse_mm_note"],
+        "library_ms": None}, {
         "name": "dp_mix sparse round, replicate axis", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:153",

@@ -1,7 +1,7 @@
 """Time dp_mix's round on the card in turns across source trees.
 
     python3 scripts/port_dp_mix_turns.py [--shapes 1x64,1x2048,4x64]
-        [--out FILE] TREE [TREE ...]
+        [--sparse 2048] [--out FILE] TREE [TREE ...]
 
 Each TREE is a checkout of the repo (``.``, or a ``git archive`` of a
 commit unpacked into a directory): its own ``src/repro_torch`` and
@@ -15,6 +15,15 @@ the flat path's d, a realized channel's plan) for R = 1, and
 it (else that shape is left out for that tree). So a tree's reading is
 what its own harness would read, and the trees' readings are taken on
 one card in one call.
+
+``--sparse N`` (0: none) adds the sparse round at N workers and the
+flat path's d, float32, noisy, on each tree's own seeded
+``chip_smoke.sparse_round`` list (mesh_sparse, k = SPARSE_K) and
+operands, in the same turns: the round (``ops._launch_sparse``; in a
+tree whose wrapper has ``locality_order``, with the list's key's order
+and again in index order), the prep alone and the gather alone, each by
+its own ``cuda_ms``, and a digest of the round's output bits, so that
+two builds are shown to give the same output bitwise.
 
 Printed: one JSON line a tree and shape with its times in turns and the
 least of them, then the card's name and power limit as nvidia-smi gives
@@ -47,6 +56,55 @@ for R, N in json.loads(sys.argv[1]):
           flush=True)
     del args, run
     torch.cuda.empty_cache()
+"""
+
+# the sparse round at N = argv[1], in its tree's own harness
+_SPARSE_CHILD = r"""
+import json, sys
+import torch
+import chip_smoke as c
+from repro_torch.kernels.dp_mix import ops
+
+
+def digest(t):
+    bits, h = t.contiguous().view(-1).view(torch.int32), 0
+    for part in bits.split(1 << 26):
+        x = part.long()
+        w = torch.arange(x.numel(), device=x.device) % 65521 + 1
+        h = (h * 1000003 + int((x * w).sum())) % (1 << 61)
+    return format(h, "016x")
+
+
+N = int(sys.argv[1])
+proto, plan, _, W = c.sparse_round(N)
+gen = torch.Generator(device="cuda").manual_seed(5)
+p = torch.randn((N, c.PATH_D), generator=gen, device="cuda")
+g = 0.1 * torch.randn((N, c.PATH_D), generator=gen, device="cuda")
+args = c.sparse_args(plan, p, g)
+kw = dict(gamma=proto.gamma, eta=proto.eta, noisy=True,
+          counter_width=ops._roundup(c.PATH_D, ops.LANES))
+keyed = ({"order": ops.locality_order(W, N, "cuda")}
+         if hasattr(ops, "locality_order") and W.key is not None else {})
+rec = {"N": N, "d": c.PATH_D, "k": W.k, "keyed": bool(keyed)}
+out = ops._launch_sparse(*args, **kw, **keyed)
+rec["digest"] = digest(out)
+if keyed:
+    rec["index_digest"] = digest(ops._launch_sparse(*args, **kw))
+del out
+torch.cuda.empty_cache()
+rec["round_ms"] = c.cuda_ms(lambda: ops._launch_sparse(*args, **kw, **keyed),
+                            iters=3, warmup=1)
+if keyed:
+    rec["index_round_ms"] = c.cuda_ms(lambda: ops._launch_sparse(*args, **kw),
+                                      iters=3, warmup=1)
+prep = lambda: ops._launch_prep(p, g, *args[2:6], gamma=proto.gamma,
+                                noisy=True, counter_width=kw["counter_width"],
+                                row0=0)
+rec["prep_ms"] = c.cuda_ms(prep, iters=3, warmup=1)
+ws = prep()
+rec["gather_ms"] = c.cuda_ms(lambda: ops._launch_gather(
+    p, g, ws, ws[0], *args[2:], row0=0, **kw, **keyed), iters=3, warmup=1)
+print("[sparse] " + json.dumps(rec), flush=True)
 """
 
 _BUILD = ("from repro_torch.kernels import build; "
@@ -86,6 +144,42 @@ def time_tree(tree: Path, shapes) -> dict:
     return {(r["R"], r["N"]): r for r in recs}
 
 
+def time_sparse(tree: Path, N: int) -> dict:
+    """The sparse round's record at N workers from one process in
+    ``tree`` (its times, its output's digest)."""
+    res = subprocess.run([sys.executable, "-c", _SPARSE_CHILD, str(N)],
+                         cwd=tree, env=_env(tree), capture_output=True,
+                         text=True)
+    if res.returncode != 0:
+        raise SystemExit(f"{tree}: sparse timing failed:\n{res.stdout}"
+                         f"{res.stderr}")
+    line = [x for x in res.stdout.splitlines() if x.startswith("[sparse] ")]
+    return json.loads(line[-1][len("[sparse] "):])
+
+
+def sparse_turns(trees, N: int, n_turns: int = 2) -> list:
+    """The sparse round of each tree ``n_turns`` times, the order reversed
+    every other turn: one record a tree, each time in turns and the least
+    of them, the output's digest of every turn."""
+    recs = {str(t): [] for t in trees}
+    for k in range(n_turns):
+        for tree in (trees if k % 2 == 0 else trees[::-1]):
+            recs[str(tree)].append(time_sparse(tree, N))
+    out = []
+    for tree, rs in recs.items():
+        rec = {"tree": tree, "sparse": True, "N": N, "d": rs[0]["d"],
+               "k": rs[0]["k"], "keyed": rs[0]["keyed"],
+               "digests": sorted({r["digest"] for r in rs}
+                                 | {r["index_digest"] for r in rs
+                                    if "index_digest" in r})}
+        for m in ("round_ms", "index_round_ms", "prep_ms", "gather_ms"):
+            v = [r[m] for r in rs if m in r]
+            if v:
+                rec[m + "_in_turns"], rec[m] = v, min(v)
+        out.append(rec)
+    return out
+
+
 def turns(trees, shapes, n_turns: int = 2) -> list:
     """Each tree timed ``n_turns`` times, the order reversed every other
     turn; one record a tree and shape."""
@@ -113,6 +207,8 @@ def main(argv=None) -> dict:
     ap.add_argument("trees", nargs="+", type=Path)
     ap.add_argument("--shapes", default="1x64,1x128,1x256,1x2048,4x64",
                     help="RxN, comma-separated")
+    ap.add_argument("--sparse", type=int, default=0,
+                    help="the sparse round at this N too (0: none)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args(argv)
     trees = [t.resolve() for t in args.trees]
@@ -121,9 +217,12 @@ def main(argv=None) -> dict:
                 t / "src" / "repro_torch" / "kernels" / "dp_mix").is_dir():
             raise SystemExit(f"{t}: not a checkout with chip_smoke.py and "
                              f"src/repro_torch/kernels/dp_mix")
-    shapes = [[int(v) for v in s.split("x")] for s in args.shapes.split(",")]
+    shapes = [[int(v) for v in s.split("x")]
+              for s in args.shapes.split(",") if s]
     build_all(trees)
     recs = turns(trees, shapes)
+    if args.sparse:
+        recs += sparse_turns(trees, args.sparse)
     for rec in recs:
         print(json.dumps(rec), flush=True)
     card = nvidia_smi()

@@ -408,8 +408,7 @@ def replicate_major(stacked):
     if torch.is_tensor(stacked):
         return stacked.transpose(0, 1)
     if isinstance(stacked, SparseW):
-        return SparseW(*(getattr(stacked, f).transpose(0, 1)
-                         for f in ("idx", "w", "self_w")))
+        return stacked.map(lambda a: a.transpose(0, 1))
     if isinstance(stacked, TracedChannelState):
         return dataclasses.replace(stacked, **{
             f: getattr(stacked, f).transpose(0, 1) for f in FIELDS})

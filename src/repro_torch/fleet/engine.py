@@ -49,8 +49,7 @@ def stack_rounds(rounds):
     if torch.is_tensor(first):
         return torch.stack(rounds, dim=1)
     if isinstance(first, SparseW):
-        return SparseW(*(torch.stack([getattr(r, f) for r in rounds], dim=1)
-                         for f in ("idx", "w", "self_w")))
+        return SparseW.join(rounds, lambda ts: torch.stack(ts, dim=1))
     if isinstance(first, TracedChannelState):
         return dataclasses.replace(first, **{
             f: torch.stack([getattr(r, f) for r in rounds], dim=1)

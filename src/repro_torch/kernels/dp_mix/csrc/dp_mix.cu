@@ -92,19 +92,57 @@
 //
 // the reference's dp_mix_sparse_jnp (XLA gathers, no Pallas body), which
 // is replaced here. Two launches: dp_mix_prep, as above, writes z and nf
-// to the workspace [2, n, d]; dp_mix_gather gives each block one receiver
-// row and a 1024-column slab, reads its k slots once into shared memory,
-// gathers the k rows of z, draws Gm in its epilogue and writes out = v +
-// (eta * listen) * mix. Receivers are the grid's fastest axis, so the
-// blocks in flight share one column slab of z (n x 1024 floats, 8 MB at
-// n = 2048) and the gathered rows come from L2. Element offsets are 64-bit:
-// the workspace's second half starts past 2^31 elements at n = 2048.
+// to the workspace [2, n, d]; dp_mix_gather forms out = v + (eta listen)
+// mix, drawing Gm. What bounds it on an H100 at n = 2048, d = 855,050, k
+// = 12 (float32): bytes. The prep reads p and g and writes z and nf (28
+// GB, 8.4 ms at 3.35 TB/s); the gather reads p, g, nf and each receiver's
+// z and writes out (35 GB, 10.4 ms), and reads each neighbor's row of z
+// besides. Its normals (1.75 G each kernel) are ~3.4 ms of issue. Probed
+// on an H100 80GB HBM3 at 700 W with the earlier design (a block a
+// receiver and 1024 columns, every slot's row read on its own: 23.4 ms),
+// the gathered rows
+// were not what held it back: the same list with its labels in Morton
+// order took 22.6 ms, and with every slot pointing at its own receiver
+// 21.0; the rest was latency, short blocks and instructions. The design:
+//
+// * dp_mix_prep: a lane 4 columns of its warp's 128 (runs of 4, 2 or 1
+//   as the rows' alignment allows, each load and store of a warp
+//   contiguous) of 8 rows, 2 rows at a time, the batch's 8 normals drawn
+//   together, their chains interleaved. It runs at its bytes: without the
+//   normals it takes as long (probe on an H100 80GB HBM3, 700 W).
+// * dp_mix_gather: a block a group of kGroup (16) receivers, taken in the
+//   order the wrapper gives (ops.locality_order: the list's Morton key, so
+//   a group's receivers are neighbours and share rows: 2.9 distinct rows a
+//   receiver against 10.4 in index order at n = 2048), over 32 column
+//   slabs of 128. The block forms the group's union of rows once (a hash
+//   set in shared memory) and each slot's place in it; then slab by slab
+//   warp 0 issues one bulk copy (cp.async.bulk, on an mbarrier) a union
+//   row into a ring of two, the next slab's under this one's arithmetic,
+//   so a row of z leaves L2 once a group and not once a slot. A warp forms
+//   one receiver's slab at a time, a lane 4 columns: one shared-memory
+//   load a slot, and the next receiver's loads of p, g and nf issued
+//   before this one's mix and normals. Three blocks (24 warps) an SM. A
+//   group whose union is past the staged capacity (fixed at launch from k
+//   and the shared memory) reads those rows from global memory in their
+//   place in slot order, so any list is right, only slower. Groups are
+//   the grid's fastest axis: the groups of one column range run together
+//   and share z's slab through L2. A list without an order runs in index
+//   order through the same kernel: its groups share almost no rows, so
+//   most of a group's union reads from global memory (right, only slower;
+//   every list the port builds carries a key).
+//
+// Each element's arithmetic is as before, fmaf(w_s, z[idx_s], acc) from
+// self_w z_i in slot order, v from p, g, nf and Gm, so the output is
+// bitwise the same whatever the order or the group. Element offsets are
+// 64-bit: the workspace's second half starts past 2^31 elements at n =
+// 2048.
 //
 // A stack of reps sparse rounds (the fleet's) is the same two launches
 // with the replicate as their grid's z: each block moves its Args with
 // replicate() and its neighbor list with replicate(Neighbors) (idx and w
-// r n k on, self_w r n, z_src to replicate r's z in the workspace, 2 r n d
-// on), so replicate r is bitwise the launch of its operands alone.
+// r n k on, self_w and order r n, z_src to replicate r's z in the
+// workspace, 2 r n d on), so replicate r is bitwise the launch of its
+// operands alone.
 //
 // Worker-axis shards (repro_torch/shard/worker.py, the reference's
 // shard/worker.py::worker_window_round): a shard holds rows [row0, row0 +
@@ -113,11 +151,13 @@
 // reference's _normal_pair_hash(..., row0); the caller all-gathers the
 // shards' z into one [n_src, d] float32 tensor; dp_mix_gather_launch then
 // forms receivers [row0, row0 + n), reading their neighbor rows by global
-// index from that tensor and their own z and nf from the local workspace.
-// Each element's arithmetic is the unsharded round's, so stitched shards
-// are bitwise the whole round; row0 = 0 with z_src = the workspace is the
-// whole round (dp_mix_sparse_launch). Same bound and design as the sparse
-// round above: the gather's rows, now from the gathered [n_src, d] tensor.
+// index from that tensor and their own z and nf from the local workspace
+// (a group stages a receiver's own row from the workspace apart from
+// z_src's copy of it, which its padded slots read). Each element's
+// arithmetic is the unsharded round's, so
+// stitched shards are bitwise the whole round; row0 = 0 with z_src = the
+// workspace is the whole round (dp_mix_sparse_launch). Same bound and
+// design as the sparse round above, its groups in its own rows' order.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -156,10 +196,17 @@ constexpr int kEpiRows = 4;                    // rows a warp's epilogue pass
 // the ring, then the tile's row constants (row_const and W_ii): 104.5 KiB, 2 blocks an SM
 constexpr size_t kTiledSmem = sizeof(float) * kRingFloats + (sizeof(float4) + sizeof(float)) * kTileM;
 static_assert(kTileM * kLdOut <= kRingFloats, "the output tile reuses the ring");
-constexpr int kPrepThreads = 256;
-constexpr int kGatherThreads = 256;            // sparse round: threads a block
-constexpr int kGatherCols = 4;                 // columns a thread, kGatherThreads apart
-constexpr int kGatherTile = kGatherThreads * kGatherCols;   // columns a block
+constexpr int kPrepThreads = 256;              // large-N and sparse prep: threads a block
+constexpr int kPrepRows = 8;                   // rows a block
+constexpr int kPrepBatch = 2;                  // rows whose loads and normals go together
+constexpr int kGatherThreads = 256;            // sparse gather: threads a block
+constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGroup = 16;                     // receivers a block, in the order given
+constexpr int kGatherBlocks = 3;               // gather blocks an SM
+constexpr int kSlabCols = 128;                 // columns a slab
+constexpr int kRowFloats = kSlabCols + 4;      // a staged row's stride: the slab from its 16-byte start
+constexpr int kLaneCols = kSlabCols / 32;      // columns a lane: a warp a row
+constexpr int kSlabsPerBlock = 32;             // column slabs a block walks
 
 __host__ __device__ constexpr int round_up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -402,27 +449,112 @@ dp_mix_columns(const Args args, const bool vec) {
   }
 }
 
+// ---- a lane's columns (the large-N and sparse prep, the sparse gather) ----
+
+// A lane's kLaneCols columns of a warp's 32 kLaneCols: kLaneCols / V runs
+// of V neighbouring columns, 32 V apart, so that each load of a warp reads
+// 32 V contiguous elements. The lane's column c (0 .. kLaneCols - 1) of
+// the warp's from c0:
+template <int V>
+__device__ __forceinline__ int lane_col(int lane, int c) {
+  return c / V * 32 * V + lane * V + c % V;
+}
+
+// A lane's columns of a row from column c0, V at a time (V divides d and
+// the row starts on V elements, so a run is whole or past d; a run past d
+// reads the last, and its lane stores nothing).
+template <int V, typename T>
+__device__ __forceinline__ Pack<T, kLaneCols> load_lane(const T* __restrict__ row, int c0, int d) {
+  const int lane = threadIdx.x % 32;
+  Pack<T, kLaneCols> pk;
+#pragma unroll
+  for (int h = 0; h < kLaneCols; h += V) {
+    const int j = min(c0 + lane_col<V>(lane, h), d - V);
+    const Pack<T, V> x = *reinterpret_cast<const Pack<T, V>*>(row + j);
+#pragma unroll
+    for (int c = 0; c < V; ++c) pk.v[h + c] = x.v[c];
+  }
+  return pk;
+}
+
+template <int V, typename T>
+__device__ __forceinline__ void store_lane(T* __restrict__ row, int c0, int d,
+                                           const float (&o)[kLaneCols]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int h = 0; h < kLaneCols; h += V) {
+    const int j = c0 + lane_col<V>(lane, h);
+    if (j >= d) continue;
+    Pack<T, V> x;
+#pragma unroll
+    for (int c = 0; c < V; ++c) from_f(x.v[c], o[h + c]);
+    *reinterpret_cast<Pack<T, V>*>(row + j) = x;
+  }
+}
+
 // ---- large-N route --------------------------------------------------------
 
-// z (x when gossip) and nf of every element into the workspace.
-template <typename T>
+// z (x when gossip) and nf into the workspace: a lane kLaneCols columns
+// of its warp's 32 kLaneCols (lane_col: runs of V, V = 4, 2 or 1 as the
+// rows' alignment allows, so each load and store of a warp is contiguous)
+// of kPrepRows rows, kPrepBatch rows at a time, the batch's loads issued
+// together and its normals drawn together (their chains interleaved, as
+// rows_batch does). Lanes past d and rows past n draw along (clamped) and
+// store nothing.
+template <typename T, int V>
 __global__ void __launch_bounds__(kPrepThreads) dp_mix_prep(const Args args) {
+  using namespace repro_noise;
+  constexpr int E = kPrepBatch * kLaneCols;   // [row][column]
   const Args a = replicate<T>(args, blockIdx.z);
-  const int k = blockIdx.y, j = blockIdx.x * kPrepThreads + threadIdx.x;
-  const size_t off = (size_t)k * a.d + min(j, a.d - 1);   // lanes past d draw along
-  const float x = local_step(load_f(static_cast<const T*>(a.p), off),
-                             load_f(static_cast<const T*>(a.g), off), a.gamma);
-  if (!a.noisy) {
-    if (j < a.d) a.ws[off] = x;
-    return;
-  }
-  const uint32_t idx = counter(a.row0 + (uint32_t)k, a.counter_width, (uint32_t)a.col0[0] + (uint32_t)j);
-  const float nf = __fmul_rn(__fdiv_rn(a.amp[k], a.scal[0]),
-                             repro_noise::normal_from_bits(
-                                 repro_noise::hash_bits(2u * idx, (uint32_t)a.seed[0])));
-  if (j < a.d) {
-    a.ws[off] = __fadd_rn(x, nf);
-    a.ws[(size_t)a.n * a.d + off] = nf;
+  const int n = a.n, d = a.d, lane = threadIdx.x % 32;
+  const int c0 = (blockIdx.x * kPrepThreads + threadIdx.x - lane) * kLaneCols;   // the warp's
+  const T* __restrict__ p = static_cast<const T*>(a.p);
+  const T* __restrict__ g = static_cast<const T*>(a.g);
+  float* __restrict__ zw = a.ws;
+  float* __restrict__ nfw = a.ws + (size_t)n * d;
+  const uint32_t seed = (uint32_t)a.seed[0], gcol = (uint32_t)a.col0[0] + (uint32_t)c0;
+  const float c_align = a.scal[0];
+  for (int k0 = blockIdx.y * kPrepRows; k0 < min(n, (int)(blockIdx.y + 1) * kPrepRows);
+       k0 += kPrepBatch) {
+    Pack<T, kLaneCols> pr[kPrepBatch], gr[kPrepBatch];
+    size_t row[kPrepBatch];
+#pragma unroll
+    for (int r = 0; r < kPrepBatch; ++r) {
+      row[r] = (size_t)min(k0 + r, n - 1) * d;
+      pr[r] = load_lane<V>(p + row[r], c0, d);
+      gr[r] = load_lane<V>(g + row[r], c0, d);
+    }
+    float nrm[E];
+    if (a.noisy) {
+      float t[E], w[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const uint32_t idx = counter(a.row0 + (uint32_t)min(k0 + e / kLaneCols, n - 1),
+                                     a.counter_width,
+                                     gcol + (uint32_t)lane_col<V>(lane, e % kLaneCols));
+        t[e] = lattice_t(hash_bits(2u * idx, seed));
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) w[e] = lattice_w(t[e]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) nrm[e] = erfinv_central(w[e]);
+#pragma unroll
+      for (int e = 0; e < E; ++e) nrm[e] = normal_from_p(erfinv_p(nrm[e], w[e]), t[e]);
+    }
+#pragma unroll
+    for (int r = 0; r < kPrepBatch; ++r) {
+      if (k0 + r >= n) break;
+      const float amp_c = a.noisy ? __fdiv_rn(a.amp[k0 + r], c_align) : 0.0f;
+      float zk[kLaneCols], nk[kLaneCols];
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const float x = local_step(to_f(pr[r].v[c]), to_f(gr[r].v[c]), a.gamma);
+        nk[c] = a.noisy ? __fmul_rn(amp_c, nrm[r * kLaneCols + c]) : 0.0f;
+        zk[c] = a.noisy ? __fadd_rn(x, nk[c]) : x;
+      }
+      store_lane<V>(zw + row[r], c0, d, zk);
+      if (a.noisy) store_lane<V>(nfw + row[r], c0, d, nk);
+    }
   }
 }
 
@@ -677,17 +809,19 @@ __global__ void __launch_bounds__(kTiledThreads, 2) dp_mix_tiled(const Args args
 // ---- the sparse round -------------------------------------------------------
 
 struct Neighbors {
-  const int32_t* idx;   // [n, k], each in [0, n_src) (clamped, as XLA's gather clamps)
-  const float* w;       // [n, k]
-  const float* self_w;  // [n]
+  const int32_t* idx;     // [n, k], each in [0, n_src) (clamped, as XLA's gather clamps)
+  const float* w;         // [n, k]
+  const float* self_w;    // [n]
+  const int32_t* order;   // [n], the receivers in locality order (null: index order)
   int k;
-  const float* z_src;   // [n_src, d] float32, the rows idx reads (the whole round: the workspace's z)
+  const float* z_src;     // [n_src, d] float32, the rows idx reads (the whole round: the workspace's z)
   int n_src;
 };
 
 // Replicate r's neighbor list of a stack of sparse rounds: idx and w r n k
-// on, self_w r n, and z_src, the workspace's z there, to replicate r's z
-// (2 r n d on). Only the whole round (z_src = the workspace) is stacked.
+// on, self_w and order r n, and z_src, the workspace's z there, to
+// replicate r's z (2 r n d on). Only the whole round (z_src = the
+// workspace) is stacked.
 __device__ __forceinline__ Neighbors replicate(const Neighbors& nb, unsigned r, int n, int d) {
   if (r == 0) return nb;
   Neighbors b = nb;
@@ -695,90 +829,428 @@ __device__ __forceinline__ Neighbors replicate(const Neighbors& nb, unsigned r, 
   b.idx = nb.idx + r * nk;
   b.w = nb.w + r * nk;
   b.self_w = nb.self_w + r * (size_t)n;
+  if (nb.order != nullptr) b.order = nb.order + r * (size_t)n;
   b.z_src = nb.z_src + 2 * r * ((size_t)n * d);
   return b;
 }
 
-// out of one receiver (blockIdx.x, global row row0 + blockIdx.x) over
-// kGatherTile columns: the mix from its own z in the workspace and its
-// neighbors' in z_src, v from p, g, nf and Gm, out = v + (eta listen) mix.
+__host__ __device__ constexpr size_t align16(size_t b) { return (b + 15) / 16 * 16; }
+
+// Entries of the hash set that forms the union of a group's rows at degree
+// k: a power of two, at least twice its kGroup (k + 1) rows, so it never
+// fills.
+__host__ __device__ inline int set_entries(int k) {
+  int h = 1;
+  while (h < 2 * kGroup * (k + 1)) h *= 2;
+  return h;
+}
+
+// A gather block's shared memory at degree k and a staged capacity of cap
+// rows, as byte offsets: the ring's two
+// mbarriers, the receivers (row constants; own row's place and self_w;
+// index) and the union's count; the slots (place, w); the staged rows'
+// sources; then one region, the hash set of the union while it is formed
+// and the ring of two column slabs after.
+struct GatherLayout {
+  size_t slots, bases, region, bytes;
+};
+
+__host__ __device__ inline GatherLayout gather_layout(int k, int cap) {
+  GatherLayout L;
+  L.slots = align16(2 * sizeof(uint64_t) +
+                    (sizeof(float4) + sizeof(int2) + sizeof(int)) * kGroup + sizeof(int));
+  L.bases = align16(L.slots + sizeof(int2) * kGroup * (size_t)k);
+  L.region = align16(L.bases + sizeof(const float*) * (size_t)cap);
+  const size_t ring = 2 * sizeof(float) * (size_t)cap * kRowFloats;
+  const size_t set = 2 * sizeof(int) * (size_t)set_entries(k);
+  L.bytes = L.region + (ring > set ? ring : set);
+  return L;
+}
+
+__device__ __forceinline__ uint32_t set_hash(int code) {
+  uint32_t x = (uint32_t)code;
+  x ^= x >> 16;
+  x *= 0x7feb352du;
+  return x ^ (x >> 15);
+}
+
+// code into the hash set (linear probing; -1 is an empty entry)
+__device__ __forceinline__ void set_insert(int* set, int mask, int code) {
+  for (uint32_t h = set_hash(code) & mask;; h = (h + 1) & mask) {
+    const int prev = atomicCAS(set + h, -1, code);
+    if (prev == -1 || prev == code) return;
+  }
+}
+
+__device__ __forceinline__ int set_find(const int* set, int mask, int code) {
+  uint32_t h = set_hash(code) & mask;
+  while (set[h] != code) h = (h + 1) & mask;
+  return (int)h;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes (a multiple of 16) from global src (16-byte aligned) to shared dst
+// by the bulk copy engine, completing on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// A row of the union: z_src's row code, or past z_src's n_src rows the
+// workspace's z (own, a shard's own rows) row code - n_src.
+__device__ __forceinline__ const float* union_row(const Neighbors& nb, const float* own, int code,
+                                                  int d) {
+  return code < nb.n_src ? nb.z_src + (size_t)code * d : own + (size_t)(code - nb.n_src) * d;
+}
+
+// Floats a staged row's slab lies past its 16-byte start (the row's own
+// alignment: every slab starts kSlabCols floats, 512 bytes, further on).
+__device__ __forceinline__ int row_shift(const float* row) {
+  return (int)((reinterpret_cast<uintptr_t>(row) % 16) / sizeof(float));
+}
+
+// A lane's columns of a slot's row: staged (place >= 0: zs the ring slot,
+// place the row's floats into it), else (Staged false: a row past the
+// capacity, code -1 - place) from global memory.
+template <bool Staged, int V>
+__device__ __forceinline__ Pack<float, kLaneCols> slot_cols(const float* zs, int place,
+                                                            const Neighbors& nb, const float* own,
+                                                            int c0, int d) {
+  if (!Staged && place < 0) return load_lane<V>(union_row(nb, own, -1 - place, d), c0, d);
+  const float* row = zs + place + (threadIdx.x % 32) * V;
+  Pack<float, kLaneCols> z;
+#pragma unroll
+  for (int h = 0; h < kLaneCols; h += V) {
+    const Pack<float, V> x = *reinterpret_cast<const Pack<float, V>*>(row + h * 32);
+#pragma unroll
+    for (int c = 0; c < V; ++c) z.v[h + c] = x.v[c];
+  }
+  return z;
+}
+
+// The staged rows' columns [c0, c0 + kSlabCols) into a ring slot, each
+// row's slab row_shift floats into its kRowFloats: one bulk copy a row
+// from its 16-byte start, completing on bar. Warp 0 sums the bytes, arms
+// the barrier with them, then issues the copies; past d a row's slab is
+// left as it was (no lane stores there).
+__device__ __forceinline__ void load_union_bulk(float* dst, const float* const* base, int rows,
+                                                int c0, int d, uint32_t bar) {
+  const int lane = threadIdx.x % 32, cols = min(kSlabCols, d - c0);
+  uint32_t bytes = 0;
+  for (int u = lane; u < rows; u += 32)
+    bytes += align16((row_shift(base[u]) + cols) * sizeof(float));
+  bytes = __reduce_add_sync(0xffffffffu, bytes);
+  if (lane == 0) mbar_expect_tx(bar, bytes);
+  __syncwarp();
+  for (int u = lane; u < rows; u += 32) {
+    const int shift = row_shift(base[u]);
+    bulk_copy(static_cast<uint32_t>(__cvta_generic_to_shared(dst + u * kRowFloats)),
+              base[u] + c0 - shift, align16((shift + cols) * sizeof(float)), bar);
+  }
+}
+
+// One of a warp's receivers at a slab: its place in the group (one past n
+// as the group's first, storing nothing), its row, and the lane's loads of
+// p, g and nf.
 template <typename T>
-__global__ void __launch_bounds__(kGatherThreads) dp_mix_gather(const Args args,
-                                                                const Neighbors nbs) {
+struct Recv {
+  int r;
+  size_t off;
+  bool live;
+  Pack<T, kLaneCols> p, g;
+  Pack<float, kLaneCols> nf;
+};
+
+// The warp's m-th receiver at the slab from c0, its loads issued.
+template <int V, typename T>
+__device__ __forceinline__ Recv<T> recv_loads(const Args& a, const int* sRecv, int m, int c0) {
+  const int d = a.d, r = threadIdx.x / 32 + kGatherWarps * m;
+  Recv<T> b;
+  b.live = sRecv[r] >= 0;
+  b.r = b.live ? r : 0;
+  b.off = (size_t)sRecv[b.r] * d;
+  b.p = load_lane<V>(static_cast<const T*>(a.p) + b.off, c0, d);
+  b.g = load_lane<V>(static_cast<const T*>(a.g) + b.off, c0, d);
+  b.nf = a.noisy ? load_lane<V>(a.ws + (size_t)a.n * d + b.off, c0, d) : Pack<float, kLaneCols>{};
+  return b;
+}
+
+// One slab of the group's out (columns from c0; zs the ring slot): a warp
+// a receiver at a time, each element as the round forms it. cur holds the
+// first receiver's loads; each receiver issues the next one's (past the
+// last, where there is a next slab (more), that slab's first) before its
+// own arithmetic, and leaves them in cur. Staged: every slot's row is in
+// the ring.
+template <bool Staged, int V, typename T>
+__device__ __forceinline__ void gather_slab(const Args& a, const Neighbors& nb, const float* zs,
+                                            const float4* sRc, const int2* sSelf,
+                                            const int2* sSlot, const int* sRecv, int c0,
+                                            Recv<T>& cur, bool more) {
+  using namespace repro_noise;
+  constexpr int M = kGroup / kGatherWarps;   // receivers a warp
+  const int d = a.d, k = nb.k, lane = threadIdx.x % 32;
+  const float* own = a.ws;   // the workspace's z: a shard's own rows
+  T* __restrict__ out = static_cast<T*>(a.out);
+  const uint32_t seed = (uint32_t)a.seed[0], gcol = (uint32_t)a.col0[0] + (uint32_t)c0;
+#pragma unroll 1
+  for (int m = 0; m < M; ++m) {
+    Recv<T> nxt;
+    if (m + 1 < M)
+      nxt = recv_loads<V, T>(a, sRecv, m + 1, c0);
+    else if (more)
+      nxt = recv_loads<V, T>(a, sRecv, 0, c0 + kSlabCols);
+    // the mix, slot by slot
+    float acc[kLaneCols];
+    const int2 sf = sSelf[cur.r];
+    const Pack<float, kLaneCols> zi = slot_cols<Staged, V>(zs, sf.x, nb, own, c0, d);
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) acc[c] = __fmul_rn(__int_as_float(sf.y), zi.v[c]);
+#pragma unroll 4
+    for (int s = 0; s < k; ++s) {
+      const int2 sl = sSlot[cur.r * k + s];
+      const Pack<float, kLaneCols> zk = slot_cols<Staged, V>(zs, sl.x, nb, own, c0, d);
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) acc[c] = fmaf(__int_as_float(sl.y), zk.v[c], acc[c]);
+    }
+    // Gm of the lane's elements, drawn together
+    float gm[kLaneCols];
+    if (a.noisy) {
+      float tt[kLaneCols], ww[kLaneCols];
+      const uint32_t row = a.row0 + (uint32_t)sRecv[cur.r];
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) {
+        const uint32_t idx = counter(row, a.counter_width, gcol + (uint32_t)lane_col<V>(lane, c));
+        tt[c] = lattice_t(hash_bits(2u * idx + 1u, seed));
+      }
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) ww[c] = lattice_w(tt[c]);
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) gm[c] = erfinv_central(ww[c]);
+#pragma unroll
+      for (int c = 0; c < kLaneCols; ++c) gm[c] = normal_from_p(erfinv_p(gm[c], ww[c]), tt[c]);
+    }
+    const float4 rc = sRc[cur.r];
+    float o[kLaneCols];
+#pragma unroll
+    for (int c = 0; c < kLaneCols; ++c) {
+      const float x = local_step(to_f(cur.p.v[c]), to_f(cur.g.v[c]), a.gamma);
+      const float v = a.noisy ? partial(x, cur.nf.v[c], gm[c], rc) : partial(x, 0.0f, 0.0f, rc);
+      o[c] = fmaf(rc.w, acc[c], v);
+    }
+    if (cur.live) store_lane<V>(out + cur.off, c0, d, o);
+    cur = nxt;
+  }
+}
+
+// out of a group of kGroup receivers (the order's entries blockIdx.x
+// kGroup on, index order without one; global rows row0 + i) over the
+// column slabs blockIdx.y per_block on. The block first forms the group's
+// union of rows: every receiver's own z (the workspace's; in the whole
+// round z_src is the workspace's z, so the same code as a slot's) and each
+// slot's row of z_src, once each (a hash set in shared memory), with each
+// slot's place in it; the first cap rows are staged. Then slab by slab the
+// staged rows' columns arrive in a ring of two (bulk copies, one a row,
+// each slab's completing on its ring slot's mbarrier), the next slab's
+// under this one's arithmetic (gather_slab).
+template <typename T, int V>
+__global__ void __launch_bounds__(kGatherThreads, kGatherBlocks)
+dp_mix_gather(const Args args, const Neighbors nbs, const int cap, const int per_block) {
+  constexpr int G = kGroup;
   const Args a = replicate<T>(args, blockIdx.z);
   const Neighbors nb = replicate(nbs, blockIdx.z, args.n, args.d);
-  extern __shared__ float slots[];
-  float* sW = slots;                                         // [k]
-  int* sIdx = reinterpret_cast<int*>(slots + nb.k);          // [k]
-  const int n = a.n, d = a.d, i = blockIdx.x;
-  for (int s = threadIdx.x; s < nb.k; s += kGatherThreads) {
-    sW[s] = nb.w[(size_t)i * nb.k + s];
-    sIdx[s] = min(max(nb.idx[(size_t)i * nb.k + s], 0), nb.n_src - 1);
+  // the union's code of local row 0's own z: z_src's row 0 in the whole
+  // round (z_src is the workspace's z), else past z_src's rows (union_row)
+  const int own0 = nbs.z_src == args.ws ? 0 : nb.n_src;
+  const float* own = a.ws;
+  const int n = a.n, d = a.d, k = nb.k, tid = threadIdx.x;
+  const GatherLayout L = gather_layout(k, cap);
+  const int entries = set_entries(k), mask = entries - 1;
+  extern __shared__ __align__(16) unsigned char gather_smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(gather_smem);     // [2], a ring slot's
+  float4* sRc = reinterpret_cast<float4*>(bars + 2);              // [G]
+  int2* sSelf = reinterpret_cast<int2*>(sRc + G);                 // [G] (place, self_w)
+  int* sRecv = reinterpret_cast<int*>(sSelf + G);                 // [G], -1 past n
+  int* sCount = sRecv + G;                                        // the union's rows
+  int2* sSlot = reinterpret_cast<int2*>(gather_smem + L.slots);   // [G][k] (place, w)
+  const float** sBase = reinterpret_cast<const float**>(gather_smem + L.bases);   // [cap]
+  int* set = reinterpret_cast<int*>(gather_smem + L.region);      // [entries]
+  int* place = set + entries;                                     // [entries]
+  float* ring = reinterpret_cast<float*>(gather_smem + L.region); // [2][cap][kRowFloats]
+  const uint32_t bar0 = static_cast<uint32_t>(__cvta_generic_to_shared(bars));
+
+  // the group's receivers
+  for (int h = tid; h < entries; h += kGatherThreads) set[h] = -1;
+  if (tid == 0) {
+    *sCount = 0;
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  if (tid < G) {
+    const int pos = blockIdx.x * G + tid;
+    int i = -1;
+    if (pos < n) i = nb.order != nullptr ? min(max(nb.order[pos], 0), n - 1) : pos;
+    sRecv[tid] = i;
+    if (i >= 0) sRc[tid] = row_const(a, i);
   }
   __syncthreads();
-  const float* __restrict__ z = a.ws;
-  const float* __restrict__ nf = a.ws + (size_t)n * d;
-  const int j0 = blockIdx.y * kGatherTile + threadIdx.x;
-  int col[kGatherCols];
-  float acc[kGatherCols];
-  const float self_w = nb.self_w[i];
-#pragma unroll
-  for (int c = 0; c < kGatherCols; ++c) {   // lanes past d read column d - 1, store nothing
-    col[c] = min(j0 + c * kGatherThreads, d - 1);
-    acc[c] = __fmul_rn(self_w, z[(size_t)i * d + col[c]]);
-  }
-  for (int s = 0; s < nb.k; ++s) {
-    const float ws = sW[s];
-    const float* __restrict__ zr = nb.z_src + (size_t)sIdx[s] * d;
-#pragma unroll
-    for (int c = 0; c < kGatherCols; ++c) acc[c] = fmaf(ws, zr[col[c]], acc[c]);
-  }
-  const T* __restrict__ p = static_cast<const T*>(a.p);
-  const T* __restrict__ g = static_cast<const T*>(a.g);
-  T* __restrict__ out = static_cast<T*>(a.out);
-  const float4 rc = row_const(a, i);
-  const uint32_t seed = (uint32_t)a.seed[0], gcol0 = (uint32_t)a.col0[0];
-#pragma unroll
-  for (int c = 0; c < kGatherCols; ++c) {
-    const int j = j0 + c * kGatherThreads;
-    const size_t off = (size_t)i * d + col[c];
-    const float x = local_step(load_f(p, off), load_f(g, off), a.gamma);
-    float v;
-    if (a.noisy) {
-      const uint32_t idx = counter(a.row0 + (uint32_t)i, a.counter_width, gcol0 + (uint32_t)j);
-      const float gm = repro_noise::normal_from_bits(repro_noise::hash_bits(2u * idx + 1u, seed));
-      v = partial(x, nf[off], gm, rc);
+  // their rows into the set, each slot's code kept for its place
+  for (int e = tid; e < G * (k + 1); e += kGatherThreads) {
+    const int r = e / (k + 1), s = e % (k + 1) - 1, i = sRecv[r];
+    if (i < 0) continue;
+    int code;
+    if (s < 0) {
+      code = own0 + i;
+      sSelf[r] = make_int2(code, __float_as_int(nb.self_w[i]));
     } else {
-      v = partial(x, 0.0f, 0.0f, rc);
+      const size_t at = (size_t)i * k + s;
+      code = min(max(nb.idx[at], 0), nb.n_src - 1);
+      sSlot[r * k + s] = make_int2(code, __float_as_int(nb.w[at]));
     }
-    if (j < d) store_f(out, off, fmaf(rc.w, acc[c], v));
+    set_insert(set, mask, code);
+  }
+  __syncthreads();
+  // number the union's rows; the first cap are staged
+  for (int h = tid; h < entries; h += kGatherThreads) {
+    const int code = set[h];
+    if (code < 0) continue;
+    const int u = atomicAdd(sCount, 1);
+    place[h] = u;
+    if (u < cap) sBase[u] = union_row(nb, own, code, d);
+  }
+  __syncthreads();
+  // each slot's place: its staged row's floats into a ring slot, or -1 -
+  // its code
+  for (int e = tid; e < G * (k + 1); e += kGatherThreads) {
+    const int r = e / (k + 1), s = e % (k + 1) - 1;
+    if (sRecv[r] < 0) continue;
+    int* at = s < 0 ? &sSelf[r].x : &sSlot[r * k + s].x;
+    const int u = place[set_find(set, mask, *at)];
+    *at = u < cap ? u * kRowFloats + row_shift(union_row(nb, own, *at, d)) : -1 - *at;
+  }
+  const int count = *sCount, staged = min(count, cap);
+  fence_async();     // the set's writes before the bulk copies' into its place
+  __syncthreads();   // the set is done with: the ring takes its place
+
+  const int slabs = (d + kSlabCols - 1) / kSlabCols;
+  const int t0 = blockIdx.y * per_block, t1 = min(t0 + per_block, slabs);
+  const size_t slot_floats = (size_t)cap * kRowFloats;
+  const auto load = [&](int t) {   // slab t into its ring slot, by warp 0
+    const int slot = (t - t0) % 2;
+    if (tid < 32)
+      load_union_bulk(ring + slot * slot_floats, sBase, staged, t * kSlabCols, d, bar0 + 8 * slot);
+  };
+  Recv<T> cur;   // the first receiver's loads of each slab, issued ahead
+  if (t0 < t1) {
+    load(t0);
+    cur = recv_loads<V, T>(a, sRecv, 0, t0 * kSlabCols);
+  }
+  for (int t = t0; t < t1; ++t) {
+    const int slot = (t - t0) % 2;
+    mbar_wait(bar0 + 8 * slot, (uint32_t)((t - t0) / 2 % 2));
+    __syncthreads();   // slab t is in; every warp is done with slab t - 1
+    if (t + 1 < t1) load(t + 1);
+    const float* zs = ring + slot * slot_floats;
+    if (count <= cap)
+      gather_slab<true, V, T>(a, nb, zs, sRc, sSelf, sSlot, sRecv, t * kSlabCols, cur, t + 1 < t1);
+    else
+      gather_slab<false, V, T>(a, nb, zs, sRc, sSelf, sSlot, sRecv, t * kSlabCols, cur, t + 1 < t1);
   }
 }
 
 template <typename T>
 int launch_prep(const Args& a, int reps, cudaStream_t stream) {
-  if (a.ws == nullptr || a.n > 65535 || reps < 1 || reps > 65535) return (int)cudaErrorInvalidValue;
-  dp_mix_prep<T><<<dim3((a.d + kPrepThreads - 1) / kPrepThreads, a.n, reps), kPrepThreads, 0,
-                   stream>>>(a);
+  if (a.ws == nullptr || reps < 1 || reps > 65535) return (int)cudaErrorInvalidValue;
+  // V columns a load: the most that every row of p, g and the workspace starts on
+  const auto fits = [&](int v) {
+    return a.d % v == 0 && (uintptr_t)a.p % (sizeof(T) * v) == 0 &&
+           (uintptr_t)a.g % (sizeof(T) * v) == 0 && (uintptr_t)a.ws % (sizeof(float) * v) == 0;
+  };
+  const dim3 grid((a.d + kPrepThreads * kLaneCols - 1) / (kPrepThreads * kLaneCols),
+                  (a.n + kPrepRows - 1) / kPrepRows, reps);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  if (fits(4))
+    dp_mix_prep<T, 4><<<grid, kPrepThreads, 0, stream>>>(a);
+  else if (fits(2))
+    dp_mix_prep<T, 2><<<grid, kPrepThreads, 0, stream>>>(a);
+  else
+    dp_mix_prep<T, 1><<<grid, kPrepThreads, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The rows a gather block stages at degree k: as many as let kGatherBlocks
+// blocks share an SM, at most the group's every row; -1 if the device
+// cannot say.
+int gather_capacity(int k) {
+  int dev = 0, per_sm = 0, reserved = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev) != cudaSuccess)
+    return -1;
+  const long budget = per_sm / kGatherBlocks - reserved;
+  const long fixed = (long)gather_layout(k, 0).region;
+  const long row = 2 * sizeof(float) * kRowFloats + sizeof(const float*);
+  const long cap = budget > fixed ? (budget - fixed) / row : 0;
+  return (int)(cap < (long)kGroup * (k + 1) ? cap : (long)kGroup * (k + 1));
+}
+
+template <typename T, int V>
+int launch_gather_v(const Args& a, const Neighbors& nb, int reps, cudaStream_t stream) {
+  const int cap = gather_capacity(nb.k);
+  if (cap < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = gather_layout(nb.k, cap).bytes;
+  static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
+  if (bytes > opted_in) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dp_mix_gather<T, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    opted_in = bytes;
+  }
+  const int slabs = (a.d + kSlabCols - 1) / kSlabCols;
+  const int per_block = max(kSlabsPerBlock, (slabs + 65534) / 65535);
+  const dim3 grid((a.n + kGroup - 1) / kGroup, (slabs + per_block - 1) / per_block, reps);
+  dp_mix_gather<T, V><<<grid, kGatherThreads, bytes, stream>>>(a, nb, cap, per_block);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_gather(const Args& a, const Neighbors& nb, int reps, cudaStream_t stream) {
-  if (a.ws == nullptr || nb.z_src == nullptr || a.n > 65535 || nb.k < 0 || nb.n_src < 1 ||
-      reps < 1 || reps > 65535 || (reps > 1 && nb.z_src != a.ws))
+  if (a.ws == nullptr || nb.z_src == nullptr || nb.k < 0 || nb.n_src < 1 || reps < 1 ||
+      reps > 65535 || (reps > 1 && nb.z_src != a.ws) || (long)nb.n_src + a.n > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
-  const size_t bytes = (sizeof(float) + sizeof(int)) * (size_t)nb.k;
-  static size_t opted_in = 48 * 1024;   // shared memory granted without opt-in
-  if (bytes > opted_in) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dp_mix_gather<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    opted_in = bytes;
-  }
-  dp_mix_gather<T><<<dim3(a.n, (a.d + kGatherTile - 1) / kGatherTile, reps), kGatherThreads,
-                     bytes, stream>>>(a, nb);
-  return (int)cudaGetLastError();
+  // V floats a copy of z and a load of p, g, nf and out: the most that
+  // every row starts on
+  const auto fits = [&](int v) {
+    return a.d % v == 0 && (uintptr_t)nb.z_src % (sizeof(float) * v) == 0 &&
+           (uintptr_t)a.ws % (sizeof(float) * v) == 0 && (uintptr_t)a.p % (sizeof(T) * v) == 0 &&
+           (uintptr_t)a.g % (sizeof(T) * v) == 0 && (uintptr_t)a.out % (sizeof(T) * v) == 0;
+  };
+  return fits(4) ? launch_gather_v<T, 4>(a, nb, reps, stream)
+                 : fits(2) ? launch_gather_v<T, 2>(a, nb, reps, stream)
+                           : launch_gather_v<T, 1>(a, nb, reps, stream);
 }
 
 template <typename T>
@@ -869,6 +1341,11 @@ size_t dp_mix_workspace_floats(int n, int d) {
   return n < 1 || d < 1 || columns_route(n) ? 0 : 2 * (size_t)n * d;
 }
 
+// Rows of z a sparse gather block (a group of kGroup receivers) stages at
+// degree k on the current device; the rest of a group's union reads from
+// global memory. -1 if the device cannot say.
+int dp_mix_gather_capacity(int k) { return k < 0 ? -1 : gather_capacity(k); }
+
 // dtype: 0 = float32, 1 = bfloat16 (p, g, out). Every other array is
 // float32 on the device except seed and col0, int32; ws is the workspace
 // of dp_mix_workspace_floats (null when that is 0). reps rounds stacked:
@@ -893,14 +1370,17 @@ int dp_mix_launch(int dtype, const void* p, const void* g, void* out, const void
 }
 
 // The sparse round: idx int32 [n, k], w float32 [n, k], self_w float32 [n]
-// take W's place; ws is a float32 workspace of 2 n d floats (z, then nf);
-// row0 offsets the noise counters' rows (0: the whole population). reps
-// rounds stacked: idx, w [reps, n, k], self_w [reps, n], ws 2 reps n d
+// take W's place; order int32 [n], a permutation of the receivers, is the
+// order the gather's groups take them in (null: index order); ws is a
+// float32 workspace of 2 n d floats (z, then nf); row0 offsets the noise
+// counters' rows (0: the whole population). reps rounds stacked: idx, w
+// [reps, n, k], self_w and order [reps, n], ws 2 reps n d
 // floats (replicate r's z and nf 2 r n d on), the rest as dp_mix_launch's
 // stack; one prep and one gather launch for all reps, the replicate their
 // grid's z. Returns the cudaError_t of the launches.
 int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
-                         const void* w, const void* self_w, const void* amp, const void* selfs,
+                         const void* w, const void* self_w, const void* order,
+                         const void* amp, const void* selfs,
                          const void* mscale, const void* listen, const void* scal,
                          const void* seed, const void* col0, void* ws, int reps, int n, int d,
                          int k, int row0, unsigned int counter_width, float gamma, float eta,
@@ -912,7 +1392,8 @@ int dp_mix_sparse_launch(int dtype, const void* p, const void* g, void* out, con
                static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
                static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy, (uint32_t)row0};
   const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-                     static_cast<const float*>(self_w), k, static_cast<const float*>(ws), n};
+                     static_cast<const float*>(self_w), static_cast<const int32_t*>(order), k,
+                     static_cast<const float*>(ws), n};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_sparse<float>(a, nb, reps, s);
   if (dtype == 1) return launch_sparse<__nv_bfloat16>(a, nb, reps, s);
@@ -937,10 +1418,12 @@ int dp_mix_prep_launch(int dtype, const void* p, const void* g, const void* amp,
 }
 
 // Its second half: receivers [row0, row0 + n) from ws (their own z and nf)
-// and z_src [n_src, d] float32 (every shard's z, gathered), neighbors by
-// global index; idx, w [n, k], self_w and the vectors are the shard's rows.
+// and z_src [n_src, d] float32 (every shard's z, gathered in row order),
+// neighbors by global index; idx, w [n, k], self_w, order (a permutation
+// of the local rows [0, n), or null) and the vectors are the shard's rows.
 int dp_mix_gather_launch(int dtype, const void* p, const void* g, void* out, const void* idx,
-                         const void* w, const void* self_w, const void* amp, const void* selfs,
+                         const void* w, const void* self_w, const void* order,
+                         const void* amp, const void* selfs,
                          const void* mscale, const void* listen, const void* scal,
                          const void* seed, const void* col0, void* ws, const void* z_src, int n,
                          int n_src, int d, int k, int row0, unsigned int counter_width,
@@ -952,8 +1435,8 @@ int dp_mix_gather_launch(int dtype, const void* p, const void* g, void* out, con
                static_cast<const int32_t*>(seed), static_cast<const int32_t*>(col0),
                static_cast<float*>(ws), n, d, counter_width, gamma, eta, noisy, (uint32_t)row0};
   const Neighbors nb{static_cast<const int32_t*>(idx), static_cast<const float*>(w),
-                     static_cast<const float*>(self_w), k, static_cast<const float*>(z_src),
-                     n_src};
+                     static_cast<const float*>(self_w), static_cast<const int32_t*>(order), k,
+                     static_cast<const float*>(z_src), n_src};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_gather<float>(a, nb, 1, s);
   if (dtype == 1) return launch_gather<__nv_bfloat16>(a, nb, 1, s);

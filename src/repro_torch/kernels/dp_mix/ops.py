@@ -37,7 +37,9 @@ A row window checks the global rows, (row0 + n) * counter_width.
 The sparse round takes a stack the same way (p, g [R, N, d], a SparseW
 of [R, N, k] leaves): one ``dp_mix_prep`` and one ``dp_mix_gather``
 launch for all R, replicate r bitwise its own round; its plain version
-is ``dp_mix.dp_mix_sparse_plain_stack``.
+is ``dp_mix.dp_mix_sparse_plain_stack``. On the card the gather takes its
+receivers in the order of the list's locality key (``locality_order``;
+index order without one): the output is bitwise the same in any order.
 
 A worker shard (``repro_torch.shard.worker``) holds rows [row0, row0 +
 Nb) of an N-row population and splits the sparse round in two:
@@ -77,6 +79,9 @@ COUNTER_LIMIT = 1 << 31
 _CSRC = Path(__file__).resolve().parent / "csrc"
 LIBRARY = build.Library("dp_mix", sources=(_CSRC / "dp_mix.cu",),
                         headers=build.SHARED_HEADERS)
+# receivers a sparse gather block takes together (dp_mix.cu's kGroup)
+GATHER_GROUP = work_lib._cu_constant((_CSRC / "dp_mix.cu").read_text(),
+                                     "kGroup")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR = ctypes.c_void_p
 # dp_mix_launch's parameters, in order
@@ -84,14 +89,14 @@ ARGTYPES = ([ctypes.c_int] + [_PTR] * 12 + [ctypes.c_int] * 3
             + [ctypes.c_uint, ctypes.c_float, ctypes.c_float, ctypes.c_int,
                _PTR])
 # dp_mix_sparse_launch's parameters, in order
-SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 14 + [ctypes.c_int] * 5
+SPARSE_ARGTYPES = ([ctypes.c_int] + [_PTR] * 15 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, _PTR])
 # dp_mix_prep_launch's parameters, in order
 PREP_ARGTYPES = ([ctypes.c_int] + [_PTR] * 7 + [ctypes.c_int] * 3
                  + [ctypes.c_uint, ctypes.c_float, ctypes.c_int, _PTR])
 # dp_mix_gather_launch's parameters, in order
-GATHER_ARGTYPES = ([ctypes.c_int] + [_PTR] * 15 + [ctypes.c_int] * 5
+GATHER_ARGTYPES = ([ctypes.c_int] + [_PTR] * 16 + [ctypes.c_int] * 5
                    + [ctypes.c_uint, ctypes.c_float, ctypes.c_float,
                       ctypes.c_int, _PTR])
 
@@ -125,6 +130,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         lib.dp_mix_workspace_floats.argtypes = [ctypes.c_int] * 2
         lib.dp_mix_workspace_floats.restype = ctypes.c_size_t
+        lib.dp_mix_gather_capacity.argtypes = [ctypes.c_int]
+        lib.dp_mix_gather_capacity.restype = ctypes.c_int
         lib.dp_mix_error_string.argtypes = [ctypes.c_int]
         lib.dp_mix_error_string.restype = ctypes.c_char_p
         for name, types in (("dp_mix_sparse_launch", SPARSE_ARGTYPES),
@@ -194,13 +201,20 @@ def _launch(p, g, seed, col0, scal, amp, selfs, mscale, listen, W, *,
     return out
 
 
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
 def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
-                   w, self_w, *, gamma, eta, noisy, counter_width, row0=0
-                   ) -> torch.Tensor:
+                   w, self_w, *, gamma, eta, noisy, counter_width, row0=0,
+                   order=None) -> torch.Tensor:
     """dp_mix_prep then dp_mix_gather over the float32 workspace [2, N, d]
     (z, then the DP noise n/c); ``row0`` offsets the noise counters'
-    rows. A stack [R, N, d] of R rounds is the same two launches over a
-    workspace [R, 2, N, d], the replicate a grid axis of both."""
+    rows; ``order`` int32 [N] (``locality_order``), a permutation of the
+    receivers, is the order the gather's groups take them in (None: index
+    order; the output is bitwise the same either way). A stack [R, N, d]
+    of R rounds is the same two launches over a workspace [R, 2, N, d],
+    the replicate a grid axis of both (``order`` [R, N])."""
     *lead, N, d = p.shape
     lead = tuple(lead)
     R = lead[0] if lead else 1
@@ -208,15 +222,18 @@ def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
            + (("idx", idx, lead + (N, k), torch.int32),
               ("w", w, lead + (N, k), torch.float32),
-              ("self_w", self_w, lead + (N,), torch.float32)))
+              ("self_w", self_w, lead + (N,), torch.float32))
+           + (() if order is None
+              else (("order", order, lead + (N,), torch.int32),)))
     p, g = p.contiguous(), g.contiguous()
     out = torch.empty_like(p)
     ws = torch.empty(R * 2 * N * d, dtype=torch.float32, device=p.device)
     lib = _library()
     rc = lib.dp_mix_sparse_launch(
         _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
-        idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), amp.data_ptr(),
-        selfs.data_ptr(), mscale.data_ptr(), listen.data_ptr(),
+        idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), _ptr(order),
+        amp.data_ptr(), selfs.data_ptr(), mscale.data_ptr(),
+        listen.data_ptr(),
         scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
         R, N, d, k, int(row0), counter_width, gamma, eta, int(noisy),
         torch.cuda.current_stream(p.device).cuda_stream)
@@ -247,9 +264,10 @@ def _launch_prep(p, g, seed, col0, scal, amp, *, gamma, noisy, counter_width,
 
 def _launch_gather(p, g, ws, z_src, seed, col0, scal, amp, selfs, mscale,
                    listen, idx, w, self_w, *, gamma, eta, noisy,
-                   counter_width, row0) -> torch.Tensor:
+                   counter_width, row0, order=None) -> torch.Tensor:
     """dp_mix_gather for a shard's receivers from its workspace and the
-    gathered z_src [N, d]."""
+    gathered z_src [N, d]; ``order`` int32 [Nb] over the shard's rows, as
+    ``_launch_sparse``'s."""
     Nb, d = p.shape
     k = idx.shape[1] if idx.ndim == 2 else -1
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
@@ -257,12 +275,15 @@ def _launch_gather(p, g, ws, z_src, seed, col0, scal, amp, selfs, mscale,
               ("z_src", z_src, (z_src.shape[0], d), torch.float32),
               ("idx", idx, (Nb, k), torch.int32),
               ("w", w, (Nb, k), torch.float32),
-              ("self_w", self_w, (Nb,), torch.float32)))
+              ("self_w", self_w, (Nb,), torch.float32))
+           + (() if order is None
+              else (("order", order, (Nb,), torch.int32),)))
     out = torch.empty_like(p)
     lib = _library()
     rc = lib.dp_mix_gather_launch(
         _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
-        idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), amp.data_ptr(),
+        idx.data_ptr(), w.data_ptr(), self_w.data_ptr(), _ptr(order),
+        amp.data_ptr(),
         selfs.data_ptr(), mscale.data_ptr(), listen.data_ptr(),
         scal.data_ptr(), seed.data_ptr(), col0.data_ptr(), ws.data_ptr(),
         z_src.data_ptr(), Nb, z_src.shape[0], d, k, int(row0),
@@ -467,7 +488,7 @@ def _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta, self_scale,
     kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
               counter_width=cw, row0=int(row0))
     if dev.type == "cuda":
-        out = _launch_sparse(*args, **kw)
+        out = _launch_sparse(*args, **kw, order=locality_order(sw, Np, dev))
     else:
         out = (dp_mix_sparse_plain_stack if lead else dp_mix_sparse_plain)(
             *args, **kw)
@@ -475,6 +496,32 @@ def _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta, self_scale,
 
 
 dp_mix_round_sparse.launches = 0
+
+
+def locality_order(sw, rows: int, device) -> Optional[torch.Tensor]:
+    """The order the gather's groups take the receivers in: a stable
+    argsort of the neighbor list's locality key ``sw.key`` [..., N]
+    (``net.geometry.locality_key``) on ``device``, int32 [..., rows], the
+    worker axis's pad rows N .. rows - 1 last; None for a list without a
+    key (index order). No host read."""
+    if sw.key is None:
+        return None
+    key = sw.key.to(device=device, dtype=torch.int32)
+    n = key.shape[-1]
+    if rows > n:
+        key = torch.nn.functional.pad(key, (0, rows - n),
+                                      value=torch.iinfo(torch.int32).max)
+    return torch.argsort(key, dim=-1, stable=True).to(torch.int32)
+
+
+def gather_capacity(k: int) -> int:
+    """Rows of z that a sparse gather block, a group of ``GATHER_GROUP``
+    receivers, stages at degree k on the current card (the rest of a
+    group's distinct rows read from global memory)."""
+    cap = _library().dp_mix_gather_capacity(int(k))
+    if cap < 0:
+        raise RuntimeError("dp_mix_gather_capacity: the card gave no figure")
+    return cap
 
 
 def dp_mix_prep_rows(p, g, seed, amp, c, *, gamma: float, row0: int,
@@ -545,8 +592,8 @@ def dp_mix_gather_rows(p, g, ws, z_src, seed, sw, amp, c, sigma_m, *,
                 sw.self_w.to(device=dev, dtype=torch.float32).contiguous())
         kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
                   counter_width=cw, row0=int(row0))
-        out = (_launch_gather(*args, **kw) if dev.type == "cuda"
-               else dp_mix_gather_plain(*args, **kw))
+        out = (_launch_gather(*args, **kw, order=locality_order(sw, Nb, dev))
+               if dev.type == "cuda" else dp_mix_gather_plain(*args, **kw))
         if call:
             k = sw.idx.shape[-1]
             call.report(work_lib.gather_rows_work(Nb, d, k, p.element_size()),

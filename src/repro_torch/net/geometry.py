@@ -14,7 +14,9 @@ the device over [N] and [N, 2] state.
   * Neighbor-list graph (``sparse_metropolis``): the mutual-kNN ∩
     unit-disk graph at a degree cap k, built in row blocks
     (``_block_topk``) so no [N, N] tensor is made, as a ``sparse.SparseW``;
-    a stack of networks in one call.
+    a stack of networks in one call. The list carries each worker's
+    locality key (``locality_key``), the order the card's gather takes
+    the receivers in.
 
 The draws come from the caller's ``torch.Generator`` (the port's own,
 checked in distribution).
@@ -220,6 +222,29 @@ def _block_topk(pos: torch.Tensor, k: int, *, radius: float, mask=None,
             torch.cat([p[1] for p in parts], dim=-2)[..., :n, :])
 
 
+KEY_BITS = 15   # bits of each quantized coordinate of the locality key
+
+
+def _spread_bits(q: torch.Tensor) -> torch.Tensor:
+    """The low KEY_BITS bits of ``q`` (int64) moved to the even bits."""
+    q = (q | (q << 8)) & 0x00FF00FF
+    q = (q | (q << 4)) & 0x0F0F0F0F
+    q = (q | (q << 2)) & 0x33333333
+    return (q | (q << 1)) & 0x55555555
+
+
+def locality_key(cfg: GeometryConfig, pos: torch.Tensor) -> torch.Tensor:
+    """[..., N] int32 Morton (Z-order) code of each worker's position
+    ``pos`` [..., N, 2], each coordinate quantized to KEY_BITS bits over
+    the scenario's area (clamped to it): workers with near keys are near
+    each other. Leading axes are a stack of networks, each keyed on its
+    own. Tensor math on the device; it draws nothing."""
+    q = torch.clamp(torch.floor(pos * ((1 << KEY_BITS) / cfg.area)), 0,
+                    (1 << KEY_BITS) - 1).to(torch.int64)
+    return (_spread_bits(q[..., 0])
+            | (_spread_bits(q[..., 1]) << 1)).to(torch.int32)
+
+
 def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
                       mask=None, *, fallback: bool = False,
                       block: int = 0) -> SparseW:
@@ -236,7 +261,8 @@ def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
     bounds the distance transient to [block, N] rows. A stack of networks
     (``pos`` [R, N, 2], ``mask`` [R, N]: the fleet's) gives [R, N, k]
     leaves in one call, each network bitwise its own build, the transient
-    [R, block, N]. Tensor math on the device, no host round trip."""
+    [R, block, N]. The list carries ``locality_key(cfg, pos)`` as its
+    key. Tensor math on the device, no host round trip."""
     n = pos.shape[-2]
     rows = torch.arange(n, dtype=torch.int32, device=pos.device)[:, None]
     idx, valid = _block_topk(pos, k, radius=cfg.comm_radius, mask=mask,
@@ -265,7 +291,8 @@ def sparse_metropolis(cfg: GeometryConfig, pos: torch.Tensor, k: int,
     total = w[..., 0]
     for s in range(1, k):
         total = total + w[..., s]
-    return SparseW(idx=torch.where(adj, idx, rows), w=w, self_w=1.0 - total)
+    return SparseW(idx=torch.where(adj, idx, rows), w=w, self_w=1.0 - total,
+                   key=locality_key(cfg, pos))
 
 
 def connectivity_fraction(adj) -> float:

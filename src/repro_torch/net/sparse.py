@@ -20,6 +20,14 @@ float32, self_w [..., N] float32)`` holds it at a fixed degree cap k:
 
 A trajectory stacks rounds on a leading axis ([T, N, k] leaves:
 ``stack_w``, ``cat_w``, ``sw[t]``); ``dense`` takes unstacked leaves only.
+
+An optional fourth leaf, ``key`` [..., N] int32, is each worker's
+locality key (``geometry.locality_key``, a Morton code of its position):
+workers with near keys are near each other, so they share neighbors. It
+changes no weight: the card's gather takes its receivers in the key's
+order, so that a group's neighbor rows are few (``kernels.dp_mix.ops.
+locality_order``); a list without one (``sparsify_dense``, one built by
+hand) runs in index order. Every helper here carries it along.
 """
 from __future__ import annotations
 
@@ -37,6 +45,7 @@ class SparseW:
     idx: torch.Tensor      # [..., N, k] int32; a padded slot points at its row
     w: torch.Tensor        # [..., N, k] float32; a padded slot is exactly 0
     self_w: torch.Tensor   # [..., N] float32 diagonal weight
+    key: Optional[torch.Tensor] = None   # [..., N] int32 locality key, or None
 
     @property
     def n_workers(self) -> int:
@@ -77,29 +86,41 @@ class SparseW:
         return {"format": "padded-neighbor-v1", "n_workers": self.n_workers,
                 "k": self.k, "pad": "self-index-zero-weight"}
 
+    def map(self, fn) -> "SparseW":
+        """``fn`` applied to every leaf (the key too, where there is one)."""
+        return SparseW(fn(self.idx), fn(self.w), fn(self.self_w),
+                       None if self.key is None else fn(self.key))
+
+    @staticmethod
+    def join(Ws: Sequence["SparseW"], fn) -> "SparseW":
+        """One SparseW of ``fn`` over the lists' leaves, field by field
+        (``torch.stack``, ``torch.cat``); the key where every list has
+        one."""
+        keys = [sw.key for sw in Ws]
+        return SparseW(*(fn([getattr(sw, f) for sw in Ws])
+                         for f in ("idx", "w", "self_w")),
+                       None if any(k is None for k in keys) else fn(keys))
+
     def to(self, device) -> "SparseW":
-        return SparseW(self.idx.to(device), self.w.to(device),
-                       self.self_w.to(device))
+        return self.map(lambda a: a.to(device))
 
     def __getitem__(self, r) -> "SparseW":
         """Round ``r`` (or a slice of rounds) of a stacked SparseW."""
-        return SparseW(self.idx[r], self.w[r], self.self_w[r])
+        return self.map(lambda a: a[r])
 
 
 def stack_w(Ws: Sequence):
     """Rounds' mixing matrices on a new leading axis: dense [N, N] tensors
     into [T, N, N], SparseWs into one with [T, N, k] leaves."""
     if isinstance(Ws[0], SparseW):
-        return SparseW(*(torch.stack([getattr(sw, f) for sw in Ws])
-                         for f in ("idx", "w", "self_w")))
+        return SparseW.join(Ws, torch.stack)
     return torch.stack(list(Ws))
 
 
 def cat_w(Ws: Sequence):
     """Stacked mixing matrices joined along their leading round axis."""
     if isinstance(Ws[0], SparseW):
-        return SparseW(*(torch.cat([getattr(sw, f) for sw in Ws])
-                         for f in ("idx", "w", "self_w")))
+        return SparseW.join(Ws, torch.cat)
     return torch.cat(list(Ws))
 
 

@@ -268,46 +268,51 @@ def test_fleet_flat_round_is_one_launch_and_sync_free():
     assert out["metrics"]["loss"].shape == (3, 4)
 
 
-def _sparse_args(N, d, k, dtype, seed):
-    """A sparse round's operands on the card: a capped unit-disk list over
-    seeded positions (~8 in-disk neighbors, so some rows fill all k slots
-    and some are empty), random p, g and vectors, listen = 0 on the empty
-    rows, as plan_dynamic_sparse gives it."""
+def _sparse_list(N, k, gen, lead=()):
+    """A capped unit-disk list over seeded positions (~8 in-disk neighbors,
+    so some rows fill all k slots and some are empty; worker 0 isolated),
+    with its locality key; ``lead`` (R,) for a stack of R lists."""
     from repro_torch.net import geometry
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    pos = torch.rand((N, 2), generator=gen, device="cuda") * 100.0
-    pos[0] = 1e4                                    # one isolated worker
+    pos = torch.rand(lead + (N, 2), generator=gen, device="cuda") * 100.0
+    pos[..., 0, :] = 1e4                            # one isolated worker
     r = 100.0 * (8.0 / (3.14159 * N)) ** 0.5
-    sw = geometry.sparse_metropolis(
+    return geometry.sparse_metropolis(
         geometry.GeometryConfig(area=100.0, comm_radius=r), pos, k,
         block=max(1, N // 3))
-    p = torch.randn((N, d), generator=gen, device="cuda").to(dtype)
-    g = (0.2 * torch.randn((N, d), generator=gen, device="cuda")).to(dtype)
-    amp = torch.rand(N, generator=gen, device="cuda") + 0.5
-    mscale = 0.3 * torch.rand(N, generator=gen, device="cuda")
-    seed_t, col0 = (torch.tensor([v], dtype=torch.int32, device="cuda")
-                    for v in (77, 256))
-    args = (p, g, seed_t, col0, torch.tensor([2.0, 0.3], device="cuda"), amp,
-            torch.ones(N, device="cuda"), mscale,
+
+
+def _sparse_operands(N, d, k, dtype, seed, lead=()):
+    """A sparse round's operands on the card: ``_sparse_list``'s list,
+    random p, g and vectors, listen = 0 on the empty rows, as
+    plan_dynamic_sparse gives it; ``lead`` (R,) for a stack of R rounds.
+    Returns (args, amp, mscale, the list)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    sw = _sparse_list(N, k, gen, lead)
+    p = torch.randn(lead + (N, d), generator=gen, device="cuda").to(dtype)
+    g = (0.2 * torch.randn(lead + (N, d), generator=gen,
+                           device="cuda")).to(dtype)
+    amp = torch.rand(lead + (N,), generator=gen, device="cuda") + 0.5
+    mscale = 0.3 * torch.rand(lead + (N,), generator=gen, device="cuda")
+    seed_t = 77 + 13 * torch.arange(lead[0] if lead else 1, device="cuda",
+                                    dtype=torch.int32)
+    col0 = torch.tensor([256], dtype=torch.int32, device="cuda")
+    scal = torch.tensor([2.0, 0.3], device="cuda").expand(lead + (2,))
+    args = (p, g, seed_t, col0, scal.contiguous(), amp,
+            torch.ones(lead + (N,), device="cuda"), mscale,
             (sw.off_degree() > 0).float(), sw.idx.contiguous(),
             sw.w.contiguous(), sw.self_w.contiguous())
-    return args, amp, mscale
+    return args, amp, mscale, sw
 
 
-@pytest.mark.parametrize("N,d,k", [(8, 40, 2), (10, 5000, 4), (64, 1000, 12),
-                                   (130, 5003, 12), (2048, 3001, 12),
-                                   (33, 70001, 1)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
-def test_sparse_kernel_matches_plain(N, d, k, dtype, noisy):
-    _need_card()
-    args, amp, mscale = _sparse_args(N, d, k, dtype, N + d)
-    kw = dict(gamma=0.05, eta=0.4, noisy=noisy, counter_width=80000)
-    before = ops.dp_mix_round_sparse.launches
-    out = ops._launch_sparse(*args, **kw)
-    assert ops.dp_mix_round_sparse.launches == before + 1
-    ref = dp_mix_sparse_plain(*args, **kw)
-    torch.cuda.synchronize()
+def _sparse_args(N, d, k, dtype, seed):
+    """``_sparse_operands`` of one round: (args, amp, mscale)."""
+    return _sparse_operands(N, d, k, dtype, seed)[:3]
+
+
+def _assert_sparse_close(out, ref, args, amp, mscale, k, dtype, noisy):
+    """The sparse kernel against its plain twin: (k + 9) 2^-23 scale, a
+    bfloat16 output one bfloat16 step further; the rows that do not
+    listen within 1 ULP (bfloat16: one step)."""
     assert out.dtype == dtype and out.shape == args[0].shape
     k32, r32 = out.float(), ref.float()
     x = args[0].float() - 0.05 * args[1].float()
@@ -324,6 +329,95 @@ def test_sparse_kernel_matches_plain(N, d, k, dtype, noisy):
     ulps = (k32[idle].view(torch.int32).long()
             - r32[idle].view(torch.int32).long()).abs()
     assert int(ulps.max()) <= (1 << 16 if dtype == torch.bfloat16 else 1)
+
+
+def _largest_union(idx, G, order=None):
+    """The most distinct rows of z (a receiver's own and its slots') that
+    one gather group of G receivers reads, taken in ``order`` (None:
+    index order)."""
+    N = idx.shape[0]
+    rows = torch.cat([torch.arange(N, device=idx.device)[:, None],
+                      idx.long()], 1)
+    if order is not None:
+        rows = rows[order.long()]
+    return max(int(rows[s:s + G].unique().numel()) for s in range(0, N, G))
+
+
+def _relabel(args, perm):
+    """The same round with worker perm[t] as worker t: every row operand
+    permuted, idx renamed (the noise counters follow the new rows)."""
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel(), device=perm.device)
+    rows = lambda a: a[perm].contiguous()
+    return (*map(rows, args[:2]), *args[2:5], *map(rows, args[5:9]),
+            inv[args[9].long()[perm]].to(torch.int32).contiguous(),
+            *map(rows, args[10:]))
+
+
+@pytest.mark.parametrize("N,d,k", [(8, 40, 2), (10, 5000, 4), (64, 1000, 12),
+                                   (130, 5003, 12), (2048, 3001, 12),
+                                   (33, 70001, 1), (300, 2001, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("noisy", [True, False], ids=["noisy", "gossip"])
+def test_sparse_kernel_matches_plain(N, d, k, dtype, noisy):
+    """Index order, against the plain twin; in (300, 2001, 32) some
+    group's distinct rows pass the rows the gather stages (asserted), so
+    the rest read from global memory; at N = 2048 also the list under
+    random labels and without a key."""
+    _need_card()
+    args, amp, mscale = _sparse_args(N, d, k, dtype, N + d)
+    if k == 32:
+        assert _largest_union(args[9], ops.GATHER_GROUP) > \
+            ops.gather_capacity(k)
+    kw = dict(gamma=0.05, eta=0.4, noisy=noisy, counter_width=80000)
+    before = ops.dp_mix_round_sparse.launches
+    out = ops._launch_sparse(*args, **kw)
+    assert ops.dp_mix_round_sparse.launches == before + 1
+    ref = dp_mix_sparse_plain(*args, **kw)
+    torch.cuda.synchronize()
+    _assert_sparse_close(out, ref, args, amp, mscale, k, dtype, noisy)
+    if N == 2048:
+        gen = torch.Generator(device="cuda").manual_seed(9)
+        perm = torch.randperm(N, generator=gen, device="cuda")
+        shuffled = _relabel(args, perm)
+        out = ops._launch_sparse(*shuffled, **kw)
+        ref = dp_mix_sparse_plain(*shuffled, **kw)
+        torch.cuda.synchronize()
+        _assert_sparse_close(out, ref, shuffled, amp[perm], mscale[perm], k,
+                             dtype, noisy)
+
+
+@pytest.mark.parametrize("reps,N", [(1, 2048), (4, 512)],
+                         ids=["one", "fleet"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_round_is_bitwise_in_any_order(reps, N, dtype):
+    """The order the gather takes its receivers in changes no bit: one
+    operand set (d = 3001, k = 12) launched with its key's order
+    (``ops.locality_order``), a shuffled order and index order gives the
+    same output, for one list and for a stack of 4 (the fleet's replicate
+    axis); and the wrapper (the key's order) gives it too."""
+    _need_card()
+    lead = (reps,) if reps > 1 else ()
+    args, amp, mscale, sw = _sparse_operands(N, 3001, 12, dtype, 11, lead)
+    assert sw.key is not None and sw.key.shape == lead + (N,)
+    kw = dict(gamma=0.05, eta=0.4, noisy=True, counter_width=80000)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shuffled = torch.argsort(torch.rand(lead + (N,), generator=gen,
+                                        device="cuda"), dim=-1)
+    bits = lambda a: a.view(torch.int16 if a.dtype == torch.bfloat16
+                            else torch.int32)
+    base = ops._launch_sparse(*args, **kw)
+    for order in (ops.locality_order(sw, N, "cuda"),
+                  shuffled.to(torch.int32).contiguous()):
+        assert torch.equal(bits(ops._launch_sparse(*args, **kw, order=order)),
+                           bits(base))
+    wrapped = ops.dp_mix_round_sparse(
+        args[0], args[1], args[2] if lead else 77, sw, amp, 2.0 if not lead
+        else torch.full(lead, 2.0, device="cuda"), 0.3 if not lead
+        else torch.full(lead, 0.3, device="cuda"), gamma=0.05, eta=0.4,
+        m_scale=mscale, listen=args[8], col0=256, counter_width=80000)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(wrapped), bits(base))
 
 
 @pytest.mark.parametrize("N,d", [(10, 5000), (64, 1001), (200, 3000)])
@@ -930,6 +1024,50 @@ def test_row_windows_stitch_to_the_sparse_round(n_shards, dtype, noisy):
         if dtype == torch.bfloat16:
             allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
         assert bool(((k32 - r32).abs() <= allowed).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gather_rows_reads_the_own_row_from_the_workspace(dtype):
+    """A shard's receivers take their own z from their workspace, as the
+    reference's worker_window_round takes it from the local z, and only
+    their slots' rows from z_src: with z_src's rows row0 on made unlike
+    the workspace's z, the card (the key's order and index order, bitwise
+    the same) stays within the sparse round's tolerance of the plain twin
+    on the same operands."""
+    _need_card()
+    from repro_torch.kernels.dp_mix.dp_mix import dp_mix_gather_plain
+    from repro_torch.net.sparse import SparseW
+    N, d, k, row0 = 64, 1001, 12, 32
+    args, amp, mscale, sw = _sparse_operands(N, d, k, dtype, 5)
+    p, g, listen, r = args[0], args[1], args[8], slice(row0, N)
+    kw = dict(gamma=0.05, eta=0.4, col0=256, counter_width=8192)
+    ws = [ops.dp_mix_prep_rows(p[s], g[s], 77, amp[s], 2.0, gamma=0.05,
+                               row0=s.start, n_workers=N, col0=256,
+                               counter_width=8192)
+          for s in (slice(0, row0), r)]
+    z = torch.cat([w[0] for w in ws])
+    z[r] += 1.0 + torch.rand(z[r].shape, device="cuda")
+    outs = [ops.dp_mix_gather_rows(p[r], g[r], ws[1], z, 77, lst[r], amp[r],
+                                   2.0, 0.3, row0=row0, m_scale=mscale[r],
+                                   listen=listen[r], **kw)
+            for lst in (sw, SparseW(sw.idx, sw.w, sw.self_w))]
+    i32 = lambda v: torch.tensor([v], dtype=torch.int32, device="cuda")
+    ref = dp_mix_gather_plain(
+        p[r], g[r], ws[1], z, i32(77), i32(256),
+        torch.tensor([2.0, 0.3], device="cuda"), amp[r],
+        torch.ones(N - row0, device="cuda"), mscale[r], listen[r], sw.idx[r],
+        sw.w[r], sw.self_w[r], gamma=0.05, eta=0.4, noisy=True,
+        counter_width=8192, row0=row0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(outs[0]), _bits(outs[1]))
+    k32, r32 = outs[0].float(), ref.float()
+    x = p[r].float() - 0.05 * g[r].float()
+    scale = float(x.abs().max()) + 5.42 * float(
+        (amp / 2.0).abs().max() + (mscale * 0.3).abs().max())
+    allowed = (k + 1 + 8) * 2.0 ** -23 * scale
+    if dtype == torch.bfloat16:
+        allowed = allowed + 2.0 ** -7 * torch.maximum(k32.abs(), r32.abs())
+    assert bool(((k32 - r32).abs() <= allowed).all())
 
 
 def test_sparse_row0_zero_is_the_round_without_it():
