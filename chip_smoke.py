@@ -57,13 +57,15 @@ Phases, each fatal on failure (exit code 1, no result line):
              dense kernel at N = 64;
 4. train   — the flat path, ``python -m repro_torch.launch.train --arch
              dwfl-paper --flat-buffer`` at full width (N = 10 workers,
-             batch 32, d = 855,050), 51 rounds; every loss finite and
-             dp_mix launched once per round; the same CLI at N = 128 (the
-             large-N route), 5 rounds, launched once a round; one small
+             batch 32, d = 855,050), 51 rounds, its chunks CUDA graph
+             replays after the first; every loss finite and dp_mix's
+             kernel once a round in the run's profiler trace; the same
+             CLI at N = 128 (the large-N route), 5 rounds, its two
+             kernels once a round; one small
              flat round on the card against the same round on the CPU;
              the flat CLI on the dynamic network (``--channel-model
              dynamic --scenario iot_dense``, N = 10, 51 rounds): dp_mix
-             once a round, every loss finite, the per-round epsilon
+             once a round in its trace, every loss finite, the per-round epsilon
              trajectory over every round; vehicular under a total budget
              (``--total-epsilon 8 --accountant rdp``), 5 rounds; one small
              dynamic flat round on the card against the CPU's from the same
@@ -116,7 +118,22 @@ Phases, each fatal on failure (exit code 1, no result line):
              rounds) under its sync guard, one sparse call a round and no
              dense one, and one prep and one gather kernel a round under
              torch.profiler; a reduced fleet sparse round card against
-             CPU; then sharding and
+             CPU; then the chunk executor (``ChunkRunner``, the
+             reference's): on each of GRAPH_PATHS (the static flat round
+             with and without telemetry, the tree round with use_pallas,
+             the dynamic flat and tree rounds, the fleet at R = 8, the
+             sparse round at N = 2048) two K-round chunks as CUDA graph
+             replays bitwise the same chunks through run_chunk (the
+             parameters, generator state, network state, epsilon moments
+             and every output), one capture a length, each kernel as many
+             launches in a replay's profiler trace as in an eager
+             chunk's (the counted CLI runs above are traced the same
+             way: a replay runs no Python, so a wrapper counts only its
+             eager and captured rounds); rounds/s with and
+             without the graph in turns (the static flat CLI at its
+             defaults, the static flat round with and without
+             telemetry, the dynamic flat, tree, fleet and sparse rounds,
+             the last with its peak memory); then sharding and
              checkpoints: dp_mix over the model axis's S = 2 and
              4 column windows (logical, one card: one launch over the
              padded buffer) bitwise the one launch over the unpadded
@@ -270,6 +287,7 @@ output are the kernels' JSON record, the nvidia-smi line, and {"ok": true,
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -443,6 +461,22 @@ CKPT_STEPS = 9
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
+    "graphs": "each path's chunks through ChunkRunner bitwise run_chunk's "
+              "(parameters, generator state, network state, epsilon "
+              "moments, every output), one capture a length, each kernel "
+              "as many launches a replay as an eager chunk; rounds/s in "
+              "turns, graph against eager, from the device time under the "
+              "host's launches (busy share x round time) plus ~1-2 us a "
+              "graph node: the static flat round 0.6-0.8 ms (eager "
+              "2.1-4.2), 3-6x; the static flat CLI at its defaults "
+              "(evals and a 50-round capture included) 1.3-2x; the dynamic "
+              "flat round (iot_dense) 0.8-1.2 ms (eager 4.2-5.7), 4-5x; "
+              "the tree round 0.8-1.2 ms, 3-5x; the fleet at R 8 3.3-3.8 "
+              "ms (eager 7.2), 1.8-2.2x; the sparse round at N = 2048 "
+              "device-bound, 86-90 ms either way (within 3%), its peak "
+              "allocated within 2 GiB of eager's 40.6 GiB; the static "
+              "flat round with telemetry (every field) 0.68-0.80 ms under "
+              "the graph, 5-20% over the graph's round without it",
     "large_n": "dp_mix's large-N route (dp_mix_prep + dp_mix_tiled, the "
                "mix in split TF32 on wgmma) within dp_mix_tolerance of the "
                "plain twin at N = 51, 64, 65, 128, 256 and over three "
@@ -1164,6 +1198,50 @@ def dp_mix_route(N: int, d: int) -> str:
     return "columns" if floats == 0 else "large-N"
 
 
+# the training path's kernels by the names a profiler trace gives them,
+# and those a dp_mix_round call launches on each route
+TRAIN_KERNELS = ("dp_mix_columns", "dp_mix_prep", "dp_mix_tiled",
+                 "dp_mix_gather", "dp_perturb_kernel")
+ROUTE_KERNELS = {"columns": ("dp_mix_columns",),
+                 "large-N": ("dp_mix_prep", "dp_mix_tiled")}
+
+
+def train_kernels(prof) -> dict:
+    """{kernel: launches} of TRAIN_KERNELS in a torch.profiler trace (a
+    CUDA graph's replays included: the trace sees each kernel it
+    launches)."""
+    from torch.autograd import DeviceType
+    got = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for name in TRAIN_KERNELS:
+                if name in e.key:
+                    got[name] = got.get(name, 0) + e.count
+    return got
+
+
+def traced(fn):
+    """``fn()`` under torch.profiler's device trace: (its result,
+    ``train_kernels`` of the trace)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    return res, train_kernels(prof)
+
+
+def cli_launches(what: str, launches: int, device: dict, rounds: int,
+                 want: dict) -> None:
+    """A counted CLI run's launches: the trace holds ``want`` (each of its
+    kernels once a round) and no other training kernel; the wrapper,
+    which counts its eager and captured rounds (a graph's replay runs no
+    Python), at least once and at most once a round."""
+    if device != want or not 1 <= launches <= rounds:
+        fail(f"{what}: kernels in the trace {device} (want {want}), the "
+             f"wrapper counted {launches}, for {rounds} rounds")
+
+
 def check_dp_mix(N: int, d: int, dtype, noisy: bool, timed: bool,
                  counts: Optional[dict] = None,
                  rates: Optional[dict] = None) -> dict:
@@ -1403,37 +1481,40 @@ def check_noise_fields(N: int, d: int) -> dict:
 
 
 def flat_cli(workers: int, steps: int) -> dict:
-    """The flat CLI at ``workers``, dp_mix's count set to 0 just before
-    and read just after: one launch a round, every loss finite."""
+    """The flat CLI at ``workers`` (its chunks through ChunkRunner: the
+    first eager, the rest CUDA graph replays) under the profiler's device
+    trace, dp_mix's count set to 0 just before and read just after: the
+    trace holds one launch a round of each kernel of dp_mix's route and
+    no other training kernel (``cli_launches``); every loss finite."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.launch import train
     ops.dp_mix_round.launches = 0
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
-                     "--workers", str(workers), "--batch-size", "32",
-                     "--steps", str(steps), "--eval-every", str(steps // 2),
-                     "--device", "cuda"])
+    res, device = traced(lambda: train.run([
+        "--arch", "dwfl-paper", "--flat-buffer", "--workers", str(workers),
+        "--batch-size", "32", "--steps", str(steps), "--eval-every",
+        str(steps // 2), "--device", "cuda"]))
     launches = ops.dp_mix_round.launches
     peak = torch.cuda.max_memory_allocated()
     losses, rounds = res["losses"], res["rounds"]
+    route = dp_mix_route(workers, PATH_D)
     print(f"[train] N = {workers}: {rounds} rounds in {res['seconds']:.3f}s "
-          f"= {rounds / res['seconds']:.2f} rounds/s; peak device memory "
-          f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the "
-          f"run); dp_mix launches {launches} "
-          f"({dp_mix_route(workers, PATH_D)} "
-          f"route); first/last loss {float(losses[0]):.4f}/"
-          f"{float(losses[-1]):.4f}", flush=True)
+          f"= {rounds / res['seconds']:.2f} rounds/s (traced); peak device "
+          f"memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held "
+          f"before the run); dp_mix ({route} route) counted {launches}, "
+          f"kernels in the trace {device}; first/last loss "
+          f"{float(losses[0]):.4f}/{float(losses[-1]):.4f}", flush=True)
     if losses.numel() != rounds or not torch.isfinite(losses).all():
         fail(f"train N={workers}: expected {rounds} finite losses, got "
              f"{losses.tolist()}")
-    if launches != rounds:
-        fail(f"train N={workers}: dp_mix launched {launches} times for "
-             f"{rounds} rounds")
+    cli_launches(f"train N={workers}", launches, device, rounds,
+                 {k: rounds for k in ROUTE_KERNELS[route]})
     if not torch.isfinite(res["params"]).all():
         fail(f"train N={workers}: non-finite parameters")
-    return {"launches": launches, "rounds": rounds}
+    return {"launches": launches, "device_launches": device,
+            "rounds": rounds}
 
 
 def predict(phase: str) -> None:
@@ -1551,11 +1632,13 @@ def dp_mix_plans_phase() -> list:
 
 
 def dynamic_cli() -> dict:
-    """The dynamic flat CLI at full width (iot_dense, N = 10, 51 rounds),
-    dp_mix's count set to 0 just before and read just after: one launch a
-    round, every loss finite, the epsilon trajectory over every round;
-    then vehicular under a total budget (--total-epsilon 8 --accountant
-    rdp), 5 rounds."""
+    """The dynamic flat CLI at full width (iot_dense, N = 10, 51 rounds)
+    under the profiler's device trace, dp_mix's count set to 0 just
+    before and read just after: one launch a round in the trace
+    (``cli_launches``), every loss finite, the epsilon trajectory over
+    every round; then vehicular under a total budget (--total-epsilon 8
+    --accountant rdp), 5 rounds. Returns {scenario: (the wrapper's count,
+    the trace's kernels)}."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.launch import train
@@ -1565,24 +1648,28 @@ def dynamic_cli() -> dict:
             (DYN_SCENARIO, DYN_STEPS, []),
             ("vehicular", 4, ["--total-epsilon", "8", "--accountant", "rdp"])):
         ops.dp_mix_round.launches = 0
-        res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
-                         "--channel-model", "dynamic", "--scenario", scenario,
-                         "--workers", str(PATH_N), "--batch-size", "32",
-                         "--steps", str(steps), "--eval-every",
-                         str(max(steps // 2, 1)), "--device", "cuda", *extra])
+        res, device = traced(lambda: train.run([
+            "--arch", "dwfl-paper", "--flat-buffer", "--channel-model",
+            "dynamic", "--scenario", scenario, "--workers", str(PATH_N),
+            "--batch-size", "32", "--steps", str(steps), "--eval-every",
+            str(max(steps // 2, 1)), "--device", "cuda", *extra]))
         launches = ops.dp_mix_round.launches
         rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
         rec = {"scenario": scenario, "rounds": rounds,
                "seconds": res["seconds"],
-               "rounds_per_s": rounds / res["seconds"], "launches": launches,
+               "rounds_per_s_traced": rounds / res["seconds"],
+               "launches": launches, "device_launches": device,
                "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
                "eps_rounds": rep["rounds"], "eps_worst": rep["epsilon_worst"],
                "eps_total": rep["epsilon_total"],
                "eps_rdp": rep["epsilon_rdp"]}
         print(f"[dynamic] cli {json.dumps(rec)}", flush=True)
-        if launches != rounds or rep["rounds"] != rounds:
-            fail(f"dynamic cli {scenario}: dp_mix launched {launches} times, "
-                 f"epsilon over {rep['rounds']} rounds, for {rounds} rounds")
+        cli_launches(f"dynamic cli {scenario}", launches, device, rounds,
+                     {k: rounds for k in ROUTE_KERNELS[
+                         dp_mix_route(PATH_N, PATH_D)]})
+        if rep["rounds"] != rounds:
+            fail(f"dynamic cli {scenario}: epsilon over {rep['rounds']} "
+                 f"rounds, for {rounds} rounds")
         if not (torch.isfinite(losses).all()
                 and torch.isfinite(res["params"]).all()
                 and np_finite(rep["epsilon_per_round"])):
@@ -1591,7 +1678,7 @@ def dynamic_cli() -> dict:
         if extra and rep["epsilon_rdp"] > 8.0 * (1 + 1e-6):
             fail(f"dynamic cli {scenario}: rdp total {rep['epsilon_rdp']} "
                  f"over its budget of 8")
-        counts[scenario] = launches
+        counts[scenario] = (launches, device)
     return counts
 
 
@@ -4485,9 +4572,10 @@ def two_cards_main() -> int:
 
 def fleet_cli() -> dict:
     """The fleet CLI at full width (the README's vehicular line with the
-    flat buffer), the dp_mix count set to 0 just before and read just
-    after: one launch a fleet round for all R, under the CLI's sync guard
-    (on by default); the guard must raise on a .item()."""
+    flat buffer) under the profiler's device trace, the dp_mix count set
+    to 0 just before and read just after: one launch a fleet round for
+    all R in the trace (``cli_launches``), under the CLI's sync guard (on
+    by default); the guard must raise on a .item()."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.launch import train
@@ -4502,27 +4590,28 @@ def fleet_cli() -> dict:
         pass
     ops.dp_mix_round.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
-                     "--channel-model", "dynamic", "--scenario",
-                     FLEET_SCENARIO, "--replicates", str(FLEET_R),
-                     "--workers", str(PATH_N), "--steps", str(FLEET_STEPS),
-                     "--eval-every", str(FLEET_STEPS // 2),
-                     "--device", "cuda"])
+    res, device = traced(lambda: train.run([
+        "--arch", "dwfl-paper", "--flat-buffer", "--channel-model",
+        "dynamic", "--scenario", FLEET_SCENARIO, "--replicates",
+        str(FLEET_R), "--workers", str(PATH_N), "--steps", str(FLEET_STEPS),
+        "--eval-every", str(FLEET_STEPS // 2), "--device", "cuda"]))
     launches = ops.dp_mix_round.launches
     rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
     rec = {"scenario": FLEET_SCENARIO, "replicates": FLEET_R,
-           "rounds": rounds, "launches": launches, "seconds": res["seconds"],
-           "rounds_per_s": rounds / res["seconds"],
-           "replicate_rounds_per_s": FLEET_R * rounds / res["seconds"],
+           "rounds": rounds, "launches": launches,
+           "device_launches": device, "seconds": res["seconds"],
+           "rounds_per_s_traced": rounds / res["seconds"],
+           "replicate_rounds_per_s_traced":
+               FLEET_R * rounds / res["seconds"],
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "first_loss": losses[0].tolist(), "last_loss": losses[-1].tolist(),
            "eps_replicates": rep["replicates"], "eps_rounds": rep["rounds"],
            "eps_composed_mean": rep["epsilon_composed_mean"],
            "eps_total_mean": rep["epsilon_total_mean"]}
     print(f"[fleet] cli {json.dumps(rec)}", flush=True)
-    if launches != rounds:
-        fail(f"fleet cli: dp_mix launched {launches} times for {rounds} "
-             f"rounds of {FLEET_R} replicates")
+    cli_launches("fleet cli", launches, device, rounds,
+                 {k: rounds for k in ROUTE_KERNELS[
+                     dp_mix_route(PATH_N, PATH_D)]})
     if (tuple(losses.shape) != (rounds, FLEET_R)
             or not torch.isfinite(losses).all()
             or not torch.isfinite(res["params"]).all()
@@ -4835,7 +4924,6 @@ def fleet_sparse_cli(store) -> dict:
     torch.profiler: one dp_mix_prep and one dp_mix_gather kernel a round,
     no dense route's kernel."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import trajectory as TJ
     from repro_torch.kernels.dp_mix import ops
@@ -4872,14 +4960,7 @@ def fleet_sparse_cli(store) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         carry, _ = TJ.run_chunk(body, carry, 2)
         torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        for name in ("dp_mix_prep", "dp_mix_gather", "dp_mix_tiled",
-                     "dp_mix_columns"):
-            if name in e.key:
-                kernels[name] = kernels.get(name, 0) + e.count
+    kernels = train_kernels(prof)
     rec["kernels_in_2_rounds"] = kernels
     del body, carry
     torch.cuda.empty_cache()
@@ -5040,6 +5121,272 @@ def sweep_phase() -> dict:
              f"or non-finite numbers")
     return rec
 
+
+
+# ---- the chunk executor: a K-round chunk as one CUDA graph (ChunkRunner) ----
+
+# the paths the runner captures, in the order they are held bitwise: the
+# static flat round (the main path; also with telemetry's chunk epilogue
+# in the graph), the worker-tree round with use_pallas (B2), the dynamic
+# flat and tree rounds (the simulator's round in the graph), the fleet's
+# dense flat round at R = FLEET_R (B1's replicate axis) and the sparse
+# round at the worker-scale shape (B1-sparse)
+GRAPH_PATHS = ("flat", "flat telemetry", "tree", "dynamic flat",
+               "dynamic tree", "fleet", "sparse")
+# rounds a chunk and chunks a timed turn; the sparse round at N = 2048
+# takes GRAPH_SPARSE_K rounds a chunk (88 ms a round)
+GRAPH_K, GRAPH_SPARSE_K, GRAPH_TURN_CHUNKS = 4, 2, 5
+GRAPH_TURN_K = 10
+# the static flat CLI at its defaults (200 steps, an eval every 50 rounds)
+GRAPH_CLI_STEPS = 200
+
+
+def graph_path(path: str, device: str = "cuda", N: int = PATH_N,
+               hidden: int = 0, dataset: int = 20000, batch: int = 32,
+               R: int = FLEET_R, k: int = SPARSE_K):
+    """(body, carry) of one of GRAPH_PATHS as the CLI builds it: dwfl-paper
+    (at ``hidden`` if given, else full width) on N workers, the CLI's
+    store, a generator seeded 0; the tree rounds with use_pallas,
+    the dynamic flat round on iot_dense and the tree round on
+    drone_sparse, the fleet on vehicular, the sparse round on mesh_sparse
+    with a degree cap of ``k``; with telemetry every field and the
+    epsilon moments in the carry."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import (ClassificationStore, classification_dataset,
+                                  dirichlet_partition)
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.obs import telemetry as tele
+    if path not in GRAPH_PATHS:
+        raise ValueError(f"no graph path {path!r}; have {GRAPH_PATHS}")
+    cfg = (dataclasses.replace(DWFL_PAPER, d_model=hidden) if hidden
+           else DWFL_PAPER)
+    tree = path in ("tree", "dynamic tree")
+    if path == "dynamic flat":
+        proto = dynamic_proto(N)
+    elif path == "dynamic tree":
+        proto = dynamic_proto(N, DYN_TREE_SCENARIO, use_pallas=True)
+    elif path == "fleet":
+        proto = dynamic_proto(N, FLEET_SCENARIO)
+    elif path == "sparse":
+        proto = dynamic_proto(N, SPARSE_SCENARIO, sparse_neighbors=k)
+    else:
+        proto = P.ProtocolConfig(n_workers=N, gamma=0.01, eta=0.4,
+                                 target_epsilon=1.0, use_pallas=tree)
+    x, y = classification_dataset(dataset, seed=0)
+    store = ClassificationStore.build(
+        x, y, dirichlet_partition(y, N, alpha=0.5, seed=0), batch, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    sim = fleet = net = None
+    if path == "fleet":
+        fleet = FleetEngine(proto, R, device=device)
+        wp = fleet.init_worker_params(gen, cfg)
+    else:
+        wp = P.init_worker_params(gen, cfg, N, device)
+        if proto.channel_model == "dynamic":
+            sim = proto.simulator(device)
+    spec = None if tree else X.FlatSpec(wp, lead_axes=2 if fleet else 1)
+    telemetry = tele.TelemetrySpec() if path == "flat telemetry" else None
+    body = TJ.make_round_body(cfg, proto, store, spec, device, sim=sim,
+                              fleet=fleet, telemetry=telemetry)
+    if fleet is not None:
+        net = fleet.init(gen)
+    elif sim is not None:
+        net = sim.init(gen)
+    eps = tele.init_eps_moments(device=device) if telemetry else None
+    return body, TJ.TrajCarry(gen, wp if tree else spec.flatten(wp), net,
+                              eps)
+
+
+def same_bits(a, b) -> bool:
+    """Two tensors of the same shape and dtype with the same bits (NaN,
+    -0.0 and all)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a, b = (t.contiguous().view(view[t.element_size()]) for t in (a, b))
+    return bool(torch.equal(a, b))
+
+
+def chunk_record(carry, outs) -> dict:
+    """What the graph and the eager chunks are held on, copied: the
+    parameters, the generator's state, the network state, the epsilon
+    moments and each chunk's outputs (metrics, telemetry, channels, Ws),
+    by name."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    rec = {"generator": carry.generator.get_state()}
+    for name, tree in (("params", carry.params), ("net", carry.net),
+                       ("eps", carry.eps)):
+        for i, t in enumerate(TJ.tree_tensors(tree)):
+            rec[f"{name}/{i}"] = t.clone()
+    for c, out in enumerate(outs):
+        for i, t in enumerate(TJ.tree_tensors(out)):
+            rec[f"chunk {c}/{i}"] = t.clone()
+    return rec
+
+
+def graph_bitwise(path: str, K: int = GRAPH_K, **kw) -> dict:
+    """One of GRAPH_PATHS through ``ChunkRunner`` and through ``run_chunk``
+    from the same carry: the runner's first chunk (eager, a real chunk),
+    then two chunks of K rounds through the runner (the capture's replay,
+    then a replay) and the same two eagerly from a copy of the carry.
+    Returns the leaves that differ in their bits (none, to pass), the
+    captures per length, the training kernels in the profiler's device
+    trace of the second replay and of the second eager chunk, and the
+    launches each wrapper counted in that eager chunk (counts set to 0
+    just before, read just after)."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    wrappers = kernel_wrappers()
+    body, carry = graph_path(path, **kw)
+    runner = TJ.ChunkRunner(body)
+    carry, _ = runner.run(carry, K)
+    twin = TJ.copy_carry(carry)
+    carry, out1 = runner.run(carry, K)
+    (carry, out2), replay = traced(lambda: runner.run(carry, K))
+    got = chunk_record(carry, (out1, out2))
+    captures = runner.trace_counts()
+    # the graph's pool is freed before the eager chunks: at N = 2048 the
+    # two would not fit one card together
+    del carry, out1, out2, runner
+    torch.cuda.empty_cache()
+    twin, out1 = TJ.run_chunk(body, twin, K)
+    zero_counts(wrappers)
+    (twin, out2), eager = traced(lambda: TJ.run_chunk(body, twin, K))
+    counted = {w.__name__: w.launches for w in wrappers if w.launches}
+    want = chunk_record(twin, (out1, out2))
+    del twin, out1, out2
+    torch.cuda.empty_cache()
+    differ = sorted(n for n in want if n not in got or not same_bits(
+        got[n], want[n]))
+    differ += sorted(n for n in got if n not in want)
+    return {"path": path, "rounds": K, "leaves": len(want),
+            "differ": differ, "captures": captures,
+            "kernels_replay": replay, "kernels_eager": eager,
+            "launches_eager": counted}
+
+
+@contextlib.contextmanager
+def eager_chunks():
+    """``ChunkRunner.run`` as ``run_chunk`` (its eager program) inside the
+    block: the executor the CLI had before the runner, for timing the CLI
+    without the graph."""
+    from repro_torch.core import trajectory as TJ
+    run = TJ.ChunkRunner.run
+    TJ.ChunkRunner.run = lambda self, carry, k: self.program(k)(carry)
+    try:
+        yield
+    finally:
+        TJ.ChunkRunner.run = run
+
+
+def graph_turns(path: str, K: int = GRAPH_TURN_K,
+                chunks: int = GRAPH_TURN_CHUNKS, **kw) -> dict:
+    """Rounds/s of one of GRAPH_PATHS through the runner and eagerly, in
+    turns (graph, eager, eager, graph), host clock around ``chunks``
+    chunks of K rounds ending in a synchronize. A graph turn is a new
+    runner: its eager chunk and its capture untimed (an eager turn's
+    first chunk too), so one runner's pool is freed before the next turn;
+    peak device memory (allocated and reserved) of each turn."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    body, carry = graph_path(path, **kw)
+    rate = {"graph": [], "eager": []}
+    peak = {"graph": [], "eager": []}
+    for turn in ("graph", "eager", "eager", "graph"):
+        run = (TJ.ChunkRunner(body).run if turn == "graph" else
+               (lambda c, n: TJ.run_chunk(body, c, n)))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(2 if turn == "graph" else 1):
+            carry, _ = run(carry, K)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            carry, _ = run(carry, K)
+        torch.cuda.synchronize()
+        rate[turn].append(chunks * K / (time.perf_counter() - t0))
+        peak[turn].append((torch.cuda.max_memory_allocated() / 2**30,
+                           torch.cuda.max_memory_reserved() / 2**30))
+        del run
+    del carry, body
+    torch.cuda.empty_cache()
+    return {"path": path, "rounds_a_chunk": K, "chunks": chunks,
+            "rounds_per_s": rate, "peak_gib": peak,
+            "speedup": [g / e for g, e in zip(rate["graph"],
+                                              reversed(rate["eager"]))]}
+
+
+def graph_cli_turns(steps: int = GRAPH_CLI_STEPS) -> dict:
+    """The static flat CLI at its defaults (an eval every 50 rounds:
+    chunks of 1, then 50), with the graph and without it (``eager_chunks``),
+    in turns; its rounds/s as it measures them, and the runner's captures
+    counted from the CLI's run log events."""
+    from repro_torch.launch import train
+    rate = {"graph": [], "eager": []}
+    for turn in ("graph", "eager", "eager", "graph"):
+        argv = ["--arch", "dwfl-paper", "--flat-buffer", "--workers",
+                str(PATH_N), "--steps", str(steps), "--device", "cuda"]
+        if turn == "graph":
+            res = train.run(argv)
+        else:
+            with eager_chunks():
+                res = train.run(argv)
+        rate[turn].append(res["rounds"] / res["seconds"])
+    return {"rounds": steps + 1, "rounds_per_s": rate,
+            "speedup": [g / e for g, e in zip(rate["graph"],
+                                              reversed(rate["eager"]))]}
+
+
+def graph_phase() -> dict:
+    """Each of GRAPH_PATHS through ChunkRunner bitwise the same chunks
+    through run_chunk (parameters, generator state, network state,
+    epsilon moments, every output), one capture per length, every kernel
+    launched as often a replay as an eager chunk launches it; then
+    rounds/s with and without the graph in turns: the static flat CLI,
+    the static flat round with and without telemetry, the dynamic flat
+    round (iot_dense), the tree round, the fleet at R = FLEET_R and the
+    sparse round at N = SPARSE_N with its peak memory."""
+    import torch
+    print(f"[graph] torch {torch.__version__}: CUDAGraph."
+          f"register_generator_state "
+          f"{hasattr(torch.cuda.CUDAGraph, 'register_generator_state')}",
+          flush=True)
+    recs = {}
+    for path in GRAPH_PATHS:
+        if path == "sparse":
+            rec = graph_bitwise(path, GRAPH_SPARSE_K, N=SPARSE_N)
+        else:
+            rec = graph_bitwise(path)
+        print(f"[graph] bitwise {json.dumps(rec)}", flush=True)
+        if rec["differ"]:
+            fail(f"graph {path}: the graph's chunks differ from the eager "
+                 f"chunks' in {rec['differ']}")
+        if rec["captures"] != {rec["rounds"]: 1}:
+            fail(f"graph {path}: captures {rec['captures']}, expected one "
+                 f"of length {rec['rounds']}")
+        if rec["kernels_replay"] != rec["kernels_eager"]:
+            fail(f"graph {path}: kernels in a replay's trace "
+                 f"{rec['kernels_replay']}, in an eager chunk's "
+                 f"{rec['kernels_eager']}")
+        if not (rec["kernels_eager"] and rec["launches_eager"]):
+            fail(f"graph {path}: no kernel launched")
+        recs[path] = rec
+    turns = {"static flat CLI": graph_cli_turns()}
+    print(f"[graph] turns {json.dumps(turns['static flat CLI'])}", flush=True)
+    for path, kw in (("flat", {}), ("flat telemetry", {}),
+                     ("dynamic flat", {}), ("tree", {}), ("fleet", {}),
+                     ("sparse", dict(K=GRAPH_SPARSE_K, chunks=2,
+                                     N=SPARSE_N))):
+        turns[path] = graph_turns(path, **kw)
+        print(f"[graph] turns {json.dumps(turns[path])}", flush=True)
+    return {"bitwise": recs, "turns": turns}
 
 
 # ---- phase 11: the launch tooling and the static checks (A16, A17) ---------
@@ -5661,8 +6008,8 @@ def main() -> int:
     # 4. the flat path, counted: the main path at N = 10, then N = 128;
     # then on the dynamic network (iot_dense, then vehicular under a total
     # budget)
-    launches = flat_cli(PATH_N, 50)["launches"]
-    large_launches = flat_cli(128, 4)["launches"]
+    flat_rec = flat_cli(PATH_N, 50)
+    large_rec_cli = flat_cli(128, 4)
     train_step_cpu_vs_cuda()
     dyn_launches = dynamic_cli()
     dynamic_round_cpu_vs_cuda()
@@ -5696,6 +6043,13 @@ def main() -> int:
     # the fleet's sparse round: the sparse kernels' replicate axis, the
     # fleet sparse CLI (counted), a reduced round card against CPU
     fleet_sparse = fleet_sparse_phase(counts, rates)
+
+    # the chunk executor: each path's K-round chunk as one CUDA graph
+    # (ChunkRunner) bitwise the eager chunk, its launches a replay, and
+    # rounds/s with and without the graph in turns
+    predict("graphs")
+    graphs = graph_phase()
+    torch.cuda.empty_cache()
 
     # sharding and checkpoints: the model axis's windows (logical) and the
     # sharded steps; the sharded CLI (counted) with its checkpoint and the
@@ -5784,16 +6138,23 @@ def main() -> int:
         "name": "dp_mix", "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
-        "launches": dyn_launches[DYN_SCENARIO],
-        "launches_by_path": {"flat": launches,
+        "launches": dyn_launches[DYN_SCENARIO][0],
+        "launches_by_path": {"flat": flat_rec["launches"],
                              "flat dynamic " + DYN_SCENARIO:
-                                 dyn_launches[DYN_SCENARIO],
+                                 dyn_launches[DYN_SCENARIO][0],
                              "flat dynamic vehicular, total budget":
-                                 dyn_launches["vehicular"],
+                                 dyn_launches["vehicular"][0],
                              "flat olmo-1b, 4 of 16 layers, N = 4":
                                  lm["flat"]["launches"]["dp_mix_round"],
                              "examples/port_quickstart":
                                  examples["quickstart"]["launches"]},
+        "device_launches_by_path": {
+            "flat": flat_rec["device_launches"],
+            "flat dynamic " + DYN_SCENARIO: dyn_launches[DYN_SCENARIO][1],
+            "flat dynamic vehicular, total budget":
+                dyn_launches["vehicular"][1],
+            f"ChunkRunner, a replay of {GRAPH_K} static flat rounds":
+                graphs["bitwise"]["flat"]["kernels_replay"]},
         "lm_shape": dict(lm_shape(lm["dp_mix"]), N=LM_FLAT_N, d=LM_FLAT_D),
         "max_abs_err": path_rec["max_abs_err"],
         "ms": path_rec["ms"], "plain_ms": path_rec["plain_ms"],
@@ -5804,8 +6165,10 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
-        "launches": large_launches,
-        "launches_by_path": {"flat, N = 128": large_launches},
+        "launches": large_rec_cli["launches"],
+        "launches_by_path": {"flat, N = 128": large_rec_cli["launches"]},
+        "device_launches_by_path": {
+            "flat, N = 128": large_rec_cli["device_launches"]},
         "max_abs_err": large_rec["max_abs_err"],
         "ms": large_rec["ms"], "plain_ms": large_rec["plain_ms"],
         "bound_ms": large_rec["bound_ms"],
@@ -5821,6 +6184,9 @@ def main() -> int:
         "launches_by_path": {"worker scale, N 2048": sparse_launches,
                              "fleet sparse, R 4 x N 512":
                                  fleet_sparse["cli"]["sparse_launches"]},
+        "device_launches_by_path": {
+            f"ChunkRunner, a replay of {GRAPH_SPARSE_K} rounds at N 2048":
+                graphs["bitwise"]["sparse"]["kernels_replay"]},
         "max_abs_err": sparse_rec["max_abs_err"],
         "ms": sparse_rec["ms"], "plain_ms": sparse_rec["plain_ms"],
         "bound_ms": sparse_rec["bound_ms"],
@@ -5845,6 +6211,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/dp_mix/csrc/dp_mix.cu",
         "replaces": "src/repro/kernels/dp_mix/dp_mix.py:178",
         "launches": fleet_rec["launches"],
+        "device_launches_by_path": {
+            "fleet CLI": fleet_rec["device_launches"],
+            f"ChunkRunner, a replay of {GRAPH_K} fleet rounds":
+                graphs["bitwise"]["fleet"]["kernels_replay"]},
         "max_abs_err": raxis_rec["max_abs_err"],
         "ms": raxis_rec["ms"], "plain_ms": raxis_rec["plain_ms"],
         "bound_ms": raxis_rec["bound_ms"], "bound_by": raxis_rec["bound_by"],
@@ -5880,6 +6250,9 @@ def main() -> int:
                                  dyn_perturb_launches,
                              "tree olmo-1b, full depth, N = 2":
                                  lm["tree"]["launches"]["sgd_update_leaves"]},
+        "device_launches_by_path": {
+            f"ChunkRunner, a replay of {GRAPH_K} tree rounds":
+                graphs["bitwise"]["tree"]["kernels_replay"]},
         "lm_shape": dict(lm_shape(lm["sgd_update_leaves"]),
                          leaves=lm["sgd_update_leaves"]["leaves"],
                          elements=lm["sgd_update_leaves"]["elements"],

@@ -10,9 +10,11 @@ noise — on the flat path an int32 noise seed (and, under sampled
 participation, its mask), on the worker-tree path the exchange's standard
 normals — so the realized stream is a function of the generator's seed
 and the round index, never of how rounds are cut into chunks. A chunk of
-K rounds is K eager rounds; its metrics (and on the dynamic path the
-rounds' channels and mixing matrices) come back stacked [K, ...] on the
-device, read by the host only at chunk ends.
+K rounds is K eager rounds (``run_chunk``), or on the card one replay of
+a CUDA graph of them (``ChunkRunner``, the reference's executor, bitwise
+the eager chunk); its metrics (and on the dynamic path the rounds'
+channels and mixing matrices) come back stacked [K, ...] on the device,
+read by the host only at chunk ends.
 
 The fleet (``fleet.FleetEngine``) runs R networks in one round body: its
 carry holds the [R, ...] state, the [R, N, d] buffer (or [R, N, ...]
@@ -40,7 +42,9 @@ collective over the mesh's axis (``_consensus``); nothing else is.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -150,8 +154,10 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
             return (TrajCarry(gen, params, net, carry.eps),
                     {"metrics": metrics, "chan": chans, "W": Ws})
 
-        return _maybe_instrument(body, telemetry, proto, device, fleet=fleet,
-                                 consensus=_consensus(fleet, shard_mesh))
+        return _marked(
+            _maybe_instrument(body, telemetry, proto, device, fleet=fleet,
+                              consensus=_consensus(fleet, shard_mesh)),
+            store, shard_mesh)
     if sim is not None:
         if spec is not None:
             if worker_mesh is not None:
@@ -214,9 +220,23 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
             return (TrajCarry(carry.generator, params, None, carry.eps),
                     {"metrics": metrics})
 
-    return _maybe_instrument(body, telemetry, proto, device,
-                             consensus=_consensus(None, shard_mesh,
-                                                  worker_mesh))
+    return _marked(
+        _maybe_instrument(body, telemetry, proto, device,
+                          consensus=_consensus(None, shard_mesh,
+                                               worker_mesh)),
+        store, shard_mesh if worker_mesh is None else worker_mesh)
+
+
+def _marked(body: Callable, store, mesh) -> Callable:
+    """``body``, marked (``uncapturable``) as one that ``ChunkRunner`` does
+    not capture: a body over a process-group mesh (its collectives stay
+    eager), and one fed by host batches (a graph would replay one
+    upload)."""
+    if mesh is not None:
+        body.uncapturable = "a body over a process-group mesh"
+    elif isinstance(store, HostBatches):
+        body.uncapturable = "a body fed by host batches"
+    return body
 
 
 _IN_ROUND = ("loss", "grad_norm", "consensus")
@@ -361,9 +381,10 @@ def _stack(outs: List[dict]) -> dict:
 
 def run_chunk(body: Callable, carry: TrajCarry, k: int
               ) -> Tuple[TrajCarry, Any]:
-    """Advance ``k`` rounds; the outputs come back stacked [k, ...] on the
-    parameters' device, after the body's chunk epilogue (telemetry) where
-    it has one."""
+    """Advance ``k`` rounds eagerly; the outputs come back stacked [k, ...]
+    on the parameters' device, after the body's chunk epilogue (telemetry)
+    where it has one. After the first round nothing here holds the carry
+    passed in (``analysis.donation`` checks a caller that drops it)."""
     if k < 1:
         raise ValueError(f"chunk length must be >= 1, got {k}")
     outs = []
@@ -373,6 +394,210 @@ def run_chunk(body: Callable, carry: TrajCarry, k: int
     post = getattr(body, "chunk_epilogue", None)
     out = _stack(outs)
     return (carry, out) if post is None else post(carry, out)
+
+
+def _map(fn: Callable, tree):
+    """``fn`` applied to every tensor of a carry's or an output's tree
+    (dicts, lists, tuples, NamedTuples and dataclasses such as
+    ``net.NetState``, ``TracedChannelState`` and ``SparseW``); other
+    leaves are kept."""
+    if torch.is_tensor(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map(fn, v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree) if f.init})
+    return tree
+
+
+def tree_tensors(tree) -> List[torch.Tensor]:
+    """The tensors of a carry's or an output's tree, in a fixed order."""
+    found: List[torch.Tensor] = []
+    _map(found.append, tree)
+    return found
+
+
+def _state(carry: TrajCarry) -> tuple:
+    """What a round rewrites besides the generator: (params, net, eps)."""
+    return carry.params, carry.net, carry.eps
+
+
+def copy_carry(carry: TrajCarry) -> TrajCarry:
+    """A carry of copies: its tensors cloned, its generator a new one in
+    the same state (a carry to keep while ``ChunkRunner`` consumes the
+    original)."""
+    gen = torch.Generator(device=carry.generator.device)
+    gen.set_state(carry.generator.get_state())
+    return TrajCarry(gen, *_map(torch.clone, _state(carry)))
+
+
+class _Captured(NamedTuple):
+    graph: Any                   # torch.cuda.CUDAGraph
+    out: Any                     # the chunk's outputs, in the graph's pool
+
+
+class ChunkRunner:
+    """The reference's ``ChunkRunner``: ``run(carry, k)`` advances ``k``
+    rounds of ``body`` and returns (carry', out), out's leaves stacked
+    [k, ...]; ``program(k)`` is the eager k-round program (``run_chunk``'s
+    loop and the body's chunk epilogue); ``trace_counts()`` is {k:
+    captures of that length}, which ``obs.RetraceWatchdog`` watches.
+
+    The carry's device decides how a chunk runs:
+
+    * on the CPU, ``program(k)`` eagerly (the plain version);
+    * on a card, one CUDA graph a chunk length, replayed. The runner's
+      first chunk runs eagerly: it builds and loads the kernel libraries
+      and lets CUDA and cuBLAS set themselves up, which no capture may do.
+      It is a real chunk of the trajectory (nothing is drawn or computed
+      for the warm-up alone). Every later chunk is a replay of its
+      length's graph, captured at the length's first such chunk (two or
+      three lengths a run: ``plan_chunks`` cuts at eval rounds).
+
+    The graphs read and rewrite one set of static buffers (the carry's
+    parameters, network state and epsilon moments): each graph ends by
+    writing the chunk's new values into them, so replays chain without a
+    copy. With ``donate`` the carry passed in is consumed: the runner
+    adopts its tensors as those buffers (it copies a carry whose tensors
+    are not theirs into them: after a checkpoint's resume, or a rebinding
+    by the caller), and the carry returned holds them, to be overwritten by
+    the next chunk; without it the runner copies in and hands back copies.
+    The outputs returned are the caller's own, copied out of the graph's
+    pool. The generator stays the caller's: the graphs draw from one of
+    the runner's (``CUDAGraph.register_generator_state``), set to the
+    caller's state before a replay, whose state the caller's takes after
+    it; a replay advances it as the k eager rounds would, so the realized
+    stream does not depend on how rounds are cut into chunks or which
+    chunks are replays.
+
+    A replay runs no Python, so the kernel wrappers' launch counts grow
+    only in the eager chunk and while a length is captured; what a replay
+    launches is read from a profiler trace of it. A capture that fails
+    raises, naming ROADMAP A7b; nothing falls back to the eager loop on
+    the card. A carry of other shapes than the buffers' (it would need a
+    second capture of each length) raises ``obs.RetraceError``. A body
+    over a process-group mesh (its collectives) or fed by host batches is
+    refused when the runner is built (``make_round_body`` marks it
+    ``uncapturable``)."""
+
+    def __init__(self, body: Callable, donate: bool = True):
+        why = getattr(body, "uncapturable", None)
+        if why:
+            raise ValueError(f"ChunkRunner does not capture {why} "
+                             f"(ROADMAP A7b): run it with run_chunk")
+        self._body = body
+        self._donate = bool(donate)
+        self._warm = False
+        self._graphs: Dict[int, _Captured] = {}
+        self._static = None          # (params, net, eps) the graphs rewrite
+        self._shapes = None          # their (shape, dtype, device)s
+        self._gen = self._stream = self._pool = None
+
+    def trace_counts(self) -> Dict[int, int]:
+        # a length is captured once: a carry that would need a second
+        # capture raises in _bind
+        return {k: 1 for k in self._graphs}
+
+    def program(self, k: int) -> Callable:
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"chunk length must be >= 1, got {k}")
+        return functools.partial(run_chunk, self._body, k=k)
+
+    def run(self, carry: TrajCarry, k: int) -> Tuple[TrajCarry, Any]:
+        program = self.program(k)
+        k = int(k)
+        if tree_tensors(_state(carry))[0].device.type != "cuda":
+            return program(carry)
+        if not self._warm:
+            self._warm = True
+            return program(carry)
+        self._bind(carry)
+        entry = self._graphs.get(k)
+        if entry is None:
+            entry = self._capture(carry.generator, k)
+        return self._replay(entry, carry.generator)
+
+    def _bind(self, carry: TrajCarry) -> None:
+        """Make the static buffers hold the carry's values."""
+        from repro_torch.obs.guard import RetraceError
+        state = _state(carry)
+        shapes = _map(lambda t: (tuple(t.shape), t.dtype, t.device), state)
+        if self._static is None:
+            self._shapes = shapes
+            own = ((lambda t: t if t.is_contiguous() else t.contiguous())
+                   if self._donate else torch.clone)
+            self._static = _map(own, state)
+            return
+        if shapes != self._shapes:
+            raise RetraceError("ChunkRunner: a carry of other shapes than "
+                               "its graphs' buffers (each length would be "
+                               "captured a second time)")
+        for s, t in zip(tree_tensors(self._static), tree_tensors(state)):
+            if s is not t:
+                s.copy_(t)
+
+    def _capture(self, generator: torch.Generator, k: int) -> _Captured:
+        graph = torch.cuda.CUDAGraph()
+        if not hasattr(graph, "register_generator_state"):
+            raise RuntimeError(
+                f"ChunkRunner: torch {torch.__version__} has no "
+                f"CUDAGraph.register_generator_state, so a graph cannot "
+                f"draw from the carry's generator (ROADMAP A7b)")
+        if self._gen is None:
+            self._gen = torch.Generator(device=generator.device)
+            self._stream = torch.cuda.Stream(generator.device)
+        graph.register_generator_state(self._gen)
+        carry = TrajCarry(self._gen, *self._static)
+        mode = torch.cuda.get_sync_debug_mode()
+        # a capture synchronizes nothing, and any sync inside it fails the
+        # capture: the sync guard is off for its set-up (freeing the
+        # cache, so that the graph's pool can take the memory it needs)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            torch.cuda.empty_cache()
+            self._stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(pool=self._pool)
+                ended = False
+                try:
+                    new, out = self.program(k)(carry)
+                    for s, t in zip(tree_tensors(self._static),
+                                    tree_tensors(_state(new))):
+                        if s is not t:
+                            s.copy_(t)
+                    ended = True
+                    graph.capture_end()
+                except Exception as e:
+                    if not ended:
+                        # the capture is broken already; end it all the same
+                        with contextlib.suppress(RuntimeError):
+                            graph.capture_end()
+                    raise RuntimeError(
+                        f"ChunkRunner could not capture the {k}-round chunk "
+                        f"as a CUDA graph (ROADMAP A7b): {e}") from e
+            torch.cuda.current_stream().wait_stream(self._stream)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        if self._pool is None:
+            self._pool = graph.pool()
+        entry = self._graphs[k] = _Captured(graph, out)
+        return entry
+
+    def _replay(self, entry: _Captured, generator: torch.Generator
+                ) -> Tuple[TrajCarry, Any]:
+        self._gen.set_state(generator.get_state())
+        entry.graph.replay()
+        generator.set_state(self._gen.get_state())
+        state = (self._static if self._donate
+                 else _map(torch.clone, self._static))
+        return TrajCarry(generator, *state), _map(torch.clone, entry.out)
 
 
 def run_per_round(body: Callable, carry: TrajCarry, k: int

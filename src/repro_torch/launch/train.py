@@ -10,9 +10,14 @@ and churn, a new channel and W every round, dwfl only), K-round chunks
 with on-device batch sampling. Without ``--flat-buffer`` it runs the worker-tree round
 (per-leaf noise, the mixing engine); with it the fused dp_mix round on
 the flat [N, d] buffer (dwfl and gossip only), as the reference does.
-``--no-scan`` takes each round's batch from the host batcher instead, one
-round at a time. A dynamic run ends with the per-round epsilon
-trajectory and its composition under both accountants;
+The chunks go through ``core.trajectory.ChunkRunner`` (the reference's
+executor): on the card one CUDA graph a chunk length, replayed, the
+run's first chunk eager; on the CPU its eager program. A body over a
+process-group mesh, an LM's and a sparse round's run the eager
+``run_chunk`` loop, chosen before the run and printed. ``--no-scan`` takes each round's batch from
+the host batcher instead, one round at a time (``run_per_round``). A
+dynamic run ends with the per-round epsilon trajectory and its
+composition under both accountants;
 ``--total-epsilon`` calibrates sigma every round against a whole-run
 budget under ``--accountant``; ``--sparse-neighbors k`` makes each round's
 W the capped neighbor list (``net.sparse.SparseW``) and mixes it O(N k),
@@ -652,6 +657,15 @@ def run(argv=None) -> dict:
                               remat=args.remat)
     guard = lambda: obs.no_implicit_transfers(not args.no_transfer_guard,
                                               dev)
+    # the executor, chosen here and never changed by what a chunk does. A
+    # mesh body's collectives stay eager; so do the device-bound rounds, an
+    # LM's and a sparse round's (at worker scale a graph of it is slower by
+    # the chunk's write-back into its buffers, and reserves more memory)
+    runner = None
+    eager_why = ("a process-group mesh" if mesh is not None
+                 else "an LM" if cfg.family != "mlp"
+                 else "a sparse round's" if proto.sparse_neighbors > 0
+                 else None)
     if args.no_scan:
         # the guard holds each round; the per-round executor's copy of the
         # round's metrics to the host stays outside it
@@ -660,11 +674,25 @@ def run(argv=None) -> dict:
                 return body(carry)
 
         run_rounds = lambda carry, n: TJ.run_per_round(guarded, carry, n)
-    else:
-        # the hot path, a whole chunk: it touches device tensors only
+        print("[train] executor: run_per_round (one round at a time)")
+    elif eager_why is not None:
         def run_rounds(carry, n):
             with guard():
                 return TJ.run_chunk(body, carry, n)
+
+        print(f"[train] executor: run_chunk (eager rounds; {eager_why} "
+              f"body stays eager, ROADMAP A7b)")
+    else:
+        # the hot path, a whole chunk: it touches device tensors only
+        runner = TJ.ChunkRunner(body)
+
+        def run_rounds(carry, n):
+            with guard():
+                return runner.run(carry, n)
+
+        print("[train] executor: ChunkRunner ("
+              + ("one CUDA graph a chunk length, the first chunk eager)"
+                 if dev.type == "cuda" else "its eager program)"))
 
     eps0 = (obs.init_eps_moments(
                 fleet.replicates if fleet is not None else None, device=dev)
@@ -697,6 +725,10 @@ def run(argv=None) -> dict:
                if args.eps_budget > 0 else None)
     retrace_dog = obs.RetraceWatchdog(obs.guard.LibraryBuilds(),
                                       runlog=runlog, label="kernels")
+    # a length captured twice raises in the runner; this records each
+    # capture in the run log
+    chunk_dog = (obs.RetraceWatchdog(runner, runlog=runlog, label="chunk")
+                 if runner is not None else None)
     logf = open(args.log, "w") if args.log else None
     losses, evals, chunks, rows = [], [], [], []
     t0 = time.time()
@@ -714,6 +746,8 @@ def run(argv=None) -> dict:
                 if runlog is not None:
                     _log_chunk(runlog, tele, out, t - n)
             retrace_dog.check(step=t - 1)
+            if chunk_dog is not None:
+                chunk_dog.check(step=t - 1)
             if carry.eps is not None and (do_eval or eps_dog is not None):
                 _quote_eps(args, proto, carry, out, tele, t, do_eval,
                            eps_dog, runlog)

@@ -10,9 +10,10 @@ On the CPU it does nothing.
 compilations of jitted programs; the port compiles no program per chunk,
 and what it can rebuild mid-run is a kernel library
 (``kernels.build``): the guard counts library builds and loads
-(``build.BUILDS``), and a chunk after the first must add none. A CUDA
-graph capture (ROADMAP A7b) is counted the same way, by any object with a
-``trace_counts()`` method.
+(``build.BUILDS``), and a chunk after the first must add none. The CUDA
+graph captures of ``core.trajectory.ChunkRunner`` are counted the same
+way, by its ``trace_counts()`` ({chunk length: captures}), as any object
+with that method is.
 
 ``RoundOps`` counts the device operations a block dispatches and refuses
 a host read inside it, on any device (the CPU too, where the sync-debug

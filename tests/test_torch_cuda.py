@@ -29,7 +29,12 @@ launch of its own operands, on both routes, and the whole within the
 plain twin's tolerance above, replicate by replicate. A reduced olmo-1b
 round, flat and tree, on the card against the CPU within 1e-4 (1 +
 max|out|), and C2's refusal of olmo-1b's full-depth flat buffer at N =
-2."""
+2. ``core.trajectory.ChunkRunner``'s CUDA graphs bitwise the eager chunks
+(no tolerance: parameters, generator state, network state, epsilon
+moments and every output) on chip_smoke's GRAPH_PATHS (the sparse round
+at N = 64), whatever the chunk cuts, after a checkpoint's resume and
+without donation; a replay's kernels in the profiler's trace; a carry of
+other shapes refused."""
 import importlib.util
 from pathlib import Path
 
@@ -1175,4 +1180,165 @@ def test_flat_cli_refuses_olmo_full_depth_at_two_workers():
         train.run(["--arch", "olmo-1b", "--workers", "2", "--flat-buffer",
                    "--batch-size", "4", "--steps", "0"])
     assert ops.dp_mix_round.launches == before
+    torch.cuda.empty_cache()
+
+
+# ---- ChunkRunner: a K-round chunk as one CUDA graph ------------------------
+
+def _graph_kw(path):
+    """The sparse round at N = 64 here (chip_smoke holds it at N = 2048)."""
+    return {"N": 64} if path == "sparse" else {}
+
+
+@pytest.mark.parametrize("path", chip_smoke.GRAPH_PATHS)
+def test_graph_chunks_are_bitwise_the_eager_chunks(path):
+    """Two chunks through the runner (the capture's replay, then a replay)
+    after its eager first chunk: the parameters, generator state, network
+    state, epsilon moments and every output bitwise the same two chunks
+    through run_chunk from a copy of the carry; one capture; each kernel
+    as many launches in a replay's profiler trace as in an eager chunk's."""
+    _need_card()
+    rec = chip_smoke.graph_bitwise(path, **_graph_kw(path))
+    assert rec["differ"] == []
+    assert rec["captures"] == {chip_smoke.GRAPH_K: 1}
+    assert rec["kernels_replay"] == rec["kernels_eager"]
+    assert rec["kernels_eager"] and rec["launches_eager"]
+    torch.cuda.empty_cache()
+
+
+def _graph_chunks(path, cuts, graph=True):
+    from repro_torch.core import trajectory as TJ
+    body, carry = chip_smoke.graph_path(path, **_graph_kw(path))
+    run = (TJ.ChunkRunner(body).run if graph
+           else (lambda c, k: TJ.run_chunk(body, c, k)))
+    losses = []
+    for k in cuts:
+        carry, out = run(carry, k)
+        losses.append(out["metrics"]["loss"])
+    return chip_smoke.chunk_record(carry, ()), torch.cat(losses)
+
+
+@pytest.mark.parametrize("path", ["flat", "dynamic flat", "tree"])
+def test_graph_chunk_cuts_do_not_change_the_stream(path):
+    """11 rounds cut 1 + 2 + 3 + 2 + 3 or 1 + 5 + 5 through the runner
+    (two lengths captured, replays of each in between), and 11 eager
+    rounds in one chunk: the same parameters, generator state, network
+    state and losses."""
+    _need_card()
+    runs = [_graph_chunks(path, (1, 2, 3, 2, 3)),
+            _graph_chunks(path, (1, 5, 5)),
+            _graph_chunks(path, (11,), graph=False)]
+    for rec, losses in runs[1:]:
+        assert chip_smoke.same_bits(losses, runs[0][1])
+        assert [n for n in rec
+                if not chip_smoke.same_bits(rec[n], runs[0][0][n])] == []
+    torch.cuda.empty_cache()
+
+
+def test_graph_replays_count_their_launches():
+    """Replays of two lengths after the eager first chunk: the profiler's
+    device trace holds dp_mix's kernel once a round, 13 for 13 rounds. A
+    replay runs no Python, so the wrapper counts only the rounds it
+    launched or recorded: the two captures' 3 + 2."""
+    _need_card()
+    from repro_torch.core import trajectory as TJ
+    body, carry = chip_smoke.graph_path("flat")
+    runner = TJ.ChunkRunner(body)
+    carry, _ = runner.run(carry, 1)
+    ops.dp_mix_round.launches = 0
+
+    def chunks(carry):
+        for k in (3, 3, 2, 3, 2):
+            carry, _ = runner.run(carry, k)
+        return carry
+
+    carry, kernels = chip_smoke.traced(lambda: chunks(carry))
+    assert kernels == {"dp_mix_columns": 13}
+    assert ops.dp_mix_round.launches == 5
+    assert runner.trace_counts() == {3: 1, 2: 1}
+    del carry, runner
+    torch.cuda.empty_cache()
+
+
+def test_a_second_capture_of_a_length_is_a_retrace():
+    """A carry of other shapes would need every length captured again: the
+    runner raises RetraceError and captures nothing more."""
+    _need_card()
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.obs import RetraceError
+    body, carry = chip_smoke.graph_path("flat")
+    runner = TJ.ChunkRunner(body)
+    carry, _ = runner.run(carry, 2)
+    carry, _ = runner.run(carry, 2)
+    other = carry._replace(params=carry.params[:-1].clone())
+    with pytest.raises(RetraceError, match="captured a second time"):
+        runner.run(other, 2)
+    assert runner.trace_counts() == {2: 1}
+    del carry, other, runner
+    torch.cuda.empty_cache()
+
+
+def test_graph_resume_from_a_checkpoint_is_bitwise(tmp_path):
+    """The dynamic flat round, 7 rounds through the runner uninterrupted;
+    then 4, a checkpoint (the buffer, the generator's and the network's
+    state), and its restore run on for 3: through the same runner (its
+    buffers take the restored carry by a copy) and through a new one
+    (its first chunk eager). All three end bitwise alike."""
+    _need_card()
+    from repro_torch import checkpoint
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    spec = X.FlatSpec(P.init_worker_params(
+        torch.Generator(device="cuda").manual_seed(0), DWFL_PAPER,
+        chip_smoke.PATH_N, "cuda"))
+    whole, _ = _graph_chunks("dynamic flat", (1, 3, 3))
+    body, carry = chip_smoke.graph_path("dynamic flat")
+    runner = TJ.ChunkRunner(body)
+    for k in (1, 3):
+        carry, _ = runner.run(carry, k)
+    path = str(tmp_path / "ckpt")
+    checkpoint.save_flat(path, carry.params, spec, step=4,
+                         state=checkpoint.trajectory_state(carry))
+
+    def resumed():
+        flat, state, _ = checkpoint.restore_flat(
+            path, spec, state_like=checkpoint.trajectory_state(carry))
+        return checkpoint.resume_carry(state, flat)
+
+    for run in (runner.run, TJ.ChunkRunner(body).run):
+        got, _ = run(resumed(), 3)
+        rec = chip_smoke.chunk_record(got, ())
+        assert [n for n in rec
+                if not chip_smoke.same_bits(rec[n], whole[n])] == []
+    del carry, got, runner
+    torch.cuda.empty_cache()
+
+
+def test_graph_runner_without_donation_keeps_the_carry():
+    """``ChunkRunner(body, donate=False)``: the carry passed in keeps its
+    values, each carry returned is the caller's own (a later replay does
+    not overwrite it), and the chunks are bitwise run_chunk's."""
+    _need_card()
+    from repro_torch.core import trajectory as TJ
+    body, carry = chip_smoke.graph_path("flat")
+    runner = TJ.ChunkRunner(body, donate=False)
+    carry, _ = runner.run(carry, 2)
+    twin = TJ.copy_carry(carry)
+    kept = chip_smoke.chunk_record(carry, ())
+    first, out1 = runner.run(carry, 2)
+    held = chip_smoke.chunk_record(first, ())
+    second, out2 = runner.run(first, 2)
+    for before, after in ((kept, carry), (held, first)):
+        rec = chip_smoke.chunk_record(after, ())
+        assert [n for n in rec if n != "generator"
+                and not chip_smoke.same_bits(rec[n], before[n])] == []
+    got = chip_smoke.chunk_record(second, (out1, out2))
+    twin, w1 = TJ.run_chunk(body, twin, 2)
+    twin, w2 = TJ.run_chunk(body, twin, 2)
+    want = chip_smoke.chunk_record(twin, (w1, w2))
+    assert [n for n in want if not chip_smoke.same_bits(got[n], want[n])] \
+        == []
+    del carry, first, second, twin, runner
     torch.cuda.empty_cache()
