@@ -185,7 +185,22 @@ Phases, each fatal on failure (exit code 1, no result line):
              torch.profiler the device's busy share and the operators that
              take the device's and the host's time, for those rounds and
              for one full-width prefill and decode step, in float32 and in
-             bfloat16;
+             bfloat16; then the decode graph (``decode_graph_phase``, each
+             after a ``[predict]`` line): the decode through
+             ``serve.DecodeRunner`` (one CUDA graph of the step, its first
+             step eager) against the eager ``decode_step`` in turns (graph,
+             eager, eager, graph: the runner's two waves, the second all
+             replays) from one prefilled cache at batch 4, prompt 1024,
+             31 greedy steps: every turn's logits, tokens and cache leaves
+             bitwise the first eager turn's, one capture, no kernel of the
+             repo in a replay's device trace or an eager step's (none
+             counted), the ms a step after the first two beside the
+             floor (the weights' bytes over the HBM rate), tokens/s and
+             peak memory; gemma-2b in float32 and bfloat16, and
+             gemma-2b-sw4096 (the same weights) from a prompt of its 4096
+             window, its cache a ring, decoding past the window; and the
+             serve driver (its decode a DecodeRunner) against the eager
+             greedy loop, the same tokens and logits bitwise;
 8. zamba2  — zamba2-7b at full width and depth (81 layers, 6,751,130,832
              parameters, random from a seed; gemma-2b's freed first): the
              serve CLI as the reference runs it (``--arch zamba2-7b
@@ -196,7 +211,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              the prefill's logits against those without the kernel, prefill
              and decode tokens/s and peak device memory; a reduced zamba2
              prefill and decode on the card against the same on the CPU;
-             the profile of one prefill and one decode step;
+             the profile of one prefill and one decode step; its decode
+             graph;
 9. zoo     — the MoE, xLSTM and encoder-decoder families, whose paths
              launch no kernel (the reference hands ``use_pallas`` to
              nothing there): every run counted at zero launches of every
@@ -215,8 +231,9 @@ Phases, each fatal on failure (exit code 1, no result line):
              (826,647,552): the CLI (1500 encoder frames, prompt 64,
              prefill logits [4, 64, 51865]) and the driver; each model
              freed before the next, each with finite logits, prefill and
-             decode tokens/s and peak device memory; then each of the four
-             at reduced() on the card against the CPU;
+             decode tokens/s and peak device memory, and each one's decode
+             graph (qwen3's at prompt 1024, whisper's at 64); then each of
+             the four at reduced() on the card against the CPU;
 10. lm      — LM training through the DWFL round (the reference's
              ``loss_fn`` passes no ``use_pallas``, so B1 and B2 are its
              kernels): olmo-1b at full width (d_model 2048, 16 heads, d_ff
@@ -461,6 +478,26 @@ CKPT_STEPS = 9
 # What each phase of the dynamic network is expected to show, written
 # before the card ran it; each is printed on a line before its phase.
 PREDICTIONS = {
+    "decode_graph": "each arch's decode (batch 4, prompt 1024, 31 greedy "
+                    "steps; whisper-medium prompt 64; gemma-2b-sw4096 a "
+                    "prompt of its 4096 window, decoding past it) through "
+                    "DecodeRunner bitwise the eager decode_step in every "
+                    "turn (each step's logits, the tokens, every cache "
+                    "leaf), one capture, reused by the second wave, no "
+                    "kernel of the repo in a replay's device trace or an "
+                    "eager step's. The graph's step is the device time "
+                    "under the eager step's launches (PERF 5's busy share "
+                    "x step time), ms a step graph | eager: gemma-2b f32 "
+                    "6.0-8.5 | 24-30 (floor 2.99), bf16 3.5-5.5 | 35-42 "
+                    "(1.50), gemma-2b-sw4096 6.5-9 | 25-31; zamba2-7b 28-40 "
+                    "| 90-150 (8.06); deepseek-moe-16b 30-42 | 80-125 "
+                    "(19.55); qwen3-moe-235b-a22b on 2 layers 9-12.5 | "
+                    "12-14 (7.43: nearly device-bound eager); xlstm-1.3b "
+                    "6-12 | 60-70 (3.43); whisper-medium 12-18 | 35-45 "
+                    "(0.99: its cross-attention projects the 1500 encoder "
+                    "frames' k and v every step, ~0.6 TFLOP in float32 on "
+                    "the CUDA cores, so compute, not the weights, bounds "
+                    "it). Peak allocated within 0.5 GiB of eager's",
     "graphs": "each path's chunks through ChunkRunner bitwise run_chunk's "
               "(parameters, generator state, network state, epsilon "
               "moments, every output), one capture a length, each kernel "
@@ -1206,29 +1243,55 @@ ROUTE_KERNELS = {"columns": ("dp_mix_columns",),
                  "large-N": ("dp_mix_prep", "dp_mix_tiled")}
 
 
-def train_kernels(prof) -> dict:
-    """{kernel: launches} of TRAIN_KERNELS in a torch.profiler trace (a
-    CUDA graph's replays included: the trace sees each kernel it
+def train_kernels(prof, names=TRAIN_KERNELS) -> dict:
+    """{kernel: launches} of ``names`` (TRAIN_KERNELS) in a torch.profiler
+    trace (a CUDA graph's replays included: the trace sees each kernel it
     launches)."""
     from torch.autograd import DeviceType
     got = {}
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA:
-            for name in TRAIN_KERNELS:
+            for name in names:
                 if name in e.key:
                     got[name] = got.get(name, 0) + e.count
     return got
 
 
-def traced(fn):
+def traced(fn, names=TRAIN_KERNELS):
     """``fn()`` under torch.profiler's device trace: (its result,
-    ``train_kernels`` of the trace)."""
+    ``train_kernels`` of the trace for ``names``, the count of device
+    operations in the trace)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
-    return res, train_kernels(prof)
+    ops = sum(e.count for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA)
+    return res, train_kernels(prof, names), ops
+
+
+TRACE_SESSIONS = 3
+
+
+def traced_seen(fn, names=TRAIN_KERNELS):
+    """``traced(fn, names)`` of a repeatable ``fn``, in a new profiler
+    session while the last one recorded no device operation at all (the
+    trace, not the work, came back empty: seen once in a whole run, on a
+    CUDA graph's replay after a dozen earlier sessions), at most
+    TRACE_SESSIONS: (the kernels of ``names`` summed over every session,
+    the last session's device operations, the sessions taken)."""
+    got = {}
+    for n in range(1, TRACE_SESSIONS + 1):
+        _, kernels, ops = traced(fn, names)
+        for name, c in kernels.items():
+            got[name] = got.get(name, 0) + c
+        if ops:
+            break
+        print(f"[trace] profiler session {n} of {TRACE_SESSIONS} recorded no "
+              f"device operation", flush=True)
+    return got, ops, n
 
 
 def cli_launches(what: str, launches: int, device: dict, rounds: int,
@@ -1492,7 +1555,7 @@ def flat_cli(workers: int, steps: int) -> dict:
     ops.dp_mix_round.launches = 0
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    res, device = traced(lambda: train.run([
+    res, device, _ = traced(lambda: train.run([
         "--arch", "dwfl-paper", "--flat-buffer", "--workers", str(workers),
         "--batch-size", "32", "--steps", str(steps), "--eval-every",
         str(steps // 2), "--device", "cuda"]))
@@ -1648,7 +1711,7 @@ def dynamic_cli() -> dict:
             (DYN_SCENARIO, DYN_STEPS, []),
             ("vehicular", 4, ["--total-epsilon", "8", "--accountant", "rdp"])):
         ops.dp_mix_round.launches = 0
-        res, device = traced(lambda: train.run([
+        res, device, _ = traced(lambda: train.run([
             "--arch", "dwfl-paper", "--flat-buffer", "--channel-model",
             "dynamic", "--scenario", scenario, "--workers", str(PATH_N),
             "--batch-size", "32", "--steps", str(steps), "--eval-every",
@@ -3407,9 +3470,11 @@ def zoo_phase() -> dict:
     width on 2 layers (the driver at 4 x 64), xlstm-1.3b at full width and
     depth (the CLI, the driver at 4 x 1024, the prefill's time by block
     kind) and whisper-medium at full width and depth (the CLI, the driver
-    at 4 x 64), each freed before the next; then each at reduced() on the
-    card against the CPU."""
+    at 4 x 64), each with its decode graph (``decode_graph_phase``;
+    qwen3's at a prompt of 1024) and freed before the next; then each at
+    reduced() on the card against the CPU."""
     import torch
+    from repro_torch.launch import serve
     from repro_torch.models import model as M
     wrappers = kernel_wrappers()
     recs = {}
@@ -3425,6 +3490,7 @@ def zoo_phase() -> dict:
     zero_counts(wrappers)
     recs["deepseek profile"] = profile_serve(cfg, params, batch)
     no_launches(f"profile {arch}", wrappers)
+    recs["decode"] = [decode_graph_phase(arch, cfg, params, batch)]
     del params, batch
     torch.cuda.empty_cache()
 
@@ -3437,7 +3503,13 @@ def zoo_phase() -> dict:
     if pf["dense"] is not None or pf["moe"]["k"].shape[0] != layers:
         fail(f"{arch}: prefill cache dense {pf['dense'] is not None}, moe "
              f"{tuple(pf['moe']['k'].shape)}")
-    del params, batch, pf
+    del batch, pf
+    batch = serve.build_prompt_batch(
+        cfg, SERVE_BATCH, SERVE_PROMPT,
+        torch.Generator(device="cuda").manual_seed(1), "cuda")
+    recs["decode"].append(decode_graph_phase(f"{arch}, 2 layers", cfg,
+                                             params, batch))
+    del params, batch
     torch.cuda.empty_cache()
 
     arch = "xlstm-1.3b"
@@ -3447,6 +3519,7 @@ def zoo_phase() -> dict:
     cfg, params, batch = full_model(arch, n_params, prompt, layers)
     recs["xlstm driver"] = zoo_driver(cfg, params, batch, wrappers)
     recs["xlstm layers"] = xlstm_layer_times(cfg, params, batch)
+    recs["decode"].append(decode_graph_phase(arch, cfg, params, batch))
     del params, batch
     torch.cuda.empty_cache()
 
@@ -3459,12 +3532,233 @@ def zoo_phase() -> dict:
     n_params, layers, prompt = ZOO[arch]
     cfg, params, batch = full_model(arch, n_params, prompt, layers)
     recs["whisper driver"] = zoo_driver(cfg, params, batch, wrappers)
+    recs["decode"].append(decode_graph_phase(arch, cfg, params, batch))
     del params, batch
     torch.cuda.empty_cache()
 
     predict("zoo_cpu_vs_cuda")
     recs["cpu vs cuda"] = {a: serve_cpu_vs_cuda(a) for a in ZOO}
     return recs
+
+
+# ---- the decode step as one CUDA graph (DecodeRunner, ROADMAP A7b) ----------
+
+# every kernel of the repo by the name a profiler trace gives it
+REPO_KERNELS = TRAIN_KERNELS + ("flash_fwd", "flash_bf16", "ssd_intra")
+# a decode turn's untimed steps: the runner's eager step and its capture
+DECODE_UNTIMED = 2
+
+
+def decode_start(cfg, params, batch, gen: int = SERVE_GEN) -> tuple:
+    """(cache, token, S): the prompt ``batch`` prefilled, its cache spliced
+    into a serving cache of S + gen positions, and the greedy first token,
+    as ``serve.serve`` starts its decode."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    B, S = batch["tokens"].shape
+    logits, pf = M.prefill(params, batch, cfg)
+    cache = serve.splice_cache(
+        M.init_cache(cfg, B, S + gen, batch["tokens"].device), pf)
+    return cache, torch.argmax(logits[:, -1:], dim=-1), S
+
+
+def ring_start(cfg, params, batch, gen: int = SERVE_GEN) -> tuple:
+    """``decode_start`` for a sliding window W shorter than the cache: the
+    prompt is one whole window (S = W), and the serving cache a ring of W
+    slots, slot i holding position i's k/v (the state the reference's
+    decode from an empty ring reaches at position W; it splices no prefill
+    into a ring), so every decode step writes past the window and evicts
+    the oldest position."""
+    import torch
+    from repro_torch.models import model as M
+    B, S = batch["tokens"].shape
+    W = cfg.sliding_window
+    dev = batch["tokens"].device
+    logits, pf = M.prefill(params, batch, cfg)
+    cache = M.init_cache(cfg, B, S + gen, dev)
+    if S != W or "pos" not in cache or cache["k"].shape[2] != W:
+        fail(f"{cfg.name}: prompt {S} and cache {tuple(cache['k'].shape)} "
+             f"are not one window of {W} in a ring")
+    cache["k"].copy_(pf["k"])
+    cache["v"].copy_(pf["v"])
+    cache["pos"].copy_(torch.arange(W, dtype=torch.int32, device=dev)
+                       .expand_as(cache["pos"]))
+    return cache, torch.argmax(logits[:, -1:], dim=-1), S
+
+
+def decode_greedy(decode, params, cache, tok, S: int,
+                  steps: int = SERVE_GEN - 1) -> tuple:
+    """``steps`` greedy decode steps through ``decode`` (a DecodeRunner, or
+    the eager step) from ``cache`` and the token ``tok``: (each step's
+    logits [B, steps, V], the tokens [B, steps + 1], the cache, the ms a
+    step after the first DECODE_UNTIMED, host clock ending in a
+    synchronize)."""
+    import torch
+    outs, toks = [], [tok]
+    for i in range(steps):
+        if i == DECODE_UNTIMED:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        logits, cache = decode(params, {"tokens": tok}, cache, S + i)
+        tok = torch.argmax(logits, dim=-1)
+        outs.append(logits)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / (steps - DECODE_UNTIMED)
+    return torch.cat(outs, dim=1), torch.cat(toks, dim=1), cache, ms
+
+
+def decode_record(logits, toks, cache, copy: bool) -> dict:
+    """What a graph and an eager decode are held on, by name: each step's
+    logits, the tokens and every cache leaf (copies with ``copy``: the
+    runner's cache is rewritten by its next step)."""
+    from repro_torch.core import exchange as X
+    rec = {"logits": logits, "tokens": toks}
+    for i, t in enumerate(X.tree_flatten(cache)[0]):
+        if t is not None:
+            rec[f"cache/{i}"] = t.clone() if copy else t
+    return rec
+
+
+def decode_differ(got: dict, want: dict) -> list:
+    """The names of ``decode_record``'s leaves whose bits differ."""
+    return sorted(n for n in want if n not in got
+                  or not same_bits(got[n], want[n]))
+
+
+def decode_graph(cfg, params, batch, start=decode_start) -> dict:
+    """One arch's decode through ``serve.DecodeRunner`` (on the card one
+    CUDA graph of the step) against the eager ``decode_step``, in turns
+    (graph, eager, eager, graph) from one prefilled cache (``start``), each
+    turn SERVE_GEN - 1 greedy steps: the graph turns are one runner's two
+    waves (its eager step and its capture in the first, replays alone in
+    the second). Every turn's logits, tokens and cache leaves against the
+    first eager turn's, bitwise; the runner's captures; the repo's kernels
+    in a replay's device trace and in an eager step's; each turn's ms a
+    step after its first two, tokens/s and peak device memory (allocated,
+    reserved, and allocated over what was held at the turn's start: the
+    harness holds other turns' caches, the graph's pool once captured);
+    the floor: every weight read once, its bytes over the HBM rate."""
+    import functools
+    import torch
+    from repro_torch.core import exchange as X
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cache0, tok0, S = start(cfg, params, batch)
+    B, steps = tok0.shape[0], SERVE_GEN - 1
+    runner = serve.DecodeRunner(cfg)
+    eager = functools.partial(M.decode_step, cfg=cfg)
+    ms = {"graph": [], "eager": []}
+    peak = {"graph": [], "eager": []}
+    differ, want, first, held = {}, None, None, {}
+    for i, turn in enumerate(("graph", "eager", "eager", "graph")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held_gib = torch.cuda.memory_allocated() / 2 ** 30
+        logits, toks, cache, step_ms = decode_greedy(
+            runner if turn == "graph" else eager, params, TJ.copy_tree(cache0),
+            tok0, S, steps)
+        ms[turn].append(step_ms)
+        top = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak[turn].append((top, torch.cuda.max_memory_reserved() / 2 ** 30,
+                           top - held_gib))
+        # the runner's cache is its graph's buffer: the record copies it
+        rec = decode_record(logits, toks, cache, copy=turn == "graph")
+        held[turn] = cache
+        del logits, toks, cache
+        if i == 0:
+            first = rec        # held against the first eager turn's
+        elif i == 1:
+            want = rec
+            differ["turn 1 (graph)"] = decode_differ(first, want)
+            first = None
+        else:
+            differ[f"turn {i + 1} ({turn})"] = decode_differ(rec, want)
+        del rec
+    tok, pos = want["tokens"][:, -1:], S + steps
+    # each traced step rewrites the same cache slot with the same values:
+    # a session that recorded nothing is repeated
+    replay, replay_ops, replay_sessions = traced_seen(
+        lambda: runner(params, {"tokens": tok}, held["graph"], pos),
+        REPO_KERNELS)
+    eager_k, eager_ops, eager_sessions = traced_seen(
+        lambda: eager(params, {"tokens": tok}, held["eager"], pos),
+        REPO_KERNELS)
+    captures = runner.trace_counts()
+    del runner, held, want, cache0
+    torch.cuda.empty_cache()
+    weight_bytes = sum(t.numel() * t.element_size()
+                       for t in X.tree_flatten(params)[0])
+    return {"arch": cfg.name, "dtype": cfg.compute_dtype, "batch": B,
+            "prompt": S, "steps": steps,
+            "timed_steps": steps - DECODE_UNTIMED, "step_ms": ms,
+            "tok_s": {k: [B * 1e3 / m for m in v] for k, v in ms.items()},
+            "speedup": [e / g for g, e in zip(ms["graph"],
+                                              reversed(ms["eager"]))],
+            "floor_ms": 1e3 * weight_bytes / HBM_BYTES_PER_S,
+            "weight_gb": weight_bytes / 1e9, "peak_gib": peak,
+            "differ": differ, "captures": captures,
+            "replay_kernels": replay, "replay_device_ops": replay_ops,
+            "replay_trace_sessions": replay_sessions,
+            "eager_kernels": eager_k, "eager_device_ops": eager_ops,
+            "eager_trace_sessions": eager_sessions}
+
+
+def decode_graph_phase(label: str, cfg, params, batch,
+                       start=decode_start) -> dict:
+    """``decode_graph`` of one arch, counted (no kernel wrapper launches
+    on a decode path) and held: graph == eager bitwise in every turn, one
+    capture, no kernel of the repo in a replay's trace or in an eager
+    step's, and traces that saw the replay and the eager step."""
+    wrappers = kernel_wrappers()
+    zero_counts(wrappers)
+    rec = dict(decode_graph(cfg, params, batch, start), label=label)
+    print(f"[decode] {json.dumps(rec)}", flush=True)
+    no_launches(f"decode {label}", wrappers)
+    bad = {turn: names for turn, names in rec["differ"].items() if names}
+    if bad:
+        fail(f"decode {label}: the graph's and the eager decode differ in "
+             f"{bad}")
+    if rec["captures"] != {"decode_step": 1}:
+        fail(f"decode {label}: captures {rec['captures']}, expected one")
+    if rec["replay_kernels"] or rec["eager_kernels"]:
+        fail(f"decode {label}: the repo's kernels in a replay "
+             f"{rec['replay_kernels']}, in an eager step "
+             f"{rec['eager_kernels']}")
+    if not rec["replay_device_ops"] or not rec["eager_device_ops"]:
+        fail(f"decode {label}: in {TRACE_SESSIONS} profiler sessions each, "
+             f"the profiler saw {rec['replay_device_ops']} device operations "
+             f"of a replay and {rec['eager_device_ops']} of an eager step")
+    return rec
+
+
+def serve_graph_entry(cfg, params, batch) -> dict:
+    """The serve driver, as a user calls it (its decode a DecodeRunner's
+    graph on the card), against ``decode_start`` and the eager
+    ``decode_step`` greedy loop: the same tokens and last logits, bitwise;
+    serve()'s decode seconds over its gen - 1 steps (the runner's eager
+    first step and capture included) and the eager loop's ms a step."""
+    import functools
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    res = serve.serve(cfg, params, batch, SERVE_GEN,
+                      device=batch["tokens"].device)
+    cache, tok, S = decode_start(cfg, params, batch)
+    logits, toks, cache, step_ms = decode_greedy(
+        functools.partial(M.decode_step, cfg=cfg), params, cache, tok, S)
+    rec = {"arch": cfg.name, "serve_decode_ms": 1e3 * res["decode_s"],
+           "eager_step_ms": step_ms,
+           "same": bool(torch.equal(res["tokens"], toks)
+                        and same_bits(res["logits"], logits[:, -1:]))}
+    del cache, logits
+    print(f"[decode] serve() {json.dumps(rec)}", flush=True)
+    if not rec["same"]:
+        fail(f"serve {cfg.name}: serve()'s tokens or logits differ from the "
+             f"eager decode's")
+    return rec
 
 
 # ---- phase 10: LM training (ROADMAP A15) ------------------------------------
@@ -4590,7 +4884,7 @@ def fleet_cli() -> dict:
         pass
     ops.dp_mix_round.launches = 0
     torch.cuda.reset_peak_memory_stats()
-    res, device = traced(lambda: train.run([
+    res, device, _ = traced(lambda: train.run([
         "--arch", "dwfl-paper", "--flat-buffer", "--channel-model",
         "dynamic", "--scenario", FLEET_SCENARIO, "--replicates",
         str(FLEET_R), "--workers", str(PATH_N), "--steps", str(FLEET_STEPS),
@@ -5249,7 +5543,7 @@ def graph_bitwise(path: str, K: int = GRAPH_K, **kw) -> dict:
     carry, _ = runner.run(carry, K)
     twin = TJ.copy_carry(carry)
     carry, out1 = runner.run(carry, K)
-    (carry, out2), replay = traced(lambda: runner.run(carry, K))
+    (carry, out2), replay, _ = traced(lambda: runner.run(carry, K))
     got = chunk_record(carry, (out1, out2))
     captures = runner.trace_counts()
     # the graph's pool is freed before the eager chunks: at N = 2048 the
@@ -5258,7 +5552,7 @@ def graph_bitwise(path: str, K: int = GRAPH_K, **kw) -> dict:
     torch.cuda.empty_cache()
     twin, out1 = TJ.run_chunk(body, twin, K)
     zero_counts(wrappers)
-    (twin, out2), eager = traced(lambda: TJ.run_chunk(body, twin, K))
+    (twin, out2), eager, _ = traced(lambda: TJ.run_chunk(body, twin, K))
     counted = {w.__name__: w.launches for w in wrappers if w.launches}
     want = chunk_record(twin, (out1, out2))
     del twin, out1, out2
@@ -6095,7 +6389,25 @@ def main() -> int:
     round_turns(store, "after serving gemma-2b and the profiles")
     profile_serve(cfg, params, batch)
     profile_serve(cfg16, params16, batch)
-    del params, params16, batch
+    # the decode step as one CUDA graph (DecodeRunner) against the eager
+    # step: gemma-2b in float32 and bfloat16, then its sliding-window
+    # config (the same weights) decoding past its window
+    predict("decode_graph")
+    decode_recs = [decode_graph_phase("gemma-2b", cfg, params, batch),
+                   decode_graph_phase("gemma-2b bf16", cfg16, params16,
+                                      batch)]
+    serve_graph_entry(cfg, params, batch)
+    del params16, batch
+    torch.cuda.empty_cache()
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    cfg_sw = get_arch("gemma-2b", "long_500k")
+    batch = serve.build_prompt_batch(
+        cfg_sw, SERVE_BATCH, cfg_sw.sliding_window,
+        torch.Generator(device="cuda").manual_seed(1), "cuda")
+    decode_recs.append(decode_graph_phase("gemma-2b-sw4096", cfg_sw, params,
+                                          batch, ring_start))
+    del params, batch
     torch.cuda.empty_cache()
 
     # 8. serve: zamba2-7b at full width and depth, the CLI and the kernel
@@ -6108,13 +6420,19 @@ def main() -> int:
                                      others=(fa_ops.flash_attention,))
     serve_cpu_vs_cuda("zamba2-7b")
     profile_serve(cfg, params, batch)
+    decode_recs.append(decode_graph_phase("zamba2-7b", cfg, params, batch))
     del params, batch
     torch.cuda.empty_cache()
 
     # 9. the zoo: the MoE, xLSTM and encoder-decoder families at full width
     # (no kernel on their paths: each run counted at zero launches), and
-    # each at reduced() on the card against the CPU
-    zoo_phase()
+    # each at reduced() on the card against the CPU; each one's decode
+    # graph
+    decode_recs += zoo_phase()["decode"]
+    print("[decode] summary " + json.dumps([{
+        "label": r["label"], "graph_ms": r["step_ms"]["graph"],
+        "eager_ms": r["step_ms"]["eager"], "floor_ms": r["floor_ms"],
+        "peak_gib": r["peak_gib"]} for r in decode_recs]), flush=True)
 
     # 10. LM training: olmo-1b's tree round at full depth (one dp_perturb
     # launch a round) and flat round on 4 of 16 layers (one dp_mix launch a

@@ -11,7 +11,9 @@ reference, the config is reduced, each wave prints its requests'
 per-request stop lengths (drawn from ``np.random.default_rng(wave)``),
 and every request decodes gen - 1 steps: the stops are printed, not
 applied. ``serve_waves`` is the loop, a function of the config, so a
-caller can run it at full size.
+caller can run it at full size. Every wave decodes through one
+``DecodeRunner`` (the reference's one jitted decode program): on the card
+the waves share one CUDA graph of the step, captured in the first wave.
 """
 import argparse
 import time
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.registry import ARCHS, get_arch
-from repro_torch.launch.serve import build_prompt_batch, splice_cache
+from repro_torch.launch.serve import (DecodeRunner, build_prompt_batch,
+                                      splice_cache)
 from repro_torch.models import model as M
 from repro_torch.runtime import resolve_device
 
@@ -38,9 +41,11 @@ def random_prompts(cfg, waves: int, B: int, S: int, seed: int = 0,
 def serve_waves(cfg, params, prompts, gen: int, device="cuda"):
     """For each prompt batch of ``prompts`` (one a wave): prefill, splice
     the prefill's cache into a cache of S + gen positions, take the
-    greedy token, then decode gen - 1 steps. Yields {"wave", "tokens"
-    [B, gen], "logits" (the last step's), "stops" [B]}."""
+    greedy token, then decode gen - 1 steps, every wave through one
+    ``DecodeRunner``. Yields {"wave", "tokens" [B, gen], "logits" (the
+    last step's), "stops" [B]}."""
     dev = resolve_device(device)
+    decode = DecodeRunner(cfg)
     for w, batch in enumerate(prompts):
         x = batch["tokens"] if "tokens" in batch else batch["embeds"]
         B, S = x.shape[0], x.shape[1]
@@ -52,8 +57,7 @@ def serve_waves(cfg, params, prompts, gen: int, device="cuda"):
         stops = np.random.default_rng(w).integers(gen // 2, gen, B)
         out = [tok]
         for i in range(gen - 1):
-            logits, cache = M.decode_step(params, {"tokens": tok}, cache,
-                                          S + i, cfg)
+            logits, cache = decode(params, {"tokens": tok}, cache, S + i)
             tok = torch.argmax(logits, dim=-1)
             out.append(tok)
         yield {"wave": w, "tokens": torch.cat(out, dim=1), "logits": logits,

@@ -42,7 +42,6 @@ collective over the mesh's axis (``_consensus``); nothing else is.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -54,7 +53,7 @@ from repro_torch.core import protocol as protocol_lib
 from repro_torch.net.sparse import SparseW, cat_w, stack_w
 from repro_torch.net.state import (FIELDS, TracedChannelState, concat_states,
                                    stack_states)
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import capture_graph, resolve_device
 
 _INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
 
@@ -428,13 +427,18 @@ def _state(carry: TrajCarry) -> tuple:
     return carry.params, carry.net, carry.eps
 
 
+def copy_tree(tree):
+    """A tree of copies: its tensors cloned, other leaves kept."""
+    return _map(torch.clone, tree)
+
+
 def copy_carry(carry: TrajCarry) -> TrajCarry:
     """A carry of copies: its tensors cloned, its generator a new one in
     the same state (a carry to keep while ``ChunkRunner`` consumes the
     original)."""
     gen = torch.Generator(device=carry.generator.device)
     gen.set_state(carry.generator.get_state())
-    return TrajCarry(gen, *_map(torch.clone, _state(carry)))
+    return TrajCarry(gen, *copy_tree(_state(carry)))
 
 
 class _Captured(NamedTuple):
@@ -544,8 +548,7 @@ class ChunkRunner:
                 s.copy_(t)
 
     def _capture(self, generator: torch.Generator, k: int) -> _Captured:
-        graph = torch.cuda.CUDAGraph()
-        if not hasattr(graph, "register_generator_state"):
+        if not hasattr(torch.cuda.CUDAGraph, "register_generator_state"):
             raise RuntimeError(
                 f"ChunkRunner: torch {torch.__version__} has no "
                 f"CUDAGraph.register_generator_state, so a graph cannot "
@@ -553,38 +556,19 @@ class ChunkRunner:
         if self._gen is None:
             self._gen = torch.Generator(device=generator.device)
             self._stream = torch.cuda.Stream(generator.device)
-        graph.register_generator_state(self._gen)
         carry = TrajCarry(self._gen, *self._static)
-        mode = torch.cuda.get_sync_debug_mode()
-        # a capture synchronizes nothing, and any sync inside it fails the
-        # capture: the sync guard is off for its set-up (freeing the
-        # cache, so that the graph's pool can take the memory it needs)
-        torch.cuda.set_sync_debug_mode(0)
-        try:
-            torch.cuda.empty_cache()
-            self._stream.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(self._stream):
-                graph.capture_begin(pool=self._pool)
-                ended = False
-                try:
-                    new, out = self.program(k)(carry)
-                    for s, t in zip(tree_tensors(self._static),
-                                    tree_tensors(_state(new))):
-                        if s is not t:
-                            s.copy_(t)
-                    ended = True
-                    graph.capture_end()
-                except Exception as e:
-                    if not ended:
-                        # the capture is broken already; end it all the same
-                        with contextlib.suppress(RuntimeError):
-                            graph.capture_end()
-                    raise RuntimeError(
-                        f"ChunkRunner could not capture the {k}-round chunk "
-                        f"as a CUDA graph (ROADMAP A7b): {e}") from e
-            torch.cuda.current_stream().wait_stream(self._stream)
-        finally:
-            torch.cuda.set_sync_debug_mode(mode)
+
+        def chunk():
+            new, out = self.program(k)(carry)
+            for s, t in zip(tree_tensors(self._static),
+                            tree_tensors(_state(new))):
+                if s is not t:
+                    s.copy_(t)
+            return out
+
+        graph, out = capture_graph(
+            chunk, self._stream, self._pool,
+            what=f"ChunkRunner's {k}-round chunk", generators=(self._gen,))
         if self._pool is None:
             self._pool = graph.pool()
         entry = self._graphs[k] = _Captured(graph, out)

@@ -12,7 +12,10 @@ transformer, ssd_scan in zamba2's Mamba2 blocks) is the library call
 ``model.prefill(params, batch, cfg, use_pallas=True)``, which
 ``serve(..., use_pallas=True)`` takes. The MoE, xLSTM and
 encoder-decoder families take ``use_pallas`` and launch no kernel, as in
-the reference. The weights are random, drawn from ``--seed``.
+the reference. The weights are random, drawn from ``--seed``. On the
+card the decode runs as one CUDA graph of the step (``DecodeRunner``, the
+reference's jitted decode program), captured at the second step and
+replayed for every later one.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ import time
 import torch
 
 from repro_torch.configs.registry import ARCHS, get_arch
+from repro_torch.core.exchange import tree_flatten
 from repro_torch.models import model as M
-from repro_torch.runtime import resolve_device
+from repro_torch.runtime import capture_graph, resolve_device
 
 
 def build_prompt_batch(cfg, B: int, S: int, generator: torch.Generator,
@@ -67,6 +71,104 @@ def splice_cache(full, prefill):
     return full
 
 
+def _shapes(tree):
+    """A tree's structure and its tensors' (shape, dtype, device)s."""
+    leaves, structure = tree_flatten(tree)
+    return structure, [None if t is None else (tuple(t.shape), t.dtype,
+                                               t.device) for t in leaves]
+
+
+class DecodeRunner:
+    """The reference's jitted decode program (``jax.jit(lambda p, b, c, i:
+    M.decode_step(p, b, c, i, cfg))``, with the cache donated):
+    ``runner(params, batch, cache, cache_index)`` returns
+    ``M.decode_step``'s (logits, cache). ``trace_counts()`` is
+    {"decode_step": 1} once the graph is captured, {} before.
+
+    The cache's device decides how a step runs:
+
+    * on the CPU (or the meta device), ``decode_step`` eagerly;
+    * on a card, one CUDA graph of the step, replayed. The runner's first
+      step runs eagerly: CUDA, cuBLAS and the allocator set themselves up
+      there, which no capture may do. It is a real step of the sequence.
+      The graph is captured at the second step, and that step and every
+      later one is a replay.
+
+    The graph reads and rewrites static buffers. The batch (the [B, 1]
+    tokens, or a vlm's [B, 1, d] embeddings) and the int32 position are
+    the runner's, written before each replay. The cache is adopted from
+    the caller at the capture: the cache passed in is consumed (the
+    reference's ``donate_argnums=(2,)``), and the cache returned is the
+    runner's, rewritten in place by the next step. A cache that is not
+    the runner's (a new wave's) is copied into it. The parameters are held
+    by reference, never copied. The logits are copied out of the graph's
+    pool.
+
+    One runner serves one parameter tree and one batch and cache shape: a
+    params tree of other tensors, or a batch or cache of other shapes or
+    dtypes, raises ``obs.RetraceError`` (it would need a second capture).
+    A capture that fails raises, naming ROADMAP A7b; nothing falls back to
+    the eager step on the card."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+        self._params = self._held = self._shapes = None
+        self._stream = self._graph = self._logits = None
+        self._batch = self._index = self._cache = None
+
+    def trace_counts(self) -> dict:
+        # one capture: anything that would need a second raises in _check
+        return {} if self._graph is None else {"decode_step": 1}
+
+    def __call__(self, params, batch, cache, cache_index):
+        self._check(params, batch, cache)
+        dev = M.cache_device(cache)
+        if dev.type != "cuda":
+            return M.decode_step(params, batch, cache, cache_index, self.cfg)
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(dev)
+            return M.decode_step(params, batch, cache, cache_index, self.cfg)
+        if self._graph is None:
+            self._capture(batch, cache, dev)
+        for name, t in batch.items():
+            self._batch[name].copy_(t)
+        if torch.is_tensor(cache_index):
+            self._index.copy_(cache_index)
+        else:
+            self._index.fill_(cache_index)
+        for s, t in zip(tree_flatten(self._cache)[0], tree_flatten(cache)[0]):
+            if s is not t:
+                s.copy_(t)
+        self._graph.replay()
+        return self._logits.clone(), self._cache
+
+    def _check(self, params, batch, cache) -> None:
+        from repro_torch.obs.guard import RetraceError
+        held = [(t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                for t in tree_flatten(params)[0] if torch.is_tensor(t)]
+        shapes = (_shapes(batch), _shapes(cache))
+        if self._held is None:
+            self._params, self._held, self._shapes = params, held, shapes
+            return
+        if held != self._held:
+            raise RetraceError("DecodeRunner: a params tree of other tensors "
+                               "than its graph reads (it would be captured "
+                               "a second time)")
+        if shapes != self._shapes:
+            raise RetraceError("DecodeRunner: a batch or cache of other "
+                               "shapes than its graph's buffers (it would "
+                               "be captured a second time)")
+
+    def _capture(self, batch, cache, dev) -> None:
+        self._batch = {name: t.clone() for name, t in batch.items()}
+        self._index = torch.zeros((), dtype=torch.int32, device=dev)
+        self._cache = cache
+        self._graph, self._logits = capture_graph(
+            lambda: M.decode_step(self._params, self._batch, self._cache,
+                                  self._index, self.cfg)[0],
+            self._stream, what=f"DecodeRunner's {self.cfg.name} decode step")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -74,7 +176,8 @@ def _sync(device: torch.device) -> None:
 
 def serve(cfg, params, batch, gen: int, *, use_pallas: bool = False,
           device="cuda"):
-    """Prefill ``batch``, then decode ``gen - 1`` tokens greedily. Returns
+    """Prefill ``batch``, then decode ``gen - 1`` tokens greedily through a
+    ``DecodeRunner`` (on the card one CUDA graph of the step). Returns
     {"prefill_s", "decode_s", "tokens" [B, gen], "prefill_logits",
     "logits" (the last decode step's)}. Times are host clock around work
     that ends in a device synchronize."""
@@ -95,9 +198,10 @@ def serve(cfg, params, batch, gen: int, *, use_pallas: bool = False,
     prefill_logits = logits
     tok = torch.argmax(logits[:, -1:], dim=-1)
     out = [tok]
+    decode = DecodeRunner(cfg)
     t0 = time.perf_counter()
     for i in range(gen - 1):
-        logits, cache = M.decode_step(params, {"tokens": tok}, cache, S + i, cfg)
+        logits, cache = decode(params, {"tokens": tok}, cache, S + i)
         tok = torch.argmax(logits, dim=-1)
         out.append(tok)
     _sync(dev)

@@ -20,9 +20,11 @@ for the roofline's useful-compute ratio. The dtypes are
 ``DRYRUN_OVERRIDES``' bfloat16. The reference's ``remat`` (JAX
 activation checkpointing under ``lax.scan``) has no reader in the port,
 so it is left out. The train step's noise comes from a
-``torch.Generator`` where the reference passes a key; the decode step's
-``idx`` is a Python int (the port's decode takes the cache position from
-the host), the last position of the cache.
+``torch.Generator`` where the reference passes a key. The decode step's
+``idx`` is an int32 0-d tensor on ``device`` holding the cache's last
+position, replicated, as the reference's ``_sds((), jnp.int32)``: the
+cache position is a device value, never read by the host (the meta
+device proves it: a step that read it would fail there).
 """
 from __future__ import annotations
 
@@ -194,9 +196,11 @@ def build_case(arch: str, shape: str, mesh=None, device="meta", *,
         cfg, B, shp.seq_len, True).items()}
     specs = (pspecs, {k: _lead_spec(dax, v.ndim) for k, v in batch.items()},
              sh.cache_specs(cache, mesh=mesh, data_axes=dax, batch_size=B),
-             None)
+             ())
+    # the cache's last position
+    idx = torch.full((), shp.seq_len - 1, dtype=torch.int32, device=dev)
     tokens = float(B)
-    return Case(name, step, (params, batch, cache, shp.seq_len - 1), tokens,
+    return Case(name, step, (params, batch, cache, idx), tokens,
                 2.0 * n_params * act * tokens, n_params, "decode", specs,
                 cfg, mesh, shp.seq_len)
 

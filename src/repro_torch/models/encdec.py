@@ -107,9 +107,13 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     tokens = batch["tokens"]
     x = L.embed_apply(params["embed"], tokens, cfg).to(L._dtype(cfg.compute_dtype))
     B, Sq = x.shape[0], x.shape[1]
-    offset = int(cache_index) if decode else 0
-    pe = params["embed"]["pos"][offset:offset + Sq]
-    positions = (torch.arange(Sq, device=x.device) + offset)[None].expand(B, Sq)
+    offset = cache_index if decode else 0
+    positions = torch.arange(Sq, device=x.device) + offset
+    # decode reads the learned positions at the device index (the
+    # reference's dynamic_slice_in_dim)
+    pe = (params["embed"]["pos"].index_select(0, positions) if decode
+          else params["embed"]["pos"][:Sq])
+    positions = positions[None].expand(B, Sq)
     x = x + pe[None].to(x.dtype)
 
     caches = []

@@ -50,7 +50,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     updates the cache it is given in place and returns it."""
     x = T._embed_inputs(params, batch, cfg)
     B, Sq = x.shape[0], x.shape[1]
-    offset = int(cache_index) if mode == "decode" else 0
+    offset = cache_index if mode == "decode" else 0
     positions = T._positions_for(batch, cfg, Sq, B, x.device, offset=offset)
     k, n_super, n_rem = split_layers(cfg)
     shared = params["shared_attn"]

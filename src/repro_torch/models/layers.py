@@ -16,7 +16,8 @@ the ring-buffer cache of sliding-window configs), and with
 ``use_pallas=True`` the flash-attention kernel
 (``kernels/flash_attention/ops.py``: the CUDA kernel on the card, its
 plain twin on the CPU). Decode writes the new token's k/v into the cache
-it is given, in place, and returns that cache.
+it is given, in place (``index_copy_`` at the position, a device
+tensor), and returns that cache.
 """
 from __future__ import annotations
 
@@ -240,8 +241,9 @@ def _decode_attention(q, k_cache, v_cache, cache_len, cfg: ModelConfig,
                       window_pos=None):
     """Single-token attention against a cache. q: [B,1,H,hd]; caches
     [B,Smax,Hkv,hd] with the new token's k/v already written; cache_len:
-    the count of valid entries. ``window_pos`` (ring-buffer caches): the
-    absolute position held by each slot, -1 where empty."""
+    the count of valid entries, a 0-d device tensor. ``window_pos``
+    (ring-buffer caches): the absolute position held by each slot, -1
+    where empty."""
     hd = q.shape[-1]
     scores = _gqa_scores(q, k_cache) / math.sqrt(hd)             # [B,H,1,Smax]
     if window_pos is None:
@@ -266,18 +268,22 @@ def attention_apply(params, x: torch.Tensor, cfg: ModelConfig, positions, *,
     if mode == "decode":
         if cache is None or S != 1:
             raise ValueError("decode takes one token and a cache")
-        idx = int(cache_index)
+        # the position is a 0-d device tensor (model.decode_step makes an
+        # int one); the slot, the writes and the mask are computed from it
+        # on the device, so a step reads no value on the host and one CUDA
+        # graph serves every step
+        idx = cache_index
+        k, v = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
         if "pos" in cache:  # ring buffer (sliding window)
-            slot = idx % cache["k"].shape[1]
-            cache["k"][:, slot] = k[:, 0]
-            cache["v"][:, slot] = v[:, 0]
-            cache["pos"][slot] = idx
-            o = _decode_attention(q, cache["k"], cache["v"], idx + 1, cfg,
-                                  window_pos=cache["pos"])
+            slot = torch.remainder(idx, cache["k"].shape[1]).long().view(1)
+            window_pos = cache["pos"]
+            window_pos.index_copy_(0, slot, idx.view(1).to(window_pos.dtype))
         else:
-            cache["k"][:, idx:idx + 1] = k
-            cache["v"][:, idx:idx + 1] = v
-            o = _decode_attention(q, cache["k"], cache["v"], idx + 1, cfg)
+            slot, window_pos = idx.long().view(1), None
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        o = _decode_attention(q, cache["k"], cache["v"], idx + 1, cfg,
+                              window_pos=window_pos)
         new_cache = cache
     else:
         if use_pallas:

@@ -63,6 +63,8 @@ def _forward(params, batch, cfg: ModelConfig, mode, cache, cache_index,
     for the others."""
     if cfg.family == "mlp":
         return (*mlp.forward(params, batch, cfg), None)
+    if mode == "decode":
+        cache_index = index_tensor(cache_index, cache_device(cache))
     out = _module(cfg).forward(params, batch, cfg, mode=mode, cache=cache,
                                cache_index=cache_index, use_pallas=use_pallas)
     return out if len(out) == 3 else (*out, None)
@@ -148,8 +150,34 @@ def prefill(params, batch, cfg: ModelConfig, use_pallas: bool = False):
 
 
 def decode_step(params, batch, cache, cache_index, cfg: ModelConfig):
+    """One new token against ``cache``, which it updates in place.
+    ``cache_index``, the position the token takes, is an int or a 0-d
+    integer tensor on the cache's device (the reference's traced int32
+    scalar); an int becomes an int32 tensor there once, at entry
+    (``index_tensor``), so every layer reads a tensor and the step
+    reads no value on the host: one CUDA graph serves every step
+    (``launch.serve.DecodeRunner``)."""
     return forward(params, batch, cfg, mode="decode", cache=cache,
                    cache_index=cache_index)
+
+
+def index_tensor(cache_index, device) -> torch.Tensor:
+    """A decode step's position as a 0-d integer tensor on ``device`` (the
+    reference's traced int32 scalar): a tensor as it is, an int as an
+    int32 tensor made by a fill (no copy from the host)."""
+    if torch.is_tensor(cache_index):
+        return cache_index
+    return torch.full((), cache_index, dtype=torch.int32, device=device)
+
+
+def cache_device(cache) -> torch.device:
+    """The device of a cache tree's first tensor."""
+    if torch.is_tensor(cache):
+        return cache.device
+    for sub in (cache.values() if isinstance(cache, dict) else cache):
+        if sub is not None:
+            return cache_device(sub)
+    raise ValueError("a decode cache holds no tensor")
 
 
 # ---------------------------------------------------------------------------

@@ -66,7 +66,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     None."""
     x = T._embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
-    offset = int(cache_index) if mode == "decode" else 0
+    offset = cache_index if mode == "decode" else 0
     positions = T._positions_for(batch, cfg, S, B, x.device, offset=offset)
     decode = mode == "decode"
 

@@ -94,7 +94,7 @@ def forward(params, batch, cfg: ModelConfig, *, mode: str = "train",
     hd] k/v; decode updates the stacked cache it is given in place."""
     x = _embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
-    offset = int(cache_index) if mode == "decode" else 0
+    offset = cache_index if mode == "decode" else 0
     positions = _positions_for(batch, cfg, S, B, x.device, offset=offset)
 
     caches = []

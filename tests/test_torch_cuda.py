@@ -34,7 +34,12 @@ max|out|), and C2's refusal of olmo-1b's full-depth flat buffer at N =
 moments and every output) on chip_smoke's GRAPH_PATHS (the sparse round
 at N = 64), whatever the chunk cuts, after a checkpoint's resume and
 without donation; a replay's kernels in the profiler's trace; a carry of
-other shapes refused."""
+other shapes refused. ``launch.serve.DecodeRunner``'s decode graph
+bitwise the eager decode_step (no tolerance: each step's logits, the
+tokens and every cache leaf) for each LM family at reduced size and a
+ring buffer past its window, two waves of the batched example on one
+capture, and a step that reads the position on the host refused at its
+capture (``-k decode_graph``)."""
 import importlib.util
 from pathlib import Path
 
@@ -1252,7 +1257,7 @@ def test_graph_replays_count_their_launches():
             carry, _ = runner.run(carry, k)
         return carry
 
-    carry, kernels = chip_smoke.traced(lambda: chunks(carry))
+    carry, kernels, _ = chip_smoke.traced(lambda: chunks(carry))
     assert kernels == {"dp_mix_columns": 13}
     assert ops.dp_mix_round.launches == 5
     assert runner.trace_counts() == {3: 1, 2: 1}
@@ -1341,4 +1346,112 @@ def test_graph_runner_without_donation_keeps_the_carry():
     assert [n for n in want if not chip_smoke.same_bits(got[n], want[n])] \
         == []
     del carry, first, second, twin, runner
+    torch.cuda.empty_cache()
+
+
+# ---- DecodeRunner: the decode step as one CUDA graph -----------------------
+
+def _decode_case(arch, shape=None):
+    """A reduced arch on the card, seed 0, and a prompt batch of 4: 64
+    positions, or one whole window for a sliding-window config (its
+    decode then runs past the window, ``chip_smoke.ring_start``)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    cfg = (get_arch(arch, shape) if shape else get_arch(arch)).reduced()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = M.init_params(gen, cfg, "cuda")
+    batch = serve.build_prompt_batch(cfg, 4, cfg.sliding_window or 64, gen,
+                                     "cuda")
+    return cfg, params, batch
+
+
+@pytest.mark.parametrize("arch,shape", [
+    ("gemma-2b", None), ("gemma-2b", "long_500k"), ("zamba2-7b", None),
+    ("deepseek-moe-16b", None), ("xlstm-1.3b", None),
+    ("whisper-medium", None)])
+def test_decode_graph_is_bitwise_the_eager_step(arch, shape):
+    """chip_smoke's decode turns at reduced size (gemma-2b's long_500k
+    config: a 32-slot ring, decoded 31 steps past its window): the
+    runner's two waves (its eager step, the capture and replays, then
+    replays alone) and a second eager turn bitwise the first eager turn
+    (each step's logits, the tokens, every cache leaf); one capture; no
+    kernel of the repo in a replay's trace or an eager step's, and a trace
+    that saw the replay."""
+    _need_card()
+    cfg, params, batch = _decode_case(arch, shape)
+    start = chip_smoke.ring_start if shape else chip_smoke.decode_start
+    rec = chip_smoke.decode_graph(cfg, params, batch, start)
+    assert len(rec["differ"]) == 3
+    assert all(names == [] for names in rec["differ"].values()), rec["differ"]
+    assert rec["captures"] == {"decode_step": 1}
+    assert rec["replay_kernels"] == rec["eager_kernels"] == {}
+    assert rec["replay_device_ops"] > 0
+    torch.cuda.empty_cache()
+
+
+def test_decode_graph_batched_example_shares_one_capture(monkeypatch):
+    """examples/port_serve_batched.py's loop, two waves at reduced
+    gemma-2b: one DecodeRunner, one capture in the first wave, replayed by
+    the second; each wave's tokens and last logits bitwise the same loop
+    on the eager decode_step."""
+    _need_card()
+    import functools
+    from repro_torch.launch import serve
+    from repro_torch.models import model as M
+    ex = chip_smoke.load_entry("examples/port_serve_batched.py")
+    cfg = ex.get_arch("gemma-2b").reduced()
+    params = M.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           cfg, "cuda")
+    runners = []
+
+    class Watched(serve.DecodeRunner):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            runners.append(self)
+
+    def waves(runner):
+        monkeypatch.setattr(ex, "DecodeRunner", runner)
+        prompts = ex.random_prompts(cfg, 2, 4, 48, 1, "cuda")
+        return [(r["tokens"], r["logits"])
+                for r in ex.serve_waves(cfg, params, prompts, 24, "cuda")]
+
+    got = waves(Watched)
+    want = waves(lambda cfg: functools.partial(M.decode_step, cfg=cfg))
+    assert len(runners) == 1
+    assert runners[0].trace_counts() == {"decode_step": 1}
+    assert len(got) == len(want) == 2
+    for (gt, gl), (wt, wl) in zip(got, want):
+        assert torch.equal(gt, wt) and chip_smoke.same_bits(gl, wl)
+    torch.cuda.empty_cache()
+
+
+def test_decode_graph_refuses_a_host_read(monkeypatch):
+    """A decode step that reads the position on the host (int() of the
+    device tensor in the attention): the runner's eager first step runs,
+    its capture raises naming ROADMAP A7b, and so does the next call:
+    nothing falls back to the eager step. The card runs on after it."""
+    _need_card()
+    from repro_torch.launch import serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg, params, batch = _decode_case("gemma-2b")
+    cache, tok, S = chip_smoke.decode_start(cfg, params, batch)
+    plain = L._decode_attention
+
+    def reads(q, k_cache, v_cache, cache_len, cfg, window_pos=None):
+        assert int(cache_len) > 0
+        return plain(q, k_cache, v_cache, cache_len, cfg, window_pos)
+
+    monkeypatch.setattr(L, "_decode_attention", reads)
+    runner = serve.DecodeRunner(cfg)
+    _, cache = runner(params, {"tokens": tok}, cache, S)
+    for pos in (S + 1, S + 2):
+        with pytest.raises(RuntimeError, match="ROADMAP A7b"):
+            runner(params, {"tokens": tok}, cache, pos)
+    assert runner.trace_counts() == {}
+    monkeypatch.setattr(L, "_decode_attention", plain)
+    logits, _ = M.decode_step(params, {"tokens": tok}, cache, S + 1, cfg)
+    assert bool(torch.isfinite(logits).all())
+    del runner, cache
     torch.cuda.empty_cache()

@@ -205,7 +205,8 @@ def test_decode_attention_matches_reference(arch, window):
         want, jc = RL.attention_apply(jpj, jnp.asarray(xs[i]), rcfg, jpos,
                                       mode="decode", cache=jc, cache_index=i)
         got, tc = L.attention_apply(tp, torch.tensor(xs[i]), cfg, tpos,
-                                    mode="decode", cache=tc, cache_index=i)
+                                    mode="decode", cache=tc,
+                                    cache_index=torch.tensor(i, dtype=torch.int32))
         _close(got, want, 2e-5)
     for k in jc:
         _close(tc[k], jc[k], 1e-5, scale=1.0)

@@ -6,9 +6,9 @@ For every (arch x shape) pair on the single-pod (16, 16) mesh, and for
 one pair of each kind on the two-pod mesh: ``n_params``, ``tokens`` and
 ``kind`` equal, ``model_flops`` within rel 1e-12, and every argument
 leaf's shape and dtype equal, and its placement the reference's
-``PartitionSpec``. Two arguments have no tensor counterpart and are left
-out: the train step's key (a ``torch.Generator`` in the port) and the
-decode step's ``idx`` (a Python int, the cache's last position).
+``PartitionSpec``; the decode step's ``idx`` too, an int32 0-d tensor,
+replicated. The train step's key has no tensor counterpart (a
+``torch.Generator`` in the port) and is left out.
 """
 from __future__ import annotations
 
@@ -58,7 +58,7 @@ def _dtype(x) -> str:
 
 
 def _check_args(ref_case, case):
-    n = 2 if case.kind == "train" else (2 if case.kind == "prefill" else 3)
+    n = 4 if case.kind == "decode" else 2
     for i in range(n):
         want = _ref_leaves(ref_case.args[i])
         got = dict(sh.leaves_with_path(case.args[i]))
