@@ -133,7 +133,14 @@ Phases, each fatal on failure (exit code 1, no result line):
              without the graph in turns (the static flat CLI at its
              defaults, the static flat round with and without
              telemetry, the dynamic flat, tree, fleet and sparse rounds,
-             the last with its peak memory); then sharding and
+             the last with its peak memory); then the LM rounds through
+             the runner (``graph_lm``: olmo-1b's tree round at full depth
+             on N = 2 and flat round on 4 of 16 layers on N = 4, each one
+             CUDA graph of a round replayed for a chunk's rounds, held
+             to two eager runs of the same chunks, themselves held to
+             each other, records on the host; B2 or B1 once a round in a
+             replay's trace; ms a round and peak memory with and without
+             the graph in turns); then sharding and
              checkpoints: dp_mix over the model axis's S = 2 and
              4 column windows (logical, one card: one launch over the
              padded buffer) bitwise the one launch over the unpadded
@@ -154,7 +161,11 @@ Phases, each fatal on failure (exit code 1, no result line):
              or unsharded twin; the model-axis and worker-axis
              trajectories with telemetry on, on their one-rank groups,
              rows and carry.eps bitwise the logical mode's, and
-             telemetry's cost on them in turns; with two cards (and alone
+             telemetry's cost on them in turns; the model-axis round
+             without and with telemetry and the (1, 1) fleet through
+             ChunkRunner on those groups (``graph_mesh``: their NCCL
+             collectives captured, held as ``graph_lm`` holds the LM
+             rounds, ms a round in turns); with two cards (and alone
              with ``--two-cards``), the CLI at --model-shards 2 and
              --worker-shards 2 on two torchrun-style ranks against the
              logical and unsharded runs, each with a run log that rank 0
@@ -254,7 +265,8 @@ Phases, each fatal on failure (exit code 1, no result line):
              per-leaf kernel and the plain version, timed beside its bound
              and ``torch._foreach_add``; the CLI (``--arch olmo-1b
              --workers 2 --batch-size 4 --seq-len 128 --steps 3``, the
-             tree path, no kernel) and its ``--flat-buffer`` run refused
+             tree path through ChunkRunner's one-round graph, no kernel)
+             and its ``--flat-buffer`` run refused
              by C2; a reduced olmo-1b round, flat and tree, on the card
              against the CPU.
 
@@ -306,6 +318,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import io
 import json
 import math
 import shutil
@@ -838,11 +852,39 @@ PREDICTIONS = {
                        "11.2 ms, the gradients' ravel and the clip most of "
                        "the rest",
     "lm_cli": "python -m repro_torch.launch.train --arch olmo-1b "
-              "--workers 2 --batch-size 4 --seq-len 128 --steps 3: 4 "
-              "rounds, no kernel launched (the CLI never sets use_pallas), "
-              "every loss finite, 2.5-4 rounds/s over the loop with its "
-              "first round and eval, peak 45-67 GiB; with --flat-buffer it exits naming C2 before a "
-              "round",
+              "--workers 2 --batch-size 4 --seq-len 128 --steps 3: it "
+              "prints 'executor: ChunkRunner (one CUDA graph of a round', "
+              "4 rounds in chunks of 1 (eager, with the eval) and 3 (the "
+              "round's graph replayed 3 times), no kernel launched (the CLI "
+              "never sets use_pallas), every loss finite, 1.8-2.8 "
+              "rounds/s over the loop with its first round, eval and "
+              "capture (1.72-2.47 eager, PERF 6), peak 60-68 GiB; with "
+              "--flat-buffer it exits naming C2 before a round",
+    "graph_lm": "olmo-1b's tree round at full depth (N = 2, use_pallas) "
+                "and flat round on 4 of 16 layers (N = 4) through "
+                "ChunkRunner, 2 rounds a chunk: two eager runs of the same "
+                "chunks bitwise each other (the embedding's backward is a "
+                "sorted index_put, the loss's gather takes one label a "
+                "row) and the graph bitwise them; one capture; "
+                "dp_perturb_kernel (tree) or dp_mix_columns (flat) once a "
+                "round in a replay's trace and an eager chunk's. In turns, "
+                "ms a round graph | eager: tree 315-335 | 382-392 (the "
+                "device's 83.5% busy share of the round), flat 160-185 | "
+                "174-199; peak allocated under the graph within 1 GiB of "
+                "eager's (66.13 and 29.36 GiB read eagerly, PERF 5), "
+                "reserved up to 4 GiB over it",
+    "graph_mesh": "on one-rank NCCL meshes, the model-axis round "
+                  "(iot_dense at (10, 855,050), one window) without and "
+                  "with telemetry and the fleet (vehicular, R 8) on a (1, "
+                  "1) mesh through ChunkRunner, 4 rounds a chunk: the "
+                  "collectives (all_to_all_single, all_gather, the clip's "
+                  "and the consensus's all_reduce) captured, graph bitwise "
+                  "eager and eager bitwise itself, one capture, "
+                  "dp_mix_columns once a round in a replay's trace. In "
+                  "turns, ms a round graph | eager: the model-axis round "
+                  "0.7-1.3 | 12.5-14.5, with telemetry 0.7-1.5 | "
+                  "13.9-15.2, the fleet 3.4-4.5 | 9-20; peak memory within "
+                  "0.5 GiB of eager's",
     "lm_cpu_vs_cuda": "one reduced olmo-1b round (N = 3, batch 2 x 32) on "
                       "the card against the CPU's from the same "
                       "parameters, batch and seed or normals, flat and "
@@ -1275,15 +1317,19 @@ def traced(fn, names=TRAIN_KERNELS):
 TRACE_SESSIONS = 3
 
 
-def traced_seen(fn, names=TRAIN_KERNELS):
+def traced_seen(fn, names=TRAIN_KERNELS, reset=None):
     """``traced(fn, names)`` of a repeatable ``fn``, in a new profiler
     session while the last one recorded no device operation at all (the
     trace, not the work, came back empty: seen once in a whole run, on a
     CUDA graph's replay after a dozen earlier sessions), at most
     TRACE_SESSIONS: (the kernels of ``names`` summed over every session,
-    the last session's device operations, the sessions taken)."""
+    the last session's device operations, the sessions taken).
+    ``reset()``, if given, runs before each session, outside it (to put
+    back the state ``fn`` starts from)."""
     got = {}
     for n in range(1, TRACE_SESSIONS + 1):
+        if reset is not None:
+            reset()
         _, kernels, ops = traced(fn, names)
         for name, c in kernels.items():
             got[name] = got.get(name, 0) + c
@@ -3923,14 +3969,27 @@ def lm_cli() -> dict:
             str(LM_BATCH), "--seq-len", str(LM_SEQ), "--steps", "3"]
     torch.cuda.reset_peak_memory_stats()
     zero_counts(wrappers)
-    res = train.run(argv)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train.run(argv)
+    print(out.getvalue(), end="", flush=True)
+    # a replay runs no wrapper, but a kernel in the graph was counted when
+    # the capture recorded it
     no_launches("the LM CLI", wrappers)
     losses = res["losses"]
+    executor = [l for l in out.getvalue().splitlines()
+                if l.startswith("[train] executor:")]
     rec = {"rounds": res["rounds"], "seconds": res["seconds"],
            "rounds_per_s": res["rounds"] / res["seconds"],
-           "losses": losses.tolist(), "evals": res["evals"],
-           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+           "executor": executor, "losses": losses.tolist(),
+           "evals": res["evals"],
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30}
     print(f"[lm] CLI {' '.join(argv)}: {json.dumps(rec)}", flush=True)
+    if executor != ["[train] executor: ChunkRunner (one CUDA graph of a "
+                    "round, replayed a chunk's rounds, the first chunk "
+                    "eager)"]:
+        fail(f"the LM CLI ran {executor}, expected ChunkRunner's graph")
     if losses.numel() != 4 or not torch.isfinite(losses).all():
         fail(f"the LM CLI: expected 4 finite losses, got {losses.tolist()}")
     del res
@@ -4695,6 +4754,7 @@ def mesh_one_rank_phase(store) -> dict:
         del finals
         rec["telemetry"] = mesh_telemetry({"model": store,
                                            "workers": wstore})
+        rec["graph"] = graph_mesh(mesh, fmesh)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
@@ -4972,12 +5032,37 @@ def fleet_launches(store, n_rounds: int = 10) -> dict:
     """Kernel launches per fleet flat round at R = 2 and R = 8 under
     torch.profiler (the host's launch calls, and the device's kernels),
     which must be equal: the replicates add work to each launch, not
-    launches; and the device's busy share."""
+    launches; and the device's busy share. Both traces are taken again,
+    at most TRACE_SESSIONS times, while their device operations differ
+    and their host launch calls do not (a session once recorded 2 device
+    operations fewer or more in 10 rounds than the other, over the same
+    launch calls): a real difference shows in every session."""
+    predict("fleet_launches")
+    for n in range(1, TRACE_SESSIONS + 1):
+        rec = fleet_launch_traces(store, n_rounds)
+        print(f"[fleet] launches per round {json.dumps(rec)}", flush=True)
+        a, b = rec[2], rec[FLEET_R]
+        if (a["launch_calls_per_round"] != b["launch_calls_per_round"]
+                or a["device_ops_per_round"] == b["device_ops_per_round"]):
+            break
+        print(f"[trace] fleet launches: session {n} of {TRACE_SESSIONS} "
+              f"recorded other device operations at R = 2 and {FLEET_R} "
+              f"over the same launch calls", flush=True)
+    if (a["launch_calls_per_round"] != b["launch_calls_per_round"]
+            or a["device_ops_per_round"] != b["device_ops_per_round"]):
+        fail(f"fleet round: launches differ between R = 2 and R = {FLEET_R}:"
+             f" {rec}")
+    return rec
+
+
+def fleet_launch_traces(store, n_rounds: int) -> dict:
+    """``fleet_launches``'s traces, one session each at R = 2 and R =
+    FLEET_R: launch calls and device operations a round, the busy
+    share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import trajectory as TJ
-    predict("fleet_launches")
     rec = {}
     for R in (2, FLEET_R):
         body, carry = fleet_body(store, R, flat=True)
@@ -5002,12 +5087,6 @@ def fleet_launches(store, n_rounds: int = 10) -> dict:
                                         else "not measured")}
         del body, carry
         torch.cuda.empty_cache()
-    print(f"[fleet] launches per round {json.dumps(rec)}", flush=True)
-    a, b = rec[2], rec[FLEET_R]
-    if (a["launch_calls_per_round"] != b["launch_calls_per_round"]
-            or a["device_ops_per_round"] != b["device_ops_per_round"]):
-        fail(f"fleet round: launches differ between R = 2 and R = {FLEET_R}:"
-             f" {rec}")
     return rec
 
 
@@ -5427,6 +5506,19 @@ def sweep_phase() -> dict:
 # round at the worker-scale shape (B1-sparse)
 GRAPH_PATHS = ("flat", "flat telemetry", "tree", "dynamic flat",
                "dynamic tree", "fleet", "sparse")
+# the repo kernels each path launches at least once a round
+GRAPH_KERNELS = {"flat": ("dp_mix_columns",),
+                 "flat telemetry": ("dp_mix_columns",),
+                 "tree": ("dp_perturb_kernel",),
+                 "dynamic flat": ("dp_mix_columns",),
+                 "dynamic tree": ("dp_perturb_kernel",),
+                 "fleet": ("dp_mix_columns",),
+                 "sparse": ("dp_mix_prep", "dp_mix_gather"),
+                 "lm tree": ("dp_perturb_kernel",),
+                 "lm flat": ("dp_mix_columns",),
+                 "mesh model": ("dp_mix_columns",),
+                 "mesh model telemetry": ("dp_mix_columns",),
+                 "mesh fleet": ("dp_mix_columns",)}
 # rounds a chunk and chunks a timed turn; the sparse round at N = 2048
 # takes GRAPH_SPARSE_K rounds a chunk (88 ms a round)
 GRAPH_K, GRAPH_SPARSE_K, GRAPH_TURN_CHUNKS = 4, 2, 5
@@ -5507,63 +5599,23 @@ def same_bits(a, b) -> bool:
     return bool(torch.equal(a, b))
 
 
-def chunk_record(carry, outs) -> dict:
-    """What the graph and the eager chunks are held on, copied: the
-    parameters, the generator's state, the network state, the epsilon
-    moments and each chunk's outputs (metrics, telemetry, channels, Ws),
-    by name."""
-    import torch
+def chunk_record(carry, outs, device=None) -> dict:
+    """What the graph and the eager chunks are held on, copied (to
+    ``device`` if given): the parameters, the generator's state, the
+    network state, the epsilon moments and each chunk's outputs (metrics,
+    telemetry, channels, Ws), by name."""
     from repro_torch.core import trajectory as TJ
+    copy = ((lambda t: t.clone()) if device is None
+            else (lambda t: t.to(device, copy=True)))
     rec = {"generator": carry.generator.get_state()}
     for name, tree in (("params", carry.params), ("net", carry.net),
                        ("eps", carry.eps)):
         for i, t in enumerate(TJ.tree_tensors(tree)):
-            rec[f"{name}/{i}"] = t.clone()
+            rec[f"{name}/{i}"] = copy(t)
     for c, out in enumerate(outs):
         for i, t in enumerate(TJ.tree_tensors(out)):
-            rec[f"chunk {c}/{i}"] = t.clone()
+            rec[f"chunk {c}/{i}"] = copy(t)
     return rec
-
-
-def graph_bitwise(path: str, K: int = GRAPH_K, **kw) -> dict:
-    """One of GRAPH_PATHS through ``ChunkRunner`` and through ``run_chunk``
-    from the same carry: the runner's first chunk (eager, a real chunk),
-    then two chunks of K rounds through the runner (the capture's replay,
-    then a replay) and the same two eagerly from a copy of the carry.
-    Returns the leaves that differ in their bits (none, to pass), the
-    captures per length, the training kernels in the profiler's device
-    trace of the second replay and of the second eager chunk, and the
-    launches each wrapper counted in that eager chunk (counts set to 0
-    just before, read just after)."""
-    import torch
-    from repro_torch.core import trajectory as TJ
-    wrappers = kernel_wrappers()
-    body, carry = graph_path(path, **kw)
-    runner = TJ.ChunkRunner(body)
-    carry, _ = runner.run(carry, K)
-    twin = TJ.copy_carry(carry)
-    carry, out1 = runner.run(carry, K)
-    (carry, out2), replay, _ = traced(lambda: runner.run(carry, K))
-    got = chunk_record(carry, (out1, out2))
-    captures = runner.trace_counts()
-    # the graph's pool is freed before the eager chunks: at N = 2048 the
-    # two would not fit one card together
-    del carry, out1, out2, runner
-    torch.cuda.empty_cache()
-    twin, out1 = TJ.run_chunk(body, twin, K)
-    zero_counts(wrappers)
-    (twin, out2), eager, _ = traced(lambda: TJ.run_chunk(body, twin, K))
-    counted = {w.__name__: w.launches for w in wrappers if w.launches}
-    want = chunk_record(twin, (out1, out2))
-    del twin, out1, out2
-    torch.cuda.empty_cache()
-    differ = sorted(n for n in want if n not in got or not same_bits(
-        got[n], want[n]))
-    differ += sorted(n for n in got if n not in want)
-    return {"path": path, "rounds": K, "leaves": len(want),
-            "differ": differ, "captures": captures,
-            "kernels_replay": replay, "kernels_eager": eager,
-            "launches_eager": counted}
 
 
 @contextlib.contextmanager
@@ -5581,22 +5633,28 @@ def eager_chunks():
 
 
 def graph_turns(path: str, K: int = GRAPH_TURN_K,
-                chunks: int = GRAPH_TURN_CHUNKS, **kw) -> dict:
+                chunks: int = GRAPH_TURN_CHUNKS, build=None, **kw) -> dict:
     """Rounds/s of one of GRAPH_PATHS through the runner and eagerly, in
     turns (graph, eager, eager, graph), host clock around ``chunks``
     chunks of K rounds ending in a synchronize. A graph turn is a new
     runner: its eager chunk and its capture untimed (an eager turn's
-    first chunk too), so one runner's pool is freed before the next turn;
-    peak device memory (allocated and reserved) of each turn."""
+    first chunk too). The last turn's runner and its pool are freed
+    before the next turn (``reserved_before``: the GiB still reserved
+    then); peak device memory (allocated and reserved) of each turn.
+    ``build``: the path's (body, carry) maker (``graph_path`` if None)."""
+    import gc
     import torch
     from repro_torch.core import trajectory as TJ
-    body, carry = graph_path(path, **kw)
+    body, carry = (build or graph_path)(path, **kw)
     rate = {"graph": [], "eager": []}
     peak = {"graph": [], "eager": []}
+    before = []
     for turn in ("graph", "eager", "eager", "graph"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        before.append(torch.cuda.memory_reserved() / 2**30)
         run = (TJ.ChunkRunner(body).run if turn == "graph" else
                (lambda c, n: TJ.run_chunk(body, c, n)))
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         for _ in range(2 if turn == "graph" else 1):
             carry, _ = run(carry, K)
@@ -5613,6 +5671,7 @@ def graph_turns(path: str, K: int = GRAPH_TURN_K,
     torch.cuda.empty_cache()
     return {"path": path, "rounds_a_chunk": K, "chunks": chunks,
             "rounds_per_s": rate, "peak_gib": peak,
+            "reserved_before_gib": before,
             "speedup": [g / e for g, e in zip(rate["graph"],
                                               reversed(rate["eager"]))]}
 
@@ -5641,12 +5700,14 @@ def graph_cli_turns(steps: int = GRAPH_CLI_STEPS) -> dict:
 def graph_phase() -> dict:
     """Each of GRAPH_PATHS through ChunkRunner bitwise the same chunks
     through run_chunk (parameters, generator state, network state,
-    epsilon moments, every output), one capture per length, every kernel
-    launched as often a replay as an eager chunk launches it; then
+    epsilon moments, every output; ``graph_held``, two eager runs also
+    held to each other), one capture per length, every kernel launched
+    as often a replay as an eager chunk launches it; then
     rounds/s with and without the graph in turns: the static flat CLI,
     the static flat round with and without telemetry, the dynamic flat
     round (iot_dense), the tree round, the fleet at R = FLEET_R and the
-    sparse round at N = SPARSE_N with its peak memory."""
+    sparse round at N = SPARSE_N with its peak memory; then the LM
+    rounds (``graph_lm``)."""
     import torch
     print(f"[graph] torch {torch.__version__}: CUDAGraph."
           f"register_generator_state "
@@ -5654,23 +5715,12 @@ def graph_phase() -> dict:
           flush=True)
     recs = {}
     for path in GRAPH_PATHS:
-        if path == "sparse":
-            rec = graph_bitwise(path, GRAPH_SPARSE_K, N=SPARSE_N)
-        else:
-            rec = graph_bitwise(path)
+        kw = {"N": SPARSE_N} if path == "sparse" else {}
+        rec = graph_held(path, graph_path,
+                         GRAPH_SPARSE_K if path == "sparse" else GRAPH_K,
+                         eager_runs=1, **kw)
         print(f"[graph] bitwise {json.dumps(rec)}", flush=True)
-        if rec["differ"]:
-            fail(f"graph {path}: the graph's chunks differ from the eager "
-                 f"chunks' in {rec['differ']}")
-        if rec["captures"] != {rec["rounds"]: 1}:
-            fail(f"graph {path}: captures {rec['captures']}, expected one "
-                 f"of length {rec['rounds']}")
-        if rec["kernels_replay"] != rec["kernels_eager"]:
-            fail(f"graph {path}: kernels in a replay's trace "
-                 f"{rec['kernels_replay']}, in an eager chunk's "
-                 f"{rec['kernels_eager']}")
-        if not (rec["kernels_eager"] and rec["launches_eager"]):
-            fail(f"graph {path}: no kernel launched")
+        check_held(rec, GRAPH_KERNELS[path])
         recs[path] = rec
     turns = {"static flat CLI": graph_cli_turns()}
     print(f"[graph] turns {json.dumps(turns['static flat CLI'])}", flush=True)
@@ -5680,7 +5730,349 @@ def graph_phase() -> dict:
                                      N=SPARSE_N))):
         turns[path] = graph_turns(path, **kw)
         print(f"[graph] turns {json.dumps(turns[path])}", flush=True)
+    recs.update(graph_lm(turns))
     return {"bitwise": recs, "turns": turns}
+
+
+def graph_lm(turns: dict) -> dict:
+    """The LM rounds through ChunkRunner (GRAPH_LM_PATHS): each held to
+    two chunks through run_chunk (``graph_held``: bitwise, or within the
+    eager path's own spread), one capture, B2 (tree) or B1 (flat) once a
+    round in a replay's trace and an eager chunk's; then ms a round with
+    and without the graph in turns, with each turn's peak memory (into
+    ``turns``)."""
+    predict("graph_lm")
+    recs = {}
+    for path in GRAPH_LM_PATHS:
+        kw = {"layers": LM_FLAT_LAYERS} if path == "lm flat" else {}
+        # at full depth on the host, and once eagerly: two eager runs of
+        # its chunks were bitwise each other (PERF 6)
+        tree = path == "lm tree"
+        rec = graph_held(path, lm_graph_path, GRAPH_LM_K,
+                         eager_runs=1 if tree else 2,
+                         keep="cpu" if tree else None, **kw)
+        print(f"[graph] held {json.dumps(rec)}", flush=True)
+        check_held(rec, GRAPH_KERNELS[path])
+        recs[path] = rec
+        turns[path] = graph_turns(path, GRAPH_LM_K, GRAPH_LM_TURN_CHUNKS,
+                                  build=lm_graph_path, **kw)
+        print(f"[graph] turns {json.dumps(turns[path])}", flush=True)
+    return recs
+
+
+def graph_mesh(shard_mesh, fleet_mesh) -> dict:
+    """The process-group bodies through ChunkRunner on one-rank NCCL
+    meshes (GRAPH_MESH_PATHS; the model-axis round on ``shard_mesh``, the
+    fleet on ``fleet_mesh``): each held to run_chunk as ``graph_lm``
+    holds the LM rounds, B1 once a round (its window's launch, the
+    fleet's replicate axis), then ms a round with and without the graph
+    in turns."""
+    predict("graph_mesh")
+    recs, turns = {}, {}
+    for path in GRAPH_MESH_PATHS:
+        mesh = fleet_mesh if path == "mesh fleet" else shard_mesh
+        build = functools.partial(mesh_graph_path, mesh=mesh)
+        rec = graph_held(path, build, GRAPH_K)
+        print(f"[graph] held {json.dumps(rec)}", flush=True)
+        check_held(rec, GRAPH_KERNELS[path])
+        recs[path] = rec
+        turns[path] = graph_turns(path, build=build)
+        print(f"[graph] turns {json.dumps(turns[path])}", flush=True)
+    return {"held": recs, "turns": turns}
+
+
+# ---- the chunk executor on LM and process-group mesh bodies (A7b) ----------
+
+# the LM rounds ChunkRunner captures: olmo-1b's tree round at full depth on
+# LM_TREE_N workers with use_pallas (B2) and its flat round at full width
+# on LM_FLAT_LAYERS of 16 layers on LM_FLAT_N (B1), the shapes of
+# lm_tree_phase and lm_flat_phase; GRAPH_LM_K rounds a chunk,
+# GRAPH_LM_TURN_CHUNKS chunks a timed turn
+GRAPH_LM_PATHS = ("lm tree", "lm flat")
+GRAPH_LM_K, GRAPH_LM_TURN_CHUNKS = 2, 2
+# the process-group bodies it captures on a one-rank NCCL group: the
+# model-axis round (dwfl-paper on iot_dense at (10, 855,050), one window)
+# without and with telemetry (every field and the epsilon moments), and
+# the fleet (vehicular, R = FLEET_R) on a (replicas 1, model 1) mesh
+GRAPH_MESH_PATHS = ("mesh model", "mesh model telemetry", "mesh fleet")
+
+
+def lm_graph_path(path: str, device: str = "cuda", arch: str = LM_ARCH,
+                  reduced: bool = False, N: int = 0, layers: int = 0,
+                  batch: int = LM_BATCH, seq: int = LM_SEQ,
+                  remat: bool = False):
+    """(body, carry) of an LM round as the CLI builds it: ``arch`` (its
+    reduced() config with ``reduced``, ``layers`` of its layers if given),
+    the CLI's token data (lm_dataset(N 200,000) in N slices, windows of
+    ``seq``, ``batch`` a worker), a generator seeded 0. "lm tree": the
+    worker-tree round with use_pallas (B2) on N workers (LM_TREE_N if 0);
+    "lm flat": the flat round (B1) on N (LM_FLAT_N if 0); with ``remat``
+    the flat round as ``--model-shards 2 --remat`` runs it: two column
+    windows logically on one device, the forward recomputed in the
+    backward (torch.utils.checkpoint)."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import LMStore, lm_dataset
+    if path not in GRAPH_LM_PATHS:
+        raise ValueError(f"no LM graph path {path!r}; have {GRAPH_LM_PATHS}")
+    tree = path == "lm tree"
+    cfg = get_arch(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    N = N or (LM_TREE_N if tree else LM_FLAT_N)
+    proto = P.ProtocolConfig(scheme="dwfl", n_workers=N, gamma=0.01, eta=0.4,
+                             target_epsilon=1.0, use_pallas=tree)
+    store = LMStore.build(lm_dataset(N * 200_000, cfg.vocab_size, seed=0), N,
+                          batch, seq, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, N, device)
+    if tree:
+        body = TJ.make_round_body(cfg, proto, store, device=device)
+        return body, TJ.TrajCarry(gen, wp)
+    spec = X.make_flat_spec(wp, n_shards=2 if remat else None)
+    flat = spec.flatten(wp)
+    del wp
+    body = TJ.make_round_body(cfg, proto, store, spec, device, remat=remat)
+    return body, TJ.TrajCarry(gen, flat)
+
+
+def mesh_graph_path(path: str, mesh, device: str = "cuda", N: int = PATH_N,
+                    hidden: int = 0, R: int = FLEET_R, dataset: int = 20000,
+                    batch: int = 32):
+    """(body, carry) of one of GRAPH_MESH_PATHS over ``mesh`` as the CLI
+    builds it under torchrun with ``--flat-buffer --model-shards S``: a
+    ("model",) mesh for the model-axis round (iot_dense), a ("replicas",
+    "model") one for the fleet (vehicular, R replicates); dwfl-paper at
+    ``hidden`` if given, else full width, on N workers, the layout's
+    window of this rank, a generator seeded 0; with telemetry every field
+    and the epsilon moments in the carry."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import (ClassificationStore, classification_dataset,
+                                  dirichlet_partition)
+    from repro_torch.fleet import FleetEngine
+    from repro_torch.obs import telemetry as tele
+    from repro_torch.shard import ShardLayout, local_window
+    if path not in GRAPH_MESH_PATHS:
+        raise ValueError(f"no mesh graph path {path!r}; have "
+                         f"{GRAPH_MESH_PATHS}")
+    cfg = (dataclasses.replace(DWFL_PAPER, d_model=hidden) if hidden
+           else DWFL_PAPER)
+    fleet_path = path == "mesh fleet"
+    proto = dynamic_proto(N, FLEET_SCENARIO if fleet_path else DYN_SCENARIO,
+                          flat_buffer=True)
+    x, y = classification_dataset(dataset, seed=0)
+    store = ClassificationStore.build(
+        x, y, dirichlet_partition(y, N, alpha=0.5, seed=0), batch, device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    S = mesh.size(mesh.mesh_dim_names.index("model"))
+    sim = fleet = None
+    if fleet_path:
+        fleet = FleetEngine(proto, R, device=device)
+        wp = fleet.init_worker_params(gen, cfg)
+    else:
+        wp = P.init_worker_params(gen, cfg, N, device)
+        sim = proto.simulator(device)
+    lead = 2 if fleet_path else 1
+    d = X.FlatSpec(wp, lead_axes=lead).d
+    spec = X.make_flat_spec(wp, lead_axes=lead, layout=ShardLayout(d, S))
+    flat = local_window(spec.flatten(wp), spec, mesh)
+    del wp
+    if fleet_path:
+        flat = flat[fleet.replicate_slice(mesh)]
+    telemetry = (tele.TelemetrySpec() if path == "mesh model telemetry"
+                 else None)
+    body = TJ.make_round_body(cfg, proto, store, spec, device, sim=sim,
+                              fleet=fleet, telemetry=telemetry,
+                              shard_mesh=mesh)
+    net = fleet.init(gen) if fleet_path else sim.init(gen)
+    eps = tele.init_eps_moments(device=device) if telemetry else None
+    return body, TJ.TrajCarry(gen, flat, net, eps)
+
+
+def carry_to(carry, device: str):
+    """A copy of ``carry`` on ``device``: its tensors copied there; on the
+    host its generator kept as a copy of its state (a CUDA generator's
+    state has no CPU generator to hold it), on the card a new generator
+    in that state."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    state = carry.generator
+    state = (state.clone() if torch.is_tensor(state)
+             else state.get_state())
+    gen = state
+    if device != "cpu":
+        gen = torch.Generator(device=device)
+        gen.set_state(state)
+    return TJ.TrajCarry(gen, *TJ._map(lambda t: t.to(device, copy=True),
+                                      TJ._state(carry)))
+
+
+def bits_spread(got: dict, want: dict) -> tuple:
+    """(the leaves of ``want`` whose bits differ in ``got``, the largest
+    |got - want| over the floating leaves)."""
+    differ = sorted(n for n in want if n not in got or not same_bits(
+        got[n], want[n]))
+    differ += sorted(n for n in got if n not in want)
+    spread = 0.0
+    for n in differ:
+        if n in got and n in want and want[n].is_floating_point():
+            spread = max(spread, float((got[n].double()
+                                        - want[n].double()).abs().max()))
+    return differ, spread
+
+
+def graph_held(path: str, build, K: int, eager_runs: int = 2,
+               keep=None, **kw) -> dict:
+    """One of GRAPH_PATHS, GRAPH_LM_PATHS or GRAPH_MESH_PATHS
+    (``build(path, **kw)``: ``graph_path``, ``lm_graph_path``,
+    ``mesh_graph_path``) through ``ChunkRunner`` and through
+    ``run_chunk``, the copies and records kept on ``keep`` ("cpu": the
+    host, for olmo-1b's full-depth trees, which would not fit the card
+    twice beside a round; None: the card): the runner's first chunk
+    (eager, a real chunk), then two chunks of K rounds (the capture's
+    replay, then a replay); the same two chunks eagerly from a copy of
+    the carry, ``eager_runs`` times (two: the eager path against itself,
+    its spread 0 where it is bitwise). A replay's kernels are read from
+    the device trace of a repeatable replay (``traced_seen``: before
+    each session the runner's buffers and generator are put back to the
+    copy of the carry its replays started from; a runner without
+    donation, fed a device copy, would not fit beside olmo-1b's
+    full-depth pool), an eager chunk's likewise; the wrappers' launches
+    in one eager chunk (counts set to 0 just before, read just after).
+    Returns the leaves where the graph's bits differ from the first eager
+    run's and by how much, the eager spread, the captures a length, the
+    kernels of each trace and the peak memory (allocated, reserved GiB)
+    of the graph's chunks and of the eager ones."""
+    import torch
+    from repro_torch.core import trajectory as TJ
+    wrappers = kernel_wrappers()
+    body, carry = build(path, **kw)
+    round_graph = getattr(body, "round_graph", False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    runner = TJ.ChunkRunner(body)
+    carry, _ = runner.run(carry, K)
+    twin = carry_to(carry, keep or "cuda")
+    carry, out1 = runner.run(carry, K)
+    carry, out2 = runner.run(carry, K)
+    got = chunk_record(carry, (out1, out2), keep)
+    del out1, out2
+
+    start = (twin.generator if keep == "cpu"
+             else twin.generator.get_state())
+
+    def reset():
+        # the runner's buffers (the carry it returned) put back to the
+        # copy of the carry its replays started from
+        for s, t in zip(TJ.tree_tensors(TJ._state(carry)),
+                        TJ.tree_tensors(TJ._state(twin))):
+            s.copy_(t)
+        carry.generator.set_state(start)
+
+    replay_k, replay_ops, replay_sessions = traced_seen(
+        lambda: runner.run(carry, K), reset=reset)
+    captures = runner.trace_counts()
+    peak = {"graph": (torch.cuda.max_memory_allocated() / 2 ** 30,
+                      torch.cuda.max_memory_reserved() / 2 ** 30)}
+    del carry, runner
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # the eager chunk's trace first, from the copy the first eager run
+    # then takes over (no second copy on the card beside its round)
+    held = [carry_to(twin, "cuda")]
+    state = held[0].generator.get_state()
+    eager_k, eager_ops, eager_sessions = traced_seen(
+        lambda: TJ.run_chunk(body, held[0], K),
+        reset=lambda: held[0].generator.set_state(state))
+    eager = []
+    for n in range(eager_runs):
+        c = held.pop() if held else carry_to(twin, "cuda")
+        c.generator.set_state(state)
+        c, o1 = TJ.run_chunk(body, c, K)
+        if n == 0:
+            zero_counts(wrappers)
+        c, o2 = TJ.run_chunk(body, c, K)
+        if n == 0:
+            counted = {w.__name__: w.launches for w in wrappers
+                       if w.launches}
+        eager.append(chunk_record(c, (o1, o2), keep))
+        del c, o1, o2
+    peak["eager"] = (torch.cuda.max_memory_allocated() / 2 ** 30,
+                     torch.cuda.max_memory_reserved() / 2 ** 30)
+    del body, twin
+    torch.cuda.empty_cache()
+    eager_differ, eager_spread = (bits_spread(eager[1], eager[0])
+                                  if eager_runs > 1 else (None, None))
+    differ, spread = bits_spread(got, eager[0])
+    return {"path": path, "rounds": K, "leaves": len(eager[0]),
+            "captured_rounds": 1 if round_graph else K,
+            "differ": differ, "max_abs_diff": spread,
+            "eager_runs": eager_runs, "eager_differ": eager_differ,
+            "eager_spread": eager_spread,
+            "captures": captures, "kernels_replay": replay_k,
+            "replay_ops": replay_ops, "replay_sessions": replay_sessions,
+            "kernels_eager": eager_k, "eager_ops": eager_ops,
+            "eager_sessions": eager_sessions, "launches_eager": counted,
+            "peak_gib": peak}
+
+
+# the kernels a wrapper's count stands for, on the paths graph_held runs
+# (dp_mix at N <= 50 takes the column route)
+WRAPPER_KERNELS = {"dp_mix_round": ("dp_mix_columns",),
+                   "dp_mix_round_sparse": ("dp_mix_prep", "dp_mix_gather"),
+                   "sgd_update_leaves": ("dp_perturb_kernel",),
+                   "dp_mix_prep_rows": ("dp_mix_prep",),
+                   "dp_mix_gather_rows": ("dp_mix_gather",)}
+
+
+def check_held(rec: dict, kernels: tuple) -> None:
+    """``graph_held``'s record: the graph bitwise the eager chunks, or,
+    where two eager runs differ from each other, within their spread; one
+    capture (of the chunk's length, or of one round for a ``round_graph``
+    body); the repo kernels in a replay's trace, each of ``kernels`` at
+    least once a round, as many as the eager chunk's wrappers launched
+    (an eager trace's count is printed beside them: at ~20,000 device
+    operations a session, one dropped a kernel once)."""
+    path, K = rec["path"], rec["rounds"]
+    if rec["eager_differ"]:
+        print(f"[graph] {path}: two eager runs differ in "
+              f"{len(rec['eager_differ'])} leaves, by up to "
+              f"{rec['eager_spread']:.3g}; the graph is held to that "
+              f"spread", flush=True)
+        if rec["max_abs_diff"] > rec["eager_spread"]:
+            fail(f"graph {path}: the graph's chunks differ from the eager "
+                 f"chunks' by {rec['max_abs_diff']:.3g}, past the eager "
+                 f"spread {rec['eager_spread']:.3g}")
+    elif rec["differ"]:
+        fail(f"graph {path}: the graph's chunks differ from the eager "
+             f"chunks' in {rec['differ']}")
+    if rec["captures"] != {rec["captured_rounds"]: 1}:
+        fail(f"graph {path}: captures {rec['captures']}, expected one of "
+             f"{rec['captured_rounds']} rounds")
+    if not rec["replay_ops"]:
+        fail(f"graph {path}: the profiler saw no device operation of a "
+             f"replay in {rec['replay_sessions']} sessions")
+    launched = {}
+    for w, n in rec["launches_eager"].items():
+        for k in WRAPPER_KERNELS[w]:
+            launched[k] = launched.get(k, 0) + n
+    if (rec["kernels_replay"] != launched
+            or any(launched.get(k, 0) < K for k in kernels)):
+        fail(f"graph {path}: kernels in a replay's trace "
+             f"{rec['kernels_replay']}, launched by an eager chunk "
+             f"{launched}, expected {kernels} at least once a round")
+    if rec["kernels_eager"] != rec["kernels_replay"]:
+        print(f"[graph] {path}: an eager chunk's trace held "
+              f"{rec['kernels_eager']}", flush=True)
 
 
 # ---- phase 11: the launch tooling and the static checks (A16, A17) ---------

@@ -470,7 +470,10 @@ def make_flat_local_pass(cfg: ModelConfig, proto: ProtocolConfig,
     recomputes the workers' forward in the backward pass
     (``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` around
     each worker's forward; here the workers' forward is one batched pass):
-    activation memory for a second forward, the same gradients."""
+    activation memory for a second forward, the same gradients. The
+    forward draws nothing, so the recomputation keeps no RNG state
+    (``preserve_rng_state=False``: reading the card's default generator
+    fails inside a CUDA graph's capture)."""
     def local_grads(flat, batch):
         with torch.enable_grad():
             leaves, structure = exchange_lib.tree_flatten(
@@ -480,7 +483,8 @@ def make_flat_local_pass(cfg: ModelConfig, proto: ProtocolConfig,
                 exchange_lib.tree_unflatten(structure, list(xs)), batch, cfg)
             if remat:
                 from torch.utils.checkpoint import checkpoint
-                losses = checkpoint(forward, *ps, use_reentrant=False)
+                losses = checkpoint(forward, *ps, use_reentrant=False,
+                                    preserve_rng_state=False)
             else:
                 losses = forward(*ps)
             gs = torch.autograd.grad(losses.sum(), ps)

@@ -11,8 +11,9 @@ participation, its mask), on the worker-tree path the exchange's standard
 normals — so the realized stream is a function of the generator's seed
 and the round index, never of how rounds are cut into chunks. A chunk of
 K rounds is K eager rounds (``run_chunk``), or on the card one replay of
-a CUDA graph of them (``ChunkRunner``, the reference's executor, bitwise
-the eager chunk); its metrics (and on the dynamic path the rounds'
+a CUDA graph of them, for an LM K replays of one round's graph
+(``ChunkRunner``, the reference's executor, bitwise the eager chunk); its
+metrics (and on the dynamic path the rounds'
 channels and mixing matrices) come back stacked [K, ...] on the device,
 read by the host only at chunk ends.
 
@@ -156,7 +157,7 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
         return _marked(
             _maybe_instrument(body, telemetry, proto, device, fleet=fleet,
                               consensus=_consensus(fleet, shard_mesh)),
-            store, shard_mesh)
+            cfg, store, shard_mesh)
     if sim is not None:
         if spec is not None:
             if worker_mesh is not None:
@@ -223,18 +224,24 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
         _maybe_instrument(body, telemetry, proto, device,
                           consensus=_consensus(None, shard_mesh,
                                                worker_mesh)),
-        store, shard_mesh if worker_mesh is None else worker_mesh)
+        cfg, store, shard_mesh if worker_mesh is None else worker_mesh)
 
 
-def _marked(body: Callable, store, mesh) -> Callable:
-    """``body``, marked (``uncapturable``) as one that ``ChunkRunner`` does
-    not capture: a body over a process-group mesh (its collectives stay
-    eager), and one fed by host batches (a graph would replay one
-    upload)."""
-    if mesh is not None:
-        body.uncapturable = "a body over a process-group mesh"
-    elif isinstance(store, HostBatches):
+def _marked(body: Callable, cfg, store, mesh) -> Callable:
+    """``body``, marked for ``ChunkRunner``: ``round_graph`` for an LM's
+    (captured one round at a time), ``uncapturable`` for one fed by host
+    batches (a graph would replay one upload) and for one over an NCCL
+    mesh of more than one rank (such a capture hung on two cards: ROADMAP
+    A7b). A body over a one-rank NCCL mesh, or over gloo ranks (the CPU,
+    where the runner runs its eager program), is captured, its
+    collectives with it."""
+    body.round_graph = cfg.family != "mlp"
+    if isinstance(store, HostBatches):
         body.uncapturable = "a body fed by host batches"
+    elif (mesh is not None and mesh.device_type == "cuda"
+          and mesh.size() > 1):
+        body.uncapturable = (f"a body over a {mesh.size()}-rank NCCL "
+                             f"mesh")
     return body
 
 
@@ -463,6 +470,17 @@ class ChunkRunner:
       for the warm-up alone). Every later chunk is a replay of its
       length's graph, captured at the length's first such chunk (two or
       three lengths a run: ``plan_chunks`` cuts at eval rounds).
+    * an LM's body (``make_round_body`` marks it ``round_graph``): one
+      CUDA graph of one round, replayed k times a chunk, as the
+      reference's ``lax.scan`` compiles the body once and loops; the
+      chunk epilogue then runs eagerly over the k rounds' stacked
+      outputs, as ``run_chunk`` runs it. A graph of k rounds holds each
+      of its rounds' new carry in its pool: at olmo-1b's full depth on
+      two workers a 2-round capture ran out of the card's memory where
+      one round's fits beside eager's peak. The other bodies keep a
+      graph a chunk length: on dwfl-paper's rounds (0.7-90 ms) one
+      round's graph replayed k times, its outputs copied out a round,
+      was slower in turns, by up to 15% (PERF 6).
 
     The graphs read and rewrite one set of static buffers (the carry's
     parameters, network state and epsilon moments): each graph ends by
@@ -486,8 +504,12 @@ class ChunkRunner:
     raises, naming ROADMAP A7b; nothing falls back to the eager loop on
     the card. A carry of other shapes than the buffers' (it would need a
     second capture of each length) raises ``obs.RetraceError``. A body
-    over a process-group mesh (its collectives) or fed by host batches is
-    refused when the runner is built (``make_round_body`` marks it
+    over a one-rank process-group mesh is captured with its collectives
+    (NCCL's: each group's communicator is started by the mesh's first
+    collective, and the eager first chunk runs every one before a
+    capture), held bitwise. A body over an NCCL mesh of more than one
+    rank (a capture of it hung on two cards) and one fed by host batches
+    are refused when the runner is built (``make_round_body`` marks them
     ``uncapturable``)."""
 
     def __init__(self, body: Callable, donate: bool = True):
@@ -496,6 +518,7 @@ class ChunkRunner:
             raise ValueError(f"ChunkRunner does not capture {why} "
                              f"(ROADMAP A7b): run it with run_chunk")
         self._body = body
+        self._round_graph = bool(getattr(body, "round_graph", False))
         self._donate = bool(donate)
         self._warm = False
         self._graphs: Dict[int, _Captured] = {}
@@ -523,10 +546,11 @@ class ChunkRunner:
             self._warm = True
             return program(carry)
         self._bind(carry)
-        entry = self._graphs.get(k)
+        n = 1 if self._round_graph else k
+        entry = self._graphs.get(n)
         if entry is None:
-            entry = self._capture(carry.generator, k)
-        return self._replay(entry, carry.generator)
+            entry = self._capture(carry.generator, n)
+        return self._replay(entry, carry.generator, k // n)
 
     def _bind(self, carry: TrajCarry) -> None:
         """Make the static buffers hold the carry's values."""
@@ -557,9 +581,13 @@ class ChunkRunner:
             self._gen = torch.Generator(device=generator.device)
             self._stream = torch.cuda.Stream(generator.device)
         carry = TrajCarry(self._gen, *self._static)
+        # a round graph holds the body alone; its chunk epilogue runs
+        # after the replays
+        program = (self._body if self._round_graph
+                   else self.program(k))
 
         def chunk():
-            new, out = self.program(k)(carry)
+            new, out = program(carry)
             for s, t in zip(tree_tensors(self._static),
                             tree_tensors(_state(new))):
                 if s is not t:
@@ -574,14 +602,22 @@ class ChunkRunner:
         entry = self._graphs[k] = _Captured(graph, out)
         return entry
 
-    def _replay(self, entry: _Captured, generator: torch.Generator
-                ) -> Tuple[TrajCarry, Any]:
+    def _replay(self, entry: _Captured, generator: torch.Generator,
+                times: int) -> Tuple[TrajCarry, Any]:
         self._gen.set_state(generator.get_state())
-        entry.graph.replay()
+        outs = []
+        for _ in range(times):
+            entry.graph.replay()
+            outs.append(_map(torch.clone, entry.out))
         generator.set_state(self._gen.get_state())
         state = (self._static if self._donate
                  else _map(torch.clone, self._static))
-        return TrajCarry(generator, *state), _map(torch.clone, entry.out)
+        carry = TrajCarry(generator, *state)
+        if not self._round_graph:
+            return carry, outs[0]
+        post = getattr(self._body, "chunk_epilogue", None)
+        out = _stack(outs)
+        return (carry, out) if post is None else post(carry, out)
 
 
 def run_per_round(body: Callable, carry: TrajCarry, k: int

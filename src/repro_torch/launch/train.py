@@ -12,10 +12,14 @@ with on-device batch sampling. Without ``--flat-buffer`` it runs the worker-tree
 the flat [N, d] buffer (dwfl and gossip only), as the reference does.
 The chunks go through ``core.trajectory.ChunkRunner`` (the reference's
 executor): on the card one CUDA graph a chunk length, replayed, the
-run's first chunk eager; on the CPU its eager program. A body over a
-process-group mesh, an LM's and a sparse round's run the eager
-``run_chunk`` loop, chosen before the run and printed. ``--no-scan`` takes each round's batch from
-the host batcher instead, one round at a time (``run_per_round``). A
+run's first chunk eager; on the CPU its eager program. An LM's round
+(one graph of a round) and a body over a one-rank process-group mesh
+(its collectives in the graph) take it too; a sparse round's (a
+worker-axis body's always) and one over an NCCL mesh of several ranks
+(which the runner refuses) run the eager ``run_chunk`` loop
+(``eager_reason``), chosen before the run and printed. ``--no-scan``
+takes each round's batch from the host batcher instead, one round at a
+time (``run_per_round``). A
 dynamic run ends with the per-round epsilon trajectory and its
 composition under both accountants;
 ``--total-epsilon`` calibrates sigma every round against a whole-run
@@ -79,6 +83,7 @@ import io
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -422,6 +427,19 @@ def refuse_past_counter_limit(cfg, n_workers: int) -> None:
                          f"(ROADMAP C2)") from None
 
 
+def eager_reason(proto, body) -> Optional[str]:
+    """Why the CLI runs a body's chunks eagerly (``run_chunk``), or None
+    for ``ChunkRunner``, which takes every body, an LM's and a one-rank
+    mesh's with its collectives too, but these: a sparse round's (a
+    worker-axis body is always one), whose graph at worker scale is
+    slower by the chunk's write-back into its buffers and reserves more
+    memory; and one the runner refuses (``make_round_body`` marks it
+    ``uncapturable``: over an NCCL mesh of more than one rank)."""
+    if proto.sparse_neighbors > 0:
+        return "a sparse round's body"
+    return getattr(body, "uncapturable", None)
+
+
 def model_config(args):
     """The run's ModelConfig: the arch, its reduced() variant with
     --reduced (dwfl-paper ignores the flag, as the reference does), its
@@ -657,15 +675,9 @@ def run(argv=None) -> dict:
                               remat=args.remat)
     guard = lambda: obs.no_implicit_transfers(not args.no_transfer_guard,
                                               dev)
-    # the executor, chosen here and never changed by what a chunk does. A
-    # mesh body's collectives stay eager; so do the device-bound rounds, an
-    # LM's and a sparse round's (at worker scale a graph of it is slower by
-    # the chunk's write-back into its buffers, and reserves more memory)
+    # the executor, chosen here and never changed by what a chunk does
     runner = None
-    eager_why = ("a process-group mesh" if mesh is not None
-                 else "an LM" if cfg.family != "mlp"
-                 else "a sparse round's" if proto.sparse_neighbors > 0
-                 else None)
+    eager_why = eager_reason(proto, body)
     if args.no_scan:
         # the guard holds each round; the per-round executor's copy of the
         # round's metrics to the host stays outside it
@@ -681,7 +693,7 @@ def run(argv=None) -> dict:
                 return TJ.run_chunk(body, carry, n)
 
         print(f"[train] executor: run_chunk (eager rounds; {eager_why} "
-              f"body stays eager, ROADMAP A7b)")
+              f"stays eager, ROADMAP A7b)")
     else:
         # the hot path, a whole chunk: it touches device tensors only
         runner = TJ.ChunkRunner(body)
@@ -690,9 +702,11 @@ def run(argv=None) -> dict:
             with guard():
                 return runner.run(carry, n)
 
+        graph = ("one CUDA graph of a round, replayed a chunk's rounds"
+                 if body.round_graph else "one CUDA graph a chunk length")
         print("[train] executor: ChunkRunner ("
-              + ("one CUDA graph a chunk length, the first chunk eager)"
-                 if dev.type == "cuda" else "its eager program)"))
+              + (f"{graph}, the first chunk eager)" if dev.type == "cuda"
+                 else "its eager program)"))
 
     eps0 = (obs.init_eps_moments(
                 fleet.replicates if fleet is not None else None, device=dev)

@@ -225,6 +225,21 @@ def cli_ranks(rank: int, argv):
             "runlog_dir": None if run_dir is None else str(run_dir)}
 
 
+def cli_executor(rank: int, argv):
+    """``launch.train.run(argv)`` on this rank (the group already up), its
+    standard output kept: the executor lines it printed and its
+    losses."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = train.run(list(argv))
+    return {"executor": [l for l in out.getvalue().splitlines()
+                         if l.startswith("[train] executor:")],
+            "losses": res["losses"]}
+
+
 # ---------------------------------------------------------------------------
 # telemetry over a mesh (ROADMAP A21)
 # ---------------------------------------------------------------------------

@@ -11,9 +11,16 @@ output. The runner agrees with the reference's ``ChunkRunner.run`` on the
 reference's replayed data uniforms and noise seeds within
 test_torch_train.py's DRIFT_BOUND (1e-6; float32 roundings of the
 gradient products and the mix, which the rounds contract). A chunk
-shorter than one round, a body over a process-group mesh and one fed by
-host batches are refused, the last two naming ROADMAP A7b. The CLI names
-its executor, and its chunked run is bitwise the eager loop's.
+shorter than one round, a body fed by host batches and one over an
+NCCL mesh of several ranks are refused, the last two naming ROADMAP A7b;
+a body over a one-rank gloo mesh (the model axis, the fleet's (1, 1)
+mesh, the worker axis) is taken, unmarked, and run bitwise run_chunk.
+--remat's checkpoint keeps no RNG state and gives the gradients without
+it. The CLI names its executor: ChunkRunner for the MLP, for every LM
+family and for a model-axis mesh over two gloo ranks, run_chunk for a
+sparse round (an LM's and a worker-axis one's included), naming the
+sparse rule, and for a body the runner refuses; its chunked run is
+bitwise the eager loop's.
 """
 import dataclasses
 import importlib.util
@@ -144,6 +151,43 @@ def test_runner_matches_the_reference_chunk_runner():
                                    rtol=1e-5)
 
 
+def test_remat_keeps_no_rng_state_and_the_same_gradients(monkeypatch):
+    """--remat's torch.utils.checkpoint keeps no RNG state
+    (preserve_rng_state=False: reading the card's default generator fails
+    inside a capture). An LM's forward draws nothing, so its gradients
+    are bitwise those without remat and those of checkpoint's default
+    (preserve_rng_state=True), on a reduced olmo-1b flat pass."""
+    import torch.utils.checkpoint as ckpt
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import exchange as X
+    from repro_torch.data import LMStore, lm_dataset
+    cfg = get_arch("olmo-1b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, 2, "cpu")
+    spec = X.FlatSpec(wp)
+    batch = LMStore.build(lm_dataset(4000, cfg.vocab_size, seed=0), 2, 2, 32,
+                          "cpu").draw(gen)
+    proto = P.ProtocolConfig(n_workers=2)
+    flat = spec.flatten(wp)
+    seen, checkpoint = [], ckpt.checkpoint
+
+    def recorded(*args, **kw):
+        seen.append(kw.get("preserve_rng_state", True))
+        return checkpoint(*args, **kw)
+
+    monkeypatch.setattr(ckpt, "checkpoint", recorded)
+    runs = [P.make_flat_local_pass(cfg, proto, spec, remat=r)(flat, batch)
+            for r in (True, False)]
+    monkeypatch.setattr(ckpt, "checkpoint", lambda *a, **kw: recorded(
+        *a, **dict(kw, preserve_rng_state=True)))
+    runs.append(P.make_flat_local_pass(cfg, proto, spec, remat=True)(flat,
+                                                                     batch))
+    assert seen == [False, True]
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert chip_smoke.same_bits(a, b)
+
+
 @pytest.mark.parametrize("k", [0, -2])
 def test_program_refuses_a_chunk_shorter_than_one(k):
     body, carry = chip_smoke.graph_path("flat", **SMALL)
@@ -163,22 +207,80 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
-def test_runner_refuses_a_mesh_body(one_rank_group):
-    """A body over a process-group mesh keeps run_chunk: its collectives
-    stay eager (ROADMAP A7b)."""
+def _mesh_body(kind: str):
+    """(body, carry) over a one-rank gloo mesh as the CLI builds it under
+    torchrun: the model axis (iot_dense, one window), the fleet on a (1,
+    1) mesh (R = 2) or the worker axis (mesh_sparse, k 4)."""
     from repro_torch.core import exchange as X
-    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.launch.mesh import make_shard_mesh, make_worker_mesh
+    if kind == "model":
+        return chip_smoke.mesh_graph_path(
+            "mesh model", make_shard_mesh(1, device="cpu"), **MESH_SMALL)
+    if kind == "fleet":
+        return chip_smoke.mesh_graph_path(
+            "mesh fleet", make_shard_mesh(1, n_replicas=1, device="cpu"),
+            R=2, **MESH_SMALL)
     cfg = dataclasses.replace(DWFL_PAPER, d_model=HIDDEN)
     proto = chip_smoke.dynamic_proto(N, "mesh_sparse", sparse_neighbors=4)
-    wp = P.init_worker_params(torch.Generator().manual_seed(0), cfg, N, "cpu")
+    gen = torch.Generator().manual_seed(0)
+    wp = P.init_worker_params(gen, cfg, N, "cpu")
     x, y = classification_dataset(400, seed=0)
     store = ClassificationStore.build(x, y, dirichlet_partition(y, N, seed=0),
                                       B, device="cpu")
-    body = TJ.make_round_body(cfg, proto, store, X.FlatSpec(wp), "cpu",
-                              sim=proto.simulator("cpu"),
+    sim = proto.simulator("cpu")
+    spec = X.FlatSpec(wp)
+    body = TJ.make_round_body(cfg, proto, store, spec, "cpu", sim=sim,
                               worker_mesh=make_worker_mesh(1, device="cpu"))
-    with pytest.raises(ValueError, match="process-group mesh.*ROADMAP A7b"):
+    return body, TJ.TrajCarry(gen, spec.flatten(wp), sim.init(gen))
+
+
+MESH_SMALL = dict(device="cpu", hidden=HIDDEN, dataset=400, batch=B)
+
+
+class _Cards:
+    """A stand-in for a DeviceMesh of ``n`` NCCL ranks: what
+    make_round_body reads of a mesh to mark its body (device type and
+    size)."""
+    device_type = "cuda"
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def size(self) -> int:
+        return self.n
+
+
+@pytest.mark.parametrize("kind", ["model", "fleet", "workers"])
+def test_runner_refuses_a_mesh_body(kind, one_rank_group):
+    """A body over an NCCL mesh of more than one rank is refused when the
+    runner is built, naming ROADMAP A7b (a capture of it hung on two
+    cards), and the CLI's rule sends it to run_chunk; over one rank, NCCL
+    or gloo, the same body is not marked."""
+    body, _ = _mesh_body(kind)
+    assert getattr(body, "uncapturable", None) is None
+    cfg = dataclasses.replace(DWFL_PAPER, d_model=HIDDEN)
+    TJ._marked(body, cfg, None, _Cards(1))
+    assert getattr(body, "uncapturable", None) is None
+    TJ._marked(body, cfg, None, _Cards(2))
+    with pytest.raises(ValueError, match="2-rank NCCL mesh.*ROADMAP A7b"):
         TJ.ChunkRunner(body)
+    assert train.eager_reason(P.ProtocolConfig(n_workers=N), body) == \
+        "a body over a 2-rank NCCL mesh"
+
+
+@pytest.mark.parametrize("kind", ["model", "fleet", "workers"])
+def test_runner_runs_a_one_rank_mesh_body_bitwise(kind, one_rank_group):
+    """A body over a one-rank process-group mesh goes through ChunkRunner
+    (its eager program on the CPU), bitwise run_chunk, the collectives
+    with it."""
+    body, carry = _mesh_body(kind)
+    twin = TJ.copy_carry(carry)
+    got = chip_smoke.chunk_record(*_chunks(TJ.ChunkRunner(body).run, carry))
+    want = chip_smoke.chunk_record(*_chunks(
+        lambda c, k: TJ.run_chunk(body, c, k), twin))
+    assert got.keys() == want.keys()
+    assert [n for n in want if not chip_smoke.same_bits(got[n], want[n])] \
+        == []
 
 
 def test_runner_refuses_host_batches():
@@ -236,18 +338,99 @@ def test_cli_names_its_executor_and_runs_the_eager_loop(extra, capsys,
     assert torch.isfinite(per_round["losses"]).all()
 
 
-def test_cli_keeps_run_chunk_for_an_lm():
-    """An LM's rounds are device-bound (PERF §5): the CLI picks run_chunk
-    up front and says so."""
-    import contextlib
-    import io
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        train.run(["--device", "cpu", "--arch", "olmo-1b", "--reduced",
-                   "--seq-len", "32", "--workers", "2", "--steps", "0",
-                   "--batch-size", "2", "--eval-every", "0"])
-    assert "[train] executor: run_chunk (eager rounds; an LM body" \
-        in buf.getvalue()
+LM_CLI = ["--device", "cpu", "--reduced", "--seq-len", "32", "--workers",
+          "2", "--batch-size", "2", "--eval-every", "0"]
+
+
+def test_cli_keeps_run_chunk_for_an_lm(capsys):
+    """An LM keeps run_chunk only where any body would: its sparse round
+    (the sparse rule, named as such); every other LM round takes
+    ChunkRunner (test_cli_runs_an_lm_through_chunk_runner)."""
+    res = train.run(LM_CLI + ["--arch", "olmo-1b", "--steps", "2",
+                              "--workers", "4", "--flat-buffer",
+                              "--channel-model", "dynamic", "--scenario",
+                              "mesh_sparse", "--sparse-neighbors", "2"])
+    assert "[train] executor: run_chunk (eager rounds; a sparse round's " \
+        "body stays eager, ROADMAP A7b)" in capsys.readouterr().out
+    assert torch.isfinite(res["losses"]).all()
+
+
+def test_cli_runs_an_lm_through_chunk_runner(capsys, monkeypatch):
+    """An LM's chunks go through ChunkRunner, as the reference's CLI runs
+    every body: the CLI names it up front, and on the CPU its eager
+    program is bitwise the run_chunk loop, chunk for chunk."""
+    argv = LM_CLI + ["--arch", "olmo-1b", "--steps", "3", "--chunk-rounds",
+                     "2"]
+    res = train.run(argv)
+    assert "[train] executor: ChunkRunner (its eager program)" \
+        in capsys.readouterr().out
+    monkeypatch.setattr(TJ.ChunkRunner, "run",
+                        lambda self, carry, k: TJ.run_chunk(self._body,
+                                                            carry, k))
+    eager = train.run(argv)
+    assert chip_smoke.same_bits(res["losses"], eager["losses"])
+    for a, b in zip(TJ.tree_tensors(res["params"]),
+                    TJ.tree_tensors(eager["params"])):
+        assert chip_smoke.same_bits(a, b)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-vl-2b", "zamba2-7b",
+                                  "deepseek-moe-16b", "xlstm-1.3b"])
+def test_cli_names_chunk_runner_for_every_lm_family(arch, capsys):
+    """Every family the CLI trains (dense, vlm, hybrid, MoE, xLSTM), at
+    reduced size, flat and tree: the CLI names ChunkRunner and its losses
+    are finite."""
+    for extra in ([], ["--flat-buffer"]):
+        res = train.run(LM_CLI + ["--arch", arch, "--steps", "1"] + extra)
+        assert "[train] executor: ChunkRunner (its eager program)" \
+            in capsys.readouterr().out
+        assert res["losses"].shape == (2,)
+        assert torch.isfinite(res["losses"]).all()
+
+
+MESH_CLI = {"model": CLI + ["--flat-buffer", "--channel-model", "dynamic",
+                            "--scenario", "iot_dense", "--model-shards",
+                            "2"],
+            "workers": ["--device", "cpu", "--hidden", "16", "--workers",
+                        "16", "--steps", "2", "--dataset-size", "2000",
+                        "--flat-buffer", "--channel-model", "dynamic",
+                        "--scenario", "mesh_sparse", "--sparse-neighbors",
+                        "4", "--eval-every", "0", "--worker-shards", "2"]}
+
+
+@pytest.mark.parametrize("axis", ["model", "workers"])
+def test_cli_executor_over_two_gloo_ranks(axis, tmp_path):
+    """The CLI on two gloo ranks, as torchrun starts it: a model-axis mesh
+    run takes ChunkRunner's eager program (on cards, several NCCL ranks
+    keep run_chunk: test_runner_refuses_a_mesh_body); a worker-axis run is a sparse
+    round's and keeps run_chunk, naming the sparse rule, not the mesh.
+    Both ranks' losses agree bitwise."""
+    import _torch_dist as D
+    ranks = D.run_ranks(D.cli_executor, 2, tmp_path, MESH_CLI[axis])
+    want = ("[train] executor: ChunkRunner (its eager program)"
+            if axis == "model" else
+            "[train] executor: run_chunk (eager rounds; a sparse round's "
+            "body stays eager, ROADMAP A7b)")
+    for r in ranks:
+        assert r["executor"] == [want]
+        assert chip_smoke.same_bits(r["losses"], ranks[0]["losses"])
+        assert torch.isfinite(r["losses"]).all()
+
+
+def test_cli_eager_reason():
+    """The CLI's rule: ChunkRunner for every body but a sparse round's and
+    one the runner refuses (marked ``uncapturable``: over an NCCL mesh of
+    more than one rank, whose capture hung on two cards); an LM's and a
+    one-rank mesh's take the runner."""
+    proto = P.ProtocolConfig(n_workers=N)
+    sparse = chip_smoke.dynamic_proto(N, "mesh_sparse", sparse_neighbors=4)
+    body, _ = chip_smoke.graph_path("flat", **SMALL)
+    assert train.eager_reason(proto, body) is None
+    assert train.eager_reason(sparse, body) == "a sparse round's body"
+    body.uncapturable = "a body over a 2-rank NCCL mesh"
+    assert train.eager_reason(proto, body) == \
+        "a body over a 2-rank NCCL mesh"
+    assert train.eager_reason(sparse, body) == "a sparse round's body"
 
 
 def test_cli_keeps_run_chunk_for_a_sparse_round(capsys):

@@ -34,7 +34,14 @@ max|out|), and C2's refusal of olmo-1b's full-depth flat buffer at N =
 moments and every output) on chip_smoke's GRAPH_PATHS (the sparse round
 at N = 64), whatever the chunk cuts, after a checkpoint's resume and
 without donation; a replay's kernels in the profiler's trace; a carry of
-other shapes refused. ``launch.serve.DecodeRunner``'s decode graph
+other shapes refused. The same for the LM and process-group bodies
+(``chip_smoke.graph_held``: two eager runs also held to each other, a
+replay's kernels against the eager chunk's launches): each LM family's
+reduced round, tree and flat, one graph of a round replayed, also cut 1
++ 2 + 3 and with ``--remat``; the model-axis round with and without
+telemetry, the (1, 1) fleet and the worker axis's sparse round on
+one-rank NCCL groups (``-k "graph_lm or graph_mesh or
+worker_axis_body"``). ``launch.serve.DecodeRunner``'s decode graph
 bitwise the eager decode_step (no tolerance: each step's logits, the
 tokens and every cache leaf) for each LM family at reduced size and a
 ring buffer past its window, two waves of the batched example on one
@@ -1190,6 +1197,26 @@ def test_flat_cli_refuses_olmo_full_depth_at_two_workers():
 
 # ---- ChunkRunner: a K-round chunk as one CUDA graph ------------------------
 
+# the repo kernels each path launches at least once a round
+GRAPH_KERNELS = dict(chip_smoke.GRAPH_KERNELS,
+                     **{"mesh workers": ("dp_mix_prep", "dp_mix_gather")})
+
+
+def _held(path, build, K=2, **kw):
+    """chip_smoke.graph_held's record of the path, held by check_held:
+    the graph bitwise the eager chunks (or within two eager runs' own
+    spread where they differ), one capture, the repo's kernels as often
+    in a replay's trace as an eager chunk launched them, GRAPH_KERNELS'
+    at least once a round."""
+    rec = chip_smoke.graph_held(path, build, K, **kw)
+    try:
+        chip_smoke.check_held(rec, GRAPH_KERNELS[path])
+    except SystemExit:
+        pytest.fail(f"{path}: {rec}")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _graph_kw(path):
     """The sparse round at N = 64 here (chip_smoke holds it at N = 2048)."""
     return {"N": 64} if path == "sparse" else {}
@@ -1200,15 +1227,11 @@ def test_graph_chunks_are_bitwise_the_eager_chunks(path):
     """Two chunks through the runner (the capture's replay, then a replay)
     after its eager first chunk: the parameters, generator state, network
     state, epsilon moments and every output bitwise the same two chunks
-    through run_chunk from a copy of the carry; one capture; each kernel
-    as many launches in a replay's profiler trace as in an eager chunk's."""
+    through run_chunk from a copy of the carry (``_held``); one capture;
+    each kernel as many launches in a replay's profiler trace as an eager
+    chunk launched."""
     _need_card()
-    rec = chip_smoke.graph_bitwise(path, **_graph_kw(path))
-    assert rec["differ"] == []
-    assert rec["captures"] == {chip_smoke.GRAPH_K: 1}
-    assert rec["kernels_replay"] == rec["kernels_eager"]
-    assert rec["kernels_eager"] and rec["launches_eager"]
-    torch.cuda.empty_cache()
+    _held(path, chip_smoke.graph_path, chip_smoke.GRAPH_K, **_graph_kw(path))
 
 
 def _graph_chunks(path, cuts, graph=True):
@@ -1455,3 +1478,111 @@ def test_decode_graph_refuses_a_host_read(monkeypatch):
     assert bool(torch.isfinite(logits).all())
     del runner, cache
     torch.cuda.empty_cache()
+
+
+# ---- ChunkRunner on LM and process-group mesh bodies -----------------------
+
+LM_FAMILIES = ("olmo-1b", "gemma-2b", "deepseek-moe-16b", "zamba2-7b",
+               "xlstm-1.3b")
+LM_SMALL = dict(reduced=True, N=3, batch=2, seq=32)
+@pytest.mark.parametrize("path", ["lm tree", "lm flat"])
+@pytest.mark.parametrize("arch", LM_FAMILIES)
+def test_graph_lm_round_is_bitwise_the_eager_round(arch, path):
+    """Each LM family's round at reduced size (N = 3, batch 2 x 32), the
+    tree round with use_pallas (B2) and the flat round (B1), through
+    ChunkRunner: two chunks of 2 rounds bitwise run_chunk's."""
+    _need_card()
+    _held(path, chip_smoke.lm_graph_path, arch=arch, **LM_SMALL)
+
+
+def test_graph_lm_round_with_remat():
+    """--remat's flat round (two column windows logically on one card,
+    the forward recomputed in the backward, no RNG state kept) through
+    ChunkRunner bitwise run_chunk."""
+    _need_card()
+    _held("lm flat", chip_smoke.lm_graph_path, remat=True, **LM_SMALL)
+
+
+@pytest.mark.parametrize("path", ["lm tree", "lm flat"])
+def test_graph_lm_chunk_cuts_do_not_change_the_stream(path):
+    """6 reduced olmo-1b rounds cut 1 + 2 + 3 through the runner (the
+    first eager, then its one-round graph replayed 2 and 3 times) and 6
+    eager rounds in one chunk: the same parameters, generator state and
+    losses."""
+    _need_card()
+    from repro_torch.core import trajectory as TJ
+    recs = []
+    for cuts, graph in (((1, 2, 3), True), ((6,), False)):
+        body, carry = chip_smoke.lm_graph_path(path, **LM_SMALL)
+        runner = TJ.ChunkRunner(body)
+        losses = []
+        for k in cuts:
+            carry, out = (runner.run(carry, k) if graph
+                          else TJ.run_chunk(body, carry, k))
+            losses.append(out["metrics"]["loss"])
+        if graph:
+            # an LM's body is captured one round at a time
+            assert body.round_graph and runner.trace_counts() == {1: 1}
+        recs.append((chip_smoke.chunk_record(carry, ()), torch.cat(losses)))
+        del body, carry, runner
+    assert chip_smoke.same_bits(recs[0][1], recs[1][1])
+    assert [n for n in recs[1][0]
+            if not chip_smoke.same_bits(recs[0][0][n], recs[1][0][n])] == []
+    torch.cuda.empty_cache()
+
+
+@pytest.fixture
+def nccl_one_rank():
+    """A one-rank NCCL process group over tcp://localhost, as the mesh
+    paths take it on one card."""
+    _need_card()
+    import torch.distributed as dist
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{chip_smoke._free_port()}",
+        rank=0, world_size=1)
+    yield
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path", chip_smoke.GRAPH_MESH_PATHS)
+def test_graph_mesh_body_is_bitwise_the_eager_body(path, nccl_one_rank):
+    """The model-axis round without and with telemetry on a one-rank NCCL
+    "model" mesh, and the fleet (R = 2) on a (1, 1) mesh, through
+    ChunkRunner: their collectives captured, two chunks of 2 rounds
+    bitwise run_chunk's."""
+    import functools
+    from repro_torch.launch.mesh import make_shard_mesh
+    mesh = (make_shard_mesh(1, n_replicas=1, device="cuda")
+            if path == "mesh fleet" else make_shard_mesh(1, device="cuda"))
+    _held(path, functools.partial(chip_smoke.mesh_graph_path, mesh=mesh),
+          R=2)
+
+
+def _worker_axis_body(path, mesh, N=64):
+    """(body, carry) of the worker axis's sparse round (mesh_sparse, k 12)
+    on this rank's rows of ``mesh``, as the CLI builds it."""
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.shard import local_rows
+    proto = chip_smoke.sparse_proto(N, flat_buffer=True)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sim = proto.simulator("cuda")
+    wp = P.init_worker_params(gen, DWFL_PAPER, N, "cuda")
+    spec = X.FlatSpec(wp)
+    body = TJ.make_round_body(DWFL_PAPER, proto, chip_smoke.paper_store(N),
+                              spec, "cuda", sim=sim, worker_mesh=mesh)
+    return body, TJ.TrajCarry(gen, local_rows(spec.flatten(wp), mesh),
+                              sim.init(gen))
+
+
+def test_graph_captures_a_one_rank_worker_axis_body(nccl_one_rank):
+    """The worker axis's sparse round (N = 64) on a one-rank NCCL
+    "workers" mesh through ChunkRunner, as the reference's runner takes
+    it (the CLI keeps such a body eager, by the sparse round's rule): its
+    all-gather of z and the clip's all_reduce captured, two chunks of 2
+    rounds bitwise run_chunk's."""
+    import functools
+    from repro_torch.launch.mesh import make_worker_mesh
+    _held("mesh workers", functools.partial(
+        _worker_axis_body, mesh=make_worker_mesh(1, device="cuda")))
