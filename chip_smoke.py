@@ -169,7 +169,13 @@ Phases, each fatal on failure (exit code 1, no result line):
              with ``--two-cards``), the CLI at --model-shards 2 and
              --worker-shards 2 on two torchrun-style ranks against the
              logical and unsharded runs, each with a run log that rank 0
-             alone writes;
+             alone writes, each through ChunkRunner's graph (chunks of
+             2: its NCCL collectives captured), and the library check
+             on two NCCL ranks (``mesh_graph_phase``: one all_reduce
+             captured; the model axis, the fleet and the worker axis,
+             the graph bitwise run_chunk, one capture, NCCL's kernels
+             and B1's in a replay's trace, ms a round in turns), every
+             rank under a hang watchdog;
              the static and the dynamic flat round and the simulator's
              round timed in turns, and the flat CLI, static and dynamic,
              warm and without evals, in turns;
@@ -524,8 +530,13 @@ PREDICTIONS = {
               "flat round (iot_dense) 0.8-1.2 ms (eager 4.2-5.7), 4-5x; "
               "the tree round 0.8-1.2 ms, 3-5x; the fleet at R 8 3.3-3.8 "
               "ms (eager 7.2), 1.8-2.2x; the sparse round at N = 2048 "
-              "device-bound, 86-90 ms either way (within 3%), its peak "
-              "allocated within 2 GiB of eager's 40.6 GiB; the static "
+              "device-bound, its rounds writing the static buffer in "
+              "place (no write-back): graph 86.5-88 ms, 1.5-2.5% under "
+              "eager's in turns (the write-back cost 0.9-2.4%, PERF 6), "
+              "peak allocated past the first chunk 28.5-29.5 GiB against "
+              "eager's 40.0-40.5 (no carry of the chunk but the static "
+              "one), reserved 52-61 GiB either way (the runner's eager "
+              "first chunk's cache); the static "
               "flat round with telemetry (every field) 0.68-0.80 ms under "
               "the graph, 5-20% over the graph's round without it",
     "large_n": "dp_mix's large-N route (dp_mix_prep + dp_mix_tiled, the "
@@ -595,13 +606,18 @@ PREDICTIONS = {
                      "zero weights bitwise the dense kernel's round at N "
                      "= 64 and 2048; the graph against SparseW.dense() at "
                      "N = 64 within 1e-5",
-    "sparse_cli": "5 dp_mix_round_sparse calls in 5 rounds and no dense "
+    "sparse_cli": "5 dp_mix_round_sparse calls in 5 rounds (the eager "
+                  "first round's and the 4-round capture's) and no dense "
                   "dp_mix_round, every loss finite, epsilon over 5 rounds; "
-                  "6-9 rounds/s over the 5 rounds, the first eval and "
-                  "first calls included (PR 21's probe: 7.51); peak 38-44 "
-                  "GiB (the probe: 40.6: the buffer, its clipped gradient, "
-                  "the output and the [2, N, d] workspace, 6.5 GiB each "
-                  "but the workspace's 13)",
+                  "the executor ChunkRunner's graph, its rounds writing the "
+                  "buffer in place; 6.8-7.5 rounds/s over the 5 rounds, "
+                  "the first eval, first calls and the 4-round capture "
+                  "included (7.12 when first measured; eager: 11.04-11.15, "
+                  "PERF 6); peak allocated 33-36 GiB (eager 40.6-40.9: the "
+                  "graph's rounds hold the static buffer, its clipped "
+                  "gradient and the [2, N, d] workspace, 6.5 GiB each but "
+                  "the workspace's 13, and no second carry), reserved "
+                  "52-55 GiB (53.14 when first measured)",
     "sparse_sync": "no synchronizing call in sim.round's neighbor-list "
                    "build, plan_dynamic_sparse and the sparse dp_mix call at "
                    "N = 2048; the whole round body at N = 64 also free of one",
@@ -713,18 +729,36 @@ PREDICTIONS = {
                      "unsharded trajectory's, peak 45-55 GiB",
     "two_cards": "the CLI on two cards, each rank started as torchrun "
                  "starts it (its card set from LOCAL_RANK, NCCL bound to "
-                 "it): --model-shards 2 at (10, 855,050), 3 rounds, "
-                 "bitwise the logical run on one card, buffer and losses; "
-                 "--worker-shards 2 on mesh_sparse at (2048, 855,050, k "
-                 "12), 3 rounds, within rtol 1e-5, atol 3e-5 of the "
-                 "unsharded CLI (bitwise on one rank), its losses bitwise; "
-                 "each start 12-25 s (as first measured: 13.6 and 20.3); "
-                 "the clip's norms no longer round by the row count "
-                 "(privacy.row_sum_squares), so a rank's 5 workers get "
-                 "the bits the logical mode's 10 get; with --runlog-dir "
-                 "on both runs one run log, rank 0's, its rows the "
-                 "one-card run's telemetry (model: bitwise but consensus, "
-                 "within rtol 1e-6; worker: within rtol 1e-5)",
+                 "it), 6 rounds in chunks of 2, each rank naming "
+                 "ChunkRunner's graph (the eager first chunk, a capture "
+                 "with the chunk's NCCL collectives, a replay): "
+                 "--model-shards 2 at (10, 855,050) bitwise the logical "
+                 "run on one card, buffer and losses; --worker-shards 2 "
+                 "on mesh_sparse at (2048, 855,050, k 12) within rtol "
+                 "1e-5, atol 3e-5 of the unsharded CLI, its losses "
+                 "bitwise; each start 12-30 s; with --runlog-dir on both "
+                 "runs one run log, rank 0's, its rows the one-card run's "
+                 "telemetry (model: bitwise but consensus, within rtol "
+                 "1e-6; worker: within rtol 1e-5)",
+    "mesh_graph": "on two NCCL ranks (the runner closed before the "
+                  "group is destroyed: NCCL keeps a communicator while a "
+                  "graph of its collectives exists: the two-card hang of "
+                  "PERF 6): one "
+                  "all_reduce captured and replayed twice, its values "
+                  "right; the model axis (4 "
+                  "rounds a chunk), the fleet on (replicas 1, model 2) and "
+                  "the worker axis at (2048, 855,050, k 12, 2 rounds a "
+                  "chunk) through ChunkRunner bitwise run_chunk, one "
+                  "capture a rank, NCCL's kernels and dp_mix_columns (or "
+                  "dp_mix_prep and dp_mix_gather) once a round in a "
+                  "replay's trace. ms a round graph | eager in turns: the "
+                  "model axis 1.11-1.19 | 8.6-9.4, the fleet 3.7-3.95 | "
+                  "11.5-12.8, the worker axis 57.5-61 | 58.7-62.5 (the "
+                  "first two-card call's within 3%); peak allocated a "
+                  "rank: the model axis and the fleet within 0.1 GiB of "
+                  "eager's, the worker axis's past its first chunk 3-6 "
+                  "GiB under eager's 30.5 (the in-place rounds hold no "
+                  "second carry; a rank's carry is 3.27 GiB)",
     "fleet_sparse_kernel": "the sparse round's replicate axis at (R 4, N "
                            "512, 855,050, k 12, float32, noisy): one wrapper "
                            "count, bitwise the 4 separate launches (0 "
@@ -2282,30 +2316,39 @@ def sparse_kernel_phase(counts: dict, rates: dict) -> dict:
 
 def sparse_cli() -> dict:
     """The worker-scale CLI at full width (dwfl-paper, mesh_sparse, N =
-    2048, --sparse-neighbors 12, 5 rounds), the dp_mix counts set to 0
-    just before and read just after: one dp_mix_round_sparse call a round
-    and no dense dp_mix_round; every loss finite, the epsilon trajectory
-    over every round; its rounds/s, peak device memory and the active
+    2048, --sparse-neighbors 12, 5 rounds: the first eager, then one
+    chunk of 4 through ChunkRunner's graph, its rounds writing the buffer
+    in place), the dp_mix counts set to 0 just before and read just
+    after: one dp_mix_round_sparse call a round (the eager round's and
+    the capture's) and no dense dp_mix_round; every loss finite, the
+    epsilon trajectory over every round; the executor it names; its
+    rounds/s, peak device memory allocated and reserved and the active
     workers the CLI found isolated in its first graph draw (it prints a
     warning when there are any)."""
     import torch
     from repro_torch.kernels.dp_mix import ops
     from repro_torch.launch import train
     predict("sparse_cli")
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.dp_mix_round_sparse.launches = ops.dp_mix_round.launches = 0
-    res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
-                     "--channel-model", "dynamic", "--scenario",
-                     SPARSE_SCENARIO, "--sparse-neighbors", str(SPARSE_K),
-                     "--workers", str(SPARSE_N), "--steps",
-                     str(SPARSE_STEPS), "--device", "cuda"])
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = train.run(["--arch", "dwfl-paper", "--flat-buffer",
+                         "--channel-model", "dynamic", "--scenario",
+                         SPARSE_SCENARIO, "--sparse-neighbors",
+                         str(SPARSE_K), "--workers", str(SPARSE_N),
+                         "--steps", str(SPARSE_STEPS), "--device", "cuda"])
     sparse, dense = ops.dp_mix_round_sparse.launches, ops.dp_mix_round.launches
+    executor = [l for l in tee.lines if l.startswith("[train] executor:")]
     rep, losses, rounds = res["epsilon_report"], res["losses"], res["rounds"]
     rec = {"scenario": SPARSE_SCENARIO, "N": SPARSE_N, "k": SPARSE_K,
            "rounds": rounds, "seconds": res["seconds"],
            "rounds_per_s": rounds / res["seconds"],
            "sparse_launches": sparse, "dense_launches": dense,
            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "reserved_gib": torch.cuda.max_memory_reserved() / 2 ** 30,
+           "executor": executor,
            "isolated_workers": res["isolated_workers"],
            "first_loss": float(losses[0]), "last_loss": float(losses[-1]),
            "eps_rounds": rep["rounds"], "eps_worst": rep["epsilon_worst"],
@@ -2314,6 +2357,10 @@ def sparse_cli() -> dict:
     if sparse != rounds or dense or rep["rounds"] != rounds:
         fail(f"sparse cli: {sparse} sparse and {dense} dense dp_mix calls, "
              f"epsilon over {rep['rounds']} rounds, for {rounds} rounds")
+    if len(executor) != 1 or not executor[0].startswith(
+            "[train] executor: ChunkRunner (one CUDA graph"):
+        fail(f"sparse cli: executor {executor}, expected ChunkRunner's "
+             f"graph")
     if not (torch.isfinite(losses).all()
             and torch.isfinite(res["params"]).all()
             and np_finite(rep["epsilon_per_round"])):
@@ -4769,28 +4816,53 @@ def mesh_one_rank_phase(store) -> dict:
     return rec
 
 
-TWO_CARD_STEPS = 3
+# 6 rounds in chunks of 2: the eager first chunk, the capture's, a replay
+TWO_CARD_STEPS, TWO_CARD_CHUNK = 5, 2
+TWO_CARD_TIMEOUT = 300      # seconds a CLI run's rank may take
+
+
+class _Tee(io.TextIOBase):
+    """Standard output written through, its lines kept."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, text: str) -> int:
+        self.out.write(text)
+        self.out.flush()
+        self.lines.extend(text.splitlines())
+        return len(text)
 
 
 def _cli_rank(rank: int, port: int, argv: list, out_dir: str) -> None:
     """One rank of two_card_cli as torchrun starts it: torchrun's
     environment (RANK, LOCAL_RANK, WORLD_SIZE, the rendezvous address), then
     ``launch.train.run(argv)``, which picks its card and starts its NCCL
-    group from that; its parameters (its window or its rows) and losses
-    saved."""
+    group from that, under a hang watchdog; its parameters (its window or
+    its rows), losses and executor line saved."""
     import os
+    _arm_watchdog(TWO_CARD_TIMEOUT)
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE="2",
                       LOCAL_WORLD_SIZE="2", MASTER_ADDR="localhost",
                       MASTER_PORT=str(port))
     sys.path.insert(0, str(SRC))
     import torch
     from repro_torch.launch import train
-    res = train.run(list(argv))
+    say = _Steps(rank, out_dir)
+    say(f"train.run {' '.join(argv)}")
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        res = train.run(list(argv))
+    say("done")
     run_dir = res["runlog_dir"]
     torch.save({"params": res["params"].cpu(), "losses": res["losses"],
                 "telemetry": res["telemetry"],
+                "executor": [l for l in tee.lines
+                             if l.startswith("[train] executor:")],
                 "runlog_dir": None if run_dir is None else str(run_dir)},
                f"{out_dir}/rank{rank}.pt")
+    import faulthandler
+    faulthandler.cancel_dump_traceback_later()
 
 
 def two_card_cli() -> dict:
@@ -4806,11 +4878,11 @@ def two_card_cli() -> dict:
     loss bitwise, grad_norm and consensus within rtol 1e-5 (the buffer's
     tolerance)."""
     import torch
-    import torch.multiprocessing as mp
     from repro_torch.launch import train
     predict("two_cards")
     base = ["--arch", "dwfl-paper", "--flat-buffer", "--eval-every", "0",
-            "--steps", str(TWO_CARD_STEPS), "--device", "cuda"]
+            "--steps", str(TWO_CARD_STEPS), "--chunk-rounds",
+            str(TWO_CARD_CHUNK), "--device", "cuda"]
     model = base + ["--workers", str(PATH_N), "--model-shards", "2"]
     sparse = base + ["--workers", str(SPARSE_N), "--channel-model",
                      "dynamic", "--scenario", SPARSE_SCENARIO,
@@ -4826,12 +4898,19 @@ def two_card_cli() -> dict:
         out_dir.mkdir(parents=True)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        mp.spawn(_cli_rank, args=(_free_port(), argv + [
-            "--runlog-dir", str(out_dir / "runs")], str(out_dir)),
-                 nprocs=2, join=True)
+        spawn_ranks(_cli_rank, (_free_port(), argv + [
+            "--runlog-dir", str(out_dir / "runs")], str(out_dir)), 2,
+                    TWO_CARD_TIMEOUT, f"the CLI on two cards, {name}",
+                    out_dir)
         rec[f"{name}_seconds"] = time.perf_counter() - t0
         ranks[name] = [torch.load(out_dir / f"rank{r}.pt",
                                   weights_only=False) for r in range(2)]
+        rec[f"{name}_executor"] = [r["executor"] for r in ranks[name]]
+        if not all(len(r["executor"]) == 1 and r["executor"][0].startswith(
+                "[train] executor: ChunkRunner (one CUDA graph")
+                   for r in ranks[name]):
+            fail(f"the CLI on two cards, {name}: executor "
+                 f"{rec[f'{name}_executor']}, expected ChunkRunner's graph")
         dirs = sorted(str(d) for d in (out_dir / "runs").iterdir())
         rec[f"{name}_run_logs"] = len(dirs)
         if (dirs != [ranks[name][0]["runlog_dir"]]
@@ -4900,9 +4979,355 @@ def two_card_cli() -> dict:
     return rec
 
 
+# ---- the graph over several NCCL ranks (A7b) -------------------------------
+
+# the bodies held on a mesh of several ranks, one rank a card: the
+# model-axis round (iot_dense at (10, 855,050), a column window a rank),
+# the fleet (vehicular, R = FLEET_R) on a (replicas 1, model S) mesh, the
+# worker axis (mesh_sparse at (SPARSE_N, 855,050, k SPARSE_K), rows a
+# rank); "allreduce" is the smallest capture, one all_reduce replayed
+MESH_GRAPH_CASES = ("allreduce", "model", "fleet", "workers")
+MESH_GRAPH_K = {"model": 4, "fleet": 4, "workers": 2}
+# chunks a timed turn (graph, eager, eager, graph), each after the
+# turn's untimed first chunks
+MESH_GRAPH_TURN_CHUNKS = {"model": 5, "fleet": 5, "workers": 3}
+# seconds a case may take: each rank's hang watchdog, and its parent's
+MESH_GRAPH_TIMEOUT = 240
+
+
+class _Steps:
+    """A rank's progress: each step printed with the rank (flushed) and
+    written to ``out_dir/rank<r>.step``, where the parent reads the last
+    one of a rank that hung or failed."""
+
+    def __init__(self, rank: int, out_dir: str):
+        self.rank, self.path = rank, Path(out_dir) / f"rank{rank}.step"
+
+    def __call__(self, step: str) -> None:
+        self.path.write_text(step)
+        print(f"[rank {self.rank}] {step}", flush=True)
+
+
+def _arm_watchdog(seconds: float) -> None:
+    """A hang watchdog for this process: after ``seconds`` every
+    thread's Python stack on stderr, then exit 1 (faulthandler's own
+    thread: it needs no GIL, so a thread stuck in a CUDA or NCCL call is
+    caught too)."""
+    import faulthandler
+    faulthandler.dump_traceback_later(seconds, exit=True)
+
+
+def spawn_ranks(fn, args: tuple, nprocs: int, timeout: float, what: str,
+                out_dir: Path) -> None:
+    """``fn(rank, *args)`` on ``nprocs`` processes (torch.multiprocessing),
+    each with its own hang watchdog (``fn`` arms it); the parent waits at
+    most ``timeout`` + 30 s, then kills every rank. A rank that fails,
+    hangs or is killed fails the phase, naming each rank's last step."""
+    import torch.multiprocessing as mp
+    ctx = mp.spawn(fn, args=args, nprocs=nprocs, join=False)
+    deadline = time.time() + timeout + 30
+    try:
+        while not ctx.join(timeout=5):
+            if time.time() > deadline:
+                raise TimeoutError(f"past {timeout + 30:.0f} s")
+    except Exception as e:  # noqa: BLE001 (a rank's failure is the phase's)
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        steps = {r: (Path(out_dir) / f"rank{r}.step").read_text()
+                 if (Path(out_dir) / f"rank{r}.step").exists() else None
+                 for r in range(nprocs)}
+        fail(f"{what}: {type(e).__name__}: {e}; each rank's last step: "
+             f"{steps}")
+
+
+# the body cases' sizes for a run on the CPU over gloo ranks (the harness's
+# own test; the card takes the full sizes)
+MESH_GRAPH_SMALL = dict(N=8, hidden=16, dataset=400, batch=8, k=4)
+
+
+def _mesh_graph_body(case: str, world: int, device: str,
+                     small: bool = False):
+    """(body, carry, the B1 kernels a round) of a body case over a mesh of
+    ``world`` ranks as the CLI builds it under torchrun, at full width
+    (``small``: MESH_GRAPH_SMALL's sizes)."""
+    import torch
+    from repro_torch.configs import DWFL_PAPER
+    from repro_torch.core import exchange as X
+    from repro_torch.core import protocol as P
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.launch.mesh import make_shard_mesh, make_worker_mesh
+    from repro_torch.shard import local_rows
+    sz = MESH_GRAPH_SMALL if small else {}
+    kw = {k: v for k, v in sz.items() if k != "k"}
+    if case == "model":
+        return (*mesh_graph_path("mesh model",
+                                 make_shard_mesh(world, device=device),
+                                 device=device, **kw), ("dp_mix_columns",))
+    if case == "fleet":
+        return (*mesh_graph_path("mesh fleet",
+                                 make_shard_mesh(world, n_replicas=1,
+                                                 device=device),
+                                 device=device, R=2 if small else FLEET_R,
+                                 **kw), ("dp_mix_columns",))
+    N = sz.get("N", SPARSE_N)
+    cfg = (dataclasses.replace(DWFL_PAPER, d_model=sz["hidden"]) if small
+           else DWFL_PAPER)
+    proto = dynamic_proto(N, SPARSE_SCENARIO, flat_buffer=True,
+                          sparse_neighbors=sz.get("k", SPARSE_K))
+    if small:
+        from repro_torch.data import (ClassificationStore,
+                                      classification_dataset,
+                                      dirichlet_partition)
+        x, y = classification_dataset(sz["dataset"], seed=0)
+        store = ClassificationStore.build(
+            x, y, dirichlet_partition(y, N, alpha=0.5, seed=0), sz["batch"],
+            device)
+    else:
+        store = paper_store(N)
+    mesh = make_worker_mesh(world, device=device)
+    gen = torch.Generator(device=device).manual_seed(3)
+    sim = proto.simulator(device)
+    wp = P.init_worker_params(gen, cfg, N, device)
+    spec = X.FlatSpec(wp)
+    flat = local_rows(spec.flatten(wp), mesh)
+    del wp
+    body = TJ.make_round_body(cfg, proto, store, spec, device, sim=sim,
+                              worker_mesh=mesh)
+    return (body, TJ.TrajCarry(gen, flat, sim.init(gen)),
+            ("dp_mix_prep", "dp_mix_gather"))
+
+
+def _agreed_trace(fn):
+    """``traced(fn)`` for the repo's kernels and NCCL's, retaken while a
+    session recorded no device operation on any rank (every rank takes
+    as many sessions: ``fn`` runs collectives), at most TRACE_SESSIONS:
+    (the kernels summed over the sessions, the sessions taken)."""
+    import torch
+    import torch.distributed as dist
+    got = {}
+    for n in range(1, TRACE_SESSIONS + 1):
+        _, kernels, ops = traced(fn, TRAIN_KERNELS + ("nccl",))
+        for name, c in kernels.items():
+            got[name] = got.get(name, 0) + c
+        empty = torch.tensor([0 if ops else 1], device="cuda")
+        dist.all_reduce(empty)
+        if not int(empty.item()):
+            break
+    return got, n
+
+
+def _sync(device: str) -> None:
+    import torch
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _mesh_turns(case: str, body, carry, say, device: str) -> tuple:
+    """ms a round of the body through ChunkRunner and run_chunk in turns
+    (graph, eager, eager, graph; every rank alike), host clock around
+    MESH_GRAPH_TURN_CHUNKS[case] chunks of MESH_GRAPH_K[case] rounds
+    ending in a synchronize, a graph turn a new runner (its eager chunk
+    and its capture untimed); each turn's peak allocated and reserved
+    GiB, over the turn and past its first chunk (a graph turn's capture
+    and replays without the runner's eager first chunk). Returns (the
+    record, the carry)."""
+    import gc
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import trajectory as TJ
+    K, chunks = MESH_GRAPH_K[case], MESH_GRAPH_TURN_CHUNKS[case]
+    cuda = device == "cuda"
+    ms = {"graph": [], "eager": []}
+    peak = {"graph": [], "eager": []}
+    past = {"graph": [], "eager": []}
+    gib = lambda: (torch.cuda.max_memory_allocated() / 2 ** 30,
+                   torch.cuda.max_memory_reserved() / 2 ** 30)
+    for turn in ("graph", "eager", "eager", "graph"):
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        runner = TJ.ChunkRunner(body) if turn == "graph" else None
+        run = (runner.run if runner is not None else
+               (lambda c, n: TJ.run_chunk(body, c, n)))
+        for n in range(2 if turn == "graph" else 1):
+            carry, _ = run(carry, K)
+            if n == 0 and cuda:
+                torch.cuda.synchronize()
+                first = gib()
+                torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        dist.barrier()
+        say(f"turn {turn}")
+        t0 = time.perf_counter()
+        for _ in range(chunks):
+            carry, _ = run(carry, K)
+        _sync(device)
+        ms[turn].append(1e3 * (time.perf_counter() - t0) / (chunks * K))
+        if cuda:
+            past[turn].append(gib())
+            peak[turn].append(tuple(max(a, b) for a, b
+                                    in zip(first, past[turn][-1])))
+        if runner is not None:
+            runner.close()      # as the CLI does before the group goes
+        del run, runner
+    return {"rounds_a_chunk": K, "chunks": chunks, "ms_a_round": ms,
+            "peak_gib": peak, "peak_past_first_gib": past}, carry
+
+
+def _mesh_graph_rank(rank: int, world: int, port: int, case: str,
+                     out_dir: str, timeout: float, turns: bool,
+                     device: str = "cuda", small: bool = False) -> None:
+    """One rank of ``mesh_graph_ranks``: its card (NCCL) or the CPU
+    (gloo), the process group, then the case, each step said; its record
+    to ``out_dir/rank<r>.json``."""
+    _arm_watchdog(timeout)
+    sys.path.insert(0, str(SRC))
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch import runtime
+    from repro_torch.core import trajectory as TJ
+    say = _Steps(rank, out_dir)
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.set_device(rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    say("init_process_group")
+    dist.init_process_group(
+        "nccl" if cuda else "gloo",
+        init_method=f"tcp://localhost:{port}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=max(30, timeout / 2)))
+    rec = {"case": case, "rank": rank, "world": world, "device": device}
+    try:
+        if case == "allreduce":
+            x = torch.full((1 << 20,), float(rank + 1), device=device)
+            say("eager all_reduce")
+            dist.all_reduce(x)
+            _sync(device)
+            total = world * (world + 1) / 2
+            if cuda:
+                graph, _ = runtime.capture_graph(
+                    lambda: dist.all_reduce(x), torch.cuda.Stream(),
+                    what="one all_reduce")
+                for n in range(2):
+                    say(f"replay {n}")
+                    graph.replay()
+                    torch.cuda.synchronize()
+                del graph
+                total *= world ** 2
+            rec["values"] = sorted(set(x.tolist()))
+            rec["want"] = total
+            rec["ok"] = rec["values"] == [total]
+        else:
+            K = MESH_GRAPH_K[case]
+            say("build the body")
+            body, carry, kernels = _mesh_graph_body(case, world, device,
+                                                    small)
+            # its graphs freed as the block ends, before the group
+            with TJ.ChunkRunner(body) as runner:
+                say("eager first chunk")
+                carry, _ = runner.run(carry, K)
+                _sync(device)
+                twin = TJ.copy_carry(carry)
+                say("the capture's chunk")
+                carry, out1 = runner.run(carry, K)
+                _sync(device)
+                say("a replay")
+                carry, out2 = runner.run(carry, K)
+                _sync(device)
+                got = chunk_record(carry, (out1, out2))
+                del out1, out2
+                replay_k, sessions = {}, 0
+                if cuda:
+                    say("a replay under the profiler")
+                    replay_k, sessions = _agreed_trace(
+                        lambda: runner.run(carry, K))
+                rec["captures"] = {str(k): n for k, n
+                                   in runner.trace_counts().items()}
+            say("the same chunks through run_chunk")
+            c, e1 = TJ.run_chunk(body, twin, K)
+            c, e2 = TJ.run_chunk(body, c, K)
+            want = chunk_record(c, (e1, e2))
+            del c, e1, e2, twin
+            differ, spread = bits_spread(got, want)
+            del got, want
+            nccl = replay_k.get("nccl", 0)
+            rec.update(rounds=K, differ=differ, max_abs_diff=spread,
+                       kernels_replay=replay_k, trace_sessions=sessions,
+                       nccl_replay=nccl, b1_kernels=list(kernels))
+            rec["ok"] = not differ and (not cuda or (
+                rec["captures"] == {str(K): 1} and nccl > 0
+                and all(replay_k.get(k, 0) == K for k in kernels)))
+            del runner
+            if turns:
+                rec["turns"], carry = _mesh_turns(case, body, carry, say,
+                                                  device)
+            del carry, body
+    finally:
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(rec))
+        _sync(device)
+        say("destroy_process_group")
+        dist.destroy_process_group()
+    say("done")
+    import faulthandler
+    faulthandler.cancel_dump_traceback_later()
+
+
+def mesh_graph_ranks(case: str, ranks: int = 2,
+                     timeout: float = MESH_GRAPH_TIMEOUT,
+                     turns: bool = True, out_dir: Optional[Path] = None,
+                     device: str = "cuda", small: bool = False) -> list:
+    """One of MESH_GRAPH_CASES on ``ranks`` NCCL ranks (one a card, a
+    tcp://localhost rendezvous), each with its hang watchdog
+    (``timeout`` s); a body case through ChunkRunner, its first chunk
+    eager, then the capture's chunk and a replay (MESH_GRAPH_K[case]
+    rounds each), held bitwise against the same chunks through
+    run_chunk from a copy of the carry, one capture, a replay's kernels
+    from the profiler's trace (NCCL's, and B1's or B1-sparse's once a
+    round); then, with ``turns``, ms a round graph against eager
+    (``_mesh_turns``). ``device`` "cpu": gloo ranks
+    (the runner's eager program; the harness's own test), at
+    MESH_GRAPH_SMALL's sizes with ``small``. Returns the ranks'
+    records."""
+    out_dir = Path(out_dir or ROOT / "build" / f"mesh_graph_{case}")
+    if out_dir.exists():
+        shutil.rmtree(out_dir)
+    out_dir.mkdir(parents=True)
+    spawn_ranks(_mesh_graph_rank,
+                (ranks, _free_port(), case, str(out_dir), timeout, turns,
+                 device, small),
+                ranks, timeout, f"the graph over {ranks} ranks, {case}",
+                out_dir)
+    return [json.loads((out_dir / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+
+
+def mesh_graph_phase() -> dict:
+    """The library check on two cards: the smallest capture, then each
+    body case (``mesh_graph_ranks``) on two NCCL ranks: the graph
+    bitwise run_chunk, one capture a chunk length a rank, NCCL's kernels
+    and B1's or B1-sparse's in a replay's trace; ms a round graph against
+    eager in turns and each turn's peak memory."""
+    predict("mesh_graph")
+    recs = {}
+    for case in MESH_GRAPH_CASES:
+        t0 = time.perf_counter()
+        ranks = mesh_graph_ranks(case)
+        recs[case] = {"seconds": time.perf_counter() - t0, "ranks": ranks}
+        print(f"[mesh-graph] {case} {json.dumps(recs[case])}", flush=True)
+        if not all(r["ok"] for r in ranks):
+            fail(f"the graph over two NCCL ranks, {case}: {ranks}")
+    return recs
+
+
 def two_cards_main() -> int:
-    """``python3 chip_smoke.py --two-cards``: two_card_cli alone, on a
-    machine with two cards or more."""
+    """``python3 chip_smoke.py --two-cards``: two_card_cli and
+    mesh_graph_phase alone, on a machine with two cards or more."""
     if not (SRC / "repro_torch").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout")
     sys.path.insert(0, str(SRC))
@@ -4918,6 +5343,7 @@ def two_cards_main() -> int:
     from repro_torch.kernels.dp_mix import ops
     build.build_all([ops.LIBRARY])
     two_card_cli()
+    mesh_graph_phase()
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
@@ -5640,7 +6066,9 @@ def graph_turns(path: str, K: int = GRAPH_TURN_K,
     runner: its eager chunk and its capture untimed (an eager turn's
     first chunk too). The last turn's runner and its pool are freed
     before the next turn (``reserved_before``: the GiB still reserved
-    then); peak device memory (allocated and reserved) of each turn.
+    then); peak device memory (allocated and reserved) of each turn, and
+    past its first chunk (``peak_past_first_gib``: a graph turn's
+    capture and replays without the runner's eager first chunk).
     ``build``: the path's (body, carry) maker (``graph_path`` if None)."""
     import gc
     import torch
@@ -5648,7 +6076,10 @@ def graph_turns(path: str, K: int = GRAPH_TURN_K,
     body, carry = (build or graph_path)(path, **kw)
     rate = {"graph": [], "eager": []}
     peak = {"graph": [], "eager": []}
+    past = {"graph": [], "eager": []}
     before = []
+    gib = lambda: (torch.cuda.max_memory_allocated() / 2**30,
+                   torch.cuda.max_memory_reserved() / 2**30)
     for turn in ("graph", "eager", "eager", "graph"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -5656,22 +6087,27 @@ def graph_turns(path: str, K: int = GRAPH_TURN_K,
         run = (TJ.ChunkRunner(body).run if turn == "graph" else
                (lambda c, n: TJ.run_chunk(body, c, n)))
         torch.cuda.reset_peak_memory_stats()
-        for _ in range(2 if turn == "graph" else 1):
+        for n in range(2 if turn == "graph" else 1):
             carry, _ = run(carry, K)
+            if n == 0:
+                torch.cuda.synchronize()
+                first = gib()
+                torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(chunks):
             carry, _ = run(carry, K)
         torch.cuda.synchronize()
         rate[turn].append(chunks * K / (time.perf_counter() - t0))
-        peak[turn].append((torch.cuda.max_memory_allocated() / 2**30,
-                           torch.cuda.max_memory_reserved() / 2**30))
+        past[turn].append(gib())
+        peak[turn].append(tuple(max(a, b) for a, b in zip(first,
+                                                          past[turn][-1])))
         del run
     del carry, body
     torch.cuda.empty_cache()
     return {"path": path, "rounds_a_chunk": K, "chunks": chunks,
             "rounds_per_s": rate, "peak_gib": peak,
-            "reserved_before_gib": before,
+            "peak_past_first_gib": past, "reserved_before_gib": before,
             "speedup": [g / e for g, e in zip(rate["graph"],
                                               reversed(rate["eager"]))]}
 
@@ -6749,6 +7185,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     if torch.cuda.device_count() >= 2:
         two_card_cli()
+        mesh_graph_phase()
     else:
         print("[shard] two cards: not run (one card)", flush=True)
     predict("turns")

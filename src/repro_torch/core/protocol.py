@@ -536,29 +536,38 @@ def make_dynamic_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
                                  ) -> Callable:
     """The flat-buffer round on the dynamic network:
 
-        step(flat, batch, seed, chan, W) -> (flat', metrics)
+        step(flat, batch, seed, chan, W, out=None) -> (flat', metrics)
 
     ``chan``/``W`` are the round's (``NetworkSimulator.round``); the plan
     (``exchange.plan_dynamic``: W, listen = 0 for a worker with no
     neighbor, m_scale = 1/(c deg)) is built from them on the device and
     the dp_mix kernel takes every channel quantity as an operand, so the
-    round never waits for the host."""
+    round never waits for the host. ``out`` (a neighbor-list W's round
+    only, which ``step.writes_into`` declares; it may be ``flat``): the
+    tensor flat' is written into (``ops.dp_mix_round_sparse``)."""
     dev = resolve_device(device)
     mix = _flat_spec(proto, dynamic=True)
     local_grads = make_flat_local_pass(cfg, proto, spec)
     gamma, eta = proto.gamma, proto.eta
 
-    def step(flat, batch, seed, chan, W):
+    def step(flat, batch, seed, chan, W, out=None):
         losses, g, gnorms = local_grads(flat, batch)
         if proto.n_workers < 2:
-            flat = flat - gamma * g
+            flat = _into(flat - gamma * g, out)
         else:
             flat = mix_ops.dp_mix_round_plan(
                 flat, g, seed, mix.plan(proto, chan, dev, W),
-                gamma=gamma, eta=eta)
+                gamma=gamma, eta=eta, out=out)
         return flat, _flat_metrics(losses, gnorms, flat)
 
+    # the steps that take ``out`` say so (``trajectory._marked``)
+    step.writes_into = proto.sparse_neighbors > 0
     return step
+
+
+def _into(new, out):
+    """``new``, or ``out`` holding its values."""
+    return new if out is None else out.copy_(new)
 
 
 def _fold(tree, R: int, N: int):
@@ -587,9 +596,9 @@ def make_fleet_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
                                ) -> Callable:
     """The dynamic flat round of R networks at once:
 
-        step(flat, batch, seeds, chans, Ws) -> (flat', metrics)
+        step(flat, batch, seeds, chans, Ws, out=None) -> (flat', metrics)
 
-    flat [R, N, d] float32; batch leaves [R, N, B, ...]; seeds int32 [R],
+    flat [R, N, d] float32 (``out`` as ``make_dynamic_flat_train_step``'s); batch leaves [R, N, B, ...]; seeds int32 [R],
     one a replicate (each replicate's noise counters from 0); chans the
     networks' stacked channel ([R, ...] leaves) and Ws [R, N, N] (with
     ``sparse_neighbors``, a SparseW of [R, N, k] leaves), from one
@@ -605,19 +614,20 @@ def make_fleet_flat_train_step(cfg: ModelConfig, proto: ProtocolConfig,
     local_grads = make_flat_local_pass(cfg, proto, spec)
     gamma, eta = proto.gamma, proto.eta
 
-    def step(flat, batch, seeds, chans, Ws):
+    def step(flat, batch, seeds, chans, Ws, out=None):
         R, N, d = flat.shape
         losses, g, gnorms = local_grads(flat.reshape(R * N, d),
                                         _fold(batch, R, N))
         g = g.reshape(R, N, d)
         if proto.n_workers < 2:
-            flat = flat - gamma * g
+            flat = _into(flat - gamma * g, out)
         else:
             flat = mix_ops.dp_mix_round_plan(
                 flat, g, seeds, mix.plan(proto, chans, dev, Ws),
-                gamma=gamma, eta=eta)
+                gamma=gamma, eta=eta, out=out)
         return flat, _fleet_metrics(losses, gnorms, [flat], R, N)
 
+    step.writes_into = proto.sparse_neighbors > 0
     return step
 
 

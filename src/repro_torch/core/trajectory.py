@@ -54,7 +54,8 @@ from repro_torch.core import protocol as protocol_lib
 from repro_torch.net.sparse import SparseW, cat_w, stack_w
 from repro_torch.net.state import (FIELDS, TracedChannelState, concat_states,
                                    stack_states)
-from repro_torch.runtime import capture_graph, resolve_device
+from repro_torch.runtime import (capture_graph, close_before_destroy,
+                                 resolve_device)
 
 _INT32_MIN, _INT32_END = -(1 << 31), 1 << 31
 
@@ -146,18 +147,18 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
         fleet_round = fleet.make_fleet_round(cfg, spec=spec, mesh=shard_mesh,
                                              remat=remat)
 
-        def body(carry: TrajCarry):
+        def body(carry: TrajCarry, into=None):
             gen = carry.generator
             batch = store.draw_fleet(gen, R)
             net, params, metrics, chans, Ws = fleet_round(
-                gen, carry.net, carry.params, batch)
+                gen, carry.net, carry.params, batch, out=into)
             return (TrajCarry(gen, params, net, carry.eps),
                     {"metrics": metrics, "chan": chans, "W": Ws})
 
         return _marked(
             _maybe_instrument(body, telemetry, proto, device, fleet=fleet,
                               consensus=_consensus(fleet, shard_mesh)),
-            cfg, store, shard_mesh)
+            cfg, store, fleet_round, shard_mesh)
     if sim is not None:
         if spec is not None:
             if worker_mesh is not None:
@@ -176,12 +177,13 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
                 step = protocol_lib.make_dynamic_flat_train_step(
                     cfg, proto, spec, device)
 
-            def body(carry: TrajCarry):
+            def body(carry: TrajCarry, into=None):
                 gen = carry.generator
                 batch = store.draw(gen)
                 net, chan, _, W = sim.round(gen, carry.net)
-                params, metrics = step(carry.params, batch, round_seed(gen),
-                                       chan, W)
+                params, metrics = step(
+                    carry.params, batch, round_seed(gen), chan, W,
+                    **({} if into is None else {"out": into}))
                 return (TrajCarry(gen, params, net, carry.eps),
                         {"metrics": metrics, "chan": chan, "W": W})
         else:
@@ -224,24 +226,26 @@ def make_round_body(cfg, proto, store, spec=None, device="cuda", *,
         _maybe_instrument(body, telemetry, proto, device,
                           consensus=_consensus(None, shard_mesh,
                                                worker_mesh)),
-        cfg, store, shard_mesh if worker_mesh is None else worker_mesh)
+        cfg, store, step,
+        shard_mesh if worker_mesh is None else worker_mesh)
 
 
-def _marked(body: Callable, cfg, store, mesh) -> Callable:
+def _marked(body: Callable, cfg, store, step, mesh) -> Callable:
     """``body``, marked for ``ChunkRunner``: ``round_graph`` for an LM's
     (captured one round at a time), ``uncapturable`` for one fed by host
-    batches (a graph would replay one upload) and for one over an NCCL
-    mesh of more than one rank (such a capture hung on two cards: ROADMAP
-    A7b). A body over a one-rank NCCL mesh, or over gloo ranks (the CPU,
-    where the runner runs its eager program), is captured, its
-    collectives with it."""
+    batches (a graph would replay one upload), ``writes_into`` for one
+    that takes ``body(carry, into=t)`` and writes the round's new flat
+    buffer into ``t``, which may be ``carry.params`` itself: as its
+    ``step`` declares (a neighbor-list round's, whose ``out`` is
+    ``ops.dp_mix_round_sparse``'s). ``mesh``, the process-group mesh
+    whose collectives the body runs (None without one), is kept as
+    ``body.mesh``. A body over a mesh, NCCL or gloo, of any size, is
+    captured, its collectives with it."""
     body.round_graph = cfg.family != "mlp"
+    body.writes_into = bool(getattr(step, "writes_into", False))
+    body.mesh = mesh
     if isinstance(store, HostBatches):
         body.uncapturable = "a body fed by host batches"
-    elif (mesh is not None and mesh.device_type == "cuda"
-          and mesh.size() > 1):
-        body.uncapturable = (f"a body over a {mesh.size()}-rank NCCL "
-                             f"mesh")
     return body
 
 
@@ -315,17 +319,19 @@ def _maybe_instrument(body: Callable, tele, proto, device, *,
             static_eps = tele_lib.epsilon_round(proto, chan, W)
             static_rdp = tele_lib.rdp_round(proto, chan, W)
 
-    def instrumented(carry: TrajCarry):
-        new_carry, out = body(carry)
+    def instrumented(carry: TrajCarry, **kw):
+        vals = {}
+        if tele.consensus:
+            # before the body, which may write the parameters in place
+            # (``into``)
+            vals["consensus"] = consensus(carry.params)
+        new_carry, out = body(carry, **kw)
         if not in_fields:
             return new_carry, out
-        vals = {}
         if tele.loss:
             vals["loss"] = out["metrics"]["loss"]
         if tele.grad_norm:
             vals["grad_norm"] = out["metrics"]["grad_norm"]
-        if tele.consensus:
-            vals["consensus"] = consensus(carry.params)
         cols = [vals[f].float() for f in in_fields]
         return new_carry, dict(out, telemetry=torch.stack(cols, dim=-1))
 
@@ -385,17 +391,20 @@ def _stack(outs: List[dict]) -> dict:
     return out
 
 
-def run_chunk(body: Callable, carry: TrajCarry, k: int
+def run_chunk(body: Callable, carry: TrajCarry, k: int, into=None
               ) -> Tuple[TrajCarry, Any]:
     """Advance ``k`` rounds eagerly; the outputs come back stacked [k, ...]
     on the parameters' device, after the body's chunk epilogue (telemetry)
     where it has one. After the first round nothing here holds the carry
-    passed in (``analysis.donation`` checks a caller that drops it)."""
+    passed in (``analysis.donation`` checks a caller that drops it).
+    ``into`` (a ``writes_into`` body's): every round writes its new
+    parameters into it, in place where it is the carry's."""
     if k < 1:
         raise ValueError(f"chunk length must be >= 1, got {k}")
+    kw = {} if into is None else {"into": into}
     outs = []
     for _ in range(int(k)):
-        carry, out = body(carry)
+        carry, out = body(carry, **kw)
         outs.append(out)
     post = getattr(body, "chunk_epilogue", None)
     out = _stack(outs)
@@ -485,7 +494,10 @@ class ChunkRunner:
     The graphs read and rewrite one set of static buffers (the carry's
     parameters, network state and epsilon moments): each graph ends by
     writing the chunk's new values into them, so replays chain without a
-    copy. With ``donate`` the carry passed in is consumed: the runner
+    copy. A ``writes_into`` body's rounds (a neighbor-list flat round's,
+    a worker-axis one's too) write their new parameters into the static
+    buffer in place, every round of the graph: no write-back of the
+    [N, d] buffer, and no second one in the graph's pool. With ``donate`` the carry passed in is consumed: the runner
     adopts its tensors as those buffers (it copies a carry whose tensors
     are not theirs into them: after a checkpoint's resume, or a rebinding
     by the caller), and the carry returned holds them, to be overwritten by
@@ -504,13 +516,17 @@ class ChunkRunner:
     raises, naming ROADMAP A7b; nothing falls back to the eager loop on
     the card. A carry of other shapes than the buffers' (it would need a
     second capture of each length) raises ``obs.RetraceError``. A body
-    over a one-rank process-group mesh is captured with its collectives
-    (NCCL's: each group's communicator is started by the mesh's first
-    collective, and the eager first chunk runs every one before a
-    capture), held bitwise. A body over an NCCL mesh of more than one
-    rank (a capture of it hung on two cards) and one fed by host batches
-    are refused when the runner is built (``make_round_body`` marks them
-    ``uncapturable``)."""
+    over a process-group mesh is captured with its collectives (NCCL's:
+    each group's communicator is started by the mesh's first collective,
+    and the eager first chunk runs every one before a capture; over
+    several ranks every rank captures the same chunks in the same order,
+    ``runtime.capture_graph``), held bitwise. A graph of NCCL
+    collectives keeps their communicator, whose destroy waits for it
+    forever: a runner over an NCCL mesh (``body.mesh``) frees its graphs
+    when it is closed, at the end of a ``with`` block, and before any
+    process group is destroyed (``runtime.close_before_destroy``). A
+    body fed by host batches is refused when the runner is built
+    (``make_round_body`` marks it ``uncapturable``)."""
 
     def __init__(self, body: Callable, donate: bool = True):
         why = getattr(body, "uncapturable", None)
@@ -525,6 +541,21 @@ class ChunkRunner:
         self._static = None          # (params, net, eps) the graphs rewrite
         self._shapes = None          # their (shape, dtype, device)s
         self._gen = self._stream = self._pool = None
+        mesh = getattr(body, "mesh", None)
+        if mesh is not None and mesh.device_type == "cuda":
+            close_before_destroy(self)
+
+    def close(self) -> None:
+        """Free the graphs and their pool (the carry returned keeps its
+        buffers); a later chunk captures anew."""
+        self._graphs.clear()
+        self._pool = None
+
+    def __enter__(self) -> "ChunkRunner":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def trace_counts(self) -> Dict[int, int]:
         # a length is captured once: a carry that would need a second
@@ -581,10 +612,13 @@ class ChunkRunner:
             self._gen = torch.Generator(device=generator.device)
             self._stream = torch.cuda.Stream(generator.device)
         carry = TrajCarry(self._gen, *self._static)
+        # a writes_into body's rounds write the static parameters in place
+        kw = ({"into": self._static[0]}
+              if getattr(self._body, "writes_into", False) else {})
         # a round graph holds the body alone; its chunk epilogue runs
         # after the replays
-        program = (self._body if self._round_graph
-                   else self.program(k))
+        program = (functools.partial(self._body, **kw) if self._round_graph
+                   else functools.partial(run_chunk, self._body, k=k, **kw))
 
         def chunk():
             new, out = program(carry)

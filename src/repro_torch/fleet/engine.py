@@ -201,7 +201,7 @@ class FleetEngine:
                          remat: bool = False):
         """The networks' round and the train step in one call:
 
-            fleet_round(generator, states, worker_params, batch)
+            fleet_round(generator, states, worker_params, batch, out=None)
                 -> (states', worker_params', metrics, chans, Ws)
 
         After the caller's batch it draws, from ``generator``, the
@@ -210,18 +210,22 @@ class FleetEngine:
         mesh every rank draws all R networks alike; the step takes this
         rank's replicates (``replicate_slice``; ``worker_params`` is this
         rank's [R_loc, N, shard_width]) and the metrics come back [R],
-        gathered over the "replicas" axis."""
+        gathered over the "replicas" axis. ``out``: the tensor the flat
+        step writes its new buffer into (a neighbor-list round without a
+        mesh, which ``fleet_round.writes_into`` declares;
+        ``protocol.make_fleet_flat_train_step``)."""
         from repro_torch.core.trajectory import round_seed
         step = self.make_fleet_step(cfg, spec=spec, mesh=mesh, remat=remat)
         R = self.replicates
         mine = self.replicate_slice(mesh)
 
-        def fleet_round(generator, states, worker_params, batch):
+        def fleet_round(generator, states, worker_params, batch, out=None):
             states, chans, _, Ws = self.round(generator, states)
             noise = round_seed(generator, R) if spec is not None else generator
             if mesh is None:
-                worker_params, metrics = step(worker_params, batch, noise,
-                                              chans, Ws)
+                worker_params, metrics = step(
+                    worker_params, batch, noise, chans, Ws,
+                    **({} if out is None else {"out": out}))
                 return states, worker_params, metrics, chans, Ws
             local = lambda t: t[mine]
             worker_params, metrics = step(
@@ -232,6 +236,8 @@ class FleetEngine:
                     {k: _gather_replicas(v, mesh) for k, v in
                      metrics.items()}, chans, Ws)
 
+        fleet_round.writes_into = (mesh is None
+                                   and getattr(step, "writes_into", False))
         return fleet_round
 
 

@@ -205,16 +205,26 @@ def _ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _out_like(p, out) -> torch.Tensor:
+    """The gather's output: a new tensor like p, or ``out``, checked."""
+    if out is None:
+        return torch.empty_like(p)
+    _check(p, (("out", out, tuple(p.shape), p.dtype),))
+    return out
+
+
 def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
                    w, self_w, *, gamma, eta, noisy, counter_width, row0=0,
-                   order=None) -> torch.Tensor:
+                   order=None, out=None) -> torch.Tensor:
     """dp_mix_prep then dp_mix_gather over the float32 workspace [2, N, d]
     (z, then the DP noise n/c); ``row0`` offsets the noise counters'
     rows; ``order`` int32 [N] (``locality_order``), a permutation of the
     receivers, is the order the gather's groups take them in (None: index
     order; the output is bitwise the same either way). A stack [R, N, d]
     of R rounds is the same two launches over a workspace [R, 2, N, d],
-    the replicate a grid axis of both (``order`` [R, N])."""
+    the replicate a grid axis of both (``order`` [R, N]). ``out``: the
+    tensor the gather writes (``dp_mix_round_sparse``'s), else a new
+    one."""
     *lead, N, d = p.shape
     lead = tuple(lead)
     R = lead[0] if lead else 1
@@ -226,7 +236,7 @@ def _launch_sparse(p, g, seed, col0, scal, amp, selfs, mscale, listen, idx,
            + (() if order is None
               else (("order", order, lead + (N,), torch.int32),)))
     p, g = p.contiguous(), g.contiguous()
-    out = torch.empty_like(p)
+    out = _out_like(p, out)
     ws = torch.empty(R * 2 * N * d, dtype=torch.float32, device=p.device)
     lib = _library()
     rc = lib.dp_mix_sparse_launch(
@@ -264,10 +274,11 @@ def _launch_prep(p, g, seed, col0, scal, amp, *, gamma, noisy, counter_width,
 
 def _launch_gather(p, g, ws, z_src, seed, col0, scal, amp, selfs, mscale,
                    listen, idx, w, self_w, *, gamma, eta, noisy,
-                   counter_width, row0, order=None) -> torch.Tensor:
+                   counter_width, row0, order=None, out=None
+                   ) -> torch.Tensor:
     """dp_mix_gather for a shard's receivers from its workspace and the
-    gathered z_src [N, d]; ``order`` int32 [Nb] over the shard's rows, as
-    ``_launch_sparse``'s."""
+    gathered z_src [N, d]; ``order`` int32 [Nb] over the shard's rows and
+    ``out`` as ``_launch_sparse``'s."""
     Nb, d = p.shape
     k = idx.shape[1] if idx.ndim == 2 else -1
     _check(p, _vectors(p, g, seed, col0, scal, amp, selfs, mscale, listen)
@@ -278,7 +289,7 @@ def _launch_gather(p, g, ws, z_src, seed, col0, scal, amp, selfs, mscale,
               ("self_w", self_w, (Nb,), torch.float32))
            + (() if order is None
               else (("order", order, (Nb,), torch.int32),)))
-    out = torch.empty_like(p)
+    out = _out_like(p, out)
     lib = _library()
     rc = lib.dp_mix_gather_launch(
         _DTYPES[p.dtype], p.data_ptr(), g.data_ptr(), out.data_ptr(),
@@ -412,7 +423,7 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
                         eta: float, self_scale=None, m_scale=None,
                         listen=None, noisy: bool = True, col0=0,
                         counter_width: Optional[int] = None,
-                        row0: int = 0) -> torch.Tensor:
+                        row0: int = 0, out=None) -> torch.Tensor:
     """One fused DWFL round mixed through a padded neighbor list ``sw``
     (``net.sparse.SparseW``, [N, k] leaves): O(N k d), never an [N, N]
     tensor. The contract of ``dp_mix_round`` with ``sw`` for W; the
@@ -436,6 +447,14 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     replicate's counters from 0 under its own seed, padded to Np rows on
     its own, and replicate r bitwise the round of replicate r's operands
     (on the CPU ``dp_mix.dp_mix_sparse_plain_stack``).
+
+    ``out``, a contiguous tensor of p's shape and dtype, takes the round's
+    result and is returned (``core.trajectory.ChunkRunner`` passes its
+    graph's static buffer); else a new tensor. It may be ``p`` itself, never
+    ``g``: in ``csrc/dp_mix.cu`` the gather thread that writes an element of
+    out is the only one that reads that element of p and g, and it reads
+    them before it writes; the neighbors' rows come from the workspace's z.
+    On the CPU the plain version's result is copied into it.
     """
     if p.ndim not in (2, 3):
         raise ValueError(f"p must be [N, d] or [R, N, d], got "
@@ -452,7 +471,7 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
     with trace.kernel_call("dp_mix_round_sparse") as call:
         out = _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta,
                             self_scale, m_scale, listen, noisy, col0, cw,
-                            row0)
+                            row0, out)
         if call:
             k, R = sw.idx.shape[-1], lead[0] if lead else 1
             call.report(work_lib.sparse_work(N, d, k, p.element_size(), R=R),
@@ -467,9 +486,9 @@ def dp_mix_round_sparse(p, g, seed, sw, amp, c, sigma_m, *, gamma: float,
 
 
 def _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta, self_scale,
-                  m_scale, listen, noisy, col0, cw, row0):
+                  m_scale, listen, noisy, col0, cw, row0, out=None):
     """dp_mix_round_sparse's launch (or plain version) on its checked
-    operands."""
+    operands, into ``out`` where given."""
     *lead, N, d = p.shape
     lead = tuple(lead)
     dev = p.device
@@ -488,11 +507,13 @@ def _sparse_round(p, g, seed, sw, amp, c, sigma_m, gamma, eta, self_scale,
     kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
               counter_width=cw, row0=int(row0))
     if dev.type == "cuda":
-        out = _launch_sparse(*args, **kw, order=locality_order(sw, Np, dev))
+        res = _launch_sparse(*args, **kw, order=locality_order(sw, Np, dev),
+                             out=out if Np == N else None)
     else:
-        out = (dp_mix_sparse_plain_stack if lead else dp_mix_sparse_plain)(
+        res = (dp_mix_sparse_plain_stack if lead else dp_mix_sparse_plain)(
             *args, **kw)
-    return out if Np == N else out[..., :N, :]
+    res = res if Np == N else res[..., :N, :]
+    return res if out is None or res is out else out.copy_(res)
 
 
 dp_mix_round_sparse.launches = 0
@@ -565,13 +586,15 @@ dp_mix_prep_rows.launches = 0
 def dp_mix_gather_rows(p, g, ws, z_src, seed, sw, amp, c, sigma_m, *,
                        gamma: float, eta: float, row0: int, self_scale=None,
                        m_scale=None, listen=None, noisy: bool = True, col0=0,
-                       counter_width: Optional[int] = None) -> torch.Tensor:
+                       counter_width: Optional[int] = None,
+                       out=None) -> torch.Tensor:
     """A worker shard's second half: its receivers, rows [row0, row0 +
     Nb) of the population, from its workspace ``ws`` (``dp_mix_prep_rows``)
     and z_src [N, d] float32, every shard's z gathered in row order. ``sw``
     is the shard's rows of the neighbor list (idx global, [Nb, k]); amp
     and the vectors are the shard's rows ([Nb]; m_scale has no default
-    here, the population's N being the shard's to know)."""
+    here, the population's N being the shard's to know). ``out`` as
+    ``dp_mix_round_sparse``'s: it may be ``p``."""
     Nb, d = p.shape
     N = z_src.shape[0]
     if tuple(sw.idx.shape[:-1]) != (Nb,):
@@ -592,8 +615,12 @@ def dp_mix_gather_rows(p, g, ws, z_src, seed, sw, amp, c, sigma_m, *,
                 sw.self_w.to(device=dev, dtype=torch.float32).contiguous())
         kw = dict(gamma=float(gamma), eta=float(eta), noisy=bool(noisy),
                   counter_width=cw, row0=int(row0))
-        out = (_launch_gather(*args, **kw, order=locality_order(sw, Nb, dev))
-               if dev.type == "cuda" else dp_mix_gather_plain(*args, **kw))
+        if dev.type == "cuda":
+            out = _launch_gather(*args, **kw,
+                                 order=locality_order(sw, Nb, dev), out=out)
+        else:
+            res = dp_mix_gather_plain(*args, **kw)
+            out = res if out is None else out.copy_(res)
         if call:
             k = sw.idx.shape[-1]
             call.report(work_lib.gather_rows_work(Nb, d, k, p.element_size()),
@@ -610,14 +637,21 @@ dp_mix_gather_rows.launches = 0
 
 
 def dp_mix_round_plan(p, g, seed, plan, *, gamma: float, eta: float,
-                      col0=0, counter_width: Optional[int] = None
-                      ) -> torch.Tensor:
+                      col0=0, counter_width: Optional[int] = None,
+                      out=None) -> torch.Tensor:
     """MixPlan front end (core.exchange.plan_*) -> one fused round: the
-    dense round for a dense W, the neighbor-list round for a SparseW."""
+    dense round for a dense W, the neighbor-list round for a SparseW
+    (into ``out`` where given: a neighbor list's only, see
+    ``dp_mix_round_sparse``)."""
     from repro_torch.net.sparse import SparseW
-    mix = dp_mix_round_sparse if isinstance(plan.W, SparseW) else dp_mix_round
-    return mix(
-        p, g, seed, plan.W, plan.amp, plan.c, plan.sigma_m,
-        gamma=gamma, eta=eta, self_scale=plan.self_scale,
-        m_scale=plan.m_scale, listen=plan.listen, noisy=plan.noisy,
-        col0=col0, counter_width=counter_width)
+    kw = dict(gamma=gamma, eta=eta, self_scale=plan.self_scale,
+              m_scale=plan.m_scale, listen=plan.listen, noisy=plan.noisy,
+              col0=col0, counter_width=counter_width)
+    if isinstance(plan.W, SparseW):
+        return dp_mix_round_sparse(p, g, seed, plan.W, plan.amp, plan.c,
+                                   plan.sigma_m, out=out, **kw)
+    if out is not None:
+        raise ValueError("the dense dp_mix round writes a new buffer; out= "
+                         "takes a neighbor-list plan")
+    return dp_mix_round(p, g, seed, plan.W, plan.amp, plan.c, plan.sigma_m,
+                        **kw)

@@ -12,14 +12,13 @@ with on-device batch sampling. Without ``--flat-buffer`` it runs the worker-tree
 the flat [N, d] buffer (dwfl and gossip only), as the reference does.
 The chunks go through ``core.trajectory.ChunkRunner`` (the reference's
 executor): on the card one CUDA graph a chunk length, replayed, the
-run's first chunk eager; on the CPU its eager program. An LM's round
-(one graph of a round) and a body over a one-rank process-group mesh
-(its collectives in the graph) take it too; a sparse round's (a
-worker-axis body's always) and one over an NCCL mesh of several ranks
-(which the runner refuses) run the eager ``run_chunk`` loop
-(``eager_reason``), chosen before the run and printed. ``--no-scan``
-takes each round's batch from the host batcher instead, one round at a
-time (``run_per_round``). A
+run's first chunk eager; on the CPU its eager program. Every body the
+chunked CLI builds takes it (printed before the run): an LM's round (one
+graph of a round), a body over a process-group mesh of any size (its
+collectives in the graph), a sparse round's, a worker-axis one's too
+(its rounds write the graph's buffer in place). ``--no-scan`` takes each
+round's batch from the host batcher instead, one round at a time
+(``run_per_round``). A
 dynamic run ends with the per-round epsilon trajectory and its
 composition under both accountants;
 ``--total-epsilon`` calibrates sigma every round against a whole-run
@@ -83,7 +82,6 @@ import io
 import json
 import os
 import time
-from typing import Optional
 
 import numpy as np
 import torch
@@ -427,19 +425,6 @@ def refuse_past_counter_limit(cfg, n_workers: int) -> None:
                          f"(ROADMAP C2)") from None
 
 
-def eager_reason(proto, body) -> Optional[str]:
-    """Why the CLI runs a body's chunks eagerly (``run_chunk``), or None
-    for ``ChunkRunner``, which takes every body, an LM's and a one-rank
-    mesh's with its collectives too, but these: a sparse round's (a
-    worker-axis body is always one), whose graph at worker scale is
-    slower by the chunk's write-back into its buffers and reserves more
-    memory; and one the runner refuses (``make_round_body`` marks it
-    ``uncapturable``: over an NCCL mesh of more than one rank)."""
-    if proto.sparse_neighbors > 0:
-        return "a sparse round's body"
-    return getattr(body, "uncapturable", None)
-
-
 def model_config(args):
     """The run's ModelConfig: the arch, its reduced() variant with
     --reduced (dwfl-paper ignores the flag, as the reference does), its
@@ -677,7 +662,6 @@ def run(argv=None) -> dict:
                                               dev)
     # the executor, chosen here and never changed by what a chunk does
     runner = None
-    eager_why = eager_reason(proto, body)
     if args.no_scan:
         # the guard holds each round; the per-round executor's copy of the
         # round's metrics to the host stays outside it
@@ -687,13 +671,6 @@ def run(argv=None) -> dict:
 
         run_rounds = lambda carry, n: TJ.run_per_round(guarded, carry, n)
         print("[train] executor: run_per_round (one round at a time)")
-    elif eager_why is not None:
-        def run_rounds(carry, n):
-            with guard():
-                return TJ.run_chunk(body, carry, n)
-
-        print(f"[train] executor: run_chunk (eager rounds; {eager_why} "
-              f"stays eager, ROADMAP A7b)")
     else:
         # the hot path, a whole chunk: it touches device tensors only
         runner = TJ.ChunkRunner(body)
@@ -704,6 +681,8 @@ def run(argv=None) -> dict:
 
         graph = ("one CUDA graph of a round, replayed a chunk's rounds"
                  if body.round_graph else "one CUDA graph a chunk length")
+        if body.writes_into:
+            graph += ", the rounds writing its buffer in place"
         print("[train] executor: ChunkRunner ("
               + (f"{graph}, the first chunk eager)" if dev.type == "cuda"
                  else "its eager program)"))
@@ -809,6 +788,9 @@ def run(argv=None) -> dict:
     finally:
         if logf:
             logf.close()
+        if runner is not None:
+            # its graphs before the group: NCCL's destroy waits for them
+            runner.close()
         if owned:
             dist.destroy_process_group()
     if runlog is not None:

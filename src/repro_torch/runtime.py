@@ -1,9 +1,12 @@
-"""Device selection for the port's entry points, and the CUDA graph
-capture its two executors share (``core.trajectory.ChunkRunner``,
-``launch.serve.DecodeRunner``)."""
+"""Device selection for the port's entry points, the CUDA graph capture
+its two executors share (``core.trajectory.ChunkRunner``,
+``launch.serve.DecodeRunner``), and the freeing of graphs that hold NCCL
+collectives before a process group is destroyed."""
 from __future__ import annotations
 
 import contextlib
+import functools
+import weakref
 from typing import Any, Callable, Iterable, Tuple
 
 import torch
@@ -58,3 +61,32 @@ def capture_graph(fn: Callable[[], Any], stream, pool=None, *, what: str,
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     return graph, out
+
+
+# the objects whose close() runs before a process group is destroyed
+_CLOSE_BEFORE_DESTROY: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def close_before_destroy(holder) -> None:
+    """Have ``holder.close()`` run whenever a process group is destroyed
+    through ``torch.distributed.destroy_process_group``, for as long as
+    ``holder`` lives. A CUDA graph that captured NCCL collectives keeps
+    their communicator: NCCL's destroy waits for it forever while such a
+    graph exists (two ranks hung there, PERF 6), so a holder of such
+    graphs frees them first. torch has no hook for it: the first call
+    wraps ``torch.distributed.destroy_process_group`` with one that
+    closes every live holder, then destroys as before."""
+    import torch.distributed as dist
+    _CLOSE_BEFORE_DESTROY.add(holder)
+    destroy = dist.destroy_process_group
+    if getattr(destroy, "closes_holders", False):
+        return
+
+    @functools.wraps(destroy)
+    def destroy_process_group(*args, **kwargs):
+        for h in list(_CLOSE_BEFORE_DESTROY):
+            h.close()
+        return destroy(*args, **kwargs)
+
+    destroy_process_group.closes_holders = True
+    dist.destroy_process_group = destroy_process_group

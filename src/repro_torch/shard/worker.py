@@ -34,13 +34,14 @@ from repro_torch.runtime import resolve_device
 
 
 def worker_window_round(p_loc, g_loc, seed, plan, row0: int, n_workers: int,
-                        *, gamma: float, eta: float, axis=None
+                        *, gamma: float, eta: float, axis=None, out=None
                         ) -> torch.Tensor:
     """One rank's row window of the fused sparse round: p_loc, g_loc [Nb,
     d] are rows [row0, row0 + Nb); ``plan`` is the whole population's
     MixPlan (its per-receiver vectors [N] are cheap; its W a SparseW);
     ``axis`` the process group whose ranks hold the other windows, in row
-    order."""
+    order; ``out`` the tensor the window is written into (it may be p_loc:
+    ``ops.dp_mix_gather_rows``), else a new one."""
     from repro_torch.launch.mesh import gather_into
     from repro_torch.net.sparse import SparseW
     sw = plan.W
@@ -65,7 +66,7 @@ def worker_window_round(p_loc, g_loc, seed, plan, row0: int, n_workers: int,
         p_loc, g_loc, ws, z_full, seed, sw[rows], plan.amp[rows], plan.c,
         plan.sigma_m, gamma=gamma, eta=eta, row0=row0,
         self_scale=mine(plan.self_scale), m_scale=mine(m_scale),
-        listen=mine(plan.listen), noisy=plan.noisy)
+        listen=mine(plan.listen), noisy=plan.noisy, out=out)
 
 
 def _worker_group(proto, mesh, axis: str):
@@ -109,9 +110,10 @@ def make_worker_sharded_dynamic_flat_train_step(cfg, proto, spec, mesh,
     """The worker-axis sharded twin of
     ``protocol.make_dynamic_flat_train_step``:
 
-        step(flat, batch, seed, chan, W) -> (flat', metrics)
+        step(flat, batch, seed, chan, W, out=None) -> (flat', metrics)
 
-    ``flat`` is this rank's rows [Nb, d] of the buffer (``local_rows``);
+    ``flat`` is this rank's rows [Nb, d] of the buffer (``local_rows``),
+    ``out`` the tensor flat' is written into (it may be ``flat``);
     ``batch`` the whole population's [N, B, ...] (every rank draws the
     same; the step takes its rows); seed, chan and W the round's, the same
     on every rank (W a ``net.sparse.SparseW``). The rows, losses and
@@ -140,16 +142,18 @@ def make_worker_sharded_dynamic_flat_train_step(cfg, proto, spec, mesh,
         gather_into(out, v, group)
         return out
 
-    def step(flat_loc, batch, seed, chan, W):
+    def step(flat_loc, batch, seed, chan, W, out=None):
         block = exchange_lib.tree_map(lambda t: t[row0:row0 + Nb], batch)
         losses_b, g_loc, gnorms_b = local_grads(flat_loc, block)
         plan = mix.plan(proto, chan, dev, W)
         flat_loc = worker_window_round(flat_loc, g_loc, seed, plan, row0, N,
-                                       gamma=gamma, eta=eta, axis=group)
+                                       gamma=gamma, eta=eta, axis=group,
+                                       out=out)
         sq = torch.sum(flat_loc.float() ** 2)
         dist.all_reduce(sq, group=group)
         return flat_loc, {"loss": gather_rows(losses_b).mean(),
                           "grad_norm": gather_rows(gnorms_b).mean(),
                           "param_norm": torch.sqrt(sq)}
 
+    step.writes_into = True
     return step

@@ -374,3 +374,62 @@ def analysis_mesh(rank: int, hidden: int, full_width_gather: bool):
         prog.body = widened
     return [(f.checker, str(f.severity)) for f in
             analyze_run(run_program(prog))]
+
+
+# ---------------------------------------------------------------------------
+# a round written into a destination (ChunkRunner's in-place rounds)
+# ---------------------------------------------------------------------------
+
+def _bits(t):
+    return t.contiguous().view(torch.int32) if t.is_floating_point() else t
+
+
+def worker_axis_into(rank: int):
+    """The worker axis on 2 ranks: the sharded step into a new buffer and
+    into this rank's rows in place (``out=``), and a trajectory of 3
+    rounds with telemetry (every field; the consensus a collective)
+    through ``run_chunk`` without and with ``into`` = the carry's rows:
+    whether each pair is bitwise the same, and the rows gathered back."""
+    from repro_torch.core import exchange as X
+    from repro_torch.core import trajectory as TJ
+    from repro_torch.data import ClassificationStore, dirichlet_partition
+    from repro_torch.launch.mesh import make_worker_mesh
+    from repro_torch.obs import telemetry as tele
+    from repro_torch.shard.worker import (
+        full_rows, local_rows, make_worker_sharded_dynamic_flat_train_step)
+    cfg, proto, wp, batch, chan, W = sparse_setup()
+    mesh = make_worker_mesh(2, device="cpu")
+    spec = X.make_flat_spec(wp)
+    step = make_worker_sharded_dynamic_flat_train_step(cfg, proto, spec, mesh,
+                                                       device="cpu")
+    rows = local_rows(spec.flatten(wp), mesh)
+    new, m_new = step(rows, batch, 9, chan, W)
+    into = rows.clone()
+    got, m_into = step(into, batch, 9, chan, W, out=into)
+    same_step = (got is into and torch.equal(_bits(new), _bits(got))
+                 and all(torch.equal(m_new[k], m_into[k]) for k in m_new))
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(200, DIM)).astype(np.float32)
+    y = rng.integers(0, 10, 200).astype(np.int32)
+    store = ClassificationStore.build(
+        x, y, dirichlet_partition(y, proto.n_workers, seed=0), B, "cpu")
+    sim = proto.simulator("cpu")
+    body = TJ.make_round_body(cfg, proto, store, spec, "cpu", sim=sim,
+                              worker_mesh=mesh,
+                              telemetry=tele.TelemetrySpec())
+    gen = torch.Generator().manual_seed(4)
+    carry = TJ.TrajCarry(gen, rows.clone(), sim.init(gen),
+                         tele.init_eps_moments(device="cpu"))
+    twin = TJ.copy_carry(carry)
+    a, out_a = TJ.run_chunk(body, carry, 3)
+    buf = twin.params
+    b, out_b = TJ.run_chunk(body, twin, 3, into=buf)
+    leaves = list(zip(TJ.tree_tensors((a.params, a.net, a.eps, out_a)),
+                      TJ.tree_tensors((b.params, b.net, b.eps, out_b))))
+    same_chunk = (b.params is buf and body.writes_into
+                  and torch.equal(a.generator.get_state(),
+                                  b.generator.get_state())
+                  and all(torch.equal(_bits(u), _bits(v))
+                          for u, v in leaves))
+    return {"same_step": same_step, "same_chunk": same_chunk,
+            "leaves": len(leaves), "flat": full_rows(b.params, mesh)}

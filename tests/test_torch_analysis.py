@@ -222,7 +222,9 @@ def test_dense_mix_is_an_error_in_a_sparse_program():
 def test_dense_kernel_mix_is_an_error_in_a_sparse_program(monkeypatch):
     def dense_round(p, g, seed, sw, *args, **kwargs):
         kwargs.pop("row0", None)
-        return mix_ops.dp_mix_round(p, g, seed, sw.dense(), *args, **kwargs)
+        out = kwargs.pop("out", None)
+        new = mix_ops.dp_mix_round(p, g, seed, sw.dense(), *args, **kwargs)
+        return new if out is None else out.copy_(new)
 
     monkeypatch.setattr(mix_ops, "dp_mix_round_sparse", dense_round)
     run = _program("dynamic-sparse-flat")

@@ -11,16 +11,16 @@ output. The runner agrees with the reference's ``ChunkRunner.run`` on the
 reference's replayed data uniforms and noise seeds within
 test_torch_train.py's DRIFT_BOUND (1e-6; float32 roundings of the
 gradient products and the mix, which the rounds contract). A chunk
-shorter than one round, a body fed by host batches and one over an
-NCCL mesh of several ranks are refused, the last two naming ROADMAP A7b;
-a body over a one-rank gloo mesh (the model axis, the fleet's (1, 1)
-mesh, the worker axis) is taken, unmarked, and run bitwise run_chunk.
---remat's checkpoint keeps no RNG state and gives the gradients without
-it. The CLI names its executor: ChunkRunner for the MLP, for every LM
-family and for a model-axis mesh over two gloo ranks, run_chunk for a
-sparse round (an LM's and a worker-axis one's included), naming the
-sparse rule, and for a body the runner refuses; its chunked run is
-bitwise the eager loop's.
+shorter than one round and a body fed by host batches are refused, the
+latter naming ROADMAP A7b; a body over a mesh (the model axis, the
+fleet's (1, 1) mesh, the worker axis) is taken, unmarked whatever the
+mesh's device and size, and run bitwise run_chunk over a one-rank gloo
+mesh. --remat's checkpoint keeps no RNG state and gives the gradients
+without it. The CLI names its executor: ChunkRunner for the MLP, for
+every LM family, for a sparse round (an LM's and a worker-axis one's
+included, its rounds writing the buffer in place) and for model-axis and
+worker-axis meshes over two gloo ranks; its chunked run is bitwise the
+eager loop's.
 """
 import dataclasses
 import importlib.util
@@ -207,18 +207,21 @@ def one_rank_group(tmp_path):
     dist.destroy_process_group()
 
 
-def _mesh_body(kind: str):
+def _mesh_body(kind: str, dress=lambda mesh: mesh):
     """(body, carry) over a one-rank gloo mesh as the CLI builds it under
     torchrun: the model axis (iot_dense, one window), the fleet on a (1,
-    1) mesh (R = 2) or the worker axis (mesh_sparse, k 4)."""
+    1) mesh (R = 2) or the worker axis (mesh_sparse, k 4); the body is
+    given ``dress(mesh)``."""
     from repro_torch.core import exchange as X
     from repro_torch.launch.mesh import make_shard_mesh, make_worker_mesh
     if kind == "model":
         return chip_smoke.mesh_graph_path(
-            "mesh model", make_shard_mesh(1, device="cpu"), **MESH_SMALL)
+            "mesh model", dress(make_shard_mesh(1, device="cpu")),
+            **MESH_SMALL)
     if kind == "fleet":
         return chip_smoke.mesh_graph_path(
-            "mesh fleet", make_shard_mesh(1, n_replicas=1, device="cpu"),
+            "mesh fleet", dress(make_shard_mesh(1, n_replicas=1,
+                                                device="cpu")),
             R=2, **MESH_SMALL)
     cfg = dataclasses.replace(DWFL_PAPER, d_model=HIDDEN)
     proto = chip_smoke.dynamic_proto(N, "mesh_sparse", sparse_neighbors=4)
@@ -230,7 +233,8 @@ def _mesh_body(kind: str):
     sim = proto.simulator("cpu")
     spec = X.FlatSpec(wp)
     body = TJ.make_round_body(cfg, proto, store, spec, "cpu", sim=sim,
-                              worker_mesh=make_worker_mesh(1, device="cpu"))
+                              worker_mesh=dress(make_worker_mesh(
+                                  1, device="cpu")))
     return body, TJ.TrajCarry(gen, spec.flatten(wp), sim.init(gen))
 
 
@@ -238,34 +242,61 @@ MESH_SMALL = dict(device="cpu", hidden=HIDDEN, dataset=400, batch=B)
 
 
 class _Cards:
-    """A stand-in for a DeviceMesh of ``n`` NCCL ranks: what
-    make_round_body reads of a mesh to mark its body (device type and
-    size)."""
-    device_type = "cuda"
+    """The one-rank gloo ``mesh`` dressed as a DeviceMesh of ``n`` NCCL
+    ranks: its device type "cuda" and, asked without a dimension, its
+    size ``n`` (what a mark of the body would read of a mesh); every
+    other attribute and a dimension's size the mesh's own."""
 
-    def __init__(self, n: int):
-        self.n = n
+    def __init__(self, mesh, n: int):
+        self._mesh, self.n = mesh, n
+        self.device_type = "cuda"
 
-    def size(self) -> int:
-        return self.n
+    def size(self, dim=None) -> int:
+        return self.n if dim is None else self._mesh.size(dim)
+
+    def __getattr__(self, name):
+        return getattr(self._mesh, name)
 
 
 @pytest.mark.parametrize("kind", ["model", "fleet", "workers"])
 def test_runner_refuses_a_mesh_body(kind, one_rank_group):
-    """A body over an NCCL mesh of more than one rank is refused when the
-    runner is built, naming ROADMAP A7b (a capture of it hung on two
-    cards), and the CLI's rule sends it to run_chunk; over one rank, NCCL
-    or gloo, the same body is not marked."""
+    """The refusal this test held is gone: a body over an NCCL mesh of one
+    or two ranks carries no ``uncapturable`` mark, keeps its mesh
+    (``body.mesh``), and a runner takes it, to be closed before any
+    process group is destroyed (NCCL's destroy waits for a graph of its
+    collectives); over a gloo mesh it is not. Its capture over two NCCL
+    ranks: the gpu cases ``test_two_card_graph_*`` and chip_smoke's
+    mesh_graph_phase."""
+    from repro_torch import runtime
+    for n in (1, 2):
+        body, _ = _mesh_body(kind, lambda mesh: _Cards(mesh, n))
+        assert getattr(body, "uncapturable", None) is None
+        assert isinstance(body.mesh, _Cards) and body.mesh.n == n
+        assert TJ.ChunkRunner(body) in runtime._CLOSE_BEFORE_DESTROY
     body, _ = _mesh_body(kind)
-    assert getattr(body, "uncapturable", None) is None
-    cfg = dataclasses.replace(DWFL_PAPER, d_model=HIDDEN)
-    TJ._marked(body, cfg, None, _Cards(1))
-    assert getattr(body, "uncapturable", None) is None
-    TJ._marked(body, cfg, None, _Cards(2))
-    with pytest.raises(ValueError, match="2-rank NCCL mesh.*ROADMAP A7b"):
-        TJ.ChunkRunner(body)
-    assert train.eager_reason(P.ProtocolConfig(n_workers=N), body) == \
-        "a body over a 2-rank NCCL mesh"
+    assert body.mesh.device_type == "cpu"
+    assert TJ.ChunkRunner(body) not in runtime._CLOSE_BEFORE_DESTROY
+
+
+@pytest.mark.parametrize("kind", ["model", "fleet", "workers"])
+def test_destroying_the_group_closes_a_runner_over_nccl(kind, tmp_path):
+    """A runner over an NCCL mesh holds graphs of its collectives, which
+    NCCL's destroy of their communicator waits for forever (a run on two
+    cards hung there): ``torch.distributed.destroy_process_group`` frees
+    them first, whoever calls it, and a runner over gloo keeps its own.
+    Here a graph is a stand-in: the CPU captures none."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        nccl = TJ.ChunkRunner(_mesh_body(
+            kind, lambda mesh: _Cards(mesh, 2))[0])
+        gloo = TJ.ChunkRunner(_mesh_body(kind)[0])
+        for runner in (nccl, gloo):
+            runner._graphs[4] = object()
+    finally:
+        dist.destroy_process_group()
+    assert nccl.trace_counts() == {} and gloo.trace_counts() == {4: 1}
 
 
 @pytest.mark.parametrize("kind", ["model", "fleet", "workers"])
@@ -281,6 +312,26 @@ def test_runner_runs_a_one_rank_mesh_body_bitwise(kind, one_rank_group):
     assert got.keys() == want.keys()
     assert [n for n in want if not chip_smoke.same_bits(got[n], want[n])] \
         == []
+
+
+def test_runner_close_frees_its_graphs_and_keeps_the_carry():
+    """``close()``, which the end of a ``with`` block calls (and the CLI
+    before it destroys a process group: NCCL keeps a communicator while
+    a graph of its collectives exists), forgets the runner's graphs; the
+    carry it returned stays whole and a later chunk runs, bitwise
+    run_chunk."""
+    body, carry = chip_smoke.graph_path("sparse", **SMALL)
+    twin = TJ.copy_carry(carry)
+    with TJ.ChunkRunner(body) as runner:
+        carry, _ = runner.run(carry, 2)
+        runner._graphs[2] = object()   # a stand-in: the CPU captures none
+    assert runner.trace_counts() == {}
+    carry, out = runner.run(carry, 3)
+    twin, _ = TJ.run_chunk(body, twin, 2)
+    twin, want = TJ.run_chunk(body, twin, 3)
+    got, ref = (chip_smoke.chunk_record(c, [o])
+                for c, o in ((carry, out), (twin, want)))
+    assert [n for n in ref if not chip_smoke.same_bits(got[n], ref[n])] == []
 
 
 def test_runner_refuses_host_batches():
@@ -343,15 +394,16 @@ LM_CLI = ["--device", "cpu", "--reduced", "--seq-len", "32", "--workers",
 
 
 def test_cli_keeps_run_chunk_for_an_lm(capsys):
-    """An LM keeps run_chunk only where any body would: its sparse round
-    (the sparse rule, named as such); every other LM round takes
-    ChunkRunner (test_cli_runs_an_lm_through_chunk_runner)."""
+    """An LM's sparse round, which ran run_chunk under the sparse rule,
+    takes ChunkRunner as every LM round does
+    (test_cli_runs_an_lm_through_chunk_runner), its rounds writing the
+    buffer in place (marked ``writes_into``); its losses are finite."""
     res = train.run(LM_CLI + ["--arch", "olmo-1b", "--steps", "2",
                               "--workers", "4", "--flat-buffer",
                               "--channel-model", "dynamic", "--scenario",
                               "mesh_sparse", "--sparse-neighbors", "2"])
-    assert "[train] executor: run_chunk (eager rounds; a sparse round's " \
-        "body stays eager, ROADMAP A7b)" in capsys.readouterr().out
+    assert "[train] executor: ChunkRunner (its eager program)" \
+        in capsys.readouterr().out
     assert torch.isfinite(res["losses"]).all()
 
 
@@ -401,45 +453,45 @@ MESH_CLI = {"model": CLI + ["--flat-buffer", "--channel-model", "dynamic",
 @pytest.mark.parametrize("axis", ["model", "workers"])
 def test_cli_executor_over_two_gloo_ranks(axis, tmp_path):
     """The CLI on two gloo ranks, as torchrun starts it: a model-axis mesh
-    run takes ChunkRunner's eager program (on cards, several NCCL ranks
-    keep run_chunk: test_runner_refuses_a_mesh_body); a worker-axis run is a sparse
-    round's and keeps run_chunk, naming the sparse rule, not the mesh.
-    Both ranks' losses agree bitwise."""
+    run and a worker-axis one (a sparse round's) both take ChunkRunner's
+    eager program (on cards its graph, over NCCL: chip_smoke's two-card
+    phase). Both ranks' losses agree bitwise."""
     import _torch_dist as D
     ranks = D.run_ranks(D.cli_executor, 2, tmp_path, MESH_CLI[axis])
-    want = ("[train] executor: ChunkRunner (its eager program)"
-            if axis == "model" else
-            "[train] executor: run_chunk (eager rounds; a sparse round's "
-            "body stays eager, ROADMAP A7b)")
+    want = "[train] executor: ChunkRunner (its eager program)"
     for r in ranks:
         assert r["executor"] == [want]
         assert chip_smoke.same_bits(r["losses"], ranks[0]["losses"])
         assert torch.isfinite(r["losses"]).all()
 
 
-def test_cli_eager_reason():
-    """The CLI's rule: ChunkRunner for every body but a sparse round's and
-    one the runner refuses (marked ``uncapturable``: over an NCCL mesh of
-    more than one rank, whose capture hung on two cards); an LM's and a
-    one-rank mesh's take the runner."""
-    proto = P.ProtocolConfig(n_workers=N)
-    sparse = chip_smoke.dynamic_proto(N, "mesh_sparse", sparse_neighbors=4)
-    body, _ = chip_smoke.graph_path("flat", **SMALL)
-    assert train.eager_reason(proto, body) is None
-    assert train.eager_reason(sparse, body) == "a sparse round's body"
-    body.uncapturable = "a body over a 2-rank NCCL mesh"
-    assert train.eager_reason(proto, body) == \
-        "a body over a 2-rank NCCL mesh"
-    assert train.eager_reason(sparse, body) == "a sparse round's body"
+@pytest.mark.parametrize("path", ["flat", "dynamic flat", "tree", "fleet",
+                                  "sparse"])
+def test_every_chunked_body_is_one_the_runner_takes(path):
+    """Every body the chunked CLI builds (the CLI then names ChunkRunner,
+    whatever the body) carries no ``uncapturable`` mark and a runner
+    takes it: only a body fed by host batches, which --no-scan runs one
+    round at a time, is refused (test_runner_refuses_host_batches)."""
+    body, _ = chip_smoke.graph_path(path, **SMALL)
+    assert getattr(body, "uncapturable", None) is None
+    TJ.ChunkRunner(body)
 
 
-def test_cli_keeps_run_chunk_for_a_sparse_round(capsys):
-    """A sparse round is device-bound at worker scale, where a graph of it
-    is slower and reserves more (PERF §6): the CLI picks run_chunk up
-    front, says so, and its losses are finite."""
-    res = train.run(CLI + ["--flat-buffer", "--channel-model", "dynamic",
-                           "--scenario", "mesh_sparse", "--sparse-neighbors",
-                           "3"])
-    assert "[train] executor: run_chunk (eager rounds; a sparse round's " \
-        "body" in capsys.readouterr().out
+def test_cli_keeps_run_chunk_for_a_sparse_round(capsys, monkeypatch):
+    """A sparse round, which the CLI ran through run_chunk (its graph's
+    write-back of the [N, d] buffer cost 0.9-2.4% at worker scale, PERF
+    §6), takes ChunkRunner now that its rounds write the graph's buffer
+    in place: the CLI names it up front, and on the CPU its eager
+    program is bitwise the run_chunk loop, chunk for chunk."""
+    argv = CLI + ["--flat-buffer", "--channel-model", "dynamic",
+                  "--scenario", "mesh_sparse", "--sparse-neighbors", "3"]
+    res = train.run(argv)
+    assert "[train] executor: ChunkRunner (its eager program)" \
+        in capsys.readouterr().out
     assert torch.isfinite(res["losses"]).all()
+    monkeypatch.setattr(TJ.ChunkRunner, "run",
+                        lambda self, carry, k: TJ.run_chunk(self._body,
+                                                            carry, k))
+    eager = train.run(argv)
+    assert chip_smoke.same_bits(res["losses"], eager["losses"])
+    assert chip_smoke.same_bits(res["params"], eager["params"])

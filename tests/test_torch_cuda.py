@@ -46,8 +46,17 @@ bitwise the eager decode_step (no tolerance: each step's logits, the
 tokens and every cache leaf) for each LM family at reduced size and a
 ring buffer past its window, two waves of the batched example on one
 capture, and a step that reads the position on the host refused at its
-capture (``-k decode_graph``)."""
+capture (``-k decode_graph``). On a machine with two cards (the others
+skip with one): one all_reduce captured on two NCCL ranks, and the model
+axis, the fleet and the worker axis through ChunkRunner on two ranks
+bitwise run_chunk (``-k two_card``; each rank under a hang watchdog); on
+one card the sparse round at N = 2048 under the graph, its rounds in
+place, within 1% of eager's ms a round in turns and its peak within 1
+GiB (``-k sparse_graph_in_place``)."""
 import importlib.util
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -1586,3 +1595,85 @@ def test_graph_captures_a_one_rank_worker_axis_body(nccl_one_rank):
     from repro_torch.launch.mesh import make_worker_mesh
     _held("mesh workers", functools.partial(
         _worker_axis_body, mesh=make_worker_mesh(1, device="cuda")))
+
+
+# ---- the graph over two NCCL ranks, and the sparse round in place ----------
+
+def _need_cards(n: int):
+    """Skip unless the machine has ``n`` cards (and nvcc)."""
+    _need_card()
+    if torch.cuda.device_count() < n:
+        pytest.skip(f"needs {n} CUDA cards, found "
+                    f"{torch.cuda.device_count()}")
+
+
+def _two_ranks(case, monkeypatch, tmp_path):
+    """chip_smoke.mesh_graph_ranks(case) on two NCCL ranks, each under its
+    hang watchdog (a rank that runs out of time fails the test): the
+    ranks' records, every one ok."""
+    monkeypatch.syspath_prepend(str(Path(__file__).resolve().parents[1]))
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
+    try:
+        ranks = chip_smoke.mesh_graph_ranks(case, 2, turns=False,
+                                            out_dir=tmp_path / case)
+    except SystemExit:
+        pytest.fail(f"the graph over two NCCL ranks, {case}: a rank failed "
+                    f"or hung (its last step printed above)")
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert all(r["ok"] for r in ranks), ranks
+    return ranks
+
+
+def test_two_card_graph_captures_one_all_reduce(monkeypatch, tmp_path):
+    """One all_reduce captured on two NCCL ranks (runtime.capture_graph)
+    and replayed twice: every element the sum of sums, on both ranks."""
+    _need_cards(2)
+    for r in _two_ranks("allreduce", monkeypatch, tmp_path):
+        assert r["values"] == [r["want"]] == [12.0]
+
+
+@pytest.mark.parametrize("case", ["model", "fleet", "workers"])
+def test_two_card_graph_is_bitwise_run_chunk(case, monkeypatch, tmp_path):
+    """The model axis (a column window a card), the fleet on a (replicas
+    1, model 2) mesh and the worker axis at N = 2048 (rows a card)
+    through ChunkRunner on two NCCL ranks: the capture's chunk and a
+    replay bitwise the same chunks through run_chunk, one capture a rank,
+    NCCL's kernels in a replay's trace and B1's (B1-sparse's) once a
+    round."""
+    _need_cards(2)
+    for r in _two_ranks(case, monkeypatch, tmp_path):
+        assert r["differ"] == [] and r["nccl_replay"] > 0
+        assert r["captures"] == {str(r["rounds"]): 1}
+
+
+def test_sparse_graph_in_place_against_eager_at_worker_scale():
+    """The sparse round at (2048, 855,050, k 12) through ChunkRunner, its
+    rounds writing the static buffer in place, against run_chunk in turns
+    (chip_smoke.graph_turns: graph, eager, eager, graph; 2 chunks of 2
+    rounds a turn): each graph turn no slower than the eager turn beside
+    it by more than 1%, and its peak allocated past the runner's eager
+    first chunk (the capture and the replays) within 1 GiB of eager's
+    past its first chunk (the graph holds no second carry: below it).
+    The turns run in a process of their own, on the card's memory as a
+    run finds it: after the cases before this one, the caching
+    allocator's split segments (62 GiB reserved, 16 allocated) left the
+    capture no room for a 6.5 GiB block."""
+    _need_card()
+    code = ("import json, sys; sys.path[:0] = [sys.argv[1]]; "
+            "import chip_smoke as cs; sys.path.insert(0, str(cs.SRC)); "
+            "import torch; torch.backends.cuda.matmul.allow_tf32 = False; "
+            "rec = cs.graph_turns('sparse', K=cs.GRAPH_SPARSE_K, chunks=2, "
+            "N=cs.SPARSE_N); print('record ' + json.dumps(rec))")
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(Path(__file__).resolve().parents[1])],
+                         capture_output=True, text=True, timeout=900)
+    print(res.stdout)
+    assert res.returncode == 0, res.stderr[-4000:]
+    rec = json.loads(next(line for line in res.stdout.splitlines()
+                          if line.startswith("record "))[len("record "):])
+    graph, eager = rec["rounds_per_s"]["graph"], rec["rounds_per_s"]["eager"]
+    for g, e in zip(graph, reversed(eager)):
+        assert 1 / g <= 1.01 / e, rec
+    past = rec["peak_past_first_gib"]
+    assert max(a for a, _ in past["graph"]) <= \
+        min(a for a, _ in past["eager"]) + 1.0, rec
